@@ -12,10 +12,22 @@ Phases, each of which raises on failure (exit code not 0):
    B=256: the PCG kernel (A) against pcg.pcg, the fused solve (B) against
    condense -> pcg -> recover_dz for all three preconditioners and
    precond_poly_degree 1 and 2, and one exactly singular input;
+3b. the sequence kernel (row 3) against its plain version at IIWA on a
+   farm of B=1 and B=256 streams of T=16 steps (each stream's matrices
+   fixed, q, r, c drifting by ~1 % a step, per-step rho), bit for bit
+   against T chained launches of kernel B, and with one exactly singular
+   step in the middle of one stream;
 4. the main path through the user entry points: linsys_solve on the
    pendulum (the original's gate) and at IIWA (against the dense float64
    oracle), solve_batched at B=256, with each kernel's launch count;
-5. times with CUDA events, medians of 25 runs after warm-up.
+4b. the MPC and packed paths: solve_sequence_batched (B=256, T=16) and
+   solve_sequence (B=1), two pack_sequence -> solve_packed_sequence
+   windows carried by lam_tail_packed, and pack -> solve_packed ->
+   update_vectors -> solve_packed with the lam_packed carry, with their
+   launch counts;
+5. times with CUDA events, medians of 25 runs after warm-up (fewer for the
+   slow plain versions and library calls), beside each kernel's bound and
+   the time of one PyTorch library call computing the same function.
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -41,6 +53,7 @@ if not torch.cuda.is_available():
 import gato_tpu_torch as gt  # noqa: E402
 from gato_tpu_torch import assemble, testing  # noqa: E402
 from gato_tpu_torch.kernels import _build  # noqa: E402
+from gato_tpu_torch.kernels import fused_sequence as ks  # noqa: E402
 from gato_tpu_torch.kernels import fused_solve as kb  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
 
@@ -59,8 +72,14 @@ TOL = 1e-4
 # 1e-3 is far outside round-off for any other case.
 ETA_TIE = 1e-3
 TIMING_RUNS = 25
+SLOW_RUNS = 5       # plain versions of the farm and library calls
+T_STEPS = 16        # farm steps
+# An H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
+# float32 outside the tensor cores, and device memory.
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
 
-MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0}
+MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0}
 
 
 def card_line() -> str:
@@ -88,10 +107,10 @@ def check_iters(what: str, k_res, p_res, exit_tol: float) -> int:
     """Equal iteration counts and converged flags, except a +-1 exit where
     the earlier exit's eta is within round-off of exit_tol.  Returns the
     number of such ties."""
-    ki = k_res.iters.cpu().numpy()
-    pi = p_res.iters.cpu().numpy()
-    ke = k_res.eta.double().cpu().numpy()
-    pe = p_res.eta.double().cpu().numpy()
+    ki = k_res.iters.cpu().numpy().reshape(-1)
+    pi = p_res.iters.cpu().numpy().reshape(-1)
+    ke = k_res.eta.double().cpu().numpy().reshape(-1)
+    pe = p_res.eta.double().cpu().numpy().reshape(-1)
     if not np.array_equal(k_res.converged.cpu().numpy(),
                           p_res.converged.cpu().numpy()):
         raise AssertionError(f"{what}: converged flags differ")
@@ -108,6 +127,72 @@ def check_iters(what: str, k_res, p_res, exit_tol: float) -> int:
         raise AssertionError(f"{what}: problem {i} iterations kernel {ki[i]} "
                              f"vs plain {pi[i]}")
     return ties
+
+
+def check_farm(what: str, got, ref, redo_got, redo_ref, *, stepwise=False,
+               max_iters=MAX_ITERS) -> tuple:
+    """A farm's results (lam, dz_x, dz_u, iters, converged, eta with (T, B)
+    axes) against a reference farm.  Iteration counts as check_iters.  A
+    round-off tie at (t, b) changes that step's iterate by one PCG update
+    and so the warm start of the stream's later steps: a stream is compared
+    whole up to its first tie, and from there step by step, the reference
+    started from the kernel's own lambda of the step before
+    (redo_got / redo_ref(t, streams, lam0, max_iters) solve step t of those
+    streams; lam0 None is the farm's lam0).  Where the exits of such a step
+    still differ by one, the later one is run again capped at the earlier
+    one's count, so that both did the same work.  ``stepwise`` compares
+    every stream step by step from step 0 (for runs capped short of
+    convergence, whose round-off compounds along the chain).  Returns
+    (ties, max |difference|)."""
+    T, n = got.iters.shape
+    fields = ("lam", "dz_x", "dz_u")
+    first = {b: 0 for b in range(n)} if stepwise else {}
+    if not stepwise:
+        for t, b in np.argwhere(got.iters.cpu().numpy() != ref.iters.cpu().numpy()):
+            first[int(b)] = min(first.get(int(b), T), int(t))
+    steps = torch.arange(T)[:, None]
+    first_t = torch.tensor([first.get(b, T) for b in range(n)])[None, :]
+    chained = (steps < first_t).to(got.iters.device)
+    ties = 0
+    if not stepwise:
+        # Each stream up to and with its first differing step: equal counts,
+        # or a round-off tie at that step.
+        upto = (steps <= first_t).to(got.iters.device)
+        ties = check_iters(what, gt.SolveResult(*(x[upto] for x in got)),
+                           gt.SolveResult(*(x[upto] for x in ref)), EXIT_TOL)
+    err = 0.0
+    if bool(chained.any()):
+        for name in fields:
+            err = max(err, check_close(f"{what} {name}", getattr(got, name)[chained],
+                                       getattr(ref, name)[chained]))
+    for t in range(T):
+        bs = sorted(b for b, t0 in first.items() if t0 <= t)
+        if not bs:
+            continue
+        lam0 = got.lam[t - 1, bs] if t > 0 else None
+        g = gt.SolveResult(*(x[t, bs] for x in got))
+        r = redo_ref(t, bs, lam0, max_iters)
+        step_ties = check_iters(f"{what} step {t}", g, r, EXIT_TOL)
+        ties += step_ties if stepwise else 0   # else counted on the chain
+        gi, ri = g.iters.cpu().numpy(), r.iters.cpu().numpy()
+        same = torch.as_tensor(gi == ri, device=g.iters.device)
+        for name in fields if bool(same.any()) else ():
+            err = max(err, check_close(f"{what} step {t} {name}",
+                                       getattr(g, name)[same], getattr(r, name)[same]))
+        for i in np.nonzero(gi != ri)[0]:
+            b, start = bs[i], None if lam0 is None else lam0[i:i + 1]
+            cap = int(min(gi[i], ri[i])) + 1
+            g1 = (redo_got(t, [b], start, cap) if gi[i] > ri[i]
+                  else gt.SolveResult(*(x[i:i + 1] for x in g)))
+            r1 = (redo_ref(t, [b], start, cap) if ri[i] > gi[i]
+                  else gt.SolveResult(*(x[i:i + 1] for x in r)))
+            for name in fields:
+                err = max(err, check_close(f"{what} stream {b} step {t} {name}",
+                                           getattr(g1, name), getattr(r1, name)))
+    if first and not stepwise:
+        print(f"  {what}: streams {sorted(first)} compared step by step from "
+              "their first tie, at equal work")
+    return ties, err
 
 
 def staged_batch(n: int, seed0: int = 0):
@@ -193,6 +278,116 @@ def phase_parity():
     print(f"  {kb.NAME} singular input: converged {conv}, iters "
           f"{kres.iters.tolist()}, eta[1] = {float(kres.eta[1]):g} "
           "(plain version agrees)")
+
+
+def farm(n: int, T: int, seed0: int) -> gt.KKTBlocks:
+    """n streams of T steps on the card (testing.random_farm)."""
+    return gt.blocks_to_torch(testing.random_farm(IIWA, T, n, seed0=seed0), DEV)
+
+
+def farm_rhos(T: int) -> torch.Tensor:
+    """A per-step rho: RHO, 2 RHO, RHO, ... so every step reads its own."""
+    return torch.tensor([RHO * (1 + t % 2) for t in range(T)],
+                        dtype=torch.float32, device=DEV)
+
+
+def farm_result(res, dz_x, dz_u) -> gt.SolveResult:
+    return gt.SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged,
+                          res.eta)
+
+
+def farm_steps(blocks, lam0, rhos, kw):
+    """check_farm's one-step solvers for the sequence kernel: kernel B (each
+    step of the sequence kernel is kernel B, bit for bit) and its plain
+    version, on step t of the streams bs."""
+    def step(fn):
+        def solve(t, bs, lam_prev, max_iters):
+            one = gt.KKTBlocks(*(a[t, bs] for a in blocks))
+            start = lam0[bs] if lam_prev is None else lam_prev
+            return farm_result(*fn(*one, start, rho=float(rhos[t]),
+                                   **dict(kw, max_iters=max_iters)))
+        return solve
+    return step(kb.fused_solve_cuda), step(kb.fused_solve_plain)
+
+
+def phase_sequence_parity():
+    print(f"== phase 3b: the sequence kernel ({ks.NAME}) against its plain "
+          f"version and against {T_STEPS} chained {kb.NAME} launches, IIWA "
+          f"farms of T={T_STEPS} steps")
+    full = farm(BATCH, T_STEPS, seed0=500)
+    rhos = farm_rhos(T_STEPS)
+    for n in (1, BATCH):
+        blocks = gt.KKTBlocks(*(a[:, :n] for a in full))
+        lam0 = torch.zeros_like(blocks.q[0])
+        cases = [("symmetric_stair", 1), ("symmetric_stair", 2),
+                 ("block_jacobi", 1), ("jacobi", 1)]
+        for prec, poly in cases:
+            # scalar Jacobi over a capped run, as in phase 3
+            cap = MAX_ITERS if prec != "jacobi" else 10
+            kw = dict(exit_tol=EXIT_TOL, max_iters=cap, poly_degree=poly,
+                      preconditioner=prec)
+            kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw))
+            pres = farm_result(*ks.fused_sequence_plain(*blocks, lam0, rhos, **kw))
+            torch.cuda.synchronize()
+            what = f"{ks.NAME} B={n} T={T_STEPS} {prec} poly={poly} max_iters={cap}"
+            ties, err = check_farm(what, kres, pres,
+                                   *farm_steps(blocks, lam0, rhos, kw),
+                                   stepwise=prec == "jacobi", max_iters=cap)
+            MAX_ERR[ks.NAME] = max(MAX_ERR[ks.NAME], err)
+            it = kres.iters.float()
+            how = "step by step" if prec == "jacobi" else "whole farm"
+            print(f"  {what}: iters {int(it.min())}..{int(it.max())} equal "
+                  f"({ties} ties; {how}), mean step 0 {float(it[0].mean()):.2f}, "
+                  f"steps 1.. {float(it[1:].mean()):.2f}; max|d| {err:.3e}")
+
+        # Step t of the farm is kernel B on step t's inputs with step t-1's
+        # lambda and rhos[t], bit for bit.
+        kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+        kres, kdx, kdu = ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw)
+        lam = lam0
+        for t in range(T_STEPS):
+            bres, bdx, bdu = kb.fused_solve_cuda(*(a[t] for a in blocks), lam,
+                                                 rho=float(rhos[t]), **kw)
+            for name, x, y in (("lam", kres.lam[t], bres.lam),
+                               ("dz_x", kdx[t], bdx), ("dz_u", kdu[t], bdu),
+                               ("iters", kres.iters[t], bres.iters),
+                               ("converged", kres.converged[t], bres.converged),
+                               ("eta", kres.eta[t], bres.eta)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{ks.NAME} B={n} step {t} {name} is not "
+                                         f"bit-identical to chained {kb.NAME}")
+            lam = bres.lam
+        print(f"  {ks.NAME} B={n}: all {T_STEPS} steps bit-identical to "
+              f"{T_STEPS} chained {kb.NAME} launches")
+
+    # One exactly singular step (zero row/column in Q[2], rho=0 at that step)
+    # in the middle of stream 1: only that (t, b) is frozen, it hands its
+    # lambda_0 on unchanged, and the stream's later steps converge.
+    t_bad, n = T_STEPS // 2, 3
+    blocks = gt.KKTBlocks(*(a[:, :n].clone() for a in full))
+    bad = gt.blocks_to_torch(testing.singular_blocks(IIWA, seed=3, knot=2), DEV)
+    blocks.Q[t_bad, 1] = bad.Q
+    rhos_bad = rhos.clone()
+    rhos_bad[t_bad] = 0.0
+    lam0 = torch.zeros_like(blocks.q[0])
+    kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos_bad, **kw))
+    pres = farm_result(*ks.fused_sequence_plain(*blocks, lam0, rhos_bad, **kw))
+    torch.cuda.synchronize()
+    conv = kres.converged.cpu().numpy()
+    expect = np.ones_like(conv)
+    expect[t_bad, 1] = False
+    if not np.array_equal(conv, expect) or int(kres.iters[t_bad, 1]) != MAX_ITERS \
+            or float(kres.eta[t_bad, 1]) != float(np.float32(1e30)) \
+            or not torch.equal(kres.lam[t_bad, 1], kres.lam[t_bad - 1, 1]):
+        raise AssertionError(f"singular step: converged {conv.tolist()}, iters "
+                             f"{kres.iters[:, 1].tolist()}, eta {kres.eta[:, 1].tolist()}")
+    check_farm(f"{ks.NAME} singular step", kres, pres,
+               *farm_steps(blocks, lam0, rhos_bad, kw))
+    print(f"  {ks.NAME} singular step (t={t_bad}, stream 1 of {n}): only it "
+          f"frozen (iters {int(kres.iters[t_bad, 1])}, eta "
+          f"{float(kres.eta[t_bad, 1]):g}, lambda passed on unchanged); stream "
+          f"1 iters {kres.iters[:, 1].tolist()}; plain version agrees")
 
 
 def dense_from_csr(indptr, indices, data, shape):
@@ -295,6 +490,117 @@ def phase_main_path():
     return launches, avg
 
 
+def phase_mpc_path():
+    print(f"== phase 4b: MPC farms and the packed surface through "
+          f"solve_sequence_batched, solve_sequence, pack_sequence / "
+          f"solve_packed_sequence and pack / solve_packed")
+    full = farm(BATCH, T_STEPS, seed0=2000)
+    rhos = farm_rhos(T_STEPS).cpu().numpy()
+    opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    single = gt.KKTBlocks(*(a[:, 0] for a in full))
+    half = T_STEPS // 2
+    win1 = gt.KKTBlocks(*(a[:half] for a in full))
+    win2 = gt.KKTBlocks(*(a[half:] for a in full))
+    step0 = gt.KKTBlocks(*(a[0] for a in full))
+    step1 = gt.KKTBlocks(*(a[1] for a in full))
+
+    # The paths, with every count at 0 just before and read just after.
+    ka.LAUNCHES = kb.LAUNCHES = ks.LAUNCHES = 0
+    seq = gt.solve_sequence_batched(IIWA, full, opts, rhos=rhos)
+    one = gt.solve_sequence(IIWA, single, opts, rhos=rhos)
+    w1 = gt.solve_packed_sequence(gt.pack_sequence(IIWA, win1), opts)
+    w2 = gt.solve_packed_sequence(gt.pack_sequence(IIWA, win2), opts,
+                                  lam0=w1.lam_tail_packed)
+    packed = gt.pack(IIWA, step0)
+    first = gt.solve_packed(packed, opts)
+    packed = gt.update_vectors(packed, step1.q, step1.r, step1.c)
+    second = gt.solve_packed(packed, opts, lam0=first.lam_packed)
+    torch.cuda.synchronize()
+    launches = {ka.NAME: ka.LAUNCHES, kb.NAME: kb.LAUNCHES, ks.NAME: ks.LAUNCHES}
+    print(f"  launches on the MPC and packed paths: {launches}")
+    if launches[ks.NAME] != 4 or launches[kb.NAME] != 2:
+        raise AssertionError(f"expected 4 {ks.NAME} and 2 {kb.NAME} launches")
+
+    # solve_sequence_batched against the 'torch' backend and the oracle.
+    for name, t, shape in (("lam", seq.lam, (T_STEPS, BATCH, 50, 14)),
+                           ("dz_x", seq.dz_x, (T_STEPS, BATCH, 50, 14)),
+                           ("dz_u", seq.dz_u, (T_STEPS, BATCH, 49, 7))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"solve_sequence_batched {name} "
+                                 f"{tuple(t.shape)} not finite {shape}")
+    if not bool(seq.converged.all()):
+        raise AssertionError("solve_sequence_batched: a step did not converge")
+    ref = gt.solve_sequence_batched(IIWA, full, opts, rhos=rhos,
+                                    pcg_backend="torch")
+    lam0 = torch.zeros_like(full.q[0])
+    redo_got, _ = farm_steps(full, lam0, rhos, dict(exit_tol=EXIT_TOL))
+
+    def redo_ref(t, bs, lam_prev, max_iters):
+        one = gt.KKTBlocks(*(a[t, bs] for a in full))
+        step_opts = gt.SolverOptions(rho=float(rhos[t]), exit_tol=EXIT_TOL,
+                                     max_iters=max_iters, warm_start=True)
+        return gt.solve_batched(IIWA, one, step_opts, pcg_backend="torch",
+                                lam0=lam0[bs] if lam_prev is None else lam_prev)
+
+    ties, _ = check_farm("solve_sequence_batched fused vs torch", seq, ref,
+                         redo_got, redo_ref)
+    it = seq.iters.double()
+    cold, warm = float(it[0].mean()), float(it[1:].mean())
+    if not warm < cold:
+        raise AssertionError(f"warm start: steps 1.. average {warm:.2f} "
+                             f"iterations, step 0 {cold:.2f}")
+    worst = 0.0
+    for b in range(2):
+        blk = testing.KKTBlocks(*(a[-1, b].cpu().numpy() for a in full))
+        lr, _ = testing.dense_oracle(IIWA, blk, rho=float(rhos[-1]))
+        worst = max(worst, float(np.max(np.abs(
+            seq.lam[-1, b].cpu().numpy().reshape(-1) - lr))))
+    if worst > 5e-3:
+        raise AssertionError(f"solve_sequence_batched: lam off the dense "
+                             f"oracle by {worst:.3e}")
+    print(f"  solve_sequence_batched B={BATCH} T={T_STEPS} (auto = fused): "
+          f"finite, all converged, iters equal to 'torch' ({ties} ties); mean "
+          f"iterations step 0 {cold:.2f}, steps 1..{T_STEPS - 1} {warm:.2f}; "
+          f"last step of 2 streams within {worst:.2e} of the dense oracle")
+
+    # solve_sequence is stream 0 of the farm.
+    for name in ("lam", "dz_x", "dz_u", "iters", "converged", "eta"):
+        if not torch.equal(getattr(one, name), getattr(seq, name)[:, 0]):
+            raise AssertionError(f"solve_sequence {name} differs from stream 0 "
+                                 "of the farm")
+    print(f"  solve_sequence B=1 T={T_STEPS}: bit-identical to stream 0 of "
+          f"the farm; iters {one.iters.tolist()}")
+
+    # Two packed windows carried by lam_tail_packed equal one farm run at
+    # rho = options.rho.
+    whole = gt.solve_sequence_batched(IIWA, full, opts)
+    for name, a, b in (("lam", torch.cat([w1.lam_p, w2.lam_p]), whole.lam),
+                       ("dz_x", torch.cat([w1.dzx_p, w2.dzx_p]), whole.dz_x),
+                       ("iters", torch.cat([w1.iters, w2.iters]), whole.iters)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"packed windows: {name} differs from one run")
+    print(f"  pack_sequence -> solve_packed_sequence, two windows of {half} "
+          "carried by lam_tail_packed: bit-identical to one farm run")
+
+    # pack -> solve_packed -> update_vectors -> solve_packed with the carry.
+    warm_opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL,
+                                 max_iters=MAX_ITERS, warm_start=True)
+    ref1 = gt.solve_batched(IIWA, step0, opts, pcg_backend="torch")
+    ref2 = gt.solve_batched(IIWA, step1, warm_opts, lam0=ref1.lam,
+                            pcg_backend="torch")
+    for what, got, ref in (("first", first.unpack(), ref1),
+                           ("second", second.unpack(), ref2)):
+        check_iters(f"solve_packed {what}", got, ref, EXIT_TOL)
+        for name in ("lam", "dz_x", "dz_u"):
+            check_close(f"solve_packed {what} {name}", getattr(got, name),
+                        getattr(ref, name))
+    print(f"  pack -> solve_packed -> update_vectors -> solve_packed "
+          f"(lam_packed carry) B={BATCH}: agrees with solve_batched 'torch'; "
+          f"mean iters {float(first.iters.double().mean()):.2f} then "
+          f"{float(second.iters.double().mean()):.2f}")
+    return launches
+
+
 def cuda_median_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -311,9 +617,90 @@ def cuda_median_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
     return float(np.median(times))
 
 
+def pcg_flops(K: int, s: int, iters: torch.Tensor, conv: torch.Tensor,
+              poly: int) -> float:
+    """Floating-point operations of the PCG loops that ran: per loop body
+    one S matvec and the preconditioner's 2 poly - 1 block-tridiagonal
+    matvecs (6 K s^2 each), plus ~10 K s for the dots and updates; the
+    set-up costs one body.  A loop that converged at index i ran i + 1
+    bodies, one that did not ran max_iters (iters)."""
+    bodies = (iters.double() + conv.double()).sum().item() + iters.numel()
+    return bodies * (2 * poly * 6 * K * s * s + 10 * K * s)
+
+
+def condense_recover_flops(K: int, s: int, c: int, prec: str) -> float:
+    """Operations of one problem's condensation, preconditioner and
+    recovery (an n x n inverse counted as 2 n^3)."""
+    f = K * 2 * s ** 3 + (K - 1) * 2 * c ** 3                 # Qinv, Rinv
+    f += (K - 1) * (2 * s ** 3 + 2 * s * c * c)               # phi, B Rinv
+    f += (K - 1) * (2 * s ** 3 + 2 * s * s * c)               # theta
+    if prec != "jacobi":
+        f += K * 2 * s ** 3                                   # theta^-1
+    if prec == "symmetric_stair":
+        f += 4 * (K - 1) * 2 * s ** 3                         # off-diagonals
+    f += K * (4 * s * s + 2 * s * c)                          # gamma
+    f += K * 4 * s * s + (K - 1) * (2 * s * c + 2 * c * c)    # dz recovery
+    return f
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_: float, flops: float):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the float32 rate."""
+    t_bytes = nbytes_ / HBM_BYTES * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_btd(S: torch.Tensor) -> torch.Tensor:
+    """(B, K, 3, s, s) block-tridiagonal -> dense (B, K s, K s) on the card."""
+    Bn, K, _, s, _ = S.shape
+    M = torch.zeros(Bn, K * s, K * s, dtype=S.dtype, device=S.device)
+    for k in range(K):
+        r = slice(k * s, (k + 1) * s)
+        M[:, r, r] = S[:, k, 1]
+        if k > 0:
+            M[:, r, (k - 1) * s:k * s] = S[:, k, 0]
+        if k < K - 1:
+            M[:, r, (k + 1) * s:(k + 2) * s] = S[:, k, 2]
+    return M
+
+
+def dense_kkt(b: gt.KKTBlocks, rho: float):
+    """Batched dense saddle-point system [[G + rho I, C^T], [C, 0]] and rhs
+    [g; c] on the card, in the layout of formats.blocks_to_dense_kkt."""
+    Bn, K, s, _ = b.Q.shape
+    c = b.R.shape[-1]
+    sc = s + c
+    nz = K * sc - c
+    N = nz + K * s
+    M = torch.zeros(Bn, N, N, dtype=b.Q.dtype, device=b.Q.device)
+    rhs = torch.zeros(Bn, N, dtype=b.Q.dtype, device=b.Q.device)
+    eye_s = torch.eye(s, dtype=b.Q.dtype, device=b.Q.device)
+    eye_c = torch.eye(c, dtype=b.Q.dtype, device=b.Q.device)
+    M[:, nz:nz + s, :s] = eye_s
+    M[:, :s, nz:nz + s] = eye_s
+    for k in range(K):
+        o = k * sc
+        M[:, o:o + s, o:o + s] = b.Q[:, k] + rho * eye_s
+        rhs[:, o:o + s] = b.q[:, k]
+        rhs[:, nz + k * s:nz + (k + 1) * s] = b.c[:, k]
+        if k < K - 1:
+            M[:, o + s:o + sc, o + s:o + sc] = b.R[:, k] + rho * eye_c
+            rhs[:, o + s:o + sc] = b.r[:, k]
+            ro = nz + (k + 1) * s
+            C = torch.cat([b.A[:, k], b.B[:, k], eye_s.expand(Bn, s, s)], dim=2)
+            M[:, ro:ro + s, o:o + sc + s] = C
+            M[:, o:o + sc + s, ro:ro + s] = C.transpose(1, 2)
+    return M, rhs
+
+
 def phase_times(card: str):
     print(f"== phase 5: times (CUDA events, median of {TIMING_RUNS} runs "
-          f"after warm-up) on {card}")
+          f"after warm-up; {SLOW_RUNS} for library calls) on {card}")
     full, lam0_full = staged_batch(BATCH)
     times = {}
     for n in (1, BATCH):
@@ -322,21 +709,97 @@ def phase_times(card: str):
         sys_ = assemble.condense(*blocks, RHO)
         pkw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
         fkw = dict(rho=RHO, **pkw)
+        K, s, c = IIWA.knot_points, IIWA.state_size, IIWA.control_size
+        ra = ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, lam0, **pkw)
+        rb, dxb, dub = kb.fused_solve_cuda(*blocks, lam0, **fkw)
+        bounds = {
+            ka.NAME: bound(nbytes(sys_.S, sys_.Pinv, sys_.gamma, lam0, ra.lam,
+                                  ra.iters, ra.converged, ra.eta),
+                           pcg_flops(K, s, ra.iters, ra.converged, 1)),
+            kb.NAME: bound(nbytes(*blocks, lam0, rb.lam, dxb, dub, rb.iters,
+                                  rb.converged, rb.eta),
+                           pcg_flops(K, s, rb.iters, rb.converged, 1)
+                           + n * condense_recover_flops(K, s, c, "symmetric_stair")),
+        }
+        # One PyTorch call computing the same function: a dense LU solve of
+        # the Schur system (kernel A) or of the whole KKT system (kernel B).
+        S_dense = dense_btd(sys_.S)
+        gamma = sys_.gamma.reshape(n, -1, 1)
+        M, rhs = dense_kkt(blocks, RHO)
+        rhs = rhs.unsqueeze(-1)
+        lib_a = torch.linalg.solve(S_dense, gamma)
+        lib_b = torch.linalg.solve(M, rhs)
+        nz = IIWA.nz
+        print(f"  B={n}: library solves against the kernels: max|dlam| "
+              f"{float((lib_a.reshape(n, K, s) - ra.lam).abs().max()):.2e} (A), "
+              f"{float((lib_b[:, nz:, 0].reshape(n, K, s) - rb.lam).abs().max()):.2e} (B)")
         rows = (
             (ka.NAME, lambda: ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, lam0, **pkw),
-             lambda: ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, lam0, **pkw)),
+             lambda: ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, lam0, **pkw),
+             lambda: torch.linalg.solve(S_dense, gamma)),
             (kb.NAME, lambda: kb.fused_solve_cuda(*blocks, lam0, **fkw),
-             lambda: kb.fused_solve_plain(*blocks, lam0, **fkw)),
+             lambda: kb.fused_solve_plain(*blocks, lam0, **fkw),
+             lambda: torch.linalg.solve(M, rhs)),
         )
-        for name, kern, plain in rows:
+        for name, kern, plain, lib in rows:
             # plain, kernel, kernel, plain; each time is the mean of its pair
             p1 = cuda_median_ms(plain)
             k1 = cuda_median_ms(kern)
             k2 = cuda_median_ms(kern)
             p2 = cuda_median_ms(plain)
-            times[(name, n)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            lib_ms = cuda_median_ms(lib, runs=SLOW_RUNS, warmup=1)
+            bound_ms, bound_by = bounds[name]
+            times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
             print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms  [{card}]")
+                  f"{p1:.4f} / {p2:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
+        del S_dense, M, rhs, lib_a, lib_b
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_sequence_times(card: str):
+    print(f"== phase 5b: the sequence kernel, T={T_STEPS}, against its plain "
+          f"version and {T_STEPS} chained {kb.NAME} launches [{card}]")
+    full = farm(BATCH, T_STEPS, seed0=500)
+    rhos = farm_rhos(T_STEPS)
+    rho_list = rhos.tolist()
+    kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    K, s, c = IIWA.knot_points, IIWA.state_size, IIWA.control_size
+    times = {}
+    for n in (1, BATCH):
+        blocks = gt.KKTBlocks(*(a[:, :n] for a in full))
+        lam0 = torch.zeros_like(blocks.q[0])
+
+        def chained():
+            lam = lam0
+            for t in range(T_STEPS):
+                lam = kb.fused_solve_cuda(*(a[t] for a in blocks), lam,
+                                          rho=rho_list[t], **kw)[0].lam
+
+        res, dx, du = ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw)
+        bound_ms, bound_by = bound(
+            nbytes(*blocks, lam0, rhos, res.lam, dx, du, res.iters,
+                   res.converged, res.eta),
+            pcg_flops(K, s, res.iters, res.converged, 1)
+            + T_STEPS * n * condense_recover_flops(K, s, c, "symmetric_stair"))
+        kern = lambda: ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw)  # noqa: E731
+        plain = lambda: ks.fused_sequence_plain(*blocks, lam0, rhos, **kw)  # noqa: E731
+        p1 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+        c1 = cuda_median_ms(chained)
+        k1 = cuda_median_ms(kern)
+        k2 = cuda_median_ms(kern)
+        c2 = cuda_median_ms(chained)
+        p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+        times[n] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                        chained_ms=(c1 + c2) / 2, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  {ks.NAME} B={n} T={T_STEPS}: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"{T_STEPS} chained {kb.NAME} {c1:.4f} / {c2:.4f} ms, plain "
+              f"{p1:.4f} / {p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"iterations {int(res.iters.sum())} in all  [{card}]")
     return times
 
 
@@ -357,22 +820,32 @@ def main():
             print("  ptxas: " + line.strip())
 
     phase_parity()
+    phase_sequence_parity()
     launches, avg = phase_main_path()
+    seq_launches = phase_mpc_path()
     times = phase_times(card)
+    seq_times = phase_sequence_times(card)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
+    # Each kernel's launches are those of the path it is on: kernels A and
+    # B from linsys_solve / solve_batched (phase 4), the sequence kernel
+    # from the MPC and packed path (phase 4b).
     kernels = []
-    for mod in (ka, kb):
-        k256, p256 = times[(mod.NAME, BATCH)]
-        k1, p1 = times[(mod.NAME, 1)]
-        kernels.append({
-            "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches[mod.NAME],
-            "max_abs_err": MAX_ERR[mod.NAME],
-            "ms": k256, "plain_ms": p256, "batch": BATCH,
-            "ms_b1": k1, "plain_ms_b1": p1,
-        })
+    for mod, count, at_b, at_1, extra in (
+            (ka, launches[ka.NAME], times[(ka.NAME, BATCH)],
+             times[(ka.NAME, 1)], {}),
+            (kb, launches[kb.NAME], times[(kb.NAME, BATCH)],
+             times[(kb.NAME, 1)], {}),
+            (ks, seq_launches[ks.NAME], seq_times[BATCH], seq_times[1],
+             {"steps": T_STEPS})):
+        row = {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+               "replaces": mod.REPLACES, "launches": count,
+               "max_abs_err": MAX_ERR[mod.NAME], **at_b, "batch": BATCH,
+               **extra}
+        row.update({f"{key}_b1": value for key, value in at_1.items()
+                    if key != "bound_by"})
+        kernels.append(row)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,14 +6,24 @@ and never ``jax``; ``gato_tpu`` stays the reference it is tested against.
 Public surface:
   * :func:`linsys_solve`: the original 14-argument entry point (lists in/out)
   * :func:`solve`, :func:`solve_batched`: the structured API
+  * :func:`solve_sequence`, :func:`solve_sequence_batched`: warm-started
+    MPC sequences and farms (:mod:`gato_tpu_torch.mpc`)
+  * :func:`pack`, :func:`solve_packed`, :func:`pack_sequence`,
+    :func:`solve_packed_sequence`: the packed serving API, inputs staged
+    once (:mod:`gato_tpu_torch.packed`)
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
   * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
-    loop and the fused whole solve), each with its plain PyTorch version
+    loop, the fused whole solve and the warm-started farm), each with its
+    plain PyTorch version
 """
 
 from .api import infer_spec, linsys_solve
 from .formats import KKTBlocks, blocks_to_torch, pack_kkt
+from .mpc import solve_sequence, solve_sequence_batched
+from .packed import (PackedKKT, PackedKKTSequence, PackedSequenceResult,
+                     PackedSolveResult, pack, pack_sequence, solve_packed,
+                     solve_packed_sequence, update_vectors)
 from .problem import DEFAULT_OPTIONS, Preconditioner, ProblemSpec, SolverOptions
 from .solver import SolveResult, default_pcg_backend, solve, solve_batched
 
@@ -24,6 +34,17 @@ __all__ = [
     "infer_spec",
     "solve",
     "solve_batched",
+    "solve_sequence",
+    "solve_sequence_batched",
+    "pack",
+    "solve_packed",
+    "pack_sequence",
+    "solve_packed_sequence",
+    "update_vectors",
+    "PackedKKT",
+    "PackedSolveResult",
+    "PackedKKTSequence",
+    "PackedSequenceResult",
     "default_pcg_backend",
     "SolveResult",
     "KKTBlocks",

@@ -2,7 +2,8 @@
 
 The sources under ``gato_tpu_torch/csrc/`` are compiled by ``nvcc`` into one
 shared library with a plain C interface, in ``build/gato_tpu_torch/`` at the
-root of the checkout, and loaded with ``ctypes``.  The library's file name
+root of the checkout, and loaded with ``ctypes``: one ``nvcc -c`` for each
+source, all started together, then one link.  The library's file name
 carries a hash of the sources and flags, so an unchanged tree does not
 rebuild.  Nothing happens at import: the first CUDA call builds, so a
 machine without ``nvcc`` can import the package and run its plain versions.
@@ -23,14 +24,14 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pcg.cu", "fused_solve.cu")
-HEADERS = ("pcg_common.cuh",)
+SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu")
+HEADERS = ("pcg_common.cuh", "fused_body.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
 MAX_BLOCK = 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,7 @@ _SIGNATURES = {
     "gato_fused_solve": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]),
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_fused_smem_bytes": (_LL, [_I, _I, _I]),
+    "gato_fused_sequence": (_I, [_P] * 16 + [_I] * 5 + [_F, _I, _I, _I, _P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -83,20 +85,42 @@ def build() -> dict:
     if out.exists():
         return {"path": out, "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    procs = []
+    log = ""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        for name, obj in zip(SOURCES, objects):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        log += link.stderr + link.stdout
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {link.returncode}): "
+                               f"{' '.join(cmd)}\n{link.stderr}{link.stdout}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return {"path": out, "seconds": seconds, "built": True,
-            "log": proc.stderr + proc.stdout}
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return {"path": out, "seconds": time.perf_counter() - t0, "built": True,
+            "log": log}
 
 
 @functools.cache

@@ -4,11 +4,13 @@ Replaces ``gato_tpu/kernels/fused_solve.py::_fused_kernel`` (entry points
 ``_call_fused`` and ``solve_fused_batched``): rho-condensation with the
 zero-pivot flag, any of the three preconditioners, the PCG loop shared with
 kernel A, and dz recovery.  The CUDA source is
-``gato_tpu_torch/csrc/fused_solve.cu``; its note gives the design: one
-thread block per problem, the Gauss-Jordan work area and then the PCG
-vectors in shared memory, S and Pinv written to a global scratch tensor
-that this wrapper allocates, because together (235,200 B at IIWA) they
-exceed the 232,448 B of shared memory a block may use.
+``gato_tpu_torch/csrc/fused_solve.cu``, with the per-problem body in
+``fused_body.cuh`` (shared with the sequence kernel, fused_sequence.py);
+their notes give the design: one thread block per problem, the
+Gauss-Jordan work area and then the PCG vectors in shared memory, S and
+Pinv written to a global scratch tensor that this wrapper allocates,
+because together (235,200 B at IIWA) they exceed the 232,448 B of shared
+memory a block may use.
 
 :func:`fused_solve_cuda` takes tensors on a CUDA device to the kernel and
 raises if the kernel cannot take them; tensors on the CPU go to the plain
@@ -50,6 +52,45 @@ def fused_solve_plain(Q, R, A, B, q, r, c, lam0, *, rho=0.0, exit_tol=1e-6,
     return res, dz_x, dz_u
 
 
+def block_shapes(lead: tuple, K: int, s: int, cdim: int) -> dict:
+    """Expected shapes of the seven KKT block tensors after ``lead`` axes."""
+    return {"Q": (*lead, K, s, s), "R": (*lead, K - 1, cdim, cdim),
+            "A": (*lead, K - 1, s, s), "B": (*lead, K - 1, s, cdim),
+            "q": (*lead, K, s), "r": (*lead, K - 1, cdim), "c": (*lead, K, s)}
+
+
+def check_tensors(name: str, expect: dict, tensors: dict, device) -> None:
+    """Raise unless every tensor has its expected shape, is float32 and lies
+    on ``device``."""
+    for key, t in tensors.items():
+        if tuple(t.shape) != expect[key]:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, expected {expect[key]}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} is {t.dtype}; the kernel takes float32")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, q on {device}")
+
+
+def check_kernel_limits(name: str, K: int, s: int, cdim: int, poly_degree,
+                        device) -> ctypes.CDLL:
+    """Raise unless the fused body can take (K, s, c) and ``poly_degree`` on
+    ``device``; returns the kernel library (built on first use)."""
+    if K < 2 or s > _build.MAX_BLOCK or cdim > _build.MAX_BLOCK:
+        raise ValueError(f"{name}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; got "
+                         f"K={K}, s={s}, c={cdim}")
+    if not isinstance(poly_degree, int) or poly_degree < 1:
+        raise ValueError(f"{name}: poly_degree must be an int >= 1")
+    lib = _build.library()
+    smem = lib.gato_fused_smem_bytes(K, s, cdim)
+    limit = _build.max_shared_bytes(device) - 1024
+    if smem > limit:
+        raise ValueError(f"{name}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B "
+                         f"of shared memory per block, above the device's {limit} B; "
+                         "longer horizons are the long-K tier, not ported yet "
+                         "(ROADMAP.md queue 2 rows 7-10 and 13)")
+    return lib
+
+
 def fused_solve_cuda(
     Q, R, A, B, q, r, c, lam0=None, *,
     rho: float = 0.0, exit_tol: float = 1e-6, max_iters: int = 100,
@@ -77,29 +118,10 @@ def fused_solve_cuda(
         raise ValueError(f"{NAME}: Q must be (B, K, s, s), got {tuple(Q.shape)}")
     Bn, K, s, _ = Q.shape
     cdim = R.shape[-1]
-    expect = {"Q": (Bn, K, s, s), "R": (Bn, K - 1, cdim, cdim),
-              "A": (Bn, K - 1, s, s), "B": (Bn, K - 1, s, cdim),
-              "q": (Bn, K, s), "r": (Bn, K - 1, cdim), "c": (Bn, K, s),
-              "lam0": (Bn, K, s)}
+    expect = dict(block_shapes((Bn,), K, s, cdim), lam0=(Bn, K, s))
     tensors = dict(zip(expect, (Q, R, A, B, q, r, c, lam0)))
-    for name, t in tensors.items():
-        if tuple(t.shape) != expect[name]:
-            raise ValueError(f"{NAME}: {name} shape {tuple(t.shape)}, expected {expect[name]}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{NAME}: {name} is {t.dtype}; the kernel takes float32")
-        if t.device != q.device:
-            raise ValueError(f"{NAME}: {name} is on {t.device}, q on {q.device}")
-    if K < 2 or s > _build.MAX_BLOCK or cdim > _build.MAX_BLOCK:
-        raise ValueError(f"{NAME}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; got "
-                         f"K={K}, s={s}, c={cdim}")
-    if not isinstance(poly_degree, int) or poly_degree < 1:
-        raise ValueError(f"{NAME}: poly_degree must be an int >= 1")
-    lib = _build.library()
-    smem = lib.gato_fused_smem_bytes(K, s, cdim)
-    limit = _build.max_shared_bytes(q.device) - 1024
-    if smem > limit:
-        raise ValueError(f"{NAME}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B "
-                         f"of shared memory per block, above the device's {limit} B")
+    check_tensors(NAME, expect, tensors, q.device)
+    lib = check_kernel_limits(NAME, K, s, cdim, poly_degree, q.device)
     Q, R, A, B, q, r, c, lam0 = (t.contiguous() for t in tensors.values())
     dev = q.device
     scratch = torch.empty(Bn, lib.gato_fused_scratch_floats(K, s, cdim),

@@ -8,6 +8,8 @@ that a machine without JAX can still build them:
   data, the parity gate;
 * :func:`random_blocks`: random well-conditioned trajectory QPs shaped like
   the original's default IIWA build (14, 7, 50);
+* :func:`random_farm`: slowly varying (T, B) streams of them for the MPC
+  farms;
 * :func:`blocks_to_csr`: emit blocks in the 14-argument CSR form;
 * :func:`dense_oracle`: the exact float64 dense saddle-point solve.
 """
@@ -106,6 +108,24 @@ def random_batch(spec: ProblemSpec, n: int, seed0: int = 0, **kw) -> KKTBlocks:
     """``n`` problems from seeds seed0 .. seed0+n-1, stacked."""
     return stack_blocks([random_blocks(spec, seed=seed0 + i, **kw)
                          for i in range(n)])
+
+
+def random_farm(spec: ProblemSpec, T: int, n: int, seed0: int = 0,
+                drift: float = 0.01) -> KKTBlocks:
+    """A farm of ``n`` streams of ``T`` steps, leading (T, n) axes: each
+    stream's matrices fixed over the steps (:func:`random_batch` from
+    ``seed0``), its q, r and c drifting in a seeded random walk of ``drift``
+    times their mean size a step, as in MPC tracking with frozen dynamics."""
+    rng = np.random.default_rng(seed0 + 7)
+    base = random_batch(spec, n, seed0=seed0)
+    out = []
+    for name, a in zip(KKTBlocks._fields, base):
+        x = np.broadcast_to(a, (T,) + a.shape)
+        if name in ("q", "r", "c"):
+            walk = np.cumsum(rng.normal(size=x.shape), axis=0)
+            x = x + drift * np.abs(a).mean() * walk
+        out.append(np.ascontiguousarray(x, dtype=np.float32))
+    return KKTBlocks(*out)
 
 
 def singular_blocks(spec: ProblemSpec, seed: int = 3, knot: int = 2) -> KKTBlocks:

@@ -16,6 +16,7 @@ import torch
 import gato_tpu_torch as gt
 from gato_tpu_torch import assemble
 from gato_tpu_torch import testing as tt
+from gato_tpu_torch.kernels import fused_sequence as ks
 from gato_tpu_torch.kernels import fused_solve as kb
 from gato_tpu_torch.kernels import pcg_kernel as ka
 
@@ -113,3 +114,98 @@ def test_solve_entry_points_on_cuda(dev):
     assert got.iters.tolist() == ref.iters.tolist()
     for name in ("lam", "dz_x", "dz_u"):
         _close(getattr(got, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("sizes", SHAPES)
+@pytest.mark.parametrize("prec", ["symmetric_stair", "block_jacobi", "jacobi"])
+def test_sequence_kernel_matches_plain(dev, sizes, prec):
+    spec = gt.ProblemSpec(*sizes)
+    T, B = 4, 5
+    b = gt.blocks_to_torch(tt.random_farm(spec, T, B, seed0=12), dev)
+    lam0 = torch.zeros_like(b.q[0])
+    rhos = torch.tensor([1e-3, 1e-2, 1e-3, 3e-3], device=dev)
+    # scalar Jacobi is compared over 10 iterations (see chip_smoke.py)
+    kw = dict(exit_tol=1e-8, max_iters=10 if prec == "jacobi" else 200,
+              preconditioner=prec)
+    before = ks.LAUNCHES
+    got, gx, gu = ks.fused_sequence_cuda(*b, lam0, rhos, **kw)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == before + 1
+    ref, rx, ru = ks.fused_sequence_plain(*b, lam0, rhos, **kw)
+    assert got.iters.tolist() == ref.iters.tolist()
+    assert got.converged.tolist() == ref.converged.tolist()
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("sizes", SHAPES)
+@pytest.mark.parametrize("wide", [False, True])
+def test_sequence_kernel_equals_chained_kernel_b(dev, sizes, wide):
+    """Step t of one sequence launch equals kernel B launched with step
+    t-1's lambda and rhos[t], bit for bit; with more streams than SMs the
+    launcher takes the kernel built for two blocks per SM."""
+    spec = gt.ProblemSpec(*sizes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T, B = 4, sms + 8 if wide else 3
+    b = gt.blocks_to_torch(tt.random_farm(spec, T, B, seed0=13), dev)
+    lam = torch.randn(B, spec.knot_points, spec.state_size, device=dev) * 0.1
+    rhos = torch.tensor([1e-3, 1e-2, 1e-3, 3e-3], device=dev)
+    kw = dict(exit_tol=1e-8, max_iters=200, poly_degree=2)
+    got, gx, gu = ks.fused_sequence_cuda(*b, lam, rhos, **kw)
+    for t in range(T):
+        res, dx, du = kb.fused_solve_cuda(*(a[t] for a in b), lam,
+                                          rho=float(rhos[t]), **kw)
+        for x, y in ((got.lam[t], res.lam), (gx[t], dx), (gu[t], du),
+                     (got.iters[t], res.iters), (got.eta[t], res.eta)):
+            assert torch.equal(x, y), t
+        lam = res.lam
+
+
+def test_sequence_kernel_singular_step_is_frozen_alone(dev):
+    spec = gt.ProblemSpec(4, 2, 8)
+    T, B = 4, 2
+    farm = tt.random_farm(spec, T, B, seed0=30)
+    Q = farm.Q.copy()
+    Q[2, 1] = tt.singular_blocks(spec, seed=3, knot=2).Q
+    b = gt.blocks_to_torch(farm._replace(Q=Q), dev)
+    got, _, _ = ks.fused_sequence_cuda(*b, torch.zeros_like(b.q[0]),
+                                       torch.zeros(T, device=dev),
+                                       exit_tol=1e-8, max_iters=25)
+    conv = got.converged.cpu().numpy()
+    assert not conv[2, 1] and conv.sum() == T * B - 1
+    assert int(got.iters[2, 1]) == 25
+    assert float(got.eta[2, 1]) == float(np.float32(1e30))
+    assert torch.equal(got.lam[2, 1], got.lam[1, 1])
+
+
+def test_mpc_and_packed_entry_points_launch_the_kernels(dev):
+    spec = gt.ProblemSpec(4, 2, 12)
+    farm = tt.random_farm(spec, 3, 4, seed0=40)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-8)
+    before = ks.LAUNCHES
+    got = gt.solve_sequence_batched(spec, farm, opts)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == before + 1
+    ref = gt.solve_sequence_batched(spec, farm, opts, pcg_backend="torch")
+    assert got.iters.tolist() == ref.iters.tolist()
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(got, name), getattr(ref, name))
+    before = ks.LAUNCHES
+    seq = gt.pack_sequence(spec, farm)
+    out = gt.solve_packed_sequence(seq, opts)
+    assert ks.LAUNCHES == before + 1
+    assert torch.equal(out.lam_p, got.lam)
+    before = kb.LAUNCHES
+    packed = gt.pack(spec, gt.KKTBlocks(*(a[0] for a in farm)))
+    res = gt.solve_packed(packed, opts)
+    assert kb.LAUNCHES == before + 1
+    assert torch.equal(res.lam_p, got.lam[0])
+
+
+def test_fused_routes_refuse_a_horizon_past_shared_memory(dev):
+    spec = gt.ProblemSpec(14, 7, 1000)
+    farm = tt.random_farm(spec, 1, 1, seed0=0)
+    with pytest.raises(ValueError, match="queue 2 rows 7-10 and 13"):
+        gt.solve_sequence_batched(spec, farm)
+    with pytest.raises(ValueError, match="queue 2 rows 7-10 and 13"):
+        gt.solve_packed(gt.pack(spec, gt.KKTBlocks(*(a[0] for a in farm))))

@@ -171,7 +171,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, gato_tpu_torch, gato_tpu_torch.api, gato_tpu_torch.solver,"
         " gato_tpu_torch.testing, gato_tpu_torch.kernels._build,"
-        " gato_tpu_torch.kernels.pcg_kernel, gato_tpu_torch.kernels.fused_solve;"
+        " gato_tpu_torch.kernels.pcg_kernel, gato_tpu_torch.kernels.fused_solve,"
+        " gato_tpu_torch.kernels.fused_sequence, gato_tpu_torch.mpc,"
+        " gato_tpu_torch.packed;"
         " bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('gato_tpu') and not m.startswith('gato_tpu_torch')];"
         " assert not bad, bad; print('ok')")
