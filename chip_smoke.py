@@ -25,9 +25,26 @@ Phases, each of which raises on failure (exit code not 0):
    windows carried by lam_tail_packed, and pack -> solve_packed ->
    update_vectors -> solve_packed with the lam_packed carry, with their
    launch counts;
+3c. the exact-solve kernels against their plain versions at IIWA,
+   rho=1e-3: the cyclic-reduction kernel (row 4) at B=1 and B=15, the
+   block-Thomas pair (rows 5 and 6) at B=16 and B=256 (the forward
+   kernel's factor stacks against the plain forward's, the reverse kernel
+   on the plain stacks against the plain reverse), and one exactly
+   singular problem in each tier with each tier's contract (row 4: finite,
+   eta = 1e30; rows 5-6: non-finite, the other problems untouched);
+4c. the exact main path (method='direct') through solve (row 4),
+   solve_batched at B=8 (row 4) and B=256 (rows 5+6), against the float64
+   dense KKT solve on the card and the 'torch' backend;
+   solve_sequence_batched at B=256, T=16 (rows 5+6 on 4096 problems)
+   against 16 per-step solve_batched calls; pack -> solve_packed ->
+   update_vectors -> solve_packed for tier 'cr' and 'thomas'; each path's
+   launch counts from 0;
 5. times with CUDA events, medians of 25 runs after warm-up (fewer for the
    slow plain versions and library calls), beside each kernel's bound and
-   the time of one PyTorch library call computing the same function.
+   the time of one PyTorch library call computing the same function;
+5c. the same for the exact-solve kernels at B=1 and B=256, the forward and
+   reverse kernels' own times, and the per-solve time of row 4 and of the
+   Thomas pair at B=1, 4, 16, 64, 256 (their crossover on this card).
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -53,9 +70,11 @@ if not torch.cuda.is_available():
 import gato_tpu_torch as gt  # noqa: E402
 from gato_tpu_torch import assemble, testing  # noqa: E402
 from gato_tpu_torch.kernels import _build  # noqa: E402
+from gato_tpu_torch.kernels import direct_fused as kd  # noqa: E402
 from gato_tpu_torch.kernels import fused_sequence as ks  # noqa: E402
 from gato_tpu_torch.kernels import fused_solve as kb  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
+from gato_tpu_torch.kernels import thomas_batch as kt  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 IIWA = testing.IIWA
@@ -79,7 +98,13 @@ T_STEPS = 16        # farm steps
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
-MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0}
+MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
+           kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0}
+# An exact solve's eta is a squared residual at round-off level: kernel and
+# plain version agree when |eta_k - eta_p| <= ETA_REL (1 + ||gamma||^2), a
+# relative residual of 1e-5, float32 round-off for these systems.
+ETA_REL = 1e-10
+CROSSOVER_B = (1, 4, 16, 64, 256)
 
 
 def card_line() -> str:
@@ -601,6 +626,388 @@ def phase_mpc_path():
     return launches
 
 
+def check_direct(what: str, k_res, p_res, gamma) -> float:
+    """An exact solve's outcome against its plain version: converged equal,
+    iters 0, eta within ETA_REL (1 + ||gamma||^2).  Returns max |d eta|."""
+    kc, pc = k_res.converged.cpu().tolist(), p_res.converged.cpu().tolist()
+    if kc != pc:
+        raise AssertionError(f"{what}: converged {kc} vs plain {pc}")
+    if int(k_res.iters.abs().max()) != 0:
+        raise AssertionError(f"{what}: iters not 0")
+    g2 = (gamma.double() ** 2).sum(dim=(-2, -1))
+    d = (k_res.eta.double() - p_res.eta.double()).abs()
+    if not bool((d <= ETA_REL * (1 + g2)).all()):
+        raise AssertionError(f"{what}: eta {k_res.eta.tolist()} vs plain "
+                             f"{p_res.eta.tolist()}")
+    return float(d.max())
+
+
+def singular_mix(n_good: int, seed0: int) -> gt.KKTBlocks:
+    """One exactly singular problem (zero row/column in Q[2]; use rho=0) at
+    index 1 among n_good healthy ones, on the card."""
+    good = [testing.random_blocks(IIWA, seed=seed0 + i) for i in range(n_good)]
+    bad = testing.singular_blocks(IIWA, seed=3, knot=2)
+    return gt.blocks_to_torch(testing.stack_blocks(good[:1] + [bad] + good[1:]), DEV)
+
+
+def phase_direct_parity():
+    print(f"== phase 3c: the exact-solve kernels against their plain versions "
+          f"at IIWA (14, 7, 50), rho={RHO}")
+    full, _ = staged_batch(BATCH)
+    for n in (1, 15):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        kres, kdx, kdu = kd.direct_fused_cuda(*blocks, rho=RHO)
+        pres, pdx, pdu = kd.direct_fused_plain(*blocks, rho=RHO)
+        torch.cuda.synchronize()
+        what = f"{kd.NAME} B={n}"
+        deta = check_direct(what, kres, pres,
+                            assemble.condense(*blocks, RHO, None).gamma)
+        if not bool(kres.converged.all()):
+            raise AssertionError(f"{what}: a problem did not converge")
+        err = max(check_close(what + " lam", kres.lam, pres.lam),
+                  check_close(what + " dz_x", kdx, pdx),
+                  check_close(what + " dz_u", kdu, pdu))
+        MAX_ERR[kd.NAME] = max(MAX_ERR[kd.NAME], err)
+        print(f"  {what}: all converged, max|d| {err:.3e}, max|d eta| "
+              f"{deta:.3e} (eta up to {float(kres.eta.max()):.3e})")
+    fields = kt.ThomasFactors._fields
+    for n in (16, BATCH):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        kf = kt.thomas_fwd_cuda(*blocks, rho=RHO)
+        pf = kt.thomas_fwd_plain(*blocks, rho=RHO)
+        torch.cuda.synchronize()
+        ferr = max(check_close(f"{kt.FWD_NAME} B={n} {name}", x, y)
+                   for name, x, y in zip(fields, kf, pf))
+        MAX_ERR[kt.FWD_NAME] = max(MAX_ERR[kt.FWD_NAME], ferr)
+        rest = (blocks.q, blocks.A, blocks.B, blocks.r)
+        # The reverse kernel on the plain stacks, against the plain reverse.
+        kres, kdx, kdu = kt.thomas_rev_cuda(pf, *rest)
+        pres, pdx, pdu = kt.thomas_rev_plain(pf, *rest)
+        torch.cuda.synchronize()
+        what = f"{kt.REV_NAME} B={n}"
+        deta = check_direct(what, kres, pres, pf.gamma)
+        rerr = max(check_close(what + " lam", kres.lam, pres.lam),
+                   check_close(what + " dz_x", kdx, pdx),
+                   check_close(what + " dz_u", kdu, pdu))
+        MAX_ERR[kt.REV_NAME] = max(MAX_ERR[kt.REV_NAME], rerr)
+        # The pair end to end against the plain composite.
+        sres, sdx, sdu = kt.solve_direct_thomas_cuda(*blocks, rho=RHO)
+        torch.cuda.synchronize()
+        check_direct(f"thomas pair B={n}", sres, pres, pf.gamma)
+        if not bool(sres.converged.all()):
+            raise AssertionError(f"thomas pair B={n}: a problem did not converge")
+        perr = max(check_close(f"thomas pair B={n} lam", sres.lam, pres.lam),
+                   check_close(f"thomas pair B={n} dz_x", sdx, pdx),
+                   check_close(f"thomas pair B={n} dz_u", sdu, pdu))
+        print(f"  {kt.FWD_NAME} B={n}: the 7 factor stacks within tolerance, "
+              f"max|d| {ferr:.3e}; {kt.REV_NAME} on the plain stacks max|d| "
+              f"{rerr:.3e}, max|d eta| {deta:.3e}; the pair end to end: all "
+              f"converged, max|d| {perr:.3e}")
+
+    # Row 4's singular contract: finite outputs, eta >= 1e30, only it False.
+    mix = singular_mix(2, seed0=40)
+    kres, kdx, kdu = kd.direct_fused_cuda(*mix, rho=0.0)
+    pres, pdx, pdu = kd.direct_fused_plain(*mix, rho=0.0)
+    torch.cuda.synchronize()
+    for res, who in ((kres, "kernel"), (pres, "plain")):
+        if res.converged.cpu().tolist() != [True, False, True] \
+                or not float(res.eta[1]) >= 1e30:
+            raise AssertionError(f"{kd.NAME} singular ({who}): converged "
+                                 f"{res.converged.tolist()}, eta {res.eta.tolist()}")
+    for t in (kres.lam, kdx, kdu):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{kd.NAME} singular: an output is not finite")
+    healthy = [0, 2]
+    for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
+                       ("dz_u", kdu, pdu)):
+        check_close(f"{kd.NAME} singular mix {name}", k[healthy], p[healthy])
+    print(f"  {kd.NAME} singular input: converged {kres.converged.tolist()}, "
+          f"eta[1] = {float(kres.eta[1]):g}, every output finite; plain agrees")
+
+    # Rows 5-6: that problem non-finite, the others as if it were absent.
+    mix = singular_mix(16, seed0=60)
+    kres, kdx, kdu = kt.solve_direct_thomas_cuda(*mix, rho=0.0)
+    pres, pdx, pdu = kt.solve_direct_thomas_plain(*mix, rho=0.0)
+    keep = [0] + list(range(2, 17))
+    alone, adx, adu = kt.solve_direct_thomas_cuda(*(a[keep] for a in mix), rho=0.0)
+    torch.cuda.synchronize()
+    expect = [True, False] + [True] * 15
+    for res, dx, du, who in ((kres, kdx, kdu, "kernel"), (pres, pdx, pdu, "plain")):
+        if res.converged.cpu().tolist() != expect:
+            raise AssertionError(f"thomas singular ({who}): converged "
+                                 f"{res.converged.tolist()}")
+        for name, t in (("lam", res.lam), ("dz_x", dx), ("dz_u", du),
+                        ("eta", res.eta)):
+            if bool(torch.isfinite(t[1]).any()):
+                raise AssertionError(f"thomas singular ({who}): {name} of the "
+                                     "singular problem has a finite entry")
+    for name, k, a in (("lam", kres.lam, alone.lam), ("dz_x", kdx, adx),
+                       ("dz_u", kdu, adu), ("eta", kres.eta, alone.eta)):
+        if not torch.equal(k[keep], a):
+            raise AssertionError(f"thomas singular: {name} of the healthy "
+                                 "problems changed")
+    for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
+                       ("dz_u", kdu, pdu)):
+        check_close(f"thomas singular mix {name}", k[keep], p[keep])
+    print("  thomas pair singular input (1 of 17): its lambda, dz and eta "
+          "non-finite, converged False; the 16 others bit-identical to a run "
+          "without it; plain agrees")
+
+
+def split_dz(dz: torch.Tensor, K: int, s: int, c: int):
+    """(B, nz) interleaved [x_0, u_0, ..., x_{K-1}] -> (dz_x, dz_u)."""
+    Bn = dz.shape[0]
+    head = dz[:, :(K - 1) * (s + c)].reshape(Bn, K - 1, s + c)
+    dz_x = torch.cat([head[:, :, :s], dz[:, None, (K - 1) * (s + c):]], dim=1)
+    return dz_x, head[:, :, s:]
+
+
+def dense_solve64(blocks: gt.KKTBlocks, rho: float):
+    """The float64 dense KKT solve on the card (the oracle only): (lam,
+    dz_x, dz_u) in the solver's shapes."""
+    K, s, c = IIWA.knot_points, IIWA.state_size, IIWA.control_size
+    b64 = gt.KKTBlocks(*(a.double() for a in blocks))
+    M, rhs = dense_kkt(b64, rho)
+    x = torch.linalg.solve(M, rhs.unsqueeze(-1))[..., 0]
+    nz = IIWA.nz
+    dz_x, dz_u = split_dz(x[:, :nz], K, s, c)
+    return x[:, nz:].reshape(-1, K, s), dz_x, dz_u
+
+
+def check_oracle(what: str, res, blocks, rho: float) -> float:
+    """lam, dz within 2e-3 of scale of the float64 dense solve (test_direct's
+    tolerance against the dense oracle).  Returns the worst relative error."""
+    worst = 0.0
+    for lo in range(0, blocks.Q.shape[0], 64):
+        part = gt.KKTBlocks(*(a[lo:lo + 64] for a in blocks))
+        ref = dense_solve64(part, rho)
+        for name, got, r in zip(("lam", "dz_x", "dz_u"),
+                                (res.lam[lo:lo + 64], res.dz_x[lo:lo + 64],
+                                 res.dz_u[lo:lo + 64]), ref):
+            scale = max(1.0, float(r.abs().max()))
+            err = float((got.double() - r).abs().max()) / scale
+            if err > 2e-3:
+                raise AssertionError(f"{what} {name}: {err:.3e} of scale off the "
+                                     "float64 dense KKT solve")
+            worst = max(worst, err)
+    return worst
+
+
+def direct_counts() -> dict:
+    return {kd.NAME: kd.LAUNCHES, kt.FWD_NAME: kt.FWD_LAUNCHES,
+            kt.REV_NAME: kt.REV_LAUNCHES}
+
+
+def zero_direct_counts() -> None:
+    kd.LAUNCHES = kt.FWD_LAUNCHES = kt.REV_LAUNCHES = 0
+
+
+def expect_counts(what: str, got: dict, row4: int, pair: int) -> None:
+    want = {kd.NAME: row4, kt.FWD_NAME: pair, kt.REV_NAME: pair}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_direct_path():
+    print("== phase 4c: the exact main path (method='direct') through solve, "
+          "solve_batched, solve_sequence_batched and pack / solve_packed")
+    opts = gt.SolverOptions(rho=RHO, method="direct")
+    full = gt.blocks_to_torch(testing.random_batch(IIWA, BATCH, seed0=3000), DEV)
+    total = dict.fromkeys(direct_counts(), 0)
+
+    def run(what, fn, row4, pair):
+        zero_direct_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = direct_counts()
+        expect_counts(what, got, row4, pair)
+        for key, value in got.items():
+            total[key] += value
+        return out
+
+    one = gt.KKTBlocks(*(a[0] for a in full))
+    res1 = run("solve", lambda: gt.solve(IIWA, one, opts), 1, 0)
+    res8 = run("solve_batched B=8", lambda: gt.solve_batched(
+        IIWA, gt.KKTBlocks(*(a[:8] for a in full)), opts), 1, 0)
+    resb = run(f"solve_batched B={BATCH}",
+               lambda: gt.solve_batched(IIWA, full, opts), 0, 1)
+    for what, res, n in (("solve", gt.SolveResult(*(t[None] for t in res1)), 1),
+                         ("solve_batched B=8", res8, 8),
+                         (f"solve_batched B={BATCH}", resb, BATCH)):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        if not bool(res.converged.all()) or int(res.iters.abs().max()) != 0:
+            raise AssertionError(f"{what}: not all converged with iters 0")
+        worst = check_oracle(what, res, blocks, RHO)
+        ref = gt.solve_batched(IIWA, blocks, opts, pcg_backend="torch")
+        for name in ("lam", "dz_x", "dz_u"):
+            check_close(f"{what} {name} vs 'torch'", getattr(res, name),
+                        getattr(ref, name))
+        print(f"  {what}: converged, iters 0, within {worst:.2e} of scale of "
+              f"the float64 dense KKT solve; agrees with the 'torch' backend")
+
+    # The exact farm: 4096 solves folded into one batch, per-step rho.
+    farm_blocks = farm(BATCH, T_STEPS, seed0=3100)
+    rhos = farm_rhos(T_STEPS).cpu().numpy()
+    seq = run(f"solve_sequence_batched B={BATCH} T={T_STEPS}",
+              lambda: gt.solve_sequence_batched(IIWA, farm_blocks, opts,
+                                                rhos=rhos), 0, 1)
+    if not bool(seq.converged.all()):
+        raise AssertionError("exact farm: a step did not converge")
+    for t in range(T_STEPS):
+        step = gt.solve_batched(IIWA, gt.KKTBlocks(*(a[t] for a in farm_blocks)),
+                                gt.SolverOptions(rho=float(rhos[t]), method="direct"))
+        for name in ("lam", "dz_x", "dz_u", "converged", "eta"):
+            if not torch.equal(getattr(seq, name)[t], getattr(step, name)):
+                raise AssertionError(f"exact farm step {t} {name} differs from "
+                                     "solve_batched on that step")
+    one_seq = gt.solve_sequence(IIWA, gt.KKTBlocks(*(a[:, 0] for a in farm_blocks)),
+                                opts, rhos=rhos)
+    if not torch.equal(one_seq.lam, seq.lam[:, 0]):
+        raise AssertionError("solve_sequence (direct) differs from stream 0 of "
+                             "the farm")
+    print(f"  solve_sequence_batched B={BATCH} T={T_STEPS} (method='direct', "
+          f"rho alternating {RHO:g} / {2 * RHO:g}): {T_STEPS * BATCH} solves in "
+          "one launch pair, all converged, bit-identical to 16 per-step "
+          "solve_batched calls; solve_sequence equals stream 0")
+
+    step0 = gt.KKTBlocks(*(a[0] for a in farm_blocks))
+    step1 = gt.KKTBlocks(*(a[1] for a in farm_blocks))
+    ref0 = gt.solve_batched(IIWA, step0, opts, pcg_backend="torch")
+    ref1 = gt.solve_batched(IIWA, step1, opts, pcg_backend="torch")
+    for tier, row4, pair in (("cr", 2, 0), ("thomas", 0, 2)):
+        def serve(tier=tier):
+            packed = gt.pack(IIWA, step0, method="direct", tier=tier)
+            first = gt.solve_packed(packed, opts)
+            packed = gt.update_vectors(packed, step1.q, step1.r, step1.c)
+            return packed, first, gt.solve_packed(packed, opts)
+        packed, first, second = run(f"packed tier={tier}", serve, row4, pair)
+        if packed.plan.tier != tier:
+            raise AssertionError(f"pack(tier={tier!r}) planned {packed.plan.tier}")
+        for what, got, ref in (("first", first.unpack(), ref0),
+                               ("second", second.unpack(), ref1)):
+            if not bool(got.converged.all()):
+                raise AssertionError(f"solve_packed {tier} {what}: not converged")
+            for name in ("lam", "dz_x", "dz_u"):
+                check_close(f"solve_packed {tier} {what} {name}",
+                            getattr(got, name), getattr(ref, name))
+        if tier == "thomas" and not torch.equal(first.lam_p, seq.lam[0]):
+            raise AssertionError("solve_packed thomas differs from the farm's "
+                                 "step 0 (same kernels, same inputs)")
+        print(f"  pack(tier={tier!r}) -> solve_packed -> update_vectors -> "
+              f"solve_packed B={BATCH}: agrees with the 'torch' backend")
+    print(f"  launches on the exact path: {total}")
+    for name, count in total.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the exact path")
+    return total
+
+
+def condense_flops(K: int, s: int, c: int) -> float:
+    """Qinv, Rinv, phi, B Rinv, theta and gamma of one problem."""
+    f = K * 2 * s ** 3 + (K - 1) * 2 * c ** 3
+    f += (K - 1) * (2 * s ** 3 + 2 * s * c * c)
+    f += (K - 1) * (2 * s ** 3 + 2 * s * s * c)
+    f += K * 2 * s * s + (K - 1) * (2 * s * s + 2 * s * c)
+    return f
+
+
+def recover_flops(K: int, s: int, c: int) -> float:
+    return (K - 1) * 2 * s * s + K * 2 * s * s + (K - 1) * (2 * s * c + 2 * c * c)
+
+
+def thomas_fwd_flops(K: int, s: int, c: int) -> float:
+    """Row 5 per problem: condensation, then per knot Dhat^-1 and, from
+    j = 1, M, M phi^T and M bhat."""
+    return condense_flops(K, s, c) + K * 2 * s ** 3 + (K - 1) * (4 * s ** 3 + 2 * s * s)
+
+
+def thomas_rev_flops(K: int, s: int, c: int) -> float:
+    """Row 6 per problem: per knot Cinv (bhat - u), theta x and, from the
+    second step on, phi^T x and phi x; the recovery."""
+    return K * 2 * 2 * s * s + (K - 1) * 2 * 2 * s * s + recover_flops(K, s, c)
+
+
+def phase_direct_times(card: str):
+    print(f"== phase 5c: the exact-solve kernels' times (CUDA events, median "
+          f"of {TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for library calls) "
+          f"on {card}")
+    full, _ = staged_batch(BATCH)
+    K, s, c = IIWA.knot_points, IIWA.state_size, IIWA.control_size
+    times = {}
+    for n in (1, BATCH):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        rest = (blocks.q, blocks.A, blocks.B, blocks.r)
+        kres, kdx, kdu = kd.direct_fused_cuda(*blocks, rho=RHO)
+        f = kt.thomas_fwd_cuda(*blocks, rho=RHO)
+        tres, tdx, tdu = kt.thomas_rev_cuda(f, *rest)
+        flags = 2 * 4 * n                      # conv (int32) and eta, per problem
+        out = nbytes(kres.lam, kdx, kdu) + flags
+        # Row 4 and the pair compute one function (condense, exact solve,
+        # true residual, recover) from the same inputs: both are bounded by
+        # the fewest operations it needs, block Thomas's, which are fewer
+        # than row 4's own cyclic reduction does.
+        exact = bound(nbytes(*blocks) + out,
+                      n * (thomas_fwd_flops(K, s, c) + thomas_rev_flops(K, s, c)))
+        bounds = {
+            kd.NAME: exact,
+            kt.FWD_NAME: bound(nbytes(*blocks, *f), n * thomas_fwd_flops(K, s, c)),
+            kt.REV_NAME: bound(nbytes(*f, *rest) + out, n * thomas_rev_flops(K, s, c)),
+            "pair": exact,
+        }
+        M, rhs = dense_kkt(blocks, RHO)
+        rhs = rhs.unsqueeze(-1)
+        lib = torch.linalg.solve(M, rhs)
+        lib_lam = lib[:, IIWA.nz:, 0].reshape(n, K, s)
+        print(f"  B={n}: the dense KKT solve (library) against row 4 max|dlam| "
+              f"{float((lib_lam - kres.lam).abs().max()):.2e}, against the "
+              f"Thomas pair {float((lib_lam - tres.lam).abs().max()):.2e} "
+              "(both exact: float32 round-off)")
+        rows = (
+            (kd.NAME, lambda: kd.direct_fused_cuda(*blocks, rho=RHO),
+             lambda: kd.direct_fused_plain(*blocks, rho=RHO), True),
+            ("pair", lambda: kt.solve_direct_thomas_cuda(*blocks, rho=RHO),
+             lambda: kt.solve_direct_thomas_plain(*blocks, rho=RHO), True),
+            (kt.FWD_NAME, lambda: kt.thomas_fwd_cuda(*blocks, rho=RHO),
+             lambda: kt.thomas_fwd_plain(*blocks, rho=RHO), False),
+            (kt.REV_NAME, lambda: kt.thomas_rev_cuda(f, *rest),
+             lambda: kt.thomas_rev_plain(f, *rest), False),
+        )
+        lib_ms = cuda_median_ms(lambda: torch.linalg.solve(M, rhs),
+                                runs=SLOW_RUNS, warmup=1)
+        for name, kern, plain, has_lib in rows:
+            p1 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+            k1 = cuda_median_ms(kern)
+            k2 = cuda_median_ms(kern)
+            p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+            bound_ms, bound_by = bounds[name]
+            times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                    library_ms=lib_ms if has_lib else None,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+            lib_text = f"library {lib_ms:.4f} ms" if has_lib else "no library call"
+            print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                  f"{p1:.4f} / {p2:.4f} ms, {lib_text}, bound {bound_ms:.5f} ms "
+                  f"({bound_by})  [{card}]")
+        del M, rhs, lib
+        torch.cuda.empty_cache()
+
+    print(f"  per-solve time, row 4 against the Thomas pair [{card}]:")
+    crossover = None
+    for n in CROSSOVER_B:
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        t4 = cuda_median_ms(lambda: kd.direct_fused_cuda(*blocks, rho=RHO))
+        tp = cuda_median_ms(lambda: kt.solve_direct_thomas_cuda(*blocks, rho=RHO))
+        times[("crossover", n)] = (t4, tp)
+        if crossover is None and tp < t4:
+            crossover = n
+        print(f"    B={n:4d}: row 4 {t4:.4f} ms ({1e3 * t4 / n:.2f} us/solve), "
+              f"pair {tp:.4f} ms ({1e3 * tp / n:.2f} us/solve)")
+    where = (f"from B={crossover}" if crossover is not None
+             else "at no width")
+    print(f"  the pair is faster {where} of {CROSSOVER_B} "
+          f"(the port routes from B >= {kt.MIN_BATCH}, gato_tpu's constant)")
+    return times
+
+
 def cuda_median_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -821,28 +1228,43 @@ def main():
 
     phase_parity()
     phase_sequence_parity()
+    phase_direct_parity()
     launches, avg = phase_main_path()
     seq_launches = phase_mpc_path()
+    direct_launches = phase_direct_path()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
+    direct_times = phase_direct_times(card)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
     # Each kernel's launches are those of the path it is on: kernels A and
     # B from linsys_solve / solve_batched (phase 4), the sequence kernel
-    # from the MPC and packed path (phase 4b).
+    # from the MPC and packed path (phase 4b), rows 4-6 from the exact path
+    # (phase 4c).
+    pair = {f"pair_{key}": value for key, value in
+            direct_times[("pair", BATCH)].items() if key != "bound_by"}
+    pair.update({f"pair_{key}_b1": value for key, value in
+                 direct_times[("pair", 1)].items() if key != "bound_by"})
     kernels = []
-    for mod, count, at_b, at_1, extra in (
-            (ka, launches[ka.NAME], times[(ka.NAME, BATCH)],
-             times[(ka.NAME, 1)], {}),
-            (kb, launches[kb.NAME], times[(kb.NAME, BATCH)],
-             times[(kb.NAME, 1)], {}),
-            (ks, seq_launches[ks.NAME], seq_times[BATCH], seq_times[1],
-             {"steps": T_STEPS})):
-        row = {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
-               "replaces": mod.REPLACES, "launches": count,
-               "max_abs_err": MAX_ERR[mod.NAME], **at_b, "batch": BATCH,
-               **extra}
+    for name, source, replaces, count, at_b, at_1, extra in (
+            (ka.NAME, ka.SOURCE, ka.REPLACES, launches[ka.NAME],
+             times[(ka.NAME, BATCH)], times[(ka.NAME, 1)], {}),
+            (kb.NAME, kb.SOURCE, kb.REPLACES, launches[kb.NAME],
+             times[(kb.NAME, BATCH)], times[(kb.NAME, 1)], {}),
+            (ks.NAME, ks.SOURCE, ks.REPLACES, seq_launches[ks.NAME],
+             seq_times[BATCH], seq_times[1], {"steps": T_STEPS}),
+            (kd.NAME, kd.SOURCE, kd.REPLACES, direct_launches[kd.NAME],
+             direct_times[(kd.NAME, BATCH)], direct_times[(kd.NAME, 1)], {}),
+            (kt.FWD_NAME, kt.SOURCE, kt.FWD_REPLACES,
+             direct_launches[kt.FWD_NAME], direct_times[(kt.FWD_NAME, BATCH)],
+             direct_times[(kt.FWD_NAME, 1)], pair),
+            (kt.REV_NAME, kt.SOURCE, kt.REV_REPLACES,
+             direct_launches[kt.REV_NAME], direct_times[(kt.REV_NAME, BATCH)],
+             direct_times[(kt.REV_NAME, 1)], pair)):
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": count,
+               "max_abs_err": MAX_ERR[name], **at_b, "batch": BATCH, **extra}
         row.update({f"{key}_b1": value for key, value in at_1.items()
                     if key != "bound_by"})
         kernels.append(row)

@@ -5,7 +5,10 @@ and never ``jax``; ``gato_tpu`` stays the reference it is tested against.
 
 Public surface:
   * :func:`linsys_solve`: the original 14-argument entry point (lists in/out)
-  * :func:`solve`, :func:`solve_batched`: the structured API
+  * :func:`solve`, :func:`solve_batched`: the structured API, with
+    ``method='pcg'`` or the exact ``method='direct'``
+  * :func:`btd_solve`: the exact block-tridiagonal solve
+    (:mod:`gato_tpu_torch.direct`)
   * :func:`solve_sequence`, :func:`solve_sequence_batched`: warm-started
     MPC sequences and farms (:mod:`gato_tpu_torch.mpc`)
   * :func:`pack`, :func:`solve_packed`, :func:`pack_sequence`,
@@ -14,11 +17,13 @@ Public surface:
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
   * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
-    loop, the fused whole solve and the warm-started farm), each with its
-    plain PyTorch version
+    loop, the fused whole solve, the warm-started farm, the cyclic-reduction
+    exact solve and the block-Thomas pair), each with its plain PyTorch
+    version
 """
 
 from .api import infer_spec, linsys_solve
+from .direct import btd_solve
 from .formats import KKTBlocks, blocks_to_torch, pack_kkt
 from .mpc import solve_sequence, solve_sequence_batched
 from .packed import (PackedKKT, PackedKKTSequence, PackedSequenceResult,
@@ -34,6 +39,7 @@ __all__ = [
     "infer_spec",
     "solve",
     "solve_batched",
+    "btd_solve",
     "solve_sequence",
     "solve_sequence_batched",
     "pack",

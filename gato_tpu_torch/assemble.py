@@ -41,7 +41,8 @@ class SchurSystem(NamedTuple):
     """Condensed system + preconditioner + cached inverses for dz recovery."""
 
     S: torch.Tensor      # (..., K, 3, s, s)  block-tridiagonal Schur complement
-    Pinv: torch.Tensor   # (..., K, 3, s, s)  preconditioner (approximate S^{-1})
+    Pinv: Optional[torch.Tensor]  # (..., K, 3, s, s) preconditioner (approximate
+                                  # S^{-1}); None for preconditioner=None
     gamma: torch.Tensor  # (..., K, s)        condensed rhs
     Qinv: torch.Tensor   # (..., K, s, s)     (Q_k + rho I)^{-1}
     Rinv: torch.Tensor   # (..., K-1, c, c)   (R_k + rho I)^{-1}
@@ -61,6 +62,50 @@ def _bmv(a, x):
     return torch.einsum("...kab,...kb->...ka", a, x)
 
 
+class CondensedKnots(NamedTuple):
+    """The per-knot blocks of the condensation, before S is assembled."""
+
+    Qinv: torch.Tensor    # (..., K, s, s)     (Q_k + rho I)^{-1}
+    Rinv: torch.Tensor    # (..., K-1, c, c)   (R_k + rho I)^{-1}
+    phi: torch.Tensor     # (..., K-1, s, s)   phi_1 .. phi_{K-1}
+    theta: torch.Tensor   # (..., K, s, s)
+    gamma: torch.Tensor   # (..., K, s)
+    bad_q: Optional[torch.Tensor] = None   # (..., K)   zero-pivot flags
+    bad_r: Optional[torch.Tensor] = None   # (..., K-1) (flag=True)
+
+
+def condense_knots(Q, R, A, B, q, r, c, rho: float, *,
+                   flag: bool = False) -> CondensedKnots:
+    """Qinv, Rinv, phi, theta and gamma of every knot (the formulas in the
+    module docstring).  ``flag=True`` clamps zero pivots in the two
+    inversions and returns their per-block flags (blocktri.block_inv_flag);
+    with ``flag=False`` a singular block propagates inf/NaN."""
+    s = Q.shape[-1]
+    cdim = R.shape[-1]
+    eye_s = torch.eye(s, dtype=Q.dtype, device=Q.device)
+    eye_c = torch.eye(cdim, dtype=Q.dtype, device=Q.device)
+
+    if flag:
+        Qinv, bad_q = block_inv_flag(Q + rho * eye_s)      # (..., K, s, s)
+        Rinv, bad_r = block_inv_flag(R + rho * eye_c)      # (..., K-1, c, c)
+    else:
+        Qinv = block_inv(Q + rho * eye_s)
+        Rinv = block_inv(R + rho * eye_c)
+        bad_q = bad_r = None
+
+    phi = _bmm(A, Qinv[..., :-1, :, :])        # phi_{k+1} = A_k Qr_k^{-1}
+    BRinv = _bmm(B, Rinv)                      # (..., K-1, s, c)
+
+    theta_rest = _bmm_t(phi, A) + _bmm_t(BRinv, B) + Qinv[..., 1:, :, :]
+    theta = torch.cat([Qinv[..., :1, :, :], theta_rest], dim=-3)  # (..., K, s, s)
+
+    gamma_rest = (_bmv(phi, q[..., :-1, :]) + _bmv(BRinv, r)
+                  + _bmv(Qinv[..., 1:, :, :], q[..., 1:, :]) - c[..., 1:, :])
+    gamma0 = _bmv(Qinv[..., :1, :, :], q[..., :1, :]) - c[..., :1, :]
+    gamma = torch.cat([gamma0, gamma_rest], dim=-2)  # (..., K, s)
+    return CondensedKnots(Qinv, Rinv, phi, theta, gamma, bad_q, bad_r)
+
+
 def condense(
     Q: torch.Tensor,
     R: torch.Tensor,
@@ -70,7 +115,7 @@ def condense(
     r: torch.Tensor,
     c: torch.Tensor,
     rho: float,
-    preconditioner: Preconditioner = Preconditioner.SYMMETRIC_STAIR,
+    preconditioner: Optional[Preconditioner] = Preconditioner.SYMMETRIC_STAIR,
     *,
     flag: bool = False,
 ) -> SchurSystem:
@@ -80,39 +125,20 @@ def condense(
     zero pivots are clamped to 1 in every inversion (and a zero theta
     diagonal in scalar Jacobi), and ``bad`` flags each problem in which a
     zero pivot was clamped in a live Q or R block.  With ``flag=False`` a
-    singular block propagates inf/NaN, as in ``gato_tpu``."""
-    s = Q.shape[-1]
-    cdim = R.shape[-1]
-    eye_s = torch.eye(s, dtype=Q.dtype, device=Q.device)
-    eye_c = torch.eye(cdim, dtype=Q.dtype, device=Q.device)
+    singular block propagates inf/NaN, as in ``gato_tpu``.
+    ``preconditioner=None`` skips the preconditioner (``Pinv`` is None): the
+    exact solves of method='direct' need none."""
+    k = condense_knots(Q, R, A, B, q, r, c, rho, flag=flag)
+    bad = k.bad_q.any(-1) | k.bad_r.any(-1) if flag else None
 
-    if flag:
-        Qinv, bad_q = block_inv_flag(Q + rho * eye_s)      # (..., K, s, s)
-        Rinv, bad_r = block_inv_flag(R + rho * eye_c)      # (..., K-1, c, c)
-        bad = bad_q.any(-1) | bad_r.any(-1)
-    else:
-        Qinv = block_inv(Q + rho * eye_s)
-        Rinv = block_inv(R + rho * eye_c)
-        bad = None
+    zero_block = torch.zeros_like(k.Qinv[..., :1, :, :])
+    left = torch.cat([zero_block, k.phi], dim=-3)
+    right = torch.cat([k.phi.transpose(-1, -2), zero_block], dim=-3)
+    S = torch.stack([left, k.theta, right], dim=-3)  # (..., K, 3, s, s)
 
-    phi = _bmm(A, Qinv[..., :-1, :, :])        # phi_{k+1} = A_k Qr_k^{-1}
-    BRinv = _bmm(B, Rinv)                      # (..., K-1, s, c)
-
-    theta_rest = _bmm_t(phi, A) + _bmm_t(BRinv, B) + Qinv[..., 1:, :, :]
-    theta = torch.cat([Qinv[..., :1, :, :], theta_rest], dim=-3)  # (..., K, s, s)
-
-    zero_block = torch.zeros_like(Qinv[..., :1, :, :])
-    left = torch.cat([zero_block, phi], dim=-3)
-    right = torch.cat([phi.transpose(-1, -2), zero_block], dim=-3)
-    S = torch.stack([left, theta, right], dim=-3)  # (..., K, 3, s, s)
-
-    gamma_rest = (_bmv(phi, q[..., :-1, :]) + _bmv(BRinv, r)
-                  + _bmv(Qinv[..., 1:, :, :], q[..., 1:, :]) - c[..., 1:, :])
-    gamma0 = _bmv(Qinv[..., :1, :, :], q[..., :1, :]) - c[..., :1, :]
-    gamma = torch.cat([gamma0, gamma_rest], dim=-2)  # (..., K, s)
-
-    Pinv = _preconditioner(theta, phi, Preconditioner(preconditioner), flag)
-    return SchurSystem(S=S, Pinv=Pinv, gamma=gamma, Qinv=Qinv, Rinv=Rinv,
+    Pinv = (None if preconditioner is None else
+            _preconditioner(k.theta, k.phi, Preconditioner(preconditioner), flag))
+    return SchurSystem(S=S, Pinv=Pinv, gamma=k.gamma, Qinv=k.Qinv, Rinv=k.Rinv,
                        bad=bad)
 
 

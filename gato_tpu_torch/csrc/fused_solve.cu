@@ -17,6 +17,13 @@
 // 1024 threads of one SM; the PCG loop is bound as kernel A's is, by the
 // dependent matvec/reduction chain and the operator reads.
 //
+// Registers: 40 a thread (__maxnreg__), so that at IIWA two 704-thread
+// blocks share an SM and 256 problems run in one wave on 132 SMs.  Left
+// alone, ptxas gives this body 32 registers and 1,072 B of spill loads a
+// thread since its condensation and recovery moved into condense.cuh (356
+// B before); at 40 it spills 564 B.  Register allocation does not change
+// the arithmetic.
+//
 // Shapes are runtime values: s, c <= 32; the wrapper checks the shared
 // memory against the device's per-block limit before launching.
 #include <cuda_runtime.h>
@@ -25,7 +32,7 @@
 
 namespace gato {
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __maxnreg__(40)
 fused_solve_kernel(const float* Qg, const float* Rg, const float* Ag,
                    const float* Bg, const float* qg, const float* rg,
                    const float* cg, const float* lam0g, float* scratch,

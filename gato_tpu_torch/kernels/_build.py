@@ -24,8 +24,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu")
-HEADERS = ("pcg_common.cuh", "fused_body.cuh")
+SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
+           "thomas_batch.cu")
+HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -46,6 +47,13 @@ _SIGNATURES = {
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_fused_smem_bytes": (_LL, [_I, _I, _I]),
     "gato_fused_sequence": (_I, [_P] * 16 + [_I] * 5 + [_F, _I, _I, _I, _P]),
+    "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _P]),
+    "gato_direct_scratch_floats": (_LL, [_I, _I, _I]),
+    "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
+    "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _P]),
+    "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
+    "gato_thomas_scratch_floats": (_LL, [_I, _I, _I]),
+    "gato_thomas_smem_bytes": (_LL, [_I, _I, _I]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -16,9 +16,17 @@ warm start (``result.lam[t, b]`` warm-starts step t+1 of stream b).
 
 Auto-selection picks ``'fused'`` for float32 on CUDA and ``'torch'``
 otherwise.  ``lam0`` is used whatever ``options.warm_start`` says: chaining
-is the point of these entry points.  ``method='direct'`` (the exact farm,
-which folds the (T, B) grid into one batch) raises ``NotImplementedError``
-until the direct solver is ported (ROADMAP.md queue 1 item 9).
+is the point of these entry points.
+
+``method='direct'`` is the exact farm (``gato_tpu.mpc``'s
+``_solve_sequence_batched_direct_core``): an exact solve has no warm-start
+carry, so the T steps are independent and the (T, B) grid folds into ONE
+batch of T*B solves, with each step's rho folded into its Q and R diagonals
+first (:func:`_fold_rhos`) and the batch solved at rho = 0 by
+``solve_batched``'s direct route: on CUDA the block-Thomas pair from
+T*B >= 16 (4096 problems at B=256, T=16), else the cyclic-reduction
+kernel.  ``lam0`` is ignored there.
+
 ``gato_tpu``'s long-horizon sequence tier and its streamed PCG have no
 counterpart yet: past the sequence kernel's shared memory the ``'fused'``
 route raises (naming ROADMAP.md queue 2 rows 7-10 and 13); it never falls
@@ -40,9 +48,34 @@ from .solver import (SolveResult, _resolve_backend, _solve_core,
                      _torch_dtype, resolve_device)
 
 
+def _fold_rhos(Q, R, rhos):
+    """Q_t + rho_t I and R_t + rho_t I for every step t (leading T axis):
+    rho enters the system only as G + rho I, so folding it in lets one
+    batched call serve steps with different regularisers."""
+    rr = rhos.reshape((rhos.shape[0],) + (1,) * (Q.ndim - 1))
+    Qr = Q + rr * torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+    Rr = R + rr * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
+    return Qr, Rr
+
+
+def _direct_farm(b: KKTBlocks, rhos: np.ndarray, options: SolverOptions,
+                 backend: str) -> SolveResult:
+    """The exact farm: T*B independent solves as one batched direct solve
+    at rho = 0, on rho-folded blocks."""
+    T, Bn = b.Q.shape[:2]
+    Qr, Rr = _fold_rhos(b.Q, b.R, torch.as_tensor(rhos, device=b.Q.device))
+    flat = KKTBlocks(*(a.reshape((T * Bn,) + a.shape[2:])
+                       for a in b._replace(Q=Qr, R=Rr)))
+    lam0 = torch.zeros_like(flat.q)
+    res = _solve_core(flat, lam0, dataclasses.replace(options, rho=0.0), backend)
+    return SolveResult(*(x.reshape((T, Bn) + x.shape[1:]) for x in res))
+
+
 def _sequence_core(b: KKTBlocks, lam0: torch.Tensor, rhos: np.ndarray,
                    options: SolverOptions, backend: str) -> SolveResult:
     """The farm on staged (T, B, ...) tensors; returns (T, B, ...) results."""
+    if options.method == "direct":
+        return _direct_farm(b, rhos, options, backend)
     if backend == "fused":
         res, dz_x, dz_u = fused_sequence.fused_sequence_cuda(
             *b, lam0, torch.as_tensor(rhos, device=lam0.device),
@@ -112,7 +145,8 @@ def solve_sequence_batched(
       blocks: KKTBlocks with leading (T, B) axes on every array.
       options: runtime solver options; ``options.rho`` is the default of
         every step.
-      lam0: (B, K, s) multipliers warm-starting step 0 (zeros by default).
+      lam0: (B, K, s) multipliers warm-starting step 0 (zeros by default;
+        ignored by ``method='direct'``).
       rhos: optional per-step regularisers (T,).
       pcg_backend: 'torch' | 'pcg_kernel' | 'fused' | None (auto).
       device: where to solve; default "cuda".

@@ -24,34 +24,41 @@ sequence), so a carried lambda needs no relayout between calls.
 ``n_groups``, ``sp``) and the method relabelling of its ``solve_packed``
 exist for TPU lanes and have no counterpart here.
 
-``solve_packed`` launches kernel B (kernels/fused_solve.py);
-``solve_packed_sequence`` launches the sequence kernel
-(kernels/fused_sequence.py).  Tensors packed on the CPU run the kernels'
-plain versions.  ``method='direct'`` raises ``NotImplementedError`` until
-the direct solver is ported (ROADMAP.md queue 1 item 9).
+``solve_packed`` launches kernel B (kernels/fused_solve.py) for
+``method='pcg'``; for ``method='direct'`` the plan's tier: ``'cr'``, the
+cyclic-reduction kernel (row 4, kernels/direct_fused.py), or ``'thomas'``,
+the block-Thomas pair (rows 5 and 6, kernels/thomas_batch.py), which
+``pack(method='direct')`` picks from B >= 16 as ``solve_batched`` does
+(``tier=`` overrides).  Every tier reads the same staged tensors, so a pack
+serves either method.  ``solve_packed_sequence`` launches the sequence
+kernel (kernels/fused_sequence.py) and is PCG-only, as in ``gato_tpu``.
+Tensors packed on the CPU run the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes
-from .kernels import fused_sequence, fused_solve
+from .kernels import direct_fused, fused_sequence, fused_solve, thomas_batch
 from .problem import ProblemSpec, SolverOptions
-from .solver import DIRECT_NOT_PORTED, SolveResult, _torch_dtype, resolve_device
+from .solver import SolveResult, _torch_dtype, resolve_device
+
+DIRECT_TIERS = ("cr", "thomas")
 
 
 class PackPlan(NamedTuple):
     """What a packed value holds.
 
-    ``method`` is the method it was packed for ('pcg'); ``batched`` records
-    whether the caller passed a leading batch axis (``unpack`` restores the
-    caller's shapes); ``batch`` is the number of problems (streams for a
-    sequence)."""
+    ``method`` is the method it was packed for ('pcg' or 'direct');
+    ``batched`` records whether the caller passed a leading batch axis
+    (``unpack`` restores the caller's shapes); ``batch`` is the number of
+    problems (streams for a sequence); ``tier`` is the direct kernel
+    ('cr' or 'thomas') of a 'direct' pack, None for 'pcg'."""
 
     method: str
     batched: bool
@@ -59,6 +66,7 @@ class PackPlan(NamedTuple):
     K: int
     s: int
     c: int
+    tier: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +119,6 @@ def _is_float32(a) -> bool:
 
 
 def _check_options(options: SolverOptions, caller: str) -> None:
-    if options.method == "direct":
-        raise NotImplementedError(DIRECT_NOT_PORTED)
     if _torch_dtype(options.dtype) != torch.float32:
         raise ValueError(f"{caller} runs float32-only CUDA kernels; "
                          f"dtype={options.dtype!r} needs the standard solve() API")
@@ -138,24 +144,46 @@ def _warm_start(lam0, carry_shape, public_shape, device) -> torch.Tensor:
                      f"{carry_shape} nor the public {public_shape}")
 
 
+def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int) -> str:
+    """The direct kernel of a pack: 'thomas' from B >= 16 when its stacks
+    fit (thomas_batch.should_dispatch), else 'cr'; a forced 'thomas' that
+    does not fit raises."""
+    if tier == "thomas" and not thomas_batch.fits(Bn, K, s, c):
+        raise ValueError(
+            f"tier='thomas' was requested but the block-Thomas kernels decline "
+            f"(B={Bn}, K={K}, s={s}, c={c}): their factor stacks exceed "
+            f"{thomas_batch.FACTOR_BUDGET_BYTES} B or a block is too wide "
+            "(thomas_batch.fits)")
+    if tier is None:
+        return "thomas" if thomas_batch.should_dispatch(Bn, K, s, c) else "cr"
+    return tier
+
+
 def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
-         device="cuda") -> PackedKKT:
-    """Stage KKT blocks for kernel B.
+         tier: Optional[str] = None, device="cuda") -> PackedKKT:
+    """Stage KKT blocks for the kernels.
 
     Args:
       spec: problem shape (checked against ``blocks``).
       blocks: float32 KKT data (formats.pack_kkt), with or without a
         leading batch axis (``Q.ndim == 4`` means batched).
-      method: 'pcg'; 'direct' raises NotImplementedError.
+      method: 'pcg' or 'direct', the method ``solve_packed`` runs on the
+        pack's own kernel (``options.method`` may ask for the other: the
+        layout is the same).
+      tier: method='direct' only: None (the batch-width pick of
+        solve_batched), 'cr' (row 4) or 'thomas' (rows 5 and 6; raises
+        where their stacks do not fit).
       device: where to stage; default "cuda".
 
     Raises ValueError for blocks that are not float32 (the kernels take
-    float32; float64 runs the plain path through ``solve``) or do not match
-    ``spec``."""
+    float32; float64 runs the plain path through ``solve``), that do not
+    match ``spec``, or for a tier that the method does not have."""
     if method not in ("pcg", "direct"):
         raise ValueError(f"unknown method {method!r}; valid: 'pcg', 'direct'")
-    if method == "direct":
-        raise NotImplementedError(DIRECT_NOT_PORTED)
+    if tier is not None and not (method == "direct" and tier in DIRECT_TIERS):
+        raise ValueError(
+            f"tier={tier!r} is not a choice for method={method!r}; explicit "
+            f"tiers exist for method='direct' only: {DIRECT_TIERS}")
     if not all(_is_float32(a) for a in blocks):
         raise ValueError("pack() feeds float32-only CUDA kernels; cast the "
                          "blocks to float32 (float64 runs the plain path via "
@@ -167,9 +195,12 @@ def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
         b = KKTBlocks(*(a.unsqueeze(0) for a in b))
     Bn = b.Q.shape[0]
     check_block_shapes(spec, b, lead=(Bn,))
+    if method == "direct":
+        tier = _direct_tier(tier, Bn, spec.knot_points, spec.state_size,
+                            spec.control_size)
     plan = PackPlan(method=method, batched=batched, batch=Bn,
                     K=spec.knot_points, s=spec.state_size,
-                    c=spec.control_size)
+                    c=spec.control_size, tier=tier)
     return PackedKKT(*b, plan=plan)
 
 
@@ -198,20 +229,33 @@ def update_vectors(packed: PackedKKT, q, r, c) -> PackedKKT:
 
 def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
                  lam0=None) -> PackedSolveResult:
-    """Solve from staged inputs: one launch of kernel B.
+    """Solve from staged inputs: one launch of kernel B for
+    ``options.method == 'pcg'``; for 'direct' the pack's tier (a pack made
+    for 'pcg' takes solve_batched's batch-width pick), one launch of row 4
+    or one of each of rows 5 and 6.
 
     ``lam0``: None (cold start), the packed carry (B, K, s) (a previous
     ``PackedSolveResult.lam_packed``) or a public array ((K, s) for an
     unbatched pack).  A supplied ``lam0`` is used whatever
-    ``options.warm_start`` says: chaining is the point of this API."""
+    ``options.warm_start`` says: chaining is the point of this API.  An
+    exact solve reads no ``lam0``."""
     plan = packed.plan
     _check_options(options, "solve_packed")
+    blocks = (packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
+              packed.cb)
+    if options.method == "direct":
+        tier = plan.tier or _direct_tier(None, plan.batch, plan.K, plan.s,
+                                         plan.c)
+        solve = (thomas_batch.solve_direct_thomas_cuda if tier == "thomas"
+                 else direct_fused.direct_fused_cuda)
+        res, dz_x, dz_u = solve(*blocks, rho=options.rho)
+        return PackedSolveResult(res.lam, dz_x, dz_u, res.iters, res.converged,
+                                 res.eta, plan)
     carry = (plan.batch, plan.K, plan.s)
     public = carry if plan.batched else (plan.K, plan.s)
     lb = _warm_start(lam0, carry, public, packed.qb.device)
     res, dz_x, dz_u = fused_solve.fused_solve_cuda(
-        packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
-        packed.cb, lb, rho=options.rho, **_kernel_kw(options))
+        *blocks, lb, rho=options.rho, **_kernel_kw(options))
     return PackedSolveResult(res.lam, dz_x, dz_u, res.iters, res.converged,
                              res.eta, plan)
 

@@ -88,9 +88,9 @@ class SolverOptions:
       rho: Tikhonov regularizer added to the full diagonal of the cost
         Hessian blocks before condensation.
       preconditioner: see :class:`Preconditioner`.
-      method: 'pcg' or 'direct'.  This package implements 'pcg'; 'direct'
-        is accepted here (so options built for ``gato_tpu`` validate) and
-        refused by the solver.
+      method: 'pcg' (iterative) or 'direct' (exact block-tridiagonal
+        solve: iters = 0, ``converged`` derived from the true residual,
+        direct.residual_converged).
       precond_poly_degree: polynomial composition of the preconditioner,
         M_d r = P sum_{i<d} (I - S P)^i r, evaluated in Horner form.
       dtype: 'float32' (the CUDA kernels' type) or 'float64' (the plain

@@ -1,19 +1,28 @@
-"""High-level solver: condense -> PCG -> recover, single or batched.
+"""High-level solver: condense -> PCG or an exact solve -> recover, single
+or batched.
 
 Backends, named after ``gato_tpu``'s:
 
 * ``'torch'``: plain PyTorch ops on any device (``gato_tpu``'s ``'jax'``);
-  the CPU default, the float64 path and the numerics oracle.
+  the CPU default, the float64 path and the numerics oracle.  With
+  ``method='direct'``: condense, direct.btd_solve_auto (block Thomas), the
+  true residual, recover_dz.
 * ``'pcg_kernel'``: condensation in PyTorch ops, then the CUDA PCG kernel
-  (kernel A, kernels/pcg_kernel.py; ``gato_tpu``'s ``'pallas'``).
-* ``'fused'``: the whole solve in the CUDA fused kernel (kernel B,
-  kernels/fused_solve.py), ``gato_tpu``'s TPU default.
+  (kernel A, kernels/pcg_kernel.py; ``gato_tpu``'s ``'pallas'``).  Not
+  with ``method='direct'``: ``gato_tpu``'s ``'pallas'`` there is its
+  long-K direct ladder, not ported yet.
+* ``'fused'``: the whole solve in hand-written CUDA kernels, ``gato_tpu``'s
+  TPU default: kernel B (kernels/fused_solve.py) for ``method='pcg'``; for
+  ``method='direct'`` the cyclic-reduction kernel (row 4,
+  kernels/direct_fused.py), or from B >= 16 the block-Thomas pair (rows 5
+  and 6, kernels/thomas_batch.py, ``thomas_batch.should_dispatch``).
 
 Auto-selection (``pcg_backend=None``) picks ``'fused'`` for float32 on CUDA
 and ``'torch'`` on the CPU or for float64.  An explicit kernel backend with
-float64, an unknown backend, and ``method='direct'`` raise.  Every entry point
-takes ``device=`` (default ``"cuda"``) and raises if that device is CUDA and
-no CUDA device is available: nothing falls back to the CPU silently.
+float64, an unknown backend, ``'pcg_kernel'`` with ``method='direct'`` and
+a horizon that no direct kernel takes raise.  Every entry point takes
+``device=`` (default ``"cuda"``) and raises if that device is CUDA and no
+CUDA device is available: nothing falls back to the CPU silently.
 """
 
 from __future__ import annotations
@@ -23,18 +32,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import assemble, pcg as pcg_mod, recover
+from . import assemble, direct, pcg as pcg_mod, recover
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes, interleave_dz
+from .kernels import direct_fused, thomas_batch
 from .kernels import fused_solve as fused_kernel
 from .kernels import pcg_kernel
 from .problem import ProblemSpec, SolverOptions
 
 VALID_PCG_BACKENDS = ("torch", "pcg_kernel", "fused")
 KERNEL_BACKENDS = ("pcg_kernel", "fused")
-DIRECT_NOT_PORTED = (
-    "method='direct' is not in gato_tpu_torch yet: it comes with ROADMAP.md "
-    "queue 1 item 9 (direct.py and method='direct' in the solver); use "
-    "method='pcg' or gato_tpu")
 
 
 class SolveResult(NamedTuple):
@@ -86,8 +92,6 @@ def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
                      device) -> str:
     """Validate an explicit backend choice, or auto-select.  Requests that
     cannot be honoured raise instead of degrading."""
-    if options.method == "direct":
-        raise NotImplementedError(DIRECT_NOT_PORTED)
     if pcg_backend is None:
         return default_pcg_backend(device, options.dtype)
     if pcg_backend not in VALID_PCG_BACKENDS:
@@ -98,12 +102,46 @@ def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
         raise ValueError(
             f"pcg_backend={pcg_backend!r} runs float32-only CUDA kernels; "
             f"dtype={options.dtype!r} needs pcg_backend None (auto) or 'torch'")
+    if pcg_backend == "pcg_kernel" and options.method == "direct":
+        raise NotImplementedError(
+            "pcg_backend='pcg_kernel' with method='direct' is gato_tpu's "
+            "'pallas' direct route, " + direct_fused.LONG_K_DIRECT + "; use "
+            "pcg_backend None, 'fused' or 'torch'")
     return pcg_backend
+
+
+def _direct_torch(b: KKTBlocks, rho: float) -> SolveResult:
+    """method='direct' on the 'torch' backend: condense, block Thomas, the
+    true residual, recover (gato_tpu.solver._direct_result)."""
+    sys = assemble.condense(*b, rho, None)
+    lam = direct.btd_solve_auto(sys.S, sys.gamma)
+    eta, gamma_sq = direct.residual_norms(sys.S, sys.gamma, lam)
+    dz_x, dz_u = recover.recover_dz(sys.Qinv, sys.Rinv, b.A, b.B, b.q, b.r, lam)
+    iters = torch.zeros(eta.shape, dtype=torch.int32, device=eta.device)
+    return SolveResult(lam, dz_x, dz_u, iters,
+                       direct.residual_converged(eta, gamma_sq), eta)
+
+
+def _direct_kernels(b: KKTBlocks, rho: float) -> SolveResult:
+    """method='direct' on the 'fused' backend: the block-Thomas pair from
+    B >= 16 (thomas_batch.should_dispatch), else the cyclic-reduction
+    kernel, whose wrapper raises NotImplementedError past its shared
+    memory.  On CPU tensors the wrappers run their plain versions."""
+    Bn, K, s, _ = b.Q.shape
+    if thomas_batch.should_dispatch(Bn, K, s, b.R.shape[-1]):
+        res, dz_x, dz_u = thomas_batch.solve_direct_thomas_cuda(*b, rho=rho)
+    else:
+        res, dz_x, dz_u = direct_fused.direct_fused_cuda(*b, rho=rho)
+    return SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
 
 
 def _solve_core(b: KKTBlocks, lam0: torch.Tensor, options: SolverOptions,
                 backend: str) -> SolveResult:
     """The batched solve on staged tensors (one leading batch axis)."""
+    if options.method == "direct":
+        if backend == "fused":
+            return _direct_kernels(b, options.rho)
+        return _direct_torch(b, options.rho)
     kw = dict(exit_tol=options.exit_tol, max_iters=options.max_iters,
               poly_degree=options.precond_poly_degree)
     if backend == "fused":
@@ -150,7 +188,7 @@ def solve(
       blocks: KKTBlocks of NumPy arrays or tensors (formats.pack_kkt).
       options: runtime solver options.
       lam0: optional (K, s) warm-start multipliers, used only when
-        ``options.warm_start``.
+        ``options.warm_start`` (and not by ``method='direct'``).
       pcg_backend: 'torch' | 'pcg_kernel' | 'fused' | None (auto).
       device: where to solve; default "cuda".
     """

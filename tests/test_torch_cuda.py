@@ -16,9 +16,11 @@ import torch
 import gato_tpu_torch as gt
 from gato_tpu_torch import assemble
 from gato_tpu_torch import testing as tt
+from gato_tpu_torch.kernels import direct_fused as kd
 from gato_tpu_torch.kernels import fused_sequence as ks
 from gato_tpu_torch.kernels import fused_solve as kb
 from gato_tpu_torch.kernels import pcg_kernel as ka
+from gato_tpu_torch.kernels import thomas_batch as kt
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +211,130 @@ def test_fused_routes_refuse_a_horizon_past_shared_memory(dev):
         gt.solve_sequence_batched(spec, farm)
     with pytest.raises(ValueError, match="queue 2 rows 7-10 and 13"):
         gt.solve_packed(gt.pack(spec, gt.KKTBlocks(*(a[0] for a in farm))))
+
+
+# K = 2 is the shortest horizon (one cyclic-reduction level); s = 20 takes
+# the forward walk's block-wide Gauss-Jordan, s <= 16 its warp one.
+DIRECT_SHAPES = [(3, 2, 2), (2, 1, 5), (3, 2, 7), (4, 2, 8), (6, 3, 9),
+                 (14, 7, 50), (20, 9, 37)]
+
+
+def _direct_outcome(got, ref, gamma):
+    """Exact solves: converged equal, iters 0, and eta (a squared residual
+    at round-off level) equal within 1e-10 (1 + ||gamma||^2): a relative
+    residual of 1e-5, float32 round-off for these systems."""
+    assert got.converged.tolist() == ref.converged.tolist()
+    assert got.iters.tolist() == [0] * len(got.iters)
+    e, r = got.eta.double().cpu().numpy(), ref.eta.double().cpu().numpy()
+    g2 = (gamma.double() ** 2).sum(dim=(-2, -1)).cpu().numpy()
+    assert np.all(np.abs(e - r) <= 1e-10 * (1 + g2)), (e, r, g2)
+
+
+@pytest.mark.parametrize("sizes", DIRECT_SHAPES)
+@pytest.mark.parametrize("B", [1, 15])
+def test_direct_fused_kernel_matches_plain(dev, sizes, B):
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=21), dev)
+    before = kd.LAUNCHES
+    got, gx, gu = kd.direct_fused_cuda(*b, rho=1e-3)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == before + 1
+    ref, rx, ru = kd.direct_fused_plain(*b, rho=1e-3)
+    _direct_outcome(got, ref, assemble.condense(*b, 1e-3, None).gamma)
+    assert bool(got.converged.all())
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("sizes", DIRECT_SHAPES)
+@pytest.mark.parametrize("B", [16, 40])
+def test_thomas_kernels_match_plain(dev, sizes, B):
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=22), dev)
+    before = (kt.FWD_LAUNCHES, kt.REV_LAUNCHES)
+    fk = kt.thomas_fwd_cuda(*b, rho=1e-3)
+    got, gx, gu = kt.thomas_rev_cuda(fk, b.q, b.A, b.B, b.r)
+    torch.cuda.synchronize()
+    assert (kt.FWD_LAUNCHES, kt.REV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    fp = kt.thomas_fwd_plain(*b, rho=1e-3)
+    for name, x, y in zip(kt.ThomasFactors._fields, fk, fp):
+        _close(x, y)
+    ref, rx, ru = kt.thomas_rev_plain(fp, b.q, b.A, b.B, b.r)
+    _direct_outcome(got, ref, fp.gamma)
+    assert bool(got.converged.all())
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+    # the reverse kernel on the plain stacks: the same back-substitution
+    again, _, _ = kt.thomas_rev_cuda(fp, b.q, b.A, b.B, b.r)
+    _close(again.lam, ref.lam)
+
+
+def test_direct_kernels_singular_contracts(dev):
+    """One exactly singular problem among healthy ones: row 4 reports it
+    finite with eta = 1e30, rows 5-6 non-finite; the others are untouched
+    and converge in both."""
+    spec = gt.ProblemSpec(4, 2, 8)
+    good = [tt.random_blocks(spec, seed=s) for s in range(1, 17)]
+    mix = tt.stack_blocks(good[:1] + [tt.singular_blocks(spec, seed=3, knot=2)]
+                          + good[1:])
+    b = gt.blocks_to_torch(mix, dev)
+    row4, dx4, du4 = kd.direct_fused_cuda(*b, rho=0.0)
+    assert row4.converged.tolist() == [True, False] + [True] * 15
+    assert float(row4.eta[1]) >= 1e30
+    for t in (row4.lam, dx4, du4):
+        assert bool(torch.isfinite(t).all())
+    thom, dxt, dut = kt.solve_direct_thomas_cuda(*b, rho=0.0)
+    assert thom.converged.tolist() == [True, False] + [True] * 15
+    assert not bool(torch.isfinite(thom.eta[1]))
+    for t in (thom.lam, dxt, dut):
+        assert not bool(torch.isfinite(t[1]).all())
+    keep = [0] + list(range(2, 17))
+    alone, ax, au = kt.solve_direct_thomas_cuda(*(a[keep] for a in b), rho=0.0)
+    for x, y in ((thom.lam[keep], alone.lam), (dxt[keep], ax), (dut[keep], au)):
+        assert torch.equal(x, y)
+
+
+def test_direct_entry_points_launch_the_kernels(dev):
+    spec = gt.ProblemSpec(6, 3, 12)
+    opts = gt.SolverOptions(rho=1e-3, method="direct")
+    one = tt.random_blocks(spec, seed=5)
+    before = kd.LAUNCHES
+    got = gt.solve(spec, one, opts)
+    assert kd.LAUNCHES == before + 1
+    ref = gt.solve(spec, one, opts, pcg_backend="torch")
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(got, name), getattr(ref, name))
+    assert bool(got.converged) and int(got.iters) == 0
+    batch = tt.random_batch(spec, 20, seed0=60)
+    before = (kd.LAUNCHES, kt.FWD_LAUNCHES, kt.REV_LAUNCHES)
+    small = gt.solve_batched(spec, tt.stack_blocks([one] * 8), opts)
+    wide = gt.solve_batched(spec, batch, opts)
+    assert (kd.LAUNCHES, kt.FWD_LAUNCHES, kt.REV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert bool(small.converged.all()) and bool(wide.converged.all())
+    ref = gt.solve_batched(spec, batch, opts, pcg_backend="torch")
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(wide, name), getattr(ref, name))
+    farm = tt.random_farm(spec, 4, 5, seed0=70)
+    rhos = [1e-3, 2e-3, 1e-3, 2e-3]
+    before = kt.FWD_LAUNCHES
+    seq = gt.solve_sequence_batched(spec, farm, opts, rhos=rhos)
+    assert kt.FWD_LAUNCHES == before + 1
+    for t in range(4):
+        step = gt.solve_batched(spec, gt.KKTBlocks(*(a[t] for a in farm)),
+                                gt.SolverOptions(rho=rhos[t], method="direct"),
+                                pcg_backend="torch")
+        _close(seq.lam[t], step.lam)
+    before = (kd.LAUNCHES, kt.FWD_LAUNCHES)
+    for tier in ("cr", "thomas"):
+        packed = gt.pack(spec, batch, method="direct", tier=tier)
+        res = gt.solve_packed(packed, opts).unpack()
+        _close(res.lam, ref.lam)
+    assert (kd.LAUNCHES, kt.FWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+def test_direct_refuses_a_horizon_past_shared_memory(dev):
+    spec = gt.ProblemSpec(14, 7, 1000)
+    one = tt.random_blocks(spec, seed=0)
+    with pytest.raises(NotImplementedError, match="rows 7, 11, 12 and 13"):
+        gt.solve(spec, one, gt.SolverOptions(method="direct"))

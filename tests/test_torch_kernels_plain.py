@@ -1,9 +1,13 @@
 """The CUDA kernel wrappers' plain paths (taken for CPU tensors) against
 gato_tpu's Pallas kernels in interpret mode and its pure-JAX path.
 
-The interpret-mode calls are few (four) and at the pendulum shape (2, 1, 5):
-they compile slowly on the CPU.  Tolerances: 1e-4 (rtol and atol) in
-float32; iteration counts and converged flags equal exactly.
+The PCG interpret-mode calls are few (four) and at the pendulum shape
+(2, 1, 5): they compile slowly on the CPU.  Tolerances: 1e-4 (rtol and
+atol) in float32; iteration counts and converged flags equal exactly.  The
+cyclic-reduction kernel's plain version (row 4) is held against
+gato_tpu.kernels.direct_fused.solve_direct_fused_batched (interpret mode
+off the TPU) at (s, c, K) = (3, 2, 7), (4, 2, 8), (6, 3, 9): rtol 1e-4,
+atol 1e-5 of scale (tests/test_direct_fused.py:102-104), converged equal.
 """
 
 import jax.numpy as jnp
@@ -12,6 +16,7 @@ import pytest
 import torch
 
 import gato_tpu
+from gato_tpu.kernels import direct_fused as jdf
 from gato_tpu.kernels import fused_solve as jfs
 from gato_tpu.kernels import pcg_pallas as jpp
 
@@ -19,8 +24,10 @@ import gato_tpu_torch as gt
 from gato_tpu_torch import assemble
 from gato_tpu_torch import testing as tt
 from gato_tpu_torch.kernels import _build
+from gato_tpu_torch.kernels import direct_fused as kd
 from gato_tpu_torch.kernels import fused_solve as kb
 from gato_tpu_torch.kernels import pcg_kernel as ka
+from gato_tpu_torch.kernels import thomas_batch as kt
 
 torch.set_num_threads(1)
 
@@ -148,3 +155,65 @@ def test_build_is_keyed_by_source_hash():
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def _close_scaled(ours, ref, rtol=1e-4, atol=1e-5):
+    ours = ours.detach().numpy().astype(np.float64)
+    ref = np.asarray(ref, np.float64)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    np.testing.assert_allclose(ours, ref, rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 7), (4, 2, 8), (6, 3, 9)])
+def test_direct_fused_plain_matches_pallas_interpret(shape):
+    spec = gt.ProblemSpec(*shape)
+    b = tt.random_batch(spec, 3, seed0=11)
+    ours, dx, du = kd.direct_fused_cuda(*gt.blocks_to_torch(b, "cpu"), rho=1e-3)
+    ref, rx, ru = jdf.solve_direct_fused_batched(*(jnp.asarray(a) for a in b),
+                                                 rho=1e-3)
+    _same_outcome(ours, ref)
+    assert ours.converged.tolist() == [True] * 3 and ours.iters.tolist() == [0] * 3
+    for x, y in ((ours.lam, ref.lam), (dx, rx), (du, ru)):
+        _close_scaled(x, y)
+    # eta is the squared true residual of an exact solve: round-off on both
+    # sides, against ||gamma||^2 of order 1e2 here.
+    assert float(ours.eta.max()) < 1e-6 and float(np.max(ref.eta)) < 1e-6
+
+
+def test_direct_fused_plain_singular_matches_pallas_interpret():
+    """An exactly singular problem among healthy ones: it alone reports
+    False, with eta >= 1e30 and every output finite, on both sides."""
+    spec = gt.ProblemSpec(3, 2, 7)
+    mix = tt.stack_blocks([tt.random_blocks(spec, seed=1),
+                           tt.singular_blocks(spec, seed=3, knot=2),
+                           tt.random_blocks(spec, seed=2)])
+    ours, dx, du = kd.direct_fused_cuda(*gt.blocks_to_torch(mix, "cpu"), rho=0.0)
+    ref, rx, ru = jdf.solve_direct_fused_batched(*(jnp.asarray(a) for a in mix),
+                                                 rho=0.0)
+    _same_outcome(ours, ref)
+    assert ours.converged.tolist() == [True, False, True]
+    assert float(ours.eta[1]) >= 1e30 and float(np.asarray(ref.eta)[1]) >= 1e30
+    for t in (ours.lam, dx, du):
+        assert bool(torch.isfinite(t).all())
+    for x, y in ((ours.lam, ref.lam), (dx, rx), (du, ru)):
+        _close_scaled(x[[0, 2]], np.asarray(y)[[0, 2]])
+
+
+def test_direct_wrappers_on_cpu_launch_nothing():
+    before = (kd.LAUNCHES, kt.FWD_LAUNCHES, kt.REV_LAUNCHES)
+    b = gt.blocks_to_torch(tt.random_batch(PEND, 2), "cpu")
+    res, dx, du = kd.direct_fused_cuda(*b, rho=1e-3)
+    f = kt.thomas_fwd_cuda(*b, rho=1e-3)
+    rt, tx, tu = kt.thomas_rev_cuda(f, b.q, b.A, b.B, b.r)
+    assert (kd.LAUNCHES, kt.FWD_LAUNCHES, kt.REV_LAUNCHES) == before
+    assert _build.library.cache_info().currsize == 0  # nothing built
+    _close(rt.lam, res.lam.numpy())
+    assert res.iters.tolist() == rt.iters.tolist() == [0, 0]
+    meta = gt.blocks_to_torch(tt.random_batch(PEND, 1), "meta")
+    with pytest.raises(ValueError, match="neither CPU nor CUDA"):
+        kd.direct_fused_cuda(*meta)
+    assert kd.REPLACES == "gato_tpu/kernels/direct_fused.py:350"
+    assert (kt.FWD_REPLACES, kt.REV_REPLACES) == (
+        "gato_tpu/kernels/thomas_batch.py:306", "gato_tpu/kernels/thomas_batch.py:429")
+    for name in ("direct_fused.cu", "thomas_batch.cu", "condense.cuh"):
+        assert name in _build.SOURCES + _build.HEADERS

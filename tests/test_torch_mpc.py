@@ -56,6 +56,14 @@ def _same_result(ours, ref, exit_tol, tol=1e-4):
         _close(getattr(ours, name), getattr(ref, name), tol)
 
 
+def _same_direct(ours, ref, tol=1e-4):
+    """Exact solves: iters 0, converged equal, lambda and dz within tol."""
+    assert not _np(ours.iters).any() and not np.asarray(ref.iters).any()
+    np.testing.assert_array_equal(_np(ours.converged), _np(ref.converged))
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(ours, name), getattr(ref, name), tol)
+
+
 def _stack_steps(steps, axis=0):
     return gt.KKTBlocks(*(np.stack([np.asarray(s[f]) for s in steps], axis=axis)
                           for f in range(7)))
@@ -189,6 +197,85 @@ def test_sequence_float64_matches_gato_tpu():
             _close(getattr(ours, name), getattr(ref, name), 1e-10)
 
 
+@pytest.mark.parametrize("backend", ["torch", "fused"])
+def test_sequence_batched_direct_matches_per_step_batches(backend):
+    """The exact farm (method='direct', tests/test_mpc.py:106-143): a (T, B)
+    sequence equals the T per-step solve_batched(method='direct') calls,
+    per-step rhos included (folded into the Q and R diagonals before one
+    batched call), and gato_tpu's farm.  On the CPU 'fused' runs the
+    kernels' plain versions: T*B = 12 problems take row 4's."""
+    spec = gt.ProblemSpec(4, 2, 12)
+    T, Bn = 3, 4
+    steps = [[tt.random_blocks(spec, seed=900 + 10 * t + b) for b in range(Bn)]
+             for t in range(T)]
+    seq = gt.KKTBlocks(*(np.stack([np.stack([np.asarray(steps[t][b][f])
+                                             for b in range(Bn)])
+                                   for t in range(T)]) for f in range(7)))
+    rhos = np.array([1e-2, 5e-2, 1e-3], dtype=np.float32)
+    res = gt.solve_sequence_batched(spec, seq, gt.SolverOptions(method="direct"),
+                                    rhos=rhos, pcg_backend=backend, device="cpu")
+    assert tuple(res.lam.shape) == (T, Bn, 12, 4)
+    assert bool(res.converged.all()) and not res.iters.any()
+    for t in range(T):
+        ref = gt.solve_batched(spec, gt.KKTBlocks(*(a[t] for a in seq)),
+                               gt.SolverOptions(method="direct", rho=float(rhos[t])),
+                               pcg_backend="torch", device="cpu")
+        for name in ("lam", "dz_u"):
+            np.testing.assert_allclose(getattr(res, name)[t].numpy(),
+                                       getattr(ref, name).numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=f"t={t}")
+    jref = jmpc.solve_sequence_batched(_jspec(spec), _jblocks(seq),
+                                       gato_tpu.SolverOptions(method="direct"),
+                                       rhos=jnp.asarray(rhos))
+    _same_direct(res, jref)
+
+
+def test_sequence_direct_single_stream_matches_per_step():
+    """solve_sequence(method='direct') (tests/test_mpc.py:146-160): T
+    independent exact solves run as one batch over the T axis, equal to
+    per-step solve(method='direct') and to gato_tpu; lam0 is ignored."""
+    spec = gt.ProblemSpec(3, 2, 8)
+    T = 4
+    steps = [tt.random_blocks(spec, seed=700 + t) for t in range(T)]
+    seq = _stack_steps(steps)
+    opts = gt.SolverOptions(method="direct", rho=1e-2)
+    lam0 = np.ones((8, 3), np.float32)
+    res = gt.solve_sequence(spec, seq, opts, lam0=lam0, device="cpu")
+    assert tuple(res.lam.shape) == (T, 8, 3)
+    for t in range(T):
+        ref = gt.solve(spec, steps[t], opts, device="cpu")
+        np.testing.assert_allclose(res.lam[t].numpy(), ref.lam.numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=f"t={t}")
+    jref = jmpc.solve_sequence(_jspec(spec), _jblocks(seq),
+                               gato_tpu.SolverOptions(method="direct", rho=1e-2))
+    _same_direct(res, jref)
+
+
+def test_direct_farm_float64_and_thomas_width_match_gato_tpu():
+    """A farm of T*B = 16 problems takes the block-Thomas pair's plain
+    versions on the 'fused' route; float64 runs the 'torch' backend.  Both
+    against gato_tpu's exact farm."""
+    spec = gt.ProblemSpec(3, 2, 7)
+    farm = tt.random_farm(spec, 4, 4, seed0=80)
+    rhos = np.array([1e-3, 2e-3, 1e-3, 2e-3], np.float32)
+    res = gt.solve_sequence_batched(spec, farm, gt.SolverOptions(method="direct"),
+                                    rhos=rhos, pcg_backend="fused", device="cpu")
+    jref = jmpc.solve_sequence_batched(_jspec(spec), _jblocks(farm),
+                                       gato_tpu.SolverOptions(method="direct"),
+                                       rhos=jnp.asarray(rhos))
+    _same_direct(res, jref)
+    f64 = gt.KKTBlocks(*(np.asarray(a, np.float64) for a in farm))
+    kw = dict(method="direct", dtype="float64")
+    ours = gt.solve_sequence_batched(spec, f64, gt.SolverOptions(**kw),
+                                     rhos=rhos.astype(np.float64), device="cpu")
+    assert ours.lam.dtype == torch.float64
+    with jax.enable_x64(True):
+        ref = jmpc.solve_sequence_batched(_jspec(spec), _jblocks(f64),
+                                          gato_tpu.SolverOptions(**kw),
+                                          rhos=jnp.asarray(rhos, jnp.float64))
+        _same_direct(ours, ref, tol=1e-10)
+
+
 def test_singular_step_is_frozen_alone():
     """An exactly singular step (rho = 0) in the middle of one stream: only
     that (t, b) is frozen, it hands its lambda_0 on unchanged, and the
@@ -237,11 +324,15 @@ def test_sequence_errors():
     spec = gt.ProblemSpec(2, 1, 5)
     farm = tt.random_farm(spec, 2, 3, seed0=2)
     single = gt.KKTBlocks(*(a[:, 0] for a in farm))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        gt.solve_sequence_batched(spec, farm, gt.SolverOptions(method="direct"),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        gt.solve_sequence(spec, single, gt.SolverOptions(method="direct"),
+    # method='direct' is the exact farm, as in gato_tpu (no longer an error).
+    direct = gt.SolverOptions(method="direct", rho=1e-3)
+    jdirect = gato_tpu.SolverOptions(method="direct", rho=1e-3)
+    _same_direct(gt.solve_sequence_batched(spec, farm, direct, device="cpu"),
+                 jmpc.solve_sequence_batched(_jspec(spec), _jblocks(farm), jdirect))
+    _same_direct(gt.solve_sequence(spec, single, direct, device="cpu"),
+                 jmpc.solve_sequence(_jspec(spec), _jblocks(single), jdirect))
+    with pytest.raises(NotImplementedError, match="rows 7, 11, 12 and 13"):
+        gt.solve_sequence(spec, single, direct, pcg_backend="pcg_kernel",
                           device="cpu")
     with pytest.raises(ValueError, match="unknown pcg_backend"):
         gt.solve_sequence_batched(spec, farm, pcg_backend="nope", device="cpu")

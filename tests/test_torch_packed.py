@@ -22,6 +22,7 @@ from gato_tpu import packed as jpk
 import gato_tpu_torch as gt
 from gato_tpu_torch import packed as pk
 from gato_tpu_torch import testing as tt
+from gato_tpu_torch.kernels import thomas_batch as kt
 from gato_tpu_torch.problem import Preconditioner
 
 torch.set_num_threads(1)
@@ -134,6 +135,57 @@ def test_packed_warm_start_carry():
     _matches_gato_tpu(again.unpack(), jagain.unpack())
 
 
+@pytest.mark.parametrize("tier", [None, "cr", "thomas"])
+def test_packed_direct_tiers_match_gato_tpu(tier):
+    """pack(method='direct', tier=...) -> solve_packed -> update_vectors ->
+    solve_packed against gato_tpu's packed exact solve and against
+    solve_batched; the tier decides the kernel (its plain version here):
+    auto picks 'cr' below B = 16 and 'thomas' from it."""
+    jopts = dataclasses.replace(JOPTS, method="direct")
+    opts = dataclasses.replace(OPTS, method="direct")
+    for n in (3, 16):
+        bb = tt.random_batch(SPEC, n, seed0=400)
+        bb2 = tt.random_batch(SPEC, n, seed0=500)
+        packed = pk.pack(SPEC, bb, method="direct", tier=tier, device="cpu")
+        want = tier or ("thomas" if n >= 16 else "cr")
+        assert packed.plan.tier == want and packed.plan.method == "direct"
+        res = pk.solve_packed(packed, opts).unpack()
+        jp = jpk.pack(JSPEC, _jblocks(bb), method="direct", tier=tier)
+        _matches_gato_tpu(res, jpk.solve_packed(jp, jopts).unpack())
+        assert bool(res.converged.all()) and not res.iters.any()
+        if want == ("thomas" if n >= 16 else "cr"):
+            _same(res, gt.solve_batched(SPEC, bb, opts, pcg_backend="fused",
+                                        device="cpu"))
+        refreshed = pk.update_vectors(packed, bb2.q, bb2.r, bb2.c)
+        res2 = pk.solve_packed(refreshed, opts).unpack()
+        jr = jpk.update_vectors(jp, jnp.asarray(bb2.q), jnp.asarray(bb2.r),
+                                jnp.asarray(bb2.c))
+        _matches_gato_tpu(res2, jpk.solve_packed(jr, jopts).unpack())
+
+
+def test_packed_direct_single_problem_and_budget(monkeypatch):
+    one = tt.random_blocks(SPEC, seed=41)
+    opts = dataclasses.replace(OPTS, method="direct")
+    packed = pk.pack(SPEC, one, method="direct", device="cpu")
+    assert packed.plan.tier == "cr" and not packed.plan.batched
+    res = pk.solve_packed(packed, opts).unpack()
+    assert res.iters.ndim == 0 and int(res.iters) == 0
+    _same(res, gt.solve(SPEC, one, opts, pcg_backend="fused", device="cpu"))
+    ref = gato_tpu.solve(JSPEC, _jblocks(one),
+                         dataclasses.replace(JOPTS, method="direct"),
+                         pcg_backend="jax")
+    _matches_gato_tpu(res, ref)
+    # A pack made for 'direct' serves 'pcg' too (kernel B on the same tensors).
+    _same(pk.solve_packed(packed, OPTS).unpack(),
+          gt.solve(SPEC, one, OPTS, pcg_backend="fused", device="cpu"))
+    # A forced 'thomas' past the factor-stack budget raises; auto falls to 'cr'.
+    bb = tt.random_batch(SPEC, 16, seed0=600)
+    monkeypatch.setattr(kt, "FACTOR_BUDGET_BYTES", kt.factor_bytes(15, 10, 3, 2))
+    with pytest.raises(ValueError, match="tier='thomas' was requested"):
+        pk.pack(SPEC, bb, method="direct", tier="thomas", device="cpu")
+    assert pk.pack(SPEC, bb, method="direct", device="cpu").plan.tier == "cr"
+
+
 def test_packed_sequence_matches_gato_tpu_and_mpc():
     seq = _seq_stack(T=4, B=3, seed0=20)
     res = pk.solve_packed_sequence(pk.pack_sequence(SPEC, seq, device="cpu"),
@@ -174,10 +226,18 @@ def test_packed_validation():
         pk.solve_packed(packed, dataclasses.replace(OPTS, dtype="float64"))
     with pytest.raises(ValueError, match="unknown method"):
         pk.pack(SPEC, bb, method="thomas", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pk.pack(SPEC, bb, method="direct", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pk.solve_packed(packed, dataclasses.replace(OPTS, method="direct"))
+    # method='direct' packs and solves (gato_tpu's exact packed solve), from a
+    # 'direct' pack and from a 'pcg' one (the layout is the same).
+    direct = dataclasses.replace(OPTS, method="direct")
+    jref = jpk.solve_packed(jpk.pack(JSPEC, _jblocks(bb), method="direct"),
+                            dataclasses.replace(JOPTS, method="direct")).unpack()
+    _matches_gato_tpu(pk.solve_packed(pk.pack(SPEC, bb, method="direct",
+                                              device="cpu"), direct).unpack(), jref)
+    _matches_gato_tpu(pk.solve_packed(packed, direct).unpack(), jref)
+    with pytest.raises(ValueError, match="explicit tiers exist for method='direct'"):
+        pk.pack(SPEC, bb, tier="cr", device="cpu")
+    with pytest.raises(ValueError, match="explicit tiers exist"):
+        pk.pack(SPEC, bb, method="direct", tier="longk", device="cpu")
     with pytest.raises(ValueError, match="float32-only"):
         pk.pack(SPEC, bb._replace(Q=bb.Q.astype(np.float64)), device="cpu")
     with pytest.raises(ValueError, match="does not match"):

@@ -159,11 +159,89 @@ def test_backend_resolution():
     with pytest.raises(ValueError, match="unknown pcg_backend"):
         solver._resolve_backend("pallas", opts, "cpu")
     spec = gt.ProblemSpec(2, 1, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.solve(spec, tt.random_blocks(spec), gt.SolverOptions(method="direct"),
-                 device="cpu")
+    # method='direct' resolves like 'pcg' and matches gato_tpu's exact solve;
+    # only gato_tpu's long-K direct route ('pallas' there) raises.
+    direct = gt.SolverOptions(method="direct", rho=1e-3)
+    assert solver._resolve_backend(None, direct, "cpu") == "torch"
+    assert solver._resolve_backend(None, direct, "cuda") == "fused"
+    with pytest.raises(NotImplementedError, match="rows 7, 11, 12 and 13"):
+        solver._resolve_backend("pcg_kernel", direct, "cpu")
+    blocks = tt.random_blocks(spec)
+    ours = gt.solve(spec, blocks, direct, device="cpu")
+    ref = gato_tpu.solve(gato_tpu.ProblemSpec(2, 1, 5), gato_tpu.KKTBlocks(*blocks),
+                         gato_tpu.SolverOptions(method="direct", rho=1e-3),
+                         pcg_backend="jax")
+    assert int(ours.iters) == int(ref.iters) == 0
+    assert bool(ours.converged) == bool(ref.converged) is True
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(ours, name), getattr(ref, name))
     with pytest.raises(ValueError, match="leading batch axis"):
         gt.solve_batched(spec, tt.random_blocks(spec), device="cpu")
+
+
+DIRECT_SHAPES = [(3, 2, 7), (4, 2, 8), (6, 3, 9)]
+
+
+def _scaled(ours, ref, tol):
+    ours = ours.detach().numpy().astype(np.float64)
+    ref = np.asarray(ref, np.float64)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    np.testing.assert_allclose(ours, ref, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("shape", DIRECT_SHAPES)
+@pytest.mark.parametrize("backend", ["torch", "fused"])
+def test_direct_matches_gato_tpu(shape, backend):
+    """solve and solve_batched with method='direct' against gato_tpu's
+    exact solve (its 'jax' path: condense + block Thomas).  On CPU tensors
+    'fused' runs the kernels' plain versions: row 4 below B = 16, the
+    block-Thomas pair from B = 16 (thomas_batch.should_dispatch)."""
+    spec = gt.ProblemSpec(*shape)
+    jspec = gato_tpu.ProblemSpec(*shape)
+    opts = dict(rho=1e-3, method="direct")
+    one = tt.random_blocks(spec, seed=9)
+    ours = gt.solve(spec, one, gt.SolverOptions(**opts), pcg_backend=backend,
+                    device="cpu")
+    ref = gato_tpu.solve(jspec, gato_tpu.KKTBlocks(*one),
+                         gato_tpu.SolverOptions(**opts), pcg_backend="jax")
+    assert int(ours.iters) == 0 and bool(ours.converged) == bool(ref.converged)
+    for name in ("lam", "dz_x", "dz_u"):
+        _scaled(getattr(ours, name), getattr(ref, name), 1e-4)
+    for n in (3, 16):
+        batch = tt.random_batch(spec, n, seed0=200)
+        ours = gt.solve_batched(spec, batch, gt.SolverOptions(**opts),
+                                pcg_backend=backend, device="cpu")
+        ref = gato_tpu.solve_batched(jspec, gato_tpu.KKTBlocks(*batch),
+                                     gato_tpu.SolverOptions(**opts),
+                                     pcg_backend="jax")
+        assert ours.iters.tolist() == [0] * n
+        assert ours.converged.tolist() == np.asarray(ref.converged).tolist()
+        for name in ("lam", "dz_x", "dz_u"):
+            _scaled(getattr(ours, name), getattr(ref, name), 1e-4)
+        assert float(ours.eta.max()) < 1e-6
+
+
+def test_direct_batched_float64_matches_gato_tpu():
+    import jax
+
+    spec = gt.ProblemSpec(4, 2, 8)
+    batch = tt.random_batch(spec, 3, seed0=300, dtype=np.float64)
+    opts = dict(rho=1e-3, method="direct", dtype="float64")
+    ours = gt.solve_batched(spec, batch, gt.SolverOptions(**opts), device="cpu")
+    assert ours.lam.dtype == torch.float64
+    with jax.enable_x64(True):
+        ref = gato_tpu.solve_batched(gato_tpu.ProblemSpec(4, 2, 8),
+                                     gato_tpu.KKTBlocks(*batch),
+                                     gato_tpu.SolverOptions(**opts),
+                                     pcg_backend="jax")
+        assert ours.converged.tolist() == np.asarray(ref.converged).tolist()
+        for name in ("lam", "dz_x", "dz_u"):
+            _scaled(getattr(ours, name), getattr(ref, name), 1e-10)
+        np.testing.assert_allclose(ours.eta.numpy(), np.asarray(ref.eta),
+                                   rtol=0, atol=1e-20)
+    with pytest.raises(ValueError, match="float32-only"):
+        gt.solve_batched(spec, batch, gt.SolverOptions(**opts), pcg_backend="fused",
+                         device="cpu")
 
 
 def test_import_pulls_in_no_jax():
@@ -173,7 +251,8 @@ def test_import_pulls_in_no_jax():
         " gato_tpu_torch.testing, gato_tpu_torch.kernels._build,"
         " gato_tpu_torch.kernels.pcg_kernel, gato_tpu_torch.kernels.fused_solve,"
         " gato_tpu_torch.kernels.fused_sequence, gato_tpu_torch.mpc,"
-        " gato_tpu_torch.packed;"
+        " gato_tpu_torch.packed, gato_tpu_torch.direct,"
+        " gato_tpu_torch.kernels.direct_fused, gato_tpu_torch.kernels.thomas_batch;"
         " bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('gato_tpu') and not m.startswith('gato_tpu_torch')];"
         " assert not bad, bad; print('ok')")
