@@ -44,7 +44,23 @@ Phases, each of which raises on failure (exit code not 0):
    the time of one PyTorch library call computing the same function;
 5c. the same for the exact-solve kernels at B=1 and B=256, the forward and
    reverse kernels' own times, and the per-solve time of row 4 and of the
-   Thomas pair at B=1, 4, 16, 64, 256 (their crossover on this card).
+   Thomas pair at B=1, 4, 16, 64, 256 (their crossover on this card);
+3d. the long-horizon PCG kernels (rows 7, 8/10, 9 and 13) against their
+   plain versions at IIWA widths: K=1024 at B=1 and B=16 with every
+   preconditioner (scalar Jacobi over 10 iterations) and poly degree 2,
+   K=2048 and K=8192 at B=1, a warm start, and one exactly singular
+   problem among healthy ones through both routes;
+4d. the long-horizon main path: solve at K=1024 and K=8192, solve_batched
+   at B=16, K=2048, solve_sequence_batched (B=4, T=8, K=1024) and
+   solve_sequence (its stream 0), pack /
+   solve_packed and pack_sequence / solve_packed_sequence at K=1024,
+   linsys_solve at K=1024 against the float64 dense KKT solve on the card,
+   the route the auto tier does not take through
+   longk.solve_longk_batched(force_tier=...), with each route's launch
+   counts;
+5d. the long-horizon kernels' times at K=1024, 2048, 4096, 8192 and B=1,
+   16 beside their bounds, their plain versions and (K=1024) the dense
+   Schur solve, and the two routes' times (the tier crossover).
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -53,6 +69,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -73,6 +90,7 @@ from gato_tpu_torch.kernels import _build  # noqa: E402
 from gato_tpu_torch.kernels import direct_fused as kd  # noqa: E402
 from gato_tpu_torch.kernels import fused_sequence as ks  # noqa: E402
 from gato_tpu_torch.kernels import fused_solve as kb  # noqa: E402
+from gato_tpu_torch.kernels import longk as kl  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
 from gato_tpu_torch.kernels import thomas_batch as kt  # noqa: E402
 
@@ -99,7 +117,8 @@ F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
-           kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0}
+           kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kl.CONDENSE_NAME: 0.0,
+           kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0}
 # An exact solve's eta is a squared residual at round-off level: kernel and
 # plain version agree when |eta_k - eta_p| <= ETA_REL (1 + ||gamma||^2), a
 # relative residual of 1e-5, float32 round-off for these systems.
@@ -1210,6 +1229,496 @@ def phase_sequence_times(card: str):
     return times
 
 
+# ---------------------------------------------------------------------------
+# The long-horizon PCG tier (rows 7, 8/10, 9 and 13: kernels/longk.py)
+# ---------------------------------------------------------------------------
+
+LONGK_K = (1024, 2048, 4096, 8192)
+LONGK_B = (1, 16)
+OPS_FIELDS = ("S", "Pinv", "gamma", "Qinv", "Rinv")
+
+
+def longk_spec(K: int) -> gt.ProblemSpec:
+    return gt.ProblemSpec(IIWA.state_size, IIWA.control_size, K)
+
+
+def longk_batch(K: int, n: int, seed0: int) -> gt.KKTBlocks:
+    """n IIWA-width problems of horizon K on the card (testing.random_batch)."""
+    return gt.blocks_to_torch(testing.random_batch(longk_spec(K), n, seed0=seed0), DEV)
+
+
+def longk_counts() -> dict:
+    return {kl.CONDENSE_NAME: kl.CONDENSE_LAUNCHES, kl.PCG_NAME: kl.PCG_LAUNCHES,
+            kl.FUSED_NAME: kl.FUSED_LAUNCHES, kl.RECOVER_NAME: kl.RECOVER_LAUNCHES}
+
+
+def zero_longk_counts() -> None:
+    kl.CONDENSE_LAUNCHES = kl.PCG_LAUNCHES = kl.FUSED_LAUNCHES = 0
+    kl.RECOVER_LAUNCHES = 0
+
+
+def check_longk_kernels(what: str, blocks, lam0, *, rho=RHO,
+                        prec="symmetric_stair", poly=1, cap=MAX_ITERS,
+                        keep=None) -> str:
+    """The four long-K kernels against their plain versions on one batch:
+    row 7 on the inputs, rows 8/10 and 13 on the plain version's operators
+    and multipliers (each kernel alone), row 9 end to end.  ``keep`` limits
+    the value comparisons to those problems (a singular mix).  Returns a
+    summary line."""
+    kw = dict(exit_tol=EXIT_TOL, max_iters=cap, poly_degree=poly)
+    sel = slice(None) if keep is None else keep
+    kops = kl.condense_longk_cuda(*blocks, rho=rho, preconditioner=prec)
+    pops = kl.condense_longk_plain(*blocks, rho=rho, preconditioner=prec)
+    torch.cuda.synchronize()
+    if not torch.equal(kops.bad.cpu(), pops.bad.cpu()):
+        raise AssertionError(f"{what} {kl.CONDENSE_NAME}: zero-pivot flags "
+                             f"{kops.bad.tolist()} vs plain {pops.bad.tolist()}")
+    e7 = max(check_close(f"{what} {kl.CONDENSE_NAME} {name}", x[sel], y[sel])
+             for name, x, y in zip(OPS_FIELDS, kops, pops))
+    kres = kl.pcg_longk_cuda(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    pres = kl.pcg_longk_plain(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    fres, fqi, fri = kl.fused_longk_cuda(*blocks, lam0, rho=rho,
+                                         preconditioner=prec, **kw)
+    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad, **kw)
+    kdx, kdu = kl.recover_longk_cuda(pops.Qinv, pops.Rinv, blocks.A, blocks.B,
+                                     blocks.q, blocks.r, pres.lam)
+    pdx, pdu = kl.recover_longk_plain(pops.Qinv, pops.Rinv, blocks.A, blocks.B,
+                                      blocks.q, blocks.r, pres.lam)
+    torch.cuda.synchronize()
+    ties = check_iters(f"{what} {kl.PCG_NAME}", kres, pres, EXIT_TOL)
+    e8 = check_close(f"{what} {kl.PCG_NAME} lam", kres.lam[sel], pres.lam[sel])
+    # Row 9 is rows 7 and 8/10 in one launch: its plain version is theirs.
+    ties += check_iters(f"{what} {kl.FUSED_NAME}", fres, pres, EXIT_TOL)
+    e9 = max(check_close(f"{what} {kl.FUSED_NAME} lam", fres.lam[sel], pres.lam[sel]),
+             check_close(f"{what} {kl.FUSED_NAME} Qinv", fqi[sel], pops.Qinv[sel]),
+             check_close(f"{what} {kl.FUSED_NAME} Rinv", fri[sel], pops.Rinv[sel]))
+    e13 = max(check_close(f"{what} {kl.RECOVER_NAME} dz_x", kdx[sel], pdx[sel]),
+              check_close(f"{what} {kl.RECOVER_NAME} dz_u", kdu[sel], pdu[sel]))
+    if not (torch.equal(fres.lam, split.lam) and torch.equal(fres.iters, split.iters)
+            and torch.equal(fqi, kops.Qinv) and torch.equal(fri, kops.Rinv)):
+        raise AssertionError(f"{what}: row 9 differs from rows 7 + 8/10 (the same "
+                             "device code on the same inputs)")
+    for name, err in ((kl.CONDENSE_NAME, e7), (kl.PCG_NAME, e8),
+                      (kl.FUSED_NAME, e9), (kl.RECOVER_NAME, e13)):
+        MAX_ERR[name] = max(MAX_ERR[name], err)
+    it = kres.iters.cpu().numpy()
+    return (f"iters {it.min()}..{it.max()} equal ({ties} ties); max|d| row 7 "
+            f"{e7:.2e}, 8/10 {e8:.2e}, 9 {e9:.2e} (bit-equal to 7 + 8/10), "
+            f"13 {e13:.2e}")
+
+
+def phase_longk_parity():
+    print(f"== phase 3d: the long-K kernels against their plain versions at "
+          f"IIWA widths (14, 7), rho={RHO}, exit_tol={EXIT_TOL}")
+    full = longk_batch(1024, 16, seed0=4000)
+    lam0 = torch.zeros_like(full.q)
+    for n in LONGK_B:
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        for prec, poly in (("symmetric_stair", 1), ("block_jacobi", 1),
+                           ("jacobi", 1), ("symmetric_stair", 2)):
+            # scalar Jacobi over a capped run, as in phase 3
+            cap = 10 if prec == "jacobi" else MAX_ITERS
+            line = check_longk_kernels(f"K=1024 B={n} {prec} poly={poly}", blocks,
+                                       lam0[:n], prec=prec, poly=poly, cap=cap)
+            print(f"  K=1024 B={n} {prec} poly={poly} max_iters={cap}: {line}")
+    for K in (2048, 8192):
+        blocks = longk_batch(K, 1, seed0=4100 + K)
+        line = check_longk_kernels(f"K={K} B=1", blocks, torch.zeros_like(blocks.q))
+        print(f"  K={K} B=1 symmetric_stair: {line}")
+
+    # Warm starts: from the solution (at most one iteration), and from a
+    # random lambda_0 against the plain version.
+    sol = kl.fused_longk_plain(*full, lam0, rho=RHO, exit_tol=EXIT_TOL,
+                               max_iters=MAX_ITERS)[0].lam
+    for route in ("fused_xl", "xl"):
+        res, _, _ = kl.solve_longk_batched(*full, sol, rho=RHO, exit_tol=EXIT_TOL,
+                                           max_iters=MAX_ITERS, force_tier=route)
+        if int(res.iters.max()) > 1:
+            raise AssertionError(f"long-K {route}: a warm start from the solution "
+                                 f"took {int(res.iters.max())} iterations")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    warm = (0.1 * torch.randn(full.q.shape, generator=gen)).to(DEV)
+    line = check_longk_kernels("K=1024 B=16 warm", full, warm)
+    print(f"  K=1024 B=16 warm start (lambda_0 ~ 0.1 N(0, 1)): {line}; from "
+          "the solution: at most 1 iteration on both routes")
+
+    # One exactly singular problem (zero row/column in Q[2], rho=0) among
+    # healthy ones: gato_tpu's long-K contract (iters = max_iters, not
+    # converged, eta >= 1e30 and finite), nothing non-finite, the healthy
+    # problems as their plain versions.
+    good = [testing.random_blocks(longk_spec(1024), seed=4200 + i) for i in range(2)]
+    bad = testing.singular_blocks(longk_spec(1024), seed=3, knot=2)
+    mix = gt.blocks_to_torch(testing.stack_blocks([good[0], bad, good[1]]), DEV)
+    line = check_longk_kernels("singular mix", mix, torch.zeros_like(mix.q),
+                               rho=0.0, keep=[0, 2])
+    for route in ("fused_xl", "xl"):
+        res, dx, du = kl.solve_longk_batched(*mix, rho=0.0, exit_tol=EXIT_TOL,
+                                             max_iters=MAX_ITERS, force_tier=route)
+        torch.cuda.synchronize()
+        eta1 = float(res.eta[1])
+        if res.converged.cpu().tolist() != [True, False, True] \
+                or int(res.iters[1]) != MAX_ITERS or not 1e30 <= eta1 < float("inf"):
+            raise AssertionError(f"long-K {route} singular mix: converged "
+                                 f"{res.converged.tolist()}, iters "
+                                 f"{res.iters.tolist()}, eta {res.eta.tolist()}")
+        for t in (res.lam, dx, du, res.eta):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"long-K {route} singular mix: an output "
+                                     "is not finite")
+    print(f"  singular mix (1 of 3, K=1024, rho=0): {line}; both routes: "
+          f"converged [True, False, True], iters[1] = {MAX_ITERS}, eta[1] = "
+          f"{eta1:g}, every output finite")
+
+
+def dense_kkt_solve64(blocks: gt.KKTBlocks, rho: float):
+    """(lam, dz_x, dz_u) of the float64 dense KKT solve on the card, one
+    problem at a time (the oracle only)."""
+    Bn, K, s, _ = blocks.Q.shape
+    c = blocks.R.shape[-1]
+    nz = K * (s + c) - c
+    out = []
+    for i in range(Bn):
+        one = gt.KKTBlocks(*(a[i:i + 1].double() for a in blocks))
+        M, rhs = dense_kkt(one, rho)
+        x = torch.linalg.solve(M, rhs.unsqueeze(-1))[..., 0]
+        del M
+        dz_x, dz_u = split_dz(x[:, :nz], K, s, c)
+        out.append((x[:, nz:].reshape(1, K, s), dz_x, dz_u))
+        torch.cuda.empty_cache()
+    return tuple(torch.cat([o[j] for o in out]) for j in range(3))
+
+
+def phase_longk_path():
+    print("== phase 4d: the long-K main path through solve, solve_batched, "
+          "solve_sequence_batched, pack / solve_packed, pack_sequence / "
+          "solve_packed_sequence and linsys_solve")
+    opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    total = dict.fromkeys(longk_counts(), 0)
+    auto = kl.AUTO_TIER
+
+    def run(what, fn, expect):
+        zero_longk_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = longk_counts()
+        want = {key: expect.get(key, 0) for key in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for key, value in got.items():
+            total[key] += value
+        return out
+
+    def route(n_solves, tier):
+        """Launch counts of n_solves calls of one long-K tier."""
+        if tier == "fused_xl":
+            return {kl.FUSED_NAME: n_solves, kl.RECOVER_NAME: n_solves}
+        return {kl.CONDENSE_NAME: n_solves, kl.PCG_NAME: n_solves,
+                kl.RECOVER_NAME: n_solves}
+
+    def against_torch(what, got, spec, blocks, lam0=None):
+        ref = gt.solve_batched(spec, blocks,
+                               dataclasses.replace(opts, warm_start=lam0 is not None),
+                               lam0=lam0, pcg_backend="torch")
+        ties = check_iters(what, got, ref, EXIT_TOL)
+        err = max(check_close(f"{what} {name}", getattr(got, name), getattr(ref, name))
+                  for name in ("lam", "dz_x", "dz_u"))
+        if not bool(got.converged.all()):
+            raise AssertionError(f"{what}: a problem did not converge")
+        return ties, err
+
+    for K, n in ((1024, 1), (8192, 1), (2048, 16)):
+        spec = longk_spec(K)
+        blocks = longk_batch(K, n, seed0=5000 + K)
+        if n == 1:
+            one = gt.KKTBlocks(*(a[0] for a in blocks))
+            res = run(f"solve K={K}", lambda: gt.solve(spec, one, opts),
+                      route(1, auto))
+            res = gt.SolveResult(*(t[None] for t in res))
+        else:
+            res = run(f"solve_batched K={K} B={n}",
+                      lambda: gt.solve_batched(spec, blocks, opts), route(1, auto))
+        ties, err = against_torch(f"K={K} B={n}", res, spec, blocks)
+        print(f"  {'solve' if n == 1 else 'solve_batched'} K={K} B={n} (auto: "
+              f"'pcg_kernel', tier {auto}): converged, iters "
+              f"{int(res.iters.min())}..{int(res.iters.max())} equal to 'torch' "
+              f"({ties} ties), max|d| {err:.2e}")
+    # 'pcg_kernel' named explicitly takes the same route.
+    spec = longk_spec(1024)
+    blocks = longk_batch(1024, 2, seed0=5100)
+    res = run("solve_batched pcg_kernel K=1024 B=2", lambda: gt.solve_batched(
+        spec, blocks, opts, pcg_backend="pcg_kernel"), route(1, auto))
+    against_torch("pcg_kernel K=1024 B=2", res, spec, blocks)
+    try:
+        gt.solve_batched(spec, blocks, opts, pcg_backend="fused")
+    except ValueError as e:
+        if "'pcg_kernel'" not in str(e):
+            raise
+        print(f"  explicit 'fused' at K=1024 raises: {e}")
+    else:
+        raise AssertionError("explicit 'fused' past kernel B's shared memory ran")
+
+    # The MPC farm: B=4 streams x T=8 steps, each step warm-started.
+    T, n = 8, 4
+    farm_blocks = gt.blocks_to_torch(testing.random_farm(spec, T, n, seed0=5200), DEV)
+    rhos = farm_rhos(T).cpu().numpy()
+    seq = run(f"solve_sequence_batched K=1024 B={n} T={T}",
+              lambda: gt.solve_sequence_batched(spec, farm_blocks, opts, rhos=rhos),
+              route(T, auto))
+    ref = gt.solve_sequence_batched(spec, farm_blocks, opts, rhos=rhos,
+                                    pcg_backend="torch")
+    lam_first = torch.zeros_like(farm_blocks.q[0])
+
+    def redo(backend):
+        def solve(t, bs, lam_prev, max_iters):
+            one = gt.KKTBlocks(*(a[t, bs] for a in farm_blocks))
+            step_opts = gt.SolverOptions(rho=float(rhos[t]), exit_tol=EXIT_TOL,
+                                         max_iters=max_iters, warm_start=True)
+            return gt.solve_batched(spec, one, step_opts, pcg_backend=backend,
+                                    lam0=lam_first[bs] if lam_prev is None else lam_prev)
+        return solve
+
+    ties, err = check_farm("long-K farm vs torch", seq, ref, redo("pcg_kernel"),
+                           redo("torch"))
+    if not bool(seq.converged.all()):
+        raise AssertionError("long-K farm: a step did not converge")
+    it = seq.iters.double()
+    if not float(it[1:].mean()) < float(it[0].mean()):
+        raise AssertionError("long-K farm: warm starts did not cut iterations")
+    print(f"  solve_sequence_batched K=1024 B={n} T={T} (auto: 'pcg_kernel', "
+          f"{T} steps of tier {auto}): all converged, iters equal to 'torch' "
+          f"({ties} ties), max|d| {err:.2e}; mean iterations step 0 "
+          f"{float(it[0].mean()):.2f}, steps 1.. {float(it[1:].mean()):.2f}")
+    single = gt.KKTBlocks(*(a[:, 0] for a in farm_blocks))
+    one = run(f"solve_sequence K=1024 T={T}",
+              lambda: gt.solve_sequence(spec, single, opts, rhos=rhos),
+              route(T, auto))
+    ties, _ = check_farm("solve_sequence vs stream 0 of the farm",
+                         gt.SolveResult(*(x[:, None] for x in one)),
+                         gt.SolveResult(*(x[:, :1] for x in seq)),
+                         redo("pcg_kernel"), redo("pcg_kernel"))
+    print(f"  solve_sequence K=1024 T={T}: agrees with stream 0 of the farm "
+          f"({ties} ties); iters {one.iters.tolist()}")
+
+    # The packed surface.
+    step0 = gt.KKTBlocks(*(a[0] for a in farm_blocks))
+    step1 = gt.KKTBlocks(*(a[1] for a in farm_blocks))
+
+    def serve():
+        packed = gt.pack(spec, step0)
+        first = gt.solve_packed(packed, opts)
+        packed = gt.update_vectors(packed, step1.q, step1.r, step1.c)
+        return packed, first, gt.solve_packed(packed, opts, lam0=first.lam_packed)
+
+    packed, first, second = run("pack / solve_packed K=1024", serve, route(2, auto))
+    if packed.plan.tier != "longk":
+        raise AssertionError(f"pack at K=1024 planned tier {packed.plan.tier!r}")
+    against_torch("solve_packed first", first.unpack(), spec, step0)
+    against_torch("solve_packed second", second.unpack(), spec, step1,
+                  lam0=first.lam_packed)
+    half = T // 2
+    win1 = gt.KKTBlocks(*(a[:half] for a in farm_blocks))
+    win2 = gt.KKTBlocks(*(a[half:] for a in farm_blocks))
+
+    def windows():
+        w1 = gt.solve_packed_sequence(gt.pack_sequence(spec, win1), opts)
+        return w1, gt.solve_packed_sequence(gt.pack_sequence(spec, win2), opts,
+                                            lam0=w1.lam_tail_packed)
+
+    w1, w2 = run("pack_sequence / solve_packed_sequence K=1024", windows,
+                 route(T, auto))
+    whole = gt.solve_sequence_batched(spec, farm_blocks, opts)
+    for name, a, b in (("lam", torch.cat([w1.lam_p, w2.lam_p]), whole.lam),
+                       ("iters", torch.cat([w1.iters, w2.iters]), whole.iters)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"long-K packed windows: {name} differs from one run")
+    print(f"  pack (tier 'longk') -> solve_packed -> update_vectors -> "
+          f"solve_packed B={n} K=1024 agrees with 'torch'; two pack_sequence "
+          f"windows of {half} carried by lam_tail_packed equal one farm run")
+
+    # linsys_solve at K=1024 against the float64 dense KKT solve.
+    one = testing.random_blocks(spec, seed=5300)
+    csr = testing.blocks_to_csr(spec, one)
+    zero_longk_counts()
+    (l, dz), _ = run_linsys(csr, [0.0] * spec.nl, 2, 1e-8, 200, False, RHO)
+    torch.cuda.synchronize()
+    got = longk_counts()
+    for key, value in route(2, auto).items():
+        if got[key] != value:
+            raise AssertionError(f"linsys_solve K=1024: launches {got}")
+        total[key] += value
+    lam_ref, dzx_ref, dzu_ref = dense_kkt_solve64(
+        gt.blocks_to_torch(testing.stack_blocks([one]), DEV), RHO)
+    dz_ref = torch.cat([torch.cat([dzx_ref[0, :-1], dzu_ref[0]], dim=1).reshape(-1),
+                        dzx_ref[0, -1]]).cpu().numpy()
+    worst = 0.0
+    for name, got_v, ref_v in (("lam", np.array(l), lam_ref.reshape(-1).cpu().numpy()),
+                               ("dz", np.array(dz), dz_ref)):
+        scale = max(1.0, float(np.abs(ref_v).max()))
+        err = float(np.abs(got_v - ref_v).max()) / scale
+        if err > 2e-3:
+            raise AssertionError(f"linsys_solve K=1024 {name}: {err:.3e} of scale "
+                                 "off the float64 dense KKT solve")
+        worst = max(worst, err)
+    print(f"  linsys_solve K=1024 (auto, testiters=2, exit_tol=1e-8): lam, dz "
+          f"within {worst:.2e} of scale of the float64 dense KKT solve")
+
+    # The route the auto tier does not take, through solve_longk_batched:
+    # the split one under both of its names ('xl' at row 8's shape,
+    # 'stream' at row 10's), or the fused one.
+    forced = ((("xl", 2048, 1), ("stream", 8192, 1)) if auto == "fused_xl"
+              else (("fused_xl", 1024, 16),))
+    for tier, K, n in forced:
+        blocks = longk_batch(K, n, seed0=5400 + K)
+        res, dx, du = run(f"force_tier={tier} K={K} B={n}",
+                          lambda: kl.solve_longk_batched(
+                              *blocks, rho=RHO, exit_tol=EXIT_TOL,
+                              max_iters=MAX_ITERS, force_tier=tier),
+                          route(1, tier))
+        ties, err = against_torch(f"force_tier={tier} K={K} B={n}",
+                                  gt.SolveResult(res.lam, dx, du, res.iters,
+                                                 res.converged, res.eta),
+                                  longk_spec(K), blocks)
+        print(f"  longk.solve_longk_batched(force_tier={tier!r}) K={K} B={n} "
+              f"(not the auto tier): converged, iters equal to 'torch' "
+              f"({ties} ties), max|d| {err:.2e}")
+    print(f"  launches on the long-K path: {total}")
+    for name, count in total.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the long-K path")
+    return total
+
+
+def precond_flops(K: int, s: int, prec: str) -> float:
+    """theta^-1 of every knot (block Jacobi, stair) and the stair's two
+    off-diagonal products a knot (2 n^3 per inverse or product)."""
+    f = 0.0 if prec == "jacobi" else K * 2 * s ** 3
+    if prec == "symmetric_stair":
+        f += 4 * (K - 1) * 2 * s ** 3
+    return f
+
+
+def phase_longk_times(card: str):
+    print(f"== phase 5d: the long-K kernels' times (CUDA events, median of "
+          f"{TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for plain versions and "
+          f"library calls) on {card}")
+    s, c = IIWA.state_size, IIWA.control_size
+    times, routes = {}, {}
+    kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    for K in LONGK_K:
+        full = longk_batch(K, max(LONGK_B), seed0=6000 + K)
+        Kb = full.Q.shape[1]
+        for n in LONGK_B:
+            blocks = gt.KKTBlocks(*(a[:n] for a in full))
+            lam0 = torch.zeros_like(blocks.q)
+            ops = kl.condense_longk_cuda(*blocks, rho=RHO)
+            res = kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma, lam0, ops.bad, **kw)
+            fres, fqi, fri = kl.fused_longk_cuda(*blocks, lam0, rho=RHO, **kw)
+            dx, du = kl.recover_longk_cuda(ops.Qinv, ops.Rinv, blocks.A, blocks.B,
+                                           blocks.q, blocks.r, res.lam)
+            torch.cuda.synchronize()
+            flags = 4 * n                                  # bad (int32)
+            outs = nbytes(res.lam, res.iters, res.converged, res.eta)
+            cflops = n * (condense_flops(Kb, s, c) + precond_flops(Kb, s, "symmetric_stair"))
+            pflops = pcg_flops(Kb, s, res.iters, res.converged, 1)
+            bounds = {
+                kl.CONDENSE_NAME: bound(nbytes(*blocks, *ops[:5]) + flags, cflops),
+                kl.PCG_NAME: bound(nbytes(ops.S, ops.Pinv, ops.gamma, lam0) + flags
+                                   + outs, pflops),
+                kl.FUSED_NAME: bound(nbytes(*blocks, lam0, fqi, fri) + outs,
+                                     cflops + pflops),
+                kl.RECOVER_NAME: bound(nbytes(ops.Qinv, ops.Rinv, blocks.A, blocks.B,
+                                              blocks.q, blocks.r, res.lam, dx, du),
+                                       n * recover_flops(Kb, s, c)),
+            }
+            rows = (
+                (kl.CONDENSE_NAME, lambda: kl.condense_longk_cuda(*blocks, rho=RHO),
+                 lambda: kl.condense_longk_plain(*blocks, rho=RHO)),
+                (kl.PCG_NAME, lambda: kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma,
+                                                        lam0, ops.bad, **kw),
+                 lambda: kl.pcg_longk_plain(ops.S, ops.Pinv, ops.gamma, lam0,
+                                            ops.bad, **kw)),
+                (kl.FUSED_NAME, lambda: kl.fused_longk_cuda(*blocks, lam0, rho=RHO, **kw),
+                 lambda: kl.fused_longk_plain(*blocks, lam0, rho=RHO, **kw)),
+                (kl.RECOVER_NAME, lambda: kl.recover_longk_cuda(
+                    ops.Qinv, ops.Rinv, blocks.A, blocks.B, blocks.q, blocks.r, res.lam),
+                 lambda: kl.recover_longk_plain(ops.Qinv, ops.Rinv, blocks.A,
+                                                blocks.B, blocks.q, blocks.r, res.lam)),
+            )
+            # The plain versions' dense intermediates at K=8192 are kept to B=1.
+            plain_ok = K < 8192 or n == 1
+            lib_ms = None
+            if K == 1024:
+                # One PyTorch call for rows 8/10 and 9's function: the dense
+                # LU solve of the Schur system (K s = 14,336).
+                S_dense = dense_btd(ops.S)
+                gam = ops.gamma.reshape(n, -1, 1)
+                lib = torch.linalg.solve(S_dense, gam)
+                print(f"  K={K} B={n}: the dense Schur solve (library) against "
+                      f"rows 8/10 max|dlam| "
+                      f"{float((lib.reshape(n, Kb, s) - res.lam).abs().max()):.2e}")
+                lib_ms = cuda_median_ms(lambda: torch.linalg.solve(S_dense, gam),
+                                        runs=SLOW_RUNS, warmup=1)
+                del S_dense, lib
+                torch.cuda.empty_cache()
+            for name, kern, plain in rows:
+                p1 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1) if plain_ok else None
+                k1 = cuda_median_ms(kern)
+                k2 = cuda_median_ms(kern)
+                p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1) if plain_ok else None
+                has_lib = name in (kl.PCG_NAME, kl.FUSED_NAME)
+                bound_ms, bound_by = bounds[name]
+                times[(name, K, n)] = dict(
+                    ms=(k1 + k2) / 2, plain_ms=None if p1 is None else (p1 + p2) / 2,
+                    library_ms=lib_ms if has_lib else None, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                plain_text = (f"plain {p1:.4f} / {p2:.4f} ms" if plain_ok
+                              else "plain not timed (B=16 at K=8192)")
+                lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
+                            else "no library call")
+                print(f"  {name} K={K} B={n}: kernel {k1:.4f} / {k2:.4f} ms, "
+                      f"{plain_text}, {lib_text}, bound {bound_ms:.5f} ms "
+                      f"({bound_by}); launches 1  [{card}]")
+            # The two routes end to end (one call of solve_longk_batched each).
+            fused_ms, split_ms = [], []
+            for _ in range(2):
+                fused_ms.append(cuda_median_ms(lambda: kl.solve_longk_batched(
+                    *blocks, lam0, rho=RHO, force_tier="fused_xl", **kw)))
+                split_ms.append(cuda_median_ms(lambda: kl.solve_longk_batched(
+                    *blocks, lam0, rho=RHO, force_tier="xl", **kw)))
+            routes[(K, n)] = (float(np.mean(fused_ms)), float(np.mean(split_ms)))
+            it = res.iters
+            print(f"  route K={K} B={n}: 'fused_xl' (rows 9 + 13) "
+                  f"{fused_ms[0]:.4f} / {fused_ms[1]:.4f} ms, 'xl' = 'stream' "
+                  f"(rows 7 + 8/10 + 13) {split_ms[0]:.4f} / {split_ms[1]:.4f} ms; "
+                  f"PCG iterations {int(it.min())}..{int(it.max())}  [{card}]")
+            del ops, res, fres, fqi, fri, dx, du
+        del full
+        torch.cuda.empty_cache()
+    # A PCG iteration's cost: 20 iterations against none (exit_tol = 0, so
+    # no problem leaves the loop early), B=1.
+    for K in LONGK_K:
+        blocks = longk_batch(K, 1, seed0=6000 + K)
+        ops = kl.condense_longk_cuda(*blocks, rho=RHO)
+        lam0 = torch.zeros_like(blocks.q)
+        runs = {}
+        for iters in (0, 20):
+            runs[iters] = cuda_median_ms(lambda: kl.pcg_longk_cuda(
+                ops.S, ops.Pinv, ops.gamma, lam0, ops.bad, exit_tol=0.0,
+                max_iters=iters))
+        per_it = (runs[20] - runs[0]) / 20
+        times[("iteration", K)] = per_it
+        print(f"  {kl.PCG_NAME} K={K} B=1: max_iters=0 {runs[0]:.4f} ms, 20 "
+              f"{runs[20]:.4f} ms: {1e3 * per_it:.2f} us an iteration (4 grid "
+              f"barriers and 4 phases)  [{card}]")
+        del ops
+    print("  the faster route per shape:")
+    for (K, n), (f_ms, x_ms) in routes.items():
+        print(f"    K={K:5d} B={n:2d}: {'fused_xl' if f_ms <= x_ms else 'xl'} "
+              f"({f_ms:.4f} against {x_ms:.4f} ms); the auto tier takes "
+              f"{kl.AUTO_TIER}")
+    return times, routes
+
+
 def main():
     t_start = time.perf_counter()
     card = card_line()
@@ -1229,19 +1738,22 @@ def main():
     phase_parity()
     phase_sequence_parity()
     phase_direct_parity()
+    phase_longk_parity()
     launches, avg = phase_main_path()
     seq_launches = phase_mpc_path()
     direct_launches = phase_direct_path()
+    longk_launches = phase_longk_path()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
+    longk_times, longk_routes = phase_longk_times(card)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
     # Each kernel's launches are those of the path it is on: kernels A and
     # B from linsys_solve / solve_batched (phase 4), the sequence kernel
     # from the MPC and packed path (phase 4b), rows 4-6 from the exact path
-    # (phase 4c).
+    # (phase 4c), rows 7-13 from the long-K path (phase 4d).
     pair = {f"pair_{key}": value for key, value in
             direct_times[("pair", BATCH)].items() if key != "bound_by"}
     pair.update({f"pair_{key}_b1": value for key, value in
@@ -1268,6 +1780,21 @@ def main():
         row.update({f"{key}_b1": value for key, value in at_1.items()
                     if key != "bound_by"})
         kernels.append(row)
+    # The long-K kernels: K=1024 at B=16 (and _b1), with K=8192 beside.
+    for name, replaces in ((kl.CONDENSE_NAME, kl.CONDENSE_REPLACES),
+                           (kl.PCG_NAME, kl.PCG_REPLACES),
+                           (kl.FUSED_NAME, kl.FUSED_REPLACES),
+                           (kl.RECOVER_NAME, kl.RECOVER_REPLACES)):
+        row = {"name": name, "route": "cuda", "source": kl.SOURCE,
+               "replaces": replaces, "launches": longk_launches[name],
+               "max_abs_err": MAX_ERR[name], **longk_times[(name, 1024, 16)],
+               "batch": 16, "K": 1024}
+        for K, n in ((1024, 1), (8192, 1), (8192, 16)):
+            row.update({f"{key}_k{K}_b{n}": value for key, value in
+                        longk_times[(name, K, n)].items() if key != "bound_by"})
+        kernels.append(row)
+    for (K, n), (f_ms, x_ms) in longk_routes.items():
+        print(f"  long-K route K={K} B={n}: fused_xl {f_ms:.4f} ms, xl {x_ms:.4f} ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

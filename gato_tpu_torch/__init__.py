@@ -18,8 +18,8 @@ Public surface:
   * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
     loop, the fused whole solve, the warm-started farm, the cyclic-reduction
-    exact solve and the block-Thomas pair), each with its plain PyTorch
-    version
+    exact solve, the block-Thomas pair and the long-horizon PCG tier), each
+    with its plain PyTorch version
 """
 
 from .api import infer_spec, linsys_solve

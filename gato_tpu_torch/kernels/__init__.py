@@ -5,4 +5,9 @@ use (_build.py), each beside its plain PyTorch version:
 * fused_solve:    kernel B, the whole batched solve
 * fused_sequence: row 3, the warm-started farm (T steps of kernel B's body
                   for each stream, in one launch)
+* direct_fused:   row 4, the exact solve by cyclic reduction
+* thomas_batch:   rows 5 and 6, the exact solve by block Thomas
+* longk:          rows 7, 8/10, 9 and 13, the long-horizon PCG tier
+                  (condensation, cooperative PCG, both in one launch, and
+                  recovery) past kernels A and B's shared memory
 """

@@ -25,12 +25,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
-           "thomas_batch.cu")
+           "thomas_batch.cu", "longk.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
 MAX_BLOCK = 32
+# Shared memory a block leaves to the runtime: the routing's pure checks
+# subtract it from the opt-in limit, as the kernel wrappers do.
+RESERVED_SHARED_BYTES = 1024
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -54,6 +57,13 @@ _SIGNATURES = {
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
     "gato_thomas_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_thomas_smem_bytes": (_LL, [_I, _I, _I]),
+    "gato_longk_tile_knots": (_I, [_I, _I]),
+    "gato_longk_tile_smem_bytes": (_LL, [_I, _I]),
+    "gato_longk_grid": (_I, [_I, _I, _I]),
+    "gato_longk_condense": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _P]),
+    "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 3 + [_F, _I, _I, _I, _P]),
+    "gato_longk_fused": (_I, [_P] * 21 + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P]),
+    "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

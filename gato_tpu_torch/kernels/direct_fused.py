@@ -46,7 +46,7 @@ POISON_ETA = 1e30
 LAUNCHES = 0
 
 LONG_K_DIRECT = ("the long-K direct tier, not ported yet (ROADMAP.md queue 2 "
-                 "rows 7, 11, 12 and 13)")
+                 "rows 11 and 12)")
 
 
 def direct_fused_plain(Q, R, A, B, q, r, c, *, rho=0.0):

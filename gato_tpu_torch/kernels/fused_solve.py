@@ -71,6 +71,32 @@ def check_tensors(name: str, expect: dict, tensors: dict, device) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, q on {device}")
 
 
+def smem_bytes(K: int, s: int, cdim: int) -> int:
+    """Shared memory of one kernel-B (or farm-kernel) block, as
+    ``gato_fused_smem_bytes`` computes it: the Gauss-Jordan work area and,
+    reusing it, six PCG vectors (fused_body.cuh's fused_arena_floats)."""
+    def gj(n):
+        return 2 * n * n + 3 * n + 2
+    floats = max(6 * max(K * s, (K - 1) * cdim), gj(s), gj(cdim),
+                 min(K * gj(s), 16384))
+    return 4 * floats
+
+
+def fits(K: int, s: int, cdim: int, smem_limit: int) -> bool:
+    """True iff kernel B and the farm kernel take (K, s, c) on a device whose
+    blocks may opt in to ``smem_limit`` bytes of shared memory."""
+    return (K >= 2 and max(s, cdim) <= _build.MAX_BLOCK
+            and smem_bytes(K, s, cdim) <= smem_limit - _build.RESERVED_SHARED_BYTES)
+
+
+def past_limit_message(name: str, K: int, s: int, cdim: int, smem: int,
+                       limit: int) -> str:
+    return (f"{name}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B of shared "
+            f"memory per block, above the device's {limit} B; this horizon is "
+            "served by the long-K tier (kernels/longk.py): pass pcg_backend "
+            "None (auto) or 'pcg_kernel'")
+
+
 def check_kernel_limits(name: str, K: int, s: int, cdim: int, poly_degree,
                         device) -> ctypes.CDLL:
     """Raise unless the fused body can take (K, s, c) and ``poly_degree`` on
@@ -84,10 +110,7 @@ def check_kernel_limits(name: str, K: int, s: int, cdim: int, poly_degree,
     smem = lib.gato_fused_smem_bytes(K, s, cdim)
     limit = _build.max_shared_bytes(device) - 1024
     if smem > limit:
-        raise ValueError(f"{name}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B "
-                         f"of shared memory per block, above the device's {limit} B; "
-                         "longer horizons are the long-K tier, not ported yet "
-                         "(ROADMAP.md queue 2 rows 7-10 and 13)")
+        raise ValueError(past_limit_message(name, K, s, cdim, smem, limit))
     return lib
 
 

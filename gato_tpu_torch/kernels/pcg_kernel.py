@@ -30,6 +30,12 @@ REPLACES = "gato_tpu/kernels/pcg_pallas.py:481"
 LAUNCHES = 0
 
 
+def smem_bytes(K: int, s: int) -> int:
+    """Shared memory of one kernel-A block, as ``gato_pcg_smem_bytes``
+    computes it: six K s vectors."""
+    return 6 * K * s * 4
+
+
 def pcg_batched_plain(S, Pinv, gamma, lam0=None, *, exit_tol=1e-6,
                       max_iters=100, poly_degree=1) -> PCGResult:
     """The kernel's plain PyTorch version: ``gato_tpu_torch.pcg.pcg``."""

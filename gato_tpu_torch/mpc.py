@@ -10,12 +10,16 @@ warm start (``result.lam[t, b]`` warm-starts step t+1 of stream b).
 * ``'torch'``: a Python loop over t of condense -> pcg -> recover_dz
   (``gato_tpu``'s ``lax.scan`` over ``'jax'`` steps);
 * ``'pcg_kernel'``: the same loop with the PCG kernel (kernel A) in each
-  step (``gato_tpu``'s ``'pallas'``);
+  step (``gato_tpu``'s ``'pallas'``), or past kernel A's shared memory the
+  long-K tier (kernels/longk.py: its condensation, PCG and recovery
+  kernels), each step warm-started from the last in the public layout;
 * ``'fused'``: the whole farm in ONE launch of the sequence kernel
   (kernels/fused_sequence.py, row 3), ``gato_tpu``'s TPU default.
 
-Auto-selection picks ``'fused'`` for float32 on CUDA and ``'torch'``
-otherwise.  ``lam0`` is used whatever ``options.warm_start`` says: chaining
+Auto-selection picks ``'fused'`` for float32 on CUDA where the sequence
+kernel takes the horizon, ``'pcg_kernel'`` past its shared memory (so the
+long-K tier), and ``'torch'`` otherwise; an explicit ``'fused'`` past it
+raises.  ``lam0`` is used whatever ``options.warm_start`` says: chaining
 is the point of these entry points.
 
 ``method='direct'`` is the exact farm (``gato_tpu.mpc``'s
@@ -26,11 +30,6 @@ first (:func:`_fold_rhos`) and the batch solved at rho = 0 by
 ``solve_batched``'s direct route: on CUDA the block-Thomas pair from
 T*B >= 16 (4096 problems at B=256, T=16), else the cyclic-reduction
 kernel.  ``lam0`` is ignored there.
-
-``gato_tpu``'s long-horizon sequence tier and its streamed PCG have no
-counterpart yet: past the sequence kernel's shared memory the ``'fused'``
-route raises (naming ROADMAP.md queue 2 rows 7-10 and 13); it never falls
-back to ``'torch'``.
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ from .formats import KKTBlocks, blocks_to_torch, check_block_shapes
 from .kernels import fused_sequence
 from .problem import ProblemSpec, SolverOptions
 from .solver import (SolveResult, _resolve_backend, _solve_core,
-                     _torch_dtype, resolve_device)
+                     _torch_dtype, resolve_device, spec_shape)
 
 
 def _fold_rhos(Q, R, rhos):
@@ -152,7 +151,7 @@ def solve_sequence_batched(
       device: where to solve; default "cuda".
 
     Returns a SolveResult with leading (T, B) axes."""
-    backend = _resolve_backend(pcg_backend, options, device)
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     2, "solve_sequence_batched")
     return _sequence_core(b, lam0, rhos, options, backend)
@@ -175,7 +174,7 @@ def solve_sequence(
     Returns a SolveResult with a leading T axis; ``result.lam[t]``
     warm-starts solve t+1.  The B=1 case of :func:`solve_sequence_batched`.
     """
-    backend = _resolve_backend(pcg_backend, options, device)
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     1, "solve_sequence")
     res = _sequence_core(b, lam0, rhos, options, backend)

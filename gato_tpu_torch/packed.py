@@ -25,13 +25,17 @@ sequence), so a carried lambda needs no relayout between calls.
 exist for TPU lanes and have no counterpart here.
 
 ``solve_packed`` launches kernel B (kernels/fused_solve.py) for
-``method='pcg'``; for ``method='direct'`` the plan's tier: ``'cr'``, the
-cyclic-reduction kernel (row 4, kernels/direct_fused.py), or ``'thomas'``,
-the block-Thomas pair (rows 5 and 6, kernels/thomas_batch.py), which
+``method='pcg'``, or, past its shared memory, the long-K tier
+(kernels/longk.py; ``pack`` records ``tier='longk'`` in its plan, as
+``gato_tpu.packed.pack`` does); for ``method='direct'`` the plan's tier:
+``'cr'``, the cyclic-reduction kernel (row 4, kernels/direct_fused.py), or
+``'thomas'``, the block-Thomas pair (rows 5 and 6, kernels/thomas_batch.py), which
 ``pack(method='direct')`` picks from B >= 16 as ``solve_batched`` does
 (``tier=`` overrides).  Every tier reads the same staged tensors, so a pack
 serves either method.  ``solve_packed_sequence`` launches the sequence
-kernel (kernels/fused_sequence.py) and is PCG-only, as in ``gato_tpu``.
+kernel (kernels/fused_sequence.py), or past its shared memory runs the
+window's steps one after another on the long-K tier, and is PCG-only, as
+in ``gato_tpu``.
 Tensors packed on the CPU run the kernels' plain versions.
 """
 
@@ -44,9 +48,10 @@ import numpy as np
 import torch
 
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes
-from .kernels import direct_fused, fused_sequence, fused_solve, thomas_batch
+from .kernels import direct_fused, fused_sequence, fused_solve, longk, thomas_batch
+from .mpc import _sequence_core
 from .problem import ProblemSpec, SolverOptions
-from .solver import SolveResult, _torch_dtype, resolve_device
+from .solver import SolveResult, _torch_dtype, resolve_device, shared_limit
 
 DIRECT_TIERS = ("cr", "thomas")
 
@@ -58,7 +63,9 @@ class PackPlan(NamedTuple):
     ``batched`` records whether the caller passed a leading batch axis
     (``unpack`` restores the caller's shapes); ``batch`` is the number of
     problems (streams for a sequence); ``tier`` is the direct kernel
-    ('cr' or 'thomas') of a 'direct' pack, None for 'pcg'."""
+    ('cr' or 'thomas') of a 'direct' pack, and for 'pcg' None (kernel B or
+    the farm kernel) or 'longk' (past their shared memory: the long-K
+    tier)."""
 
     method: str
     batched: bool
@@ -144,6 +151,12 @@ def _warm_start(lam0, carry_shape, public_shape, device) -> torch.Tensor:
                      f"{carry_shape} nor the public {public_shape}")
 
 
+def _longk(K: int, s: int, c: int, device) -> bool:
+    """True iff method='pcg' on these widths is past kernel B's (and the farm
+    kernel's) shared memory on ``device``: the long-K tier's."""
+    return not fused_solve.fits(K, s, c, shared_limit(device))
+
+
 def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int) -> str:
     """The direct kernel of a pack: 'thomas' from B >= 16 when its stacks
     fit (thomas_batch.should_dispatch), else 'cr'; a forced 'thomas' that
@@ -195,12 +208,13 @@ def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
         b = KKTBlocks(*(a.unsqueeze(0) for a in b))
     Bn = b.Q.shape[0]
     check_block_shapes(spec, b, lead=(Bn,))
+    K, s, c = spec.knot_points, spec.state_size, spec.control_size
     if method == "direct":
-        tier = _direct_tier(tier, Bn, spec.knot_points, spec.state_size,
-                            spec.control_size)
-    plan = PackPlan(method=method, batched=batched, batch=Bn,
-                    K=spec.knot_points, s=spec.state_size,
-                    c=spec.control_size, tier=tier)
+        tier = _direct_tier(tier, Bn, K, s, c)
+    elif _longk(K, s, c, dev):
+        tier = "longk"
+    plan = PackPlan(method=method, batched=batched, batch=Bn, K=K, s=s, c=c,
+                    tier=tier)
     return PackedKKT(*b, plan=plan)
 
 
@@ -230,9 +244,10 @@ def update_vectors(packed: PackedKKT, q, r, c) -> PackedKKT:
 def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
                  lam0=None) -> PackedSolveResult:
     """Solve from staged inputs: one launch of kernel B for
-    ``options.method == 'pcg'``; for 'direct' the pack's tier (a pack made
-    for 'pcg' takes solve_batched's batch-width pick), one launch of row 4
-    or one of each of rows 5 and 6.
+    ``options.method == 'pcg'`` (past its shared memory, a 'longk' pack,
+    the long-K tier: kernels/longk.py); for 'direct' the pack's tier
+    (a pack made for 'pcg' takes solve_batched's batch-width pick), one
+    launch of row 4 or one of each of rows 5 and 6.
 
     ``lam0``: None (cold start), the packed carry (B, K, s) (a previous
     ``PackedSolveResult.lam_packed``) or a public array ((K, s) for an
@@ -244,8 +259,8 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     blocks = (packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
               packed.cb)
     if options.method == "direct":
-        tier = plan.tier or _direct_tier(None, plan.batch, plan.K, plan.s,
-                                         plan.c)
+        tier = (plan.tier if plan.tier in DIRECT_TIERS else
+                _direct_tier(None, plan.batch, plan.K, plan.s, plan.c))
         solve = (thomas_batch.solve_direct_thomas_cuda if tier == "thomas"
                  else direct_fused.direct_fused_cuda)
         res, dz_x, dz_u = solve(*blocks, rho=options.rho)
@@ -254,8 +269,12 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     carry = (plan.batch, plan.K, plan.s)
     public = carry if plan.batched else (plan.K, plan.s)
     lb = _warm_start(lam0, carry, public, packed.qb.device)
-    res, dz_x, dz_u = fused_solve.fused_solve_cuda(
-        *blocks, lb, rho=options.rho, **_kernel_kw(options))
+    if _longk(plan.K, plan.s, plan.c, packed.qb.device):
+        res, dz_x, dz_u = longk.solve_longk_batched(
+            *blocks, lb, rho=options.rho, **_kernel_kw(options))
+    else:
+        res, dz_x, dz_u = fused_solve.fused_solve_cuda(
+            *blocks, lb, rho=options.rho, **_kernel_kw(options))
     return PackedSolveResult(res.lam, dz_x, dz_u, res.iters, res.converged,
                              res.eta, plan)
 
@@ -330,8 +349,9 @@ def pack_sequence(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
                          "a B=1 axis")
     T, Bn = b.Q.shape[:2]
     check_block_shapes(spec, b, lead=(T, Bn))
-    plan = PackPlan(method="pcg", batched=True, batch=Bn, K=spec.knot_points,
-                    s=spec.state_size, c=spec.control_size)
+    K, s, c = spec.knot_points, spec.state_size, spec.control_size
+    plan = PackPlan(method="pcg", batched=True, batch=Bn, K=K, s=s, c=c,
+                    tier="longk" if _longk(K, s, c, dev) else None)
     return PackedKKTSequence(*b, plan=plan)
 
 
@@ -339,7 +359,9 @@ def solve_packed_sequence(packed: PackedKKTSequence,
                           options: SolverOptions = SolverOptions(),
                           lam0=None) -> PackedSequenceResult:
     """Run a whole warm-started farm window from staged inputs: one launch
-    of the sequence kernel, every step at ``options.rho``.
+    of the sequence kernel, every step at ``options.rho``; for a
+    ``tier='longk'`` pack the long-K tier step after step, each
+    warm-started from the last.
 
     ``lam0``: None (cold start) or a (B, K, s) array, for example the
     previous window's ``lam_tail_packed``; it is used whatever
@@ -353,10 +375,16 @@ def solve_packed_sequence(packed: PackedKKTSequence,
     carry = (plan.batch, plan.K, plan.s)
     dev = packed.qb.device
     lb = _warm_start(lam0, carry, carry, dev)
+    blocks = KKTBlocks(packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb,
+                       packed.rb, packed.cb)
+    if _longk(plan.K, plan.s, plan.c, dev):
+        out = _sequence_core(blocks, lb, np.full(packed.T, options.rho),
+                             options, "pcg_kernel")
+        return PackedSequenceResult(out.lam, out.dz_x, out.dz_u, out.iters,
+                                    out.converged, out.eta, plan)
     rhos = torch.full((packed.T,), options.rho, dtype=torch.float32,
                       device=dev)
     res, dz_x, dz_u = fused_sequence.fused_sequence_cuda(
-        packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
-        packed.cb, lb, rhos, **_kernel_kw(options))
+        *blocks, lb, rhos, **_kernel_kw(options))
     return PackedSequenceResult(res.lam, dz_x, dz_u, res.iters,
                                 res.converged, res.eta, plan)

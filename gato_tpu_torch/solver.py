@@ -8,7 +8,10 @@ Backends, named after ``gato_tpu``'s:
   ``method='direct'``: condense, direct.btd_solve_auto (block Thomas), the
   true residual, recover_dz.
 * ``'pcg_kernel'``: condensation in PyTorch ops, then the CUDA PCG kernel
-  (kernel A, kernels/pcg_kernel.py; ``gato_tpu``'s ``'pallas'``).  Not
+  (kernel A, kernels/pcg_kernel.py; ``gato_tpu``'s ``'pallas'``); past
+  kernel A's shared memory (``longk.should_dispatch``) the long-K tier
+  instead, condensation, PCG and recovery in its CUDA kernels
+  (kernels/longk.py, ``gato_tpu``'s ``longk.solve_longk_batched``).  Not
   with ``method='direct'``: ``gato_tpu``'s ``'pallas'`` there is its
   long-K direct ladder, not ported yet.
 * ``'fused'``: the whole solve in hand-written CUDA kernels, ``gato_tpu``'s
@@ -18,9 +21,12 @@ Backends, named after ``gato_tpu``'s:
   and 6, kernels/thomas_batch.py, ``thomas_batch.should_dispatch``).
 
 Auto-selection (``pcg_backend=None``) picks ``'fused'`` for float32 on CUDA
-and ``'torch'`` on the CPU or for float64.  An explicit kernel backend with
-float64, an unknown backend, ``'pcg_kernel'`` with ``method='direct'`` and
-a horizon that no direct kernel takes raise.  Every entry point takes
+and ``'torch'`` on the CPU or for float64; with ``method='pcg'``, past
+kernel B's shared memory it picks ``'pcg_kernel'`` and so the long-K tier
+(``gato_tpu``'s ``'pallas'`` there).  An explicit kernel backend with
+float64, an unknown backend, ``'pcg_kernel'`` with ``method='direct'``, an
+explicit ``'fused'`` past kernel B's shared memory and a horizon that no
+direct kernel takes raise.  Every entry point takes
 ``device=`` (default ``"cuda"``) and raises if that device is CUDA and no
 CUDA device is available: nothing falls back to the CPU silently.
 """
@@ -34,7 +40,7 @@ import torch
 
 from . import assemble, direct, pcg as pcg_mod, recover
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes, interleave_dz
-from .kernels import direct_fused, thomas_batch
+from .kernels import _build, direct_fused, longk, thomas_batch
 from .kernels import fused_solve as fused_kernel
 from .kernels import pcg_kernel
 from .problem import ProblemSpec, SolverOptions
@@ -88,12 +94,35 @@ def _torch_dtype(dtype) -> torch.dtype:
         raise ValueError(f"unsupported dtype {dtype!r}") from None
 
 
+def shared_limit(device, smem_limit: Optional[int] = None) -> int:
+    """The per-block shared memory the kernel routes plan for: ``smem_limit``
+    if given, the CUDA device's opt-in bytes, or an H100's for the CPU (so
+    that the plain versions take the route the card would)."""
+    if smem_limit is not None:
+        return smem_limit
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return _build.max_shared_bytes(dev)
+    return longk.H100_SHARED_BYTES
+
+
 def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
-                     device) -> str:
+                     device, shape: Optional[tuple] = None,
+                     smem_limit: Optional[int] = None) -> str:
     """Validate an explicit backend choice, or auto-select.  Requests that
-    cannot be honoured raise instead of degrading."""
+    cannot be honoured raise instead of degrading.  ``shape`` (K, s, c),
+    where given, routes ``method='pcg'`` past kernel B's shared memory
+    (``smem_limit``, default :func:`shared_limit`): auto takes
+    ``'pcg_kernel'``, an explicit ``'fused'`` raises."""
+    past_fused = (shape is not None and options.method == "pcg"
+                  and _torch_dtype(options.dtype) == torch.float32
+                  and torch.device(device).type == "cuda")
     if pcg_backend is None:
-        return default_pcg_backend(device, options.dtype)
+        backend = default_pcg_backend(device, options.dtype)
+        if past_fused and not fused_kernel.fits(
+                *shape, shared_limit(device, smem_limit)):
+            return "pcg_kernel"
+        return backend
     if pcg_backend not in VALID_PCG_BACKENDS:
         raise ValueError(
             f"unknown pcg_backend {pcg_backend!r}; valid choices are "
@@ -107,7 +136,18 @@ def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
             "pcg_backend='pcg_kernel' with method='direct' is gato_tpu's "
             "'pallas' direct route, " + direct_fused.LONG_K_DIRECT + "; use "
             "pcg_backend None, 'fused' or 'torch'")
+    if pcg_backend == "fused" and shape is not None and options.method == "pcg":
+        limit = shared_limit(device, smem_limit)
+        if not fused_kernel.fits(*shape, limit):
+            raise ValueError(fused_kernel.past_limit_message(
+                "pcg_backend='fused'", *shape, fused_kernel.smem_bytes(*shape),
+                limit - _build.RESERVED_SHARED_BYTES))
     return pcg_backend
+
+
+def spec_shape(spec: ProblemSpec) -> tuple:
+    """(K, s, c) of a spec, as the routing reads it."""
+    return spec.knot_points, spec.state_size, spec.control_size
 
 
 def _direct_torch(b: KKTBlocks, rho: float) -> SolveResult:
@@ -146,6 +186,13 @@ def _solve_core(b: KKTBlocks, lam0: torch.Tensor, options: SolverOptions,
               poly_degree=options.precond_poly_degree)
     if backend == "fused":
         res, dz_x, dz_u = fused_kernel.fused_solve_cuda(
+            *b, lam0, rho=options.rho,
+            preconditioner=options.preconditioner.value, **kw)
+        return SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
+    Bn, K, s, _ = b.Q.shape
+    if backend == "pcg_kernel" and longk.should_dispatch(
+            K, s, b.R.shape[-1], shared_limit(b.q.device)):
+        res, dz_x, dz_u = longk.solve_longk_batched(
             *b, lam0, rho=options.rho,
             preconditioner=options.preconditioner.value, **kw)
         return SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
@@ -192,7 +239,7 @@ def solve(
       pcg_backend: 'torch' | 'pcg_kernel' | 'fused' | None (auto).
       device: where to solve; default "cuda".
     """
-    backend = _resolve_backend(pcg_backend, options, device)
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
     dev, b, lam0 = _stage(spec, blocks, options, lam0, device, ())
     res = _solve_core(KKTBlocks(*(a.unsqueeze(0) for a in b)),
                       lam0.unsqueeze(0), options, backend)
@@ -211,7 +258,7 @@ def solve_batched(
     """Solve a batch of independent KKT systems (a leading batch axis on
     every array of ``blocks``).  A problem that converges early stops
     updating while the rest of the batch iterates."""
-    backend = _resolve_backend(pcg_backend, options, device)
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
     Q = blocks.Q
     if Q.ndim != 4:
         raise ValueError(

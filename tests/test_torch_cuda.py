@@ -19,6 +19,7 @@ from gato_tpu_torch import testing as tt
 from gato_tpu_torch.kernels import direct_fused as kd
 from gato_tpu_torch.kernels import fused_sequence as ks
 from gato_tpu_torch.kernels import fused_solve as kb
+from gato_tpu_torch.kernels import longk as kl
 from gato_tpu_torch.kernels import pcg_kernel as ka
 from gato_tpu_torch.kernels import thomas_batch as kt
 
@@ -205,12 +206,19 @@ def test_mpc_and_packed_entry_points_launch_the_kernels(dev):
 
 
 def test_fused_routes_refuse_a_horizon_past_shared_memory(dev):
+    """Kernel B and the farm kernel past their shared memory: an explicit
+    'fused' raises naming the routes that serve the horizon (auto and
+    'pcg_kernel' take the long-K tier there)."""
     spec = gt.ProblemSpec(14, 7, 1000)
     farm = tt.random_farm(spec, 1, 1, seed0=0)
-    with pytest.raises(ValueError, match="queue 2 rows 7-10 and 13"):
-        gt.solve_sequence_batched(spec, farm)
-    with pytest.raises(ValueError, match="queue 2 rows 7-10 and 13"):
-        gt.solve_packed(gt.pack(spec, gt.KKTBlocks(*(a[0] for a in farm))))
+    with pytest.raises(ValueError, match=r"None \(auto\) or 'pcg_kernel'"):
+        gt.solve_sequence_batched(spec, farm, pcg_backend="fused")
+    one = gt.blocks_to_torch(tt.random_batch(spec, 1), dev)
+    with pytest.raises(ValueError, match=r"None \(auto\) or 'pcg_kernel'"):
+        kb.fused_solve_cuda(*one)
+    with pytest.raises(ValueError, match=r"None \(auto\) or 'pcg_kernel'"):
+        ks.fused_sequence_cuda(*(a.unsqueeze(0) for a in one), torch.zeros_like(one.q),
+                               torch.zeros(1, device=dev))
 
 
 # K = 2 is the shortest horizon (one cyclic-reduction level); s = 20 takes
@@ -336,5 +344,131 @@ def test_direct_entry_points_launch_the_kernels(dev):
 def test_direct_refuses_a_horizon_past_shared_memory(dev):
     spec = gt.ProblemSpec(14, 7, 1000)
     one = tt.random_blocks(spec, seed=0)
-    with pytest.raises(NotImplementedError, match="rows 7, 11, 12 and 13"):
+    with pytest.raises(NotImplementedError, match="rows 11 and 12"):
         gt.solve(spec, one, gt.SolverOptions(method="direct"))
+
+
+# The long-K tier (rows 7, 8/10, 9 and 13): (K, B, preconditioner, poly,
+# max_iters) at IIWA widths; row 8's shape (K=2048) and row 10's (K=8192).
+LONGK_CASES = [(1024, 1, "symmetric_stair", 1, 100), (1024, 4, "block_jacobi", 2, 100),
+               (1024, 4, "jacobi", 1, 10), (2048, 1, "symmetric_stair", 1, 100),
+               (8192, 1, "symmetric_stair", 1, 100)]
+
+
+@pytest.mark.parametrize("K,B,prec,poly,cap", LONGK_CASES)
+def test_longk_kernels_match_plain(dev, K, B, prec, poly, cap):
+    spec = gt.ProblemSpec(14, 7, K)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=80), dev)
+    lam0 = torch.zeros_like(b.q)
+    kw = dict(exit_tol=1e-6, max_iters=cap, poly_degree=poly)
+    before = (kl.CONDENSE_LAUNCHES, kl.PCG_LAUNCHES, kl.FUSED_LAUNCHES,
+              kl.RECOVER_LAUNCHES)
+    kops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner=prec)
+    pops = kl.condense_longk_plain(*b, rho=1e-3, preconditioner=prec)
+    for x, y in zip(kops[:5], pops[:5]):
+        _close(x, y)
+    assert kops.bad.tolist() == pops.bad.tolist() == [False] * B
+    got = kl.pcg_longk_cuda(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    ref = kl.pcg_longk_plain(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    assert got.iters.tolist() == ref.iters.tolist()
+    _close(got.lam, ref.lam)
+    fused, fqi, fri = kl.fused_longk_cuda(*b, lam0, rho=1e-3, preconditioner=prec, **kw)
+    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad, **kw)
+    assert torch.equal(fused.lam, split.lam) and torch.equal(fqi, kops.Qinv)
+    dx, du = kl.recover_longk_cuda(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, ref.lam)
+    rx, ru = kl.recover_longk_plain(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, ref.lam)
+    torch.cuda.synchronize()
+    _close(dx, rx)
+    _close(du, ru)
+    assert (kl.CONDENSE_LAUNCHES, kl.PCG_LAUNCHES, kl.FUSED_LAUNCHES,
+            kl.RECOVER_LAUNCHES) == (before[0] + 1, before[1] + 2, before[2] + 1,
+                                     before[3] + 1)
+
+
+@pytest.mark.parametrize("sizes", [(3, 2, 2), (2, 1, 5), (3, 2, 10), (20, 9, 37),
+                                   (32, 32, 6)])
+def test_longk_tiers_match_plain_at_other_widths(dev, sizes):
+    """Both routes at the widths the other kernels are tested at, K = 2
+    (one tile) and s = c = 32 (one-knot tiles)."""
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, 3, seed0=110), dev)
+    kw = dict(rho=1e-3, exit_tol=1e-8, max_iters=300)
+    ref, rx, ru = kl.solve_longk_batched(*(a.cpu() for a in b), **kw)
+    for tier in ("fused_xl", "xl"):
+        got, gx, gu = kl.solve_longk_batched(*b, force_tier=tier, **kw)
+        torch.cuda.synchronize()
+        assert got.iters.tolist() == ref.iters.tolist()
+        for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+            _close(x, y)
+
+
+def test_longk_batch_past_the_resident_ctas_runs_in_rounds(dev):
+    """More problems than resident CTAs: the cooperative kernels take them
+    in rounds, one launch each, with the plain versions' outcome."""
+    from gato_tpu_torch.kernels import _build
+    spec = gt.ProblemSpec(4, 2, 30)
+    grid = _build.library().gato_longk_grid(0, 4, 2)
+    B = 2 * grid + 5
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=100), dev)
+    kw = dict(rho=1e-3, exit_tol=1e-8, max_iters=200)
+    ref, rx, ru = kl.solve_longk_batched(*(a.cpu() for a in b), **kw)
+    for tier in ("fused_xl", "xl"):
+        got, gx, gu = kl.solve_longk_batched(*b, force_tier=tier, **kw)
+        torch.cuda.synchronize()
+        assert got.iters.tolist() == ref.iters.tolist()
+        assert bool(got.converged.all())
+        for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+            _close(x, y)
+
+
+def test_longk_singular_problem_is_frozen(dev):
+    spec = gt.ProblemSpec(14, 7, 1024)
+    mix = tt.stack_blocks([tt.random_blocks(spec, seed=1),
+                           tt.singular_blocks(spec, seed=3, knot=2),
+                           tt.random_blocks(spec, seed=2)])
+    b = gt.blocks_to_torch(mix, dev)
+    for tier in kl.TIERS:
+        res, dx, du = kl.solve_longk_batched(*b, rho=0.0, exit_tol=1e-6,
+                                             max_iters=50, force_tier=tier)
+        assert res.converged.tolist() == [True, False, True]
+        assert int(res.iters[1]) == 50 and 1e30 <= float(res.eta[1]) < float("inf")
+        for t in (res.lam, dx, du):
+            assert bool(torch.isfinite(t).all())
+
+
+def test_longk_entry_points_launch_the_kernels(dev):
+    spec = gt.ProblemSpec(14, 7, 700)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-8)
+    batch = tt.random_batch(spec, 3, seed0=90)
+    tier = kl.AUTO_TIER
+    count = kl.FUSED_LAUNCHES if tier == "fused_xl" else kl.PCG_LAUNCHES
+    got = gt.solve_batched(spec, batch, opts)
+    after = kl.FUSED_LAUNCHES if tier == "fused_xl" else kl.PCG_LAUNCHES
+    assert after == count + 1
+    ref = gt.solve_batched(spec, batch, opts, pcg_backend="torch")
+    assert got.iters.tolist() == ref.iters.tolist()
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(got, name), getattr(ref, name))
+    packed = gt.pack(spec, batch)
+    assert packed.plan.tier == "longk"
+    before = kl.RECOVER_LAUNCHES
+    res = gt.solve_packed(packed, opts)
+    assert kl.RECOVER_LAUNCHES == before + 1
+    assert torch.equal(res.lam_p, got.lam)
+    farm = tt.random_farm(spec, 3, 2, seed0=91)
+    before = kl.RECOVER_LAUNCHES
+    seq = gt.solve_sequence_batched(spec, farm, opts)
+    assert kl.RECOVER_LAUNCHES == before + 3 and bool(seq.converged.all())
+    ref = gt.solve_sequence_batched(spec, farm, opts, pcg_backend="torch")
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(seq, name), getattr(ref, name))
+
+
+def test_shared_memory_mirrors_match_the_library(dev):
+    """The routing's pure functions (fused_solve.smem_bytes,
+    pcg_kernel.smem_bytes) agree with what the kernels' launchers compute."""
+    from gato_tpu_torch.kernels import _build
+    lib = _build.library()
+    for K, s, c in ((5, 2, 1), (50, 14, 7), (700, 14, 7), (37, 20, 9), (3, 32, 32)):
+        assert kb.smem_bytes(K, s, c) == lib.gato_fused_smem_bytes(K, s, c)
+        assert ka.smem_bytes(K, s) == lib.gato_pcg_smem_bytes(K, s)
