@@ -60,7 +60,22 @@ Phases, each of which raises on failure (exit code not 0):
    counts;
 5d. the long-horizon kernels' times at K=1024, 2048, 4096, 8192 and B=1,
    16 beside their bounds, their plain versions and (K=1024) the dense
-   Schur solve, and the two routes' times (the tier crossover).
+   Schur solve, and the two routes' times (the tier crossover);
+3e. the long-horizon exact kernels (rows 11 and 12 and the unpeel kernel)
+   against their plain versions at IIWA widths, K=50, 741, 1025, 1536 and
+   8192 at B=1 and 15, both exact tiers against the plain cyclic
+   reduction, a singular mix and a zero pivot in the condensed system;
+   rows 7 and 13 at K=50;
+4e. the exact long-K main path (method='direct' past row 4's shared
+   memory below B=16): solve at K=1024 and 8192, solve_batched at B=8,
+   K=2048 (the auto rule's 'hybrid'; 'xl' elsewhere), 'pcg_kernel' at
+   K=50 against row 4, an exact farm of B=2 x T=4 at K=1024, pack /
+   solve_packed and a 'longk' PCG pack solved exactly; against the float64
+   dense KKT solve where K <= 1024, with each path's launch counts;
+5e. the exact kernels' and both exact routes' times at K=1024-8192, B=1
+   and 15, beside their bounds, their plain versions, the dense Schur
+   solve (K=1024) and the Thomas pair (B=15); the long-K PCG kernel, its
+   plain version and its route at row 14's shape, K=16384.
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -118,7 +133,8 @@ HBM_BYTES = 3.35e12
 
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
            kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kl.CONDENSE_NAME: 0.0,
-           kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0}
+           kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0,
+           kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0}
 # An exact solve's eta is a squared residual at round-off level: kernel and
 # plain version agree when |eta_k - eta_p| <= ETA_REL (1 + ||gamma||^2), a
 # relative residual of 1e-5, float32 round-off for these systems.
@@ -1719,6 +1735,424 @@ def phase_longk_times(card: str):
     return times, routes
 
 
+# --------------------------------------------------------------------------
+# The long-K exact tier: rows 11 and 12 and the unpeel kernel, with rows 7
+# and 13.
+
+DIRECT_K = (50, 741, 1025, 1536, 8192)
+DIRECT_B = (1, 15)
+
+
+def direct_longk_counts() -> dict:
+    return {kl.CONDENSE_NAME: kl.CONDENSE_LAUNCHES, kl.CR_NAME: kl.CR_LAUNCHES,
+            kl.PEEL_NAME: kl.PEEL_LAUNCHES, kl.UNPEEL_NAME: kl.UNPEEL_LAUNCHES,
+            kl.RECOVER_NAME: kl.RECOVER_LAUNCHES, kl.PCG_NAME: kl.PCG_LAUNCHES,
+            kl.FUSED_NAME: kl.FUSED_LAUNCHES}
+
+
+def zero_direct_longk_counts() -> None:
+    zero_longk_counts()
+    kl.CR_LAUNCHES = kl.PEEL_LAUNCHES = kl.UNPEEL_LAUNCHES = 0
+
+
+def check_cr_kernels(what: str, S, gamma, keep=None) -> str:
+    """Rows 11 and 12 and the unpeel kernel against their plain versions on
+    one condensed system: row 11 and the peel on S, gamma; the unpeel on the
+    plain peel's level and the plain solution of its reduced system, which
+    must give back the whole system's solution.  Flags are compared for
+    every problem, values for ``keep``."""
+    sel = slice(None) if keep is None else keep
+    x, bad = kl.cr_longk_cuda(S, gamma)
+    Sh, bh, level = kl.peel_longk_cuda(S, gamma)
+    torch.cuda.synchronize()
+    xp, badp = kl.cr_longk_plain(S, gamma)
+    Shp, bhp, levelp = kl.peel_longk_plain(S, gamma)
+    xh = kl.cr_longk_plain(Shp, bhp)[0]
+    xu = kl.unpeel_longk_cuda(xh, levelp)
+    torch.cuda.synchronize()
+    xup = kl.unpeel_longk_plain(xh, levelp)
+    for name, k, p in (("flags", bad, badp), ("peel flags", level.bad, levelp.bad)):
+        if not torch.equal(k.cpu(), p.cpu()):
+            raise AssertionError(f"{what}: {name} {k.tolist()} vs plain {p.tolist()}")
+    e11 = check_close(f"{what} {kl.CR_NAME} lam", x[sel], xp[sel])
+    e12 = max(check_close(f"{what} {kl.PEEL_NAME} {name}", k[sel], p[sel])
+              for name, k, p in (("S'", Sh, Shp), ("b'", bh, bhp),
+                                 ("Doinv", level.Doinv, levelp.Doinv)))
+    eu = check_close(f"{what} {kl.UNPEEL_NAME} x", xu[sel], xup[sel])
+    check_close(f"{what} a peel, the rest, its unpeel (plain)", xup[sel], xp[sel])
+    for name, err in ((kl.CR_NAME, e11), (kl.PEEL_NAME, e12), (kl.UNPEEL_NAME, eu)):
+        MAX_ERR[name] = max(MAX_ERR[name], err)
+    return (f"max|d| row 11 {e11:.2e}, row 12 {e12:.2e}, unpeel {eu:.2e}; flags "
+            f"{int(bad.sum())} / peel {int(level.bad.sum())} equal to plain")
+
+
+def check_exact_tiers(what: str, blocks, rho=RHO, keep=None) -> str:
+    """'xl' and 'hybrid' against 'xla' (the plain cyclic reduction between
+    the same row 7 and row 13 launches): converged equal, iters 0, eta
+    within ETA_REL (1 + ||gamma||^2), lambda and dz within TOL."""
+    sel = slice(None) if keep is None else keep
+    ref, rdx, rdu = kl.solve_direct_longk_batched(*blocks, rho=rho, force_tier="xla")
+    gamma = kl.condense_longk_cuda(*blocks, rho=rho, preconditioner="jacobi").gamma
+    errs = []
+    for tier in ("xl", "hybrid"):
+        res, dx, du = kl.solve_direct_longk_batched(*blocks, rho=rho, force_tier=tier)
+        torch.cuda.synchronize()
+        check_direct(f"{what} {tier}", gt.SolveResult(*(t[sel] for t in (
+            res.lam, dx, du, res.iters, res.converged, res.eta))),
+            gt.SolveResult(*(t[sel] for t in (ref.lam, rdx, rdu, ref.iters,
+                                              ref.converged, ref.eta))), gamma[sel])
+        if res.converged.tolist() != ref.converged.tolist():
+            raise AssertionError(f"{what} {tier}: converged {res.converged.tolist()}")
+        errs.append(max(check_close(f"{what} {tier} {name}", k[sel], p[sel])
+                        for name, k, p in (("lam", res.lam, ref.lam), ("dz_x", dx, rdx),
+                                           ("dz_u", du, rdu))))
+    return f"'xl' max|d| {errs[0]:.2e}, 'hybrid' {errs[1]:.2e} against 'xla'"
+
+
+def phase_direct_longk_parity():
+    print(f"== phase 3e: rows 11 and 12 and the unpeel kernel against their plain "
+          f"versions at IIWA widths (14, 7), rho={RHO}; rows 7 and 13 at K=50")
+    for n in DIRECT_B:
+        blocks = longk_batch(50, n, seed0=7000)
+        for prec in ("jacobi", "symmetric_stair"):
+            # scalar Jacobi over a capped run, as in phase 3
+            cap = 10 if prec == "jacobi" else MAX_ITERS
+            line = check_longk_kernels(f"K=50 B={n} {prec}", blocks,
+                                       torch.zeros_like(blocks.q), prec=prec, cap=cap)
+            print(f"  rows 7-13 at K=50 B={n} {prec} max_iters={cap}: {line}")
+    for K in DIRECT_K:
+        full = longk_batch(K, max(DIRECT_B), seed0=7100 + K)
+        for n in DIRECT_B:
+            blocks = gt.KKTBlocks(*(a[:n] for a in full))
+            ops = kl.condense_longk_cuda(*blocks, rho=RHO, preconditioner="jacobi")
+            line = check_cr_kernels(f"K={K} B={n}", ops.S, ops.gamma)
+            if K < 8192 or n == 1:
+                line += "; " + check_exact_tiers(f"K={K} B={n}", blocks)
+            print(f"  K={K} B={n}: {line}")
+        del full
+        torch.cuda.empty_cache()
+
+    # Singular input.  A zero row and column in Q[2] (rho = 0): row 7 flags
+    # it, both tiers report it converged False with eta >= 1e30 and finite
+    # outputs, the others as their plain versions.  A zero pivot in an odd
+    # row's block of the condensed system: rows 11 and 12 flag that problem
+    # alone, as their plain versions do.
+    good = [testing.random_blocks(longk_spec(1024), seed=7200 + i) for i in range(2)]
+    bad = testing.singular_blocks(longk_spec(1024), seed=3, knot=2)
+    mix = gt.blocks_to_torch(testing.stack_blocks([good[0], bad, good[1]]), DEV)
+    line = check_exact_tiers("singular mix", mix, rho=0.0, keep=[0, 2])
+    for tier in ("xl", "hybrid"):
+        res, dx, du = kl.solve_direct_longk_batched(*mix, rho=0.0, force_tier=tier)
+        torch.cuda.synchronize()
+        if res.converged.cpu().tolist() != [True, False, True] \
+                or not float(res.eta[1]) >= 1e30:
+            raise AssertionError(f"long-K direct {tier} singular mix: converged "
+                                 f"{res.converged.tolist()}, eta {res.eta.tolist()}")
+        for t in (res.lam, dx, du):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"long-K direct {tier} singular mix: an output "
+                                     "is not finite")
+    ops = kl.condense_longk_cuda(*mix, rho=RHO, preconditioner="jacobi")
+    S = ops.S.clone()
+    S[1, 5, 1, 0, :] = 0.0
+    S[1, 5, 1, :, 0] = 0.0
+    cr_line = check_cr_kernels("zero pivot in an odd row", S, ops.gamma, keep=[0, 2])
+    _, flags = kl.cr_longk_cuda(S, ops.gamma)
+    if flags.cpu().tolist() != [False, True, False]:
+        raise AssertionError(f"{kl.CR_NAME}: flags {flags.tolist()} for a zero pivot "
+                             "in problem 1")
+    print(f"  singular mix (1 of 3, K=1024, rho=0): {line}; converged [True, False, "
+          f"True], eta[1] = {float(res.eta[1]):g}, every output finite; a zero "
+          f"pivot in problem 1's odd row 5: {cr_line}")
+
+
+def phase_direct_longk_path():
+    print("== phase 4e: the exact long-K main path (method='direct') through solve, "
+          "solve_batched, 'pcg_kernel', solve_sequence_batched and pack / "
+          "solve_packed")
+    opts = gt.SolverOptions(rho=RHO, method="direct")
+    total = dict.fromkeys(direct_longk_counts(), 0)
+
+    def run(what, fn, expect):
+        zero_direct_longk_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = direct_longk_counts()
+        want = {key: expect.get(key, 0) for key in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for key, value in got.items():
+            total[key] += value
+        return out
+
+    def route(n_calls, n, K):
+        """Launch counts of n_calls calls of the auto exact tier on n
+        problems of horizon K."""
+        out = {kl.CONDENSE_NAME: n_calls, kl.CR_NAME: n_calls,
+               kl.RECOVER_NAME: n_calls}
+        if kl.direct_tier(n, K) == "hybrid":
+            out[kl.PEEL_NAME] = out[kl.UNPEEL_NAME] = n_calls * kl.hybrid_peels(K)
+        return out
+
+    def exact(what, res, blocks, rho=RHO):
+        """Converged with iters 0; within 2e-3 of scale of the float64 dense
+        KKT solve where K <= 1024, else against the 'xla' tier."""
+        if not bool(res.converged.all()) or int(res.iters.abs().max()) != 0:
+            raise AssertionError(f"{what}: not all converged with iters 0")
+        if blocks.Q.shape[1] <= 1024:
+            ref = dense_kkt_solve64(blocks, rho)
+            worst = 0.0
+            for name, got, r in zip(("lam", "dz_x", "dz_u"), (res.lam, res.dz_x,
+                                                              res.dz_u), ref):
+                err = float((got.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
+                if err > 2e-3:
+                    raise AssertionError(f"{what} {name}: {err:.3e} of scale off the "
+                                         "float64 dense KKT solve")
+                worst = max(worst, err)
+            return f"within {worst:.2e} of scale of the float64 dense KKT solve"
+        ref, rdx, rdu = kl.solve_direct_longk_batched(*blocks, rho=rho, force_tier="xla")
+        err = max(check_close(f"{what} {name}", k, p) for name, k, p in (
+            ("lam", res.lam, ref.lam), ("dz_x", res.dz_x, rdx), ("dz_u", res.dz_u, rdu)))
+        return f"max|d| {err:.2e} against the 'xla' tier (plain cyclic reduction)"
+
+    for K, n in ((1024, 1), (8192, 1), (2048, 8)):
+        spec = longk_spec(K)
+        blocks = longk_batch(K, n, seed0=8000 + K)
+        if n == 1:
+            one = gt.KKTBlocks(*(a[0] for a in blocks))
+            res = run(f"solve K={K}", lambda: gt.solve(spec, one, opts),
+                      route(1, n, spec.knot_points))
+            res = gt.SolveResult(*(t[None] for t in res))
+        else:
+            res = run(f"solve_batched K={K} B={n}",
+                      lambda: gt.solve_batched(spec, blocks, opts),
+                      route(1, n, spec.knot_points))
+        print(f"  {'solve' if n == 1 else 'solve_batched'} K={K} B={n} (auto: "
+              f"'pcg_kernel', tier {kl.direct_tier(n, spec.knot_points)}): converged, "
+              "iters 0, "
+              f"{exact(f'K={K} B={n}', res, blocks)}")
+
+    # 'pcg_kernel' named explicitly at K = 50, against row 4.
+    spec50 = longk_spec(50)
+    blocks = longk_batch(50, 2, seed0=8100)
+    res = run("solve_batched pcg_kernel K=50", lambda: gt.solve_batched(
+        spec50, blocks, opts, pcg_backend="pcg_kernel"), route(1, 2, spec50.knot_points))
+    r4, r4x, r4u = kd.direct_fused_cuda(*blocks, rho=RHO)
+    err = max(check_close(f"pcg_kernel direct K=50 {name} vs row 4", k, p)
+              for name, k, p in (("lam", res.lam, r4.lam), ("dz_x", res.dz_x, r4x),
+                                 ("dz_u", res.dz_u, r4u)))
+    print(f"  solve_batched pcg_kernel K=50 B=2 (the long-K tier): converged, "
+          f"{exact('pcg_kernel K=50', res, blocks)}; max|d| {err:.2e} against row 4")
+    try:
+        gt.solve_batched(longk_spec(1024), longk_batch(1024, 2, seed0=8150), opts,
+                         pcg_backend="fused")
+    except ValueError as e:
+        if "'pcg_kernel'" not in str(e):
+            raise
+        print(f"  explicit 'fused' at K=1024 B=2 raises: {e}")
+    else:
+        raise AssertionError("explicit 'fused' past row 4 below B=16 ran")
+
+    # The exact farm: B=2 streams x T=4 steps, 8 solves in one call.
+    spec = longk_spec(1024)
+    T, n = 4, 2
+    farm_blocks = gt.blocks_to_torch(testing.random_farm(spec, T, n, seed0=8200), DEV)
+    rhos = farm_rhos(T).cpu().numpy()
+    seq = run(f"solve_sequence_batched K=1024 B={n} T={T}",
+              lambda: gt.solve_sequence_batched(spec, farm_blocks, opts, rhos=rhos),
+              route(1, T * n, spec.knot_points))
+    worst = []
+    for t in range(T):
+        worst.append(exact(f"exact farm step {t}", gt.SolveResult(*(x[t] for x in seq)),
+                           gt.KKTBlocks(*(a[t] for a in farm_blocks)),
+                           rho=float(rhos[t])))
+    print(f"  solve_sequence_batched K=1024 B={n} T={T} (method='direct', rho "
+          f"alternating): {T * n} solves in one call, all converged; step by step "
+          f"{'; '.join(worst)}")
+
+    # The packed surface: a 'direct' pack, and a 'longk' PCG pack solved
+    # exactly.
+    step0 = gt.KKTBlocks(*(a[0] for a in farm_blocks))
+    step1 = gt.KKTBlocks(*(a[1] for a in farm_blocks))
+
+    def serve():
+        packed = gt.pack(spec, step0, method="direct")
+        first = gt.solve_packed(packed, opts)
+        packed = gt.update_vectors(packed, step1.q, step1.r, step1.c)
+        return packed, first, gt.solve_packed(packed, opts)
+
+    packed, first, second = run("pack / solve_packed K=1024", serve,
+                                route(2, n, spec.knot_points))
+    if packed.plan.tier != "longk":
+        raise AssertionError(f"pack(method='direct') at K=1024 planned {packed.plan.tier}")
+    line = exact("solve_packed first", first.unpack(), step0)
+    ref = gt.solve_batched(spec, step1, opts)
+    for name in ("lam", "dz_x", "dz_u", "eta", "converged"):
+        if not torch.equal(getattr(second.unpack(), name), getattr(ref, name)):
+            raise AssertionError(f"solve_packed second: {name} differs from solve_batched")
+    pcg_pack = run("PCG pack solved directly K=1024", lambda: gt.pack(spec, step0), {})
+    res = run("solve_packed(method='direct') on a 'longk' PCG pack",
+              lambda: gt.solve_packed(pcg_pack, opts), route(1, n, spec.knot_points))
+    if pcg_pack.plan.tier != "longk" or not torch.equal(res.lam_p, first.lam_p):
+        raise AssertionError("a 'longk' PCG pack solved directly differs from the "
+                             "'direct' pack")
+    print(f"  pack(method='direct') (tier 'longk') -> solve_packed -> update_vectors "
+          f"-> solve_packed B={n} K=1024: {line}, the second equal to solve_batched; "
+          "a 'longk' PCG pack solved with method='direct' equals it")
+
+    print(f"  launches on the exact long-K path: {total}")
+    for name in (kl.CONDENSE_NAME, kl.CR_NAME, kl.PEEL_NAME, kl.UNPEEL_NAME,
+                 kl.RECOVER_NAME):
+        if total[name] < 1:
+            raise AssertionError(f"{name} was not launched on the exact long-K path")
+    return total
+
+
+def thomas_solve_flops(K: int, s: int) -> float:
+    """Block Thomas on S lambda = gamma, the fewest operations of an exact
+    solve of the condensed system: per knot a pivot inverse, from the second
+    knot L C^-1, (L C^-1) U and (L C^-1) y; back, C^-1 (y - U x)."""
+    return (K * 2 * s ** 3 + (K - 1) * (4 * s ** 3 + 2 * s * s)
+            + K * 2 * s * s + (K - 1) * 2 * s * s)
+
+
+def peel_flops(W: int, s: int) -> float:
+    """One compacting level: W//2 inverses, then per even row A, B and the
+    four products of L', U', D' and two matrix-vector products."""
+    return (W // 2) * 2 * s ** 3 + ((W + 1) // 2) * (12 * s ** 3 + 4 * s * s)
+
+
+def phase_direct_longk_times(card: str):
+    print(f"== phase 5e: the long-K exact kernels' times (CUDA events, median of "
+          f"{TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for plain versions, library "
+          f"calls and the Thomas pair; plain versions once at K=8192 B=15) on {card}")
+    s, c = IIWA.state_size, IIWA.control_size
+    times, routes = {}, {}
+    for K in LONGK_K:
+        full = longk_batch(K, max(DIRECT_B), seed0=9000 + K)
+        for n in DIRECT_B:
+            blocks = gt.KKTBlocks(*(a[:n] for a in full))
+            ops = kl.condense_longk_cuda(*blocks, rho=RHO, preconditioner="jacobi")
+            S, g = ops.S, ops.gamma
+            x, _ = kl.cr_longk_cuda(S, g)
+            Sh, bh, level = kl.peel_longk_cuda(S, g)
+            xh = kl.cr_longk_cuda(Sh, bh)[0]
+            torch.cuda.synchronize()
+            odd = (level.S[:, 1::2, 0], level.S[:, 1::2, 2], level.b[:, 1::2])
+            bounds = {
+                kl.CR_NAME: bound(nbytes(S, g, x), n * thomas_solve_flops(K, s)),
+                kl.PEEL_NAME: bound(nbytes(S, g, Sh, bh, level.Doinv)
+                                    + 4 * level.bad.numel(), n * peel_flops(K, s)),
+                kl.UNPEEL_NAME: bound(nbytes(xh, level.Doinv, x, *odd),
+                                      n * (K // 2) * 6 * s * s),
+            }
+            once = K == 8192 and n == max(DIRECT_B)
+            rows = (
+                (kl.CR_NAME, lambda: kl.cr_longk_cuda(S, g),
+                 lambda: kl.cr_longk_plain(S, g)),
+                (kl.PEEL_NAME, lambda: kl.peel_longk_cuda(S, g),
+                 lambda: kl.peel_longk_plain(S, g)),
+                (kl.UNPEEL_NAME, lambda: kl.unpeel_longk_cuda(xh, level),
+                 lambda: kl.unpeel_longk_plain(xh, level)),
+            )
+            lib_ms = None
+            if K == 1024:
+                # One PyTorch call for row 11's function: the dense LU solve
+                # of the Schur system (K s = 14,336).
+                S_dense = dense_btd(S)
+                gam = g.reshape(n, -1, 1)
+                lib = torch.linalg.solve(S_dense, gam)
+                print(f"  K={K} B={n}: the dense Schur solve (library) against row 11 "
+                      f"max|dlam| {float((lib.reshape(n, K, s) - x).abs().max()):.2e}")
+                lib_ms = cuda_median_ms(lambda: torch.linalg.solve(S_dense, gam),
+                                        runs=SLOW_RUNS, warmup=1)
+                del S_dense, lib
+                torch.cuda.empty_cache()
+            for name, kern, plain in rows:
+                p1 = cuda_median_ms(plain, runs=1 if once else SLOW_RUNS,
+                                    warmup=0 if once else 1)
+                k1 = cuda_median_ms(kern)
+                k2 = cuda_median_ms(kern)
+                p2 = p1 if once else cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+                has_lib = name == kl.CR_NAME
+                bound_ms, bound_by = bounds[name]
+                times[(name, K, n)] = dict(
+                    ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                    library_ms=lib_ms if has_lib else None, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
+                            else "no library call")
+                plain_text = (f"plain {p1:.4f} ms (once)" if once
+                              else f"plain {p1:.4f} / {p2:.4f} ms")
+                print(f"  {name} K={K} B={n}: kernel {k1:.4f} / {k2:.4f} ms, "
+                      f"{plain_text}, {lib_text}, bound {bound_ms:.5f} ms ({bound_by})"
+                      f"  [{card}]")
+            # The two routes end to end (one call of solve_direct_longk_batched
+            # each), beside the exact function's bound (condensation, the
+            # block-Thomas solve, recovery: row 4's bound) and, at B=15, the
+            # Thomas pair called directly on the same inputs.
+            xl_ms, hy_ms = [], []
+            for _ in range(2):
+                xl_ms.append(cuda_median_ms(lambda: kl.solve_direct_longk_batched(
+                    *blocks, rho=RHO, force_tier="xl")))
+                hy_ms.append(cuda_median_ms(lambda: kl.solve_direct_longk_batched(
+                    *blocks, rho=RHO, force_tier="hybrid")))
+            res, dx, du = kl.solve_direct_longk_batched(*blocks, rho=RHO)
+            out = nbytes(res.lam, dx, du, res.eta) + 4 * n
+            fn_bound = bound(nbytes(*blocks) + out,
+                             n * (thomas_fwd_flops(K, s, c) + thomas_rev_flops(K, s, c)))
+            thomas = None
+            if n == max(DIRECT_B):
+                thomas = cuda_median_ms(lambda: kt.solve_direct_thomas_cuda(*blocks,
+                                                                             rho=RHO),
+                                        runs=SLOW_RUNS, warmup=1)
+            routes[(K, n)] = dict(xl=float(np.mean(xl_ms)), hybrid=float(np.mean(hy_ms)),
+                                  thomas=thomas, bound_ms=fn_bound[0],
+                                  bound_by=fn_bound[1])
+            thomas_text = ("" if thomas is None
+                           else f", the Thomas pair (rows 5 + 6) {thomas:.4f} ms")
+            print(f"  route K={K} B={n}: 'xl' (rows 7 + 11 + 13) {xl_ms[0]:.4f} / "
+                  f"{xl_ms[1]:.4f} ms, 'hybrid' ({kl.hybrid_peels(K)} peels) "
+                  f"{hy_ms[0]:.4f} / {hy_ms[1]:.4f} ms{thomas_text}; bound "
+                  f"{fn_bound[0]:.5f} ms ({fn_bound[1]})  [{card}]")
+            del ops, S, g, x, Sh, bh, level, xh, res, dx, du
+        del full
+        torch.cuda.empty_cache()
+
+    # Row 14's shape: IIWA K = 16384, where gato_tpu runs pcg_streamed and
+    # the port its long-K PCG route.
+    K = 16384
+    blocks = longk_batch(K, 1, seed0=9500)
+    kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    ops = kl.condense_longk_cuda(*blocks, rho=RHO)
+    lam0 = torch.zeros_like(blocks.q)
+    res = kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma, lam0, ops.bad, **kw)
+    torch.cuda.synchronize()
+    pcg_ms = cuda_median_ms(lambda: kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma,
+                                                      lam0, ops.bad, **kw))
+    pcg_bound = bound(nbytes(ops.S, ops.Pinv, ops.gamma, lam0, res.lam) + 16,
+                      pcg_flops(K, s, res.iters, res.converged, 1))
+    plain_ms = cuda_median_ms(lambda: kl.pcg_longk_plain(ops.S, ops.Pinv, ops.gamma,
+                                                         lam0, ops.bad, **kw),
+                              runs=SLOW_RUNS, warmup=1)
+    route_ms = cuda_median_ms(lambda: kl.solve_longk_batched(*blocks, rho=RHO, **kw))
+    routes["row14"] = dict(ms=pcg_ms, plain_ms=plain_ms, route_ms=route_ms,
+                           bound_ms=pcg_bound[0], bound_by=pcg_bound[1],
+                           iters=int(res.iters[0]))
+    print(f"  row 14's shape K={K} B=1: {kl.PCG_NAME} {pcg_ms:.4f} ms ({int(res.iters[0])} "
+          f"iterations), plain {plain_ms:.4f} ms, no library call (the dense Schur "
+          f"matrix is 210 GB), bound {pcg_bound[0]:.5f} ms ({pcg_bound[1]}); the "
+          f"route (rows 7 + 8/10 + 13) {route_ms:.4f} ms  [{card}]")
+    print("  the faster exact route per shape:")
+    for (K, n), r in ((key, r) for key, r in routes.items() if key != "row14"):
+        best = min(("xl", "hybrid"), key=lambda t: r[t])
+        thomas_text = "" if r["thomas"] is None else f", Thomas pair {r['thomas']:.4f}"
+        print(f"    K={K:5d} B={n:2d}: {best} ('xl' {r['xl']:.4f}, 'hybrid' "
+              f"{r['hybrid']:.4f} ms{thomas_text}); the auto tier takes "
+              f"{kl.direct_tier(n, K)}")
+    return times, routes
+
+
 def main():
     t_start = time.perf_counter()
     card = card_line()
@@ -1739,21 +2173,25 @@ def main():
     phase_sequence_parity()
     phase_direct_parity()
     phase_longk_parity()
+    phase_direct_longk_parity()
     launches, avg = phase_main_path()
     seq_launches = phase_mpc_path()
     direct_launches = phase_direct_path()
     longk_launches = phase_longk_path()
+    exact_launches = phase_direct_longk_path()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
+    exact_times, exact_routes = phase_direct_longk_times(card)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
     # Each kernel's launches are those of the path it is on: kernels A and
     # B from linsys_solve / solve_batched (phase 4), the sequence kernel
     # from the MPC and packed path (phase 4b), rows 4-6 from the exact path
-    # (phase 4c), rows 7-13 from the long-K path (phase 4d).
+    # (phase 4c), rows 7-10 and 13 from the long-K path (phase 4d), rows 11
+    # and 12 and the unpeel kernel from the exact long-K path (phase 4e).
     pair = {f"pair_{key}": value for key, value in
             direct_times[("pair", BATCH)].items() if key != "bound_by"}
     pair.update({f"pair_{key}_b1": value for key, value in
@@ -1792,9 +2230,30 @@ def main():
         for K, n in ((1024, 1), (8192, 1), (8192, 16)):
             row.update({f"{key}_k{K}_b{n}": value for key, value in
                         longk_times[(name, K, n)].items() if key != "bound_by"})
+        if name == kl.PCG_NAME:
+            # Row 14's shape (gato_tpu's pcg_streamed), which this kernel serves.
+            row.update({f"{key}_k16384_b1": value for key, value in
+                        exact_routes["row14"].items() if key != "bound_by"})
+        kernels.append(row)
+    # The long-K exact kernels: K=1024 at B=15 (and _b1), with K=8192 beside;
+    # their launches from the exact long-K path (phase 4e).
+    for name, replaces in ((kl.CR_NAME, kl.CR_REPLACES),
+                           (kl.PEEL_NAME, kl.PEEL_REPLACES),
+                           (kl.UNPEEL_NAME, kl.UNPEEL_REPLACES)):
+        row = {"name": name, "route": "cuda", "source": kl.DIRECT_SOURCE,
+               "replaces": replaces, "launches": exact_launches[name],
+               "max_abs_err": MAX_ERR[name], **exact_times[(name, 1024, 15)],
+               "batch": 15, "K": 1024}
+        for K, n in ((1024, 1), (8192, 1), (8192, 15)):
+            row.update({f"{key}_k{K}_b{n}": value for key, value in
+                        exact_times[(name, K, n)].items() if key != "bound_by"})
         kernels.append(row)
     for (K, n), (f_ms, x_ms) in longk_routes.items():
         print(f"  long-K route K={K} B={n}: fused_xl {f_ms:.4f} ms, xl {x_ms:.4f} ms")
+    for key, r in exact_routes.items():
+        if key != "row14":
+            print(f"  long-K exact route K={key[0]} B={key[1]}: xl {r['xl']:.4f} ms, "
+                  f"hybrid {r['hybrid']:.4f} ms, bound {r['bound_ms']:.5f} ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -119,10 +119,11 @@ def _pad_to(x, n, dim):
     return torch.cat([x, zero], dim=dim)
 
 
-def btd_solve_cr(S: torch.Tensor, b: torch.Tensor, *, flag: bool = False):
-    """Solve S x = b by block cyclic reduction.
+def cr_level(L, D, U, b, *, flag: bool = False):
+    """One compacting level of block cyclic reduction on the m rows of
+    btd(L, D, U) x = b (L, D, U (..., m, s, s), b (..., m, s), m >= 2).
 
-    Per level, with odd rows (D_o, L_o, U_o, b_o) and even rows:
+    With odd rows (D_o, L_o, U_o, b_o) and even rows (D_e, L_e, U_e, b_e):
 
         A = L_e D_{o,left}^{-1},   B = U_e D_{o,right}^{-1}
         L' = -A L_{o,left}         U' = -B U_{o,right}
@@ -130,54 +131,68 @@ def btd_solve_cr(S: torch.Tensor, b: torch.Tensor, *, flag: bool = False):
         b' = b_e - A b_{o,left} - B b_{o,right}
 
     the left odd neighbour of even row t being odd row t-1 and the right
-    one odd row t (zero past either end); back-substitution
-    x_odd = D_o^{-1} (b_o - L_o x_left - U_o x_right).
+    one odd row t (zero past either end: an odd m leaves the last even row
+    without a right neighbour).  Returns ((L', D', U', b') of the ceil(m/2)
+    even rows, (D_o^{-1}, L_o, U_o, b_o) for :func:`cr_back_level`, and
+    with ``flag`` the (..., m // 2) rows whose inversion clamped a zero
+    pivot in a block with a nonzero diagonal, else None)."""
+    Do, Lo, Uo, bo = (D[..., 1::2, :, :], L[..., 1::2, :, :],
+                      U[..., 1::2, :, :], b[..., 1::2, :])
+    De, Le, Ue, be = (D[..., 0::2, :, :], L[..., 0::2, :, :],
+                      U[..., 0::2, :, :], b[..., 0::2, :])
+    me = De.shape[-3]
+    Doinv, bad = block_inv_flag(Do) if flag else (block_inv(Do), None)
+    DoinvL, LoL, UoL = (_shift_right(x, me, -3) for x in (Doinv, Lo, Uo))
+    boL = _shift_right(bo, me, -2)
+    DoinvR, LoR, UoR = (_pad_to(x, me, -3) for x in (Doinv, Lo, Uo))
+    boR = _pad_to(bo, me, -2)
+    A = _mm(Le, DoinvL)
+    Bm = _mm(Ue, DoinvR)
+    reduced = (-_mm(A, LoL), De - _mm(A, UoL) - _mm(Bm, LoR), -_mm(Bm, UoR),
+               be - _mv(A, boL) - _mv(Bm, boR))
+    return reduced, (Doinv, Lo, Uo, bo), bad
 
-    ``flag=True`` is the plain version of the CUDA cyclic-reduction kernel
-    (kernels/direct_fused.py): every inversion clamps a zero pivot to 1, and
-    the return is (x, bad) with ``bad`` (...) True where a used inversion
-    clamped one in a block whose diagonal is not all zero.  With
-    ``flag=False`` a singular pivot propagates inf/NaN, as in gato_tpu."""
+
+def cr_back_level(x, Doinv, Lo, Uo, bo, m: int):
+    """Back-substitution of one :func:`cr_level`: the level's m rows of x
+    from its even rows' x (..., ceil(m/2), s) and the saves, with
+    x_odd = D_o^{-1} (b_o - L_o x_left - U_o x_right)."""
+    mo, me = bo.shape[-2], x.shape[-2]
+    x_right = _pad_to(x, me + 1, -2)[..., 1:mo + 1, :]
+    x_odd = _mv(Doinv, bo - _mv(Lo, x[..., :mo, :]) - _mv(Uo, x_right))
+    x_odd = _pad_to(x_odd, me, -2)
+    return torch.stack([x, x_odd], dim=-2).reshape(
+        x.shape[:-2] + (2 * me, x.shape[-1]))[..., :m, :]
+
+
+def btd_solve_cr(S: torch.Tensor, b: torch.Tensor, *, flag: bool = False):
+    """Solve S x = b by block cyclic reduction: :func:`cr_level` until one
+    row is left, the root, then :func:`cr_back_level` level by level.
+
+    ``flag=True`` is the plain version of the CUDA cyclic-reduction kernels
+    (kernels/direct_fused.py, kernels/longk.py): every inversion clamps a
+    zero pivot to 1, and the return is (x, bad) with ``bad`` (...) True
+    where a used inversion clamped one in a block whose diagonal is not all
+    zero.  With ``flag=False`` a singular pivot propagates inf/NaN, as in
+    gato_tpu."""
     L, D, U = S[..., 0, :, :], S[..., 1, :, :], S[..., 2, :, :]
     bb = b
     bad = torch.zeros(b.shape[:-2], dtype=torch.bool, device=b.device)
-
-    def inv(M):
-        nonlocal bad
-        if not flag:
-            return block_inv(M)
-        out, f = block_inv_flag(M)
-        bad = bad | f.any(-1)
-        return out
-
     levels = []
     while D.shape[-3] > 1:
-        Do, Lo, Uo, bo = (D[..., 1::2, :, :], L[..., 1::2, :, :],
-                          U[..., 1::2, :, :], bb[..., 1::2, :])
-        De, Le, Ue, be = (D[..., 0::2, :, :], L[..., 0::2, :, :],
-                          U[..., 0::2, :, :], bb[..., 0::2, :])
-        me = De.shape[-3]
-        Doinv = inv(Do)
-        levels.append((Doinv, Lo, Uo, bo, D.shape[-3]))
-        DoinvL, LoL, UoL = (_shift_right(x, me, -3) for x in (Doinv, Lo, Uo))
-        boL = _shift_right(bo, me, -2)
-        DoinvR, LoR, UoR = (_pad_to(x, me, -3) for x in (Doinv, Lo, Uo))
-        boR = _pad_to(bo, me, -2)
-        A = _mm(Le, DoinvL)
-        Bm = _mm(Ue, DoinvR)
-        L = -_mm(A, LoL)
-        U = -_mm(Bm, UoR)
-        D = De - _mm(A, UoL) - _mm(Bm, LoR)
-        bb = be - _mv(A, boL) - _mv(Bm, boR)
-
-    x = _mv(inv(D), bb)  # (..., 1, s)
-    for Doinv, Lo, Uo, bo, m in reversed(levels):
-        mo, me = bo.shape[-2], x.shape[-2]
-        x_right = _pad_to(x, me + 1, -2)[..., 1:mo + 1, :]
-        x_odd = _mv(Doinv, bo - _mv(Lo, x[..., :mo, :]) - _mv(Uo, x_right))
-        x_odd = _pad_to(x_odd, me, -2)
-        x = torch.stack([x, x_odd], dim=-2).reshape(
-            x.shape[:-2] + (2 * me, x.shape[-1]))[..., :m, :]
+        m = D.shape[-3]
+        (L, D, U, bb), saves, f = cr_level(L, D, U, bb, flag=flag)
+        if flag:
+            bad = bad | f.any(-1)
+        levels.append((saves, m))
+    if flag:
+        root, f = block_inv_flag(D)
+        bad = bad | f.any(-1)
+    else:
+        root = block_inv(D)
+    x = _mv(root, bb)  # (..., 1, s)
+    for saves, m in reversed(levels):
+        x = cr_back_level(x, *saves, m)
     return (x, bad) if flag else x
 
 

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
-           "thomas_batch.cu", "longk.cu")
+           "thomas_batch.cu", "longk.cu", "longk_direct.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
@@ -64,6 +64,11 @@ _SIGNATURES = {
     "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 3 + [_F, _I, _I, _I, _P]),
     "gato_longk_fused": (_I, [_P] * 21 + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P]),
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "gato_longk_cr_smem_bytes": (_LL, [_I]),
+    "gato_longk_cr_grid": (_I, [_I]),
+    "gato_longk_cr": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -45,8 +45,30 @@ POISON_ETA = 1e30
 
 LAUNCHES = 0
 
-LONG_K_DIRECT = ("the long-K direct tier, not ported yet (ROADMAP.md queue 2 "
-                 "rows 11 and 12)")
+
+def smem_bytes(K: int, s: int, cdim: int) -> int:
+    """Shared memory of one row-4 block, as ``gato_direct_smem_bytes``
+    computes it: the Gauss-Jordan work area (condense.cuh's
+    gj_arena_floats) and four vectors."""
+    def gj(n):
+        return 2 * n * n + 3 * n + 2
+    arena = max(gj(s), gj(cdim), min(K * gj(s), 16384))
+    return 4 * (arena + 4 * max(K * s, (K - 1) * cdim))
+
+
+def fits(K: int, s: int, cdim: int, smem_limit: int) -> bool:
+    """True iff row 4 takes (K, s, c) on a device whose blocks may opt in to
+    ``smem_limit`` bytes of shared memory (IIWA: K <= 740 on an H100)."""
+    return (K >= 2 and max(s, cdim) <= _build.MAX_BLOCK
+            and smem_bytes(K, s, cdim) <= smem_limit - _build.RESERVED_SHARED_BYTES)
+
+
+def past_limit_message(name: str, K: int, s: int, cdim: int, smem: int,
+                       limit: int) -> str:
+    return (f"{name}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B of shared "
+            f"memory per block, above the device's {limit} B; this horizon is "
+            "served by the long-K direct tier (kernels/longk.py): pass "
+            "pcg_backend None (auto) or 'pcg_kernel'")
 
 
 def direct_fused_plain(Q, R, A, B, q, r, c, *, rho=0.0):
@@ -64,18 +86,14 @@ def direct_fused_plain(Q, R, A, B, q, r, c, *, rho=0.0):
 
 def check_limits(name: str, K: int, s: int, cdim: int, scratch_floats, smem,
                  Bn: int, device) -> None:
-    """Raise unless a kernel's block shapes, per-block shared memory and
-    scratch fit ``device``: ValueError for widths or a batch past the
-    kernels, NotImplementedError for a horizon past the shared memory."""
+    """Raise ValueError unless a kernel's block shapes, per-block shared
+    memory and scratch fit ``device``."""
     if K < 2 or s > _build.MAX_BLOCK or cdim > _build.MAX_BLOCK:
         raise ValueError(f"{name}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; got "
                          f"K={K}, s={s}, c={cdim}")
-    limit = _build.max_shared_bytes(device) - 1024
+    limit = _build.max_shared_bytes(device) - _build.RESERVED_SHARED_BYTES
     if smem > limit:
-        raise NotImplementedError(
-            f"{name}: (K, s, c) = ({K}, {s}, {cdim}) needs {smem} B of shared "
-            f"memory per block, above the device's {limit} B; longer horizons "
-            f"are {LONG_K_DIRECT}")
+        raise ValueError(past_limit_message(name, K, s, cdim, smem, limit))
     total = torch.cuda.get_device_properties(device).total_memory
     if Bn * scratch_floats * 4 > total:
         raise ValueError(f"{name}: {Bn} problems need {Bn * scratch_floats * 4} B "

@@ -29,7 +29,8 @@ batch of T*B solves, with each step's rho folded into its Q and R diagonals
 first (:func:`_fold_rhos`) and the batch solved at rho = 0 by
 ``solve_batched``'s direct route: on CUDA the block-Thomas pair from
 T*B >= 16 (4096 problems at B=256, T=16), else the cyclic-reduction
-kernel.  ``lam0`` is ignored there.
+kernel, or past its shared memory (``'pcg_kernel'``, auto there) the
+long-K exact tier (kernels/longk.py).  ``lam0`` is ignored there.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ def _fold_rhos(Q, R, rhos):
     Qr = Q + rr * torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
     Rr = R + rr * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
     return Qr, Rr
+
+
+def _solves(blocks: KKTBlocks) -> int:
+    """Solves of a farm: the product of Q's leading axes, the batch width
+    the exact farm folds them into."""
+    return int(np.prod(blocks.Q.shape[:-3]))
 
 
 def _direct_farm(b: KKTBlocks, rhos: np.ndarray, options: SolverOptions,
@@ -151,7 +158,8 @@ def solve_sequence_batched(
       device: where to solve; default "cuda".
 
     Returns a SolveResult with leading (T, B) axes."""
-    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
+                               batch=_solves(blocks))
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     2, "solve_sequence_batched")
     return _sequence_core(b, lam0, rhos, options, backend)
@@ -174,7 +182,8 @@ def solve_sequence(
     Returns a SolveResult with a leading T axis; ``result.lam[t]``
     warm-starts solve t+1.  The B=1 case of :func:`solve_sequence_batched`.
     """
-    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
+                               batch=_solves(blocks))
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     1, "solve_sequence")
     res = _sequence_core(b, lam0, rhos, options, backend)

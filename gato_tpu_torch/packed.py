@@ -28,14 +28,17 @@ exist for TPU lanes and have no counterpart here.
 ``method='pcg'``, or, past its shared memory, the long-K tier
 (kernels/longk.py; ``pack`` records ``tier='longk'`` in its plan, as
 ``gato_tpu.packed.pack`` does); for ``method='direct'`` the plan's tier:
-``'cr'``, the cyclic-reduction kernel (row 4, kernels/direct_fused.py), or
-``'thomas'``, the block-Thomas pair (rows 5 and 6, kernels/thomas_batch.py), which
-``pack(method='direct')`` picks from B >= 16 as ``solve_batched`` does
-(``tier=`` overrides).  Every tier reads the same staged tensors, so a pack
-serves either method.  ``solve_packed_sequence`` launches the sequence
-kernel (kernels/fused_sequence.py), or past its shared memory runs the
-window's steps one after another on the long-K tier, and is PCG-only, as
-in ``gato_tpu``.
+``'cr'``, the cyclic-reduction kernel (row 4, kernels/direct_fused.py),
+``'thomas'``, the block-Thomas pair (rows 5 and 6, kernels/thomas_batch.py),
+which ``pack(method='direct')`` picks from B >= 16 as ``solve_batched``
+does (``tier=`` overrides), or past row 4's shared memory ``'longk'``, the
+long-K exact tier (kernels/longk.py; ``gato_tpu``'s ``tier='longk'`` too).
+A ``'longk'`` pack, for either method, is solved exactly on that tier.
+Every tier reads the same staged tensors, so a pack serves either method.
+``solve_packed_sequence`` launches the sequence kernel
+(kernels/fused_sequence.py), or past its shared memory runs the window's
+steps one after another on the long-K tier, and is PCG-only, as in
+``gato_tpu``.
 Tensors packed on the CPU run the kernels' plain versions.
 """
 
@@ -62,10 +65,10 @@ class PackPlan(NamedTuple):
     ``method`` is the method it was packed for ('pcg' or 'direct');
     ``batched`` records whether the caller passed a leading batch axis
     (``unpack`` restores the caller's shapes); ``batch`` is the number of
-    problems (streams for a sequence); ``tier`` is the direct kernel
-    ('cr' or 'thomas') of a 'direct' pack, and for 'pcg' None (kernel B or
-    the farm kernel) or 'longk' (past their shared memory: the long-K
-    tier)."""
+    problems (streams for a sequence); ``tier`` is the direct route ('cr',
+    'thomas', or 'longk' past row 4's shared memory) of a 'direct' pack,
+    and for 'pcg' None (kernel B or the farm kernel) or 'longk' (past their
+    shared memory: the long-K tier)."""
 
     method: str
     batched: bool
@@ -157,19 +160,24 @@ def _longk(K: int, s: int, c: int, device) -> bool:
     return not fused_solve.fits(K, s, c, shared_limit(device))
 
 
-def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int) -> str:
-    """The direct kernel of a pack: 'thomas' from B >= 16 when its stacks
-    fit (thomas_batch.should_dispatch), else 'cr'; a forced 'thomas' that
-    does not fit raises."""
-    if tier == "thomas" and not thomas_batch.fits(Bn, K, s, c):
-        raise ValueError(
-            f"tier='thomas' was requested but the block-Thomas kernels decline "
-            f"(B={Bn}, K={K}, s={s}, c={c}): their factor stacks exceed "
-            f"{thomas_batch.FACTOR_BUDGET_BYTES} B or a block is too wide "
-            "(thomas_batch.fits)")
-    if tier is None:
-        return "thomas" if thomas_batch.should_dispatch(Bn, K, s, c) else "cr"
-    return tier
+def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int,
+                 device) -> str:
+    """The direct route of a pack: 'thomas' from B >= 16 when its stacks
+    fit (thomas_batch.should_dispatch), else 'cr', or 'longk' (the long-K
+    exact tier) past row 4's shared memory on ``device``, where an explicit
+    'cr' goes too (gato_tpu.packed's rule); a forced 'thomas' that does not
+    fit raises."""
+    if tier == "thomas":
+        if not thomas_batch.fits(Bn, K, s, c):
+            raise ValueError(
+                f"tier='thomas' was requested but the block-Thomas kernels decline "
+                f"(B={Bn}, K={K}, s={s}, c={c}): their factor stacks exceed "
+                f"{thomas_batch.FACTOR_BUDGET_BYTES} B or a block is too wide "
+                "(thomas_batch.fits)")
+        return tier
+    if tier is None and thomas_batch.should_dispatch(Bn, K, s, c):
+        return "thomas"
+    return "longk" if longk.should_dispatch_direct(K, s, c, shared_limit(device)) else "cr"
 
 
 def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
@@ -185,7 +193,8 @@ def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
         layout is the same).
       tier: method='direct' only: None (the batch-width pick of
         solve_batched), 'cr' (row 4) or 'thomas' (rows 5 and 6; raises
-        where their stacks do not fit).
+        where their stacks do not fit).  Past row 4's shared memory None
+        below B = 16 and 'cr' record 'longk'.
       device: where to stage; default "cuda".
 
     Raises ValueError for blocks that are not float32 (the kernels take
@@ -210,7 +219,7 @@ def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
     check_block_shapes(spec, b, lead=(Bn,))
     K, s, c = spec.knot_points, spec.state_size, spec.control_size
     if method == "direct":
-        tier = _direct_tier(tier, Bn, K, s, c)
+        tier = _direct_tier(tier, Bn, K, s, c, dev)
     elif _longk(K, s, c, dev):
         tier = "longk"
     plan = PackPlan(method=method, batched=batched, batch=Bn, K=K, s=s, c=c,
@@ -246,8 +255,9 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     """Solve from staged inputs: one launch of kernel B for
     ``options.method == 'pcg'`` (past its shared memory, a 'longk' pack,
     the long-K tier: kernels/longk.py); for 'direct' the pack's tier
-    (a pack made for 'pcg' takes solve_batched's batch-width pick), one
-    launch of row 4 or one of each of rows 5 and 6.
+    (a 'longk' pack of either method the long-K exact tier; another pack
+    made for 'pcg' takes solve_batched's batch-width pick), one launch of
+    row 4, one of each of rows 5 and 6, or the long-K exact tier.
 
     ``lam0``: None (cold start), the packed carry (B, K, s) (a previous
     ``PackedSolveResult.lam_packed``) or a public array ((K, s) for an
@@ -259,10 +269,12 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     blocks = (packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
               packed.cb)
     if options.method == "direct":
-        tier = (plan.tier if plan.tier in DIRECT_TIERS else
-                _direct_tier(None, plan.batch, plan.K, plan.s, plan.c))
-        solve = (thomas_batch.solve_direct_thomas_cuda if tier == "thomas"
-                 else direct_fused.direct_fused_cuda)
+        tier = (plan.tier if plan.method == "direct" or plan.tier == "longk" else
+                _direct_tier(None, plan.batch, plan.K, plan.s, plan.c,
+                             packed.qb.device))
+        solve = {"thomas": thomas_batch.solve_direct_thomas_cuda,
+                 "cr": direct_fused.direct_fused_cuda,
+                 "longk": longk.solve_direct_longk_batched}[tier]
         res, dz_x, dz_u = solve(*blocks, rho=options.rho)
         return PackedSolveResult(res.lam, dz_x, dz_u, res.iters, res.converged,
                                  res.eta, plan)

@@ -11,9 +11,10 @@ Backends, named after ``gato_tpu``'s:
   (kernel A, kernels/pcg_kernel.py; ``gato_tpu``'s ``'pallas'``); past
   kernel A's shared memory (``longk.should_dispatch``) the long-K tier
   instead, condensation, PCG and recovery in its CUDA kernels
-  (kernels/longk.py, ``gato_tpu``'s ``longk.solve_longk_batched``).  Not
-  with ``method='direct'``: ``gato_tpu``'s ``'pallas'`` there is its
-  long-K direct ladder, not ported yet.
+  (kernels/longk.py, ``gato_tpu``'s ``longk.solve_longk_batched``).  With
+  ``method='direct'`` the long-K exact tier at any K
+  (``longk.solve_direct_longk_batched``: condensation, block cyclic
+  reduction, recovery), as ``gato_tpu``'s ``'pallas'`` runs its ladder.
 * ``'fused'``: the whole solve in hand-written CUDA kernels, ``gato_tpu``'s
   TPU default: kernel B (kernels/fused_solve.py) for ``method='pcg'``; for
   ``method='direct'`` the cyclic-reduction kernel (row 4,
@@ -21,12 +22,13 @@ Backends, named after ``gato_tpu``'s:
   and 6, kernels/thomas_batch.py, ``thomas_batch.should_dispatch``).
 
 Auto-selection (``pcg_backend=None``) picks ``'fused'`` for float32 on CUDA
-and ``'torch'`` on the CPU or for float64; with ``method='pcg'``, past
-kernel B's shared memory it picks ``'pcg_kernel'`` and so the long-K tier
-(``gato_tpu``'s ``'pallas'`` there).  An explicit kernel backend with
-float64, an unknown backend, ``'pcg_kernel'`` with ``method='direct'``, an
-explicit ``'fused'`` past kernel B's shared memory and a horizon that no
-direct kernel takes raise.  Every entry point takes
+and ``'torch'`` on the CPU or for float64.  Where no 'fused' kernel takes
+the shape it picks ``'pcg_kernel'`` (``gato_tpu``'s ``'pallas'`` there):
+with ``method='pcg'`` past kernel B's shared memory (the long-K tier),
+with ``method='direct'`` past row 4's where the Thomas pair declines the
+batch width (IIWA K >= 741 at B < 16 on an H100: the long-K exact tier).
+An explicit kernel backend with float64, an unknown backend and an
+explicit ``'fused'`` past those limits raise.  Every entry point takes
 ``device=`` (default ``"cuda"``) and raises if that device is CUDA and no
 CUDA device is available: nothing falls back to the CPU silently.
 """
@@ -106,23 +108,33 @@ def shared_limit(device, smem_limit: Optional[int] = None) -> int:
     return longk.H100_SHARED_BYTES
 
 
+def _past_fused(options: SolverOptions, shape: tuple, limit: int,
+                batch: int) -> bool:
+    """True iff no kernel of the 'fused' backend takes the shape: for
+    ``method='pcg'`` kernel B's shared memory does not hold it; for
+    ``'direct'`` row 4's does not and the Thomas pair declines the batch
+    width."""
+    if options.method == "pcg":
+        return not fused_kernel.fits(*shape, limit)
+    return (longk.should_dispatch_direct(*shape, limit)
+            and not thomas_batch.should_dispatch(batch, *shape))
+
+
 def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
                      device, shape: Optional[tuple] = None,
-                     smem_limit: Optional[int] = None) -> str:
+                     smem_limit: Optional[int] = None, batch: int = 1) -> str:
     """Validate an explicit backend choice, or auto-select.  Requests that
     cannot be honoured raise instead of degrading.  ``shape`` (K, s, c),
-    where given, routes ``method='pcg'`` past kernel B's shared memory
-    (``smem_limit``, default :func:`shared_limit`): auto takes
-    ``'pcg_kernel'``, an explicit ``'fused'`` raises."""
-    past_fused = (shape is not None and options.method == "pcg"
-                  and _torch_dtype(options.dtype) == torch.float32
-                  and torch.device(device).type == "cuda")
+    where given, with ``batch`` problems, routes past the 'fused' kernels
+    (``smem_limit``, default :func:`shared_limit`; :func:`_past_fused`):
+    auto takes ``'pcg_kernel'`` there, an explicit ``'fused'`` raises."""
+    def past_fused():
+        return shape is not None and _past_fused(
+            options, shape, shared_limit(device, smem_limit), batch)
+
     if pcg_backend is None:
         backend = default_pcg_backend(device, options.dtype)
-        if past_fused and not fused_kernel.fits(
-                *shape, shared_limit(device, smem_limit)):
-            return "pcg_kernel"
-        return backend
+        return "pcg_kernel" if backend == "fused" and past_fused() else backend
     if pcg_backend not in VALID_PCG_BACKENDS:
         raise ValueError(
             f"unknown pcg_backend {pcg_backend!r}; valid choices are "
@@ -131,17 +143,11 @@ def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
         raise ValueError(
             f"pcg_backend={pcg_backend!r} runs float32-only CUDA kernels; "
             f"dtype={options.dtype!r} needs pcg_backend None (auto) or 'torch'")
-    if pcg_backend == "pcg_kernel" and options.method == "direct":
-        raise NotImplementedError(
-            "pcg_backend='pcg_kernel' with method='direct' is gato_tpu's "
-            "'pallas' direct route, " + direct_fused.LONG_K_DIRECT + "; use "
-            "pcg_backend None, 'fused' or 'torch'")
-    if pcg_backend == "fused" and shape is not None and options.method == "pcg":
-        limit = shared_limit(device, smem_limit)
-        if not fused_kernel.fits(*shape, limit):
-            raise ValueError(fused_kernel.past_limit_message(
-                "pcg_backend='fused'", *shape, fused_kernel.smem_bytes(*shape),
-                limit - _build.RESERVED_SHARED_BYTES))
+    if pcg_backend == "fused" and past_fused():
+        kernel = fused_kernel if options.method == "pcg" else direct_fused
+        limit = shared_limit(device, smem_limit) - _build.RESERVED_SHARED_BYTES
+        raise ValueError(kernel.past_limit_message(
+            "pcg_backend='fused'", *shape, kernel.smem_bytes(*shape), limit))
     return pcg_backend
 
 
@@ -165,8 +171,8 @@ def _direct_torch(b: KKTBlocks, rho: float) -> SolveResult:
 def _direct_kernels(b: KKTBlocks, rho: float) -> SolveResult:
     """method='direct' on the 'fused' backend: the block-Thomas pair from
     B >= 16 (thomas_batch.should_dispatch), else the cyclic-reduction
-    kernel, whose wrapper raises NotImplementedError past its shared
-    memory.  On CPU tensors the wrappers run their plain versions."""
+    kernel, whose wrapper raises past its shared memory.  On CPU tensors
+    the wrappers run their plain versions."""
     Bn, K, s, _ = b.Q.shape
     if thomas_batch.should_dispatch(Bn, K, s, b.R.shape[-1]):
         res, dz_x, dz_u = thomas_batch.solve_direct_thomas_cuda(*b, rho=rho)
@@ -181,6 +187,9 @@ def _solve_core(b: KKTBlocks, lam0: torch.Tensor, options: SolverOptions,
     if options.method == "direct":
         if backend == "fused":
             return _direct_kernels(b, options.rho)
+        if backend == "pcg_kernel":
+            res, dz_x, dz_u = longk.solve_direct_longk_batched(*b, rho=options.rho)
+            return SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
         return _direct_torch(b, options.rho)
     kw = dict(exit_tol=options.exit_tol, max_iters=options.max_iters,
               poly_degree=options.precond_poly_degree)
@@ -258,8 +267,9 @@ def solve_batched(
     """Solve a batch of independent KKT systems (a leading batch axis on
     every array of ``blocks``).  A problem that converges early stops
     updating while the rest of the batch iterates."""
-    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
     Q = blocks.Q
+    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
+                               batch=Q.shape[0])
     if Q.ndim != 4:
         raise ValueError(
             f"solve_batched expects a leading batch axis on every array "

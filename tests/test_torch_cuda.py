@@ -342,10 +342,15 @@ def test_direct_entry_points_launch_the_kernels(dev):
 
 
 def test_direct_refuses_a_horizon_past_shared_memory(dev):
+    """Row 4 past its shared memory: an explicit 'fused' and the wrapper
+    raise naming the route that serves the horizon (auto and 'pcg_kernel'
+    take the long-K exact tier there)."""
     spec = gt.ProblemSpec(14, 7, 1000)
     one = tt.random_blocks(spec, seed=0)
-    with pytest.raises(NotImplementedError, match="rows 11 and 12"):
-        gt.solve(spec, one, gt.SolverOptions(method="direct"))
+    with pytest.raises(ValueError, match=r"None \(auto\) or 'pcg_kernel'"):
+        gt.solve(spec, one, gt.SolverOptions(method="direct"), pcg_backend="fused")
+    with pytest.raises(ValueError, match=r"None \(auto\) or 'pcg_kernel'"):
+        kd.direct_fused_cuda(*gt.blocks_to_torch(tt.stack_blocks([one]), dev))
 
 
 # The long-K tier (rows 7, 8/10, 9 and 13): (K, B, preconditioner, poly,
@@ -466,9 +471,180 @@ def test_longk_entry_points_launch_the_kernels(dev):
 
 def test_shared_memory_mirrors_match_the_library(dev):
     """The routing's pure functions (fused_solve.smem_bytes,
-    pcg_kernel.smem_bytes) agree with what the kernels' launchers compute."""
+    pcg_kernel.smem_bytes, direct_fused.smem_bytes) agree with what the
+    kernels' launchers compute."""
     from gato_tpu_torch.kernels import _build
     lib = _build.library()
-    for K, s, c in ((5, 2, 1), (50, 14, 7), (700, 14, 7), (37, 20, 9), (3, 32, 32)):
+    for K, s, c in ((5, 2, 1), (50, 14, 7), (700, 14, 7), (37, 20, 9), (3, 32, 32),
+                    (740, 14, 7), (741, 14, 7)):
         assert kb.smem_bytes(K, s, c) == lib.gato_fused_smem_bytes(K, s, c)
         assert ka.smem_bytes(K, s) == lib.gato_pcg_smem_bytes(K, s)
+        assert kd.smem_bytes(K, s, c) == lib.gato_direct_smem_bytes(K, s, c)
+
+
+# The long-K exact tier (rows 11 and 12, the unpeel kernel; rows 7 and 13).
+DIRECT_LONGK_K = [50, 741, 1025, 1536, 8192]
+
+
+@pytest.mark.parametrize("K", DIRECT_LONGK_K)
+@pytest.mark.parametrize("B", [1, 15])
+def test_longk_direct_kernels_match_plain(dev, K, B):
+    """Rows 11 and 12 and the unpeel kernel at IIWA widths: each against its
+    plain version on the same condensed system."""
+    spec = gt.ProblemSpec(14, 7, K)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=120), dev)
+    ops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner="jacobi")
+    before = (kl.CR_LAUNCHES, kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES)
+    x, bad = kl.cr_longk_cuda(ops.S, ops.gamma)
+    Sh, bh, level = kl.peel_longk_cuda(ops.S, ops.gamma)
+    torch.cuda.synchronize()
+    xp, badp = kl.cr_longk_plain(ops.S, ops.gamma)
+    Shp, bhp, levelp = kl.peel_longk_plain(ops.S, ops.gamma)
+    xh = kl.cr_longk_plain(Shp, bhp)[0]
+    xu = kl.unpeel_longk_cuda(xh, levelp)
+    torch.cuda.synchronize()
+    assert (kl.CR_LAUNCHES, kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES) == tuple(
+        n + 1 for n in before)
+    assert bad.tolist() == badp.tolist() == [False] * B
+    assert torch.equal(level.bad.cpu(), levelp.bad.cpu()) and not bool(level.bad.any())
+    for k, p in ((x, xp), (Sh, Shp), (bh, bhp), (level.Doinv, levelp.Doinv),
+                 (xu, kl.unpeel_longk_plain(xh, levelp)), (xu, xp)):
+        _close(k, p)
+
+
+@pytest.mark.parametrize("sizes", [(3, 2, 2), (2, 1, 5), (3, 2, 10), (14, 7, 741),
+                                   (20, 9, 37), (32, 32, 6)])
+def test_longk_direct_tiers_match_plain(dev, sizes, monkeypatch):
+    """Both exact tiers at the widths the other kernels are tested at (s = 20
+    and 32 take the kernels' wide Gauss-Jordan) against the whole tier's
+    plain versions on the CPU, and 'hybrid' peeled down to one row."""
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, 3, seed0=130), dev)
+    ref, rx, ru = kl.solve_direct_longk_batched(*(a.cpu() for a in b), rho=1e-3)
+    gamma = assemble.condense(*b, 1e-3, None).gamma
+    for tier, rows in (("xl", 1024), ("hybrid", 1024), ("hybrid", 1)):
+        monkeypatch.setattr(kl, "HYBRID_CR_ROWS", rows)
+        got, gx, gu = kl.solve_direct_longk_batched(*b, rho=1e-3, force_tier=tier)
+        torch.cuda.synchronize()
+        _direct_outcome(got, ref, gamma)
+        assert bool(got.converged.all())
+        for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+            _close(x, y)
+
+
+def test_longk_direct_singular_contract(dev):
+    """A zero row and column in Q[2] at rho = 0 among healthy problems: both
+    tiers report it converged False with eta >= 1e30 and finite outputs,
+    the others as if it were absent; a zero pivot in an odd row of the
+    condensed system flags that problem alone in rows 11 and 12."""
+    spec = gt.ProblemSpec(14, 7, 1024)
+    good = [tt.random_blocks(spec, seed=s) for s in (1, 2)]
+    mix = gt.blocks_to_torch(tt.stack_blocks([good[0], tt.singular_blocks(spec, seed=3, knot=2),
+                                              good[1]]), dev)
+    alone = gt.blocks_to_torch(tt.stack_blocks(good), dev)
+    for tier in ("xl", "hybrid"):
+        res, dx, du = kl.solve_direct_longk_batched(*mix, rho=0.0, force_tier=tier)
+        ref, rx, ru = kl.solve_direct_longk_batched(*alone, rho=0.0, force_tier=tier)
+        torch.cuda.synchronize()
+        assert res.converged.tolist() == [True, False, True]
+        assert float(res.eta[1]) >= 1e30
+        for t in (res.lam, dx, du):
+            assert bool(torch.isfinite(t).all())
+        for x, y in ((res.lam[[0, 2]], ref.lam), (dx[[0, 2]], rx), (du[[0, 2]], ru)):
+            _close(x, y)
+    ops = kl.condense_longk_cuda(*alone, rho=1e-3, preconditioner="jacobi")
+    S = ops.S.clone()
+    S[1, 5, 1, 0, :] = 0.0
+    S[1, 5, 1, :, 0] = 0.0
+    _, bad = kl.cr_longk_cuda(S, ops.gamma)
+    _, _, level = kl.peel_longk_cuda(S, ops.gamma)
+    assert bad.tolist() == kl.cr_longk_plain(S, ops.gamma)[1].tolist() == [False, True]
+    assert level.bad.nonzero().tolist() == [[1, 2]]
+
+
+@pytest.mark.parametrize("B", [1, 15])
+@pytest.mark.parametrize("prec", ["jacobi", "symmetric_stair"])
+def test_longk_condense_and_recover_at_short_k(dev, B, prec):
+    """Rows 7 and 13 at K = 50, where 'pcg_kernel' + direct now runs them."""
+    spec = gt.ProblemSpec(14, 7, 50)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=140), dev)
+    kops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner=prec)
+    pops = kl.condense_longk_plain(*b, rho=1e-3, preconditioner=prec)
+    for x, y in zip(kops[:5], pops[:5]):
+        _close(x, y)
+    lam = torch.randn(b.q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    dx, du = kl.recover_longk_cuda(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, lam)
+    rx, ru = kl.recover_longk_plain(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, lam)
+    torch.cuda.synchronize()
+    _close(dx, rx)
+    _close(du, ru)
+
+
+def test_row_14_shape_runs_the_long_k_pcg_kernel(dev):
+    """IIWA K = 16384 (gato_tpu's pcg_streamed, row 14): the long-K PCG
+    kernel against its plain version, and solve through auto on it."""
+    spec = gt.ProblemSpec(14, 7, 16384)
+    one = tt.random_blocks(spec, seed=150)
+    b = gt.blocks_to_torch(tt.stack_blocks([one]), dev)
+    ops = kl.condense_longk_cuda(*b, rho=1e-3)
+    kw = dict(exit_tol=1e-6, max_iters=100)
+    got = kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma, None, ops.bad, **kw)
+    ref = kl.pcg_longk_plain(ops.S, ops.Pinv, ops.gamma, torch.zeros_like(ops.gamma),
+                             ops.bad, **kw)
+    torch.cuda.synchronize()
+    assert got.iters.tolist() == ref.iters.tolist() and bool(got.converged.all())
+    _close(got.lam, ref.lam)
+    count = kl.PCG_LAUNCHES if kl.AUTO_TIER != "fused_xl" else kl.FUSED_LAUNCHES
+    res = gt.solve(spec, one, gt.SolverOptions(rho=1e-3, **kw))
+    after = kl.PCG_LAUNCHES if kl.AUTO_TIER != "fused_xl" else kl.FUSED_LAUNCHES
+    assert after == count + 1 and int(res.iters) == int(got.iters[0])
+    _close(res.lam, got.lam[0])
+
+
+def test_longk_direct_entry_points_launch_the_kernels(dev):
+    """method='direct' past row 4 below B = 16 on every surface: solve,
+    solve_batched, 'pcg_kernel' at K = 50, pack / solve_packed, a 'longk'
+    PCG pack and the exact farm; each launches rows 7, 11 and 13 once."""
+    spec = gt.ProblemSpec(14, 7, 800)
+    opts = gt.SolverOptions(rho=1e-3, method="direct")
+    batch = tt.random_batch(spec, 3, seed0=160)
+
+    def counts():
+        return (kl.CONDENSE_LAUNCHES, kl.CR_LAUNCHES, kl.RECOVER_LAUNCHES)
+
+    def once(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        assert counts() == tuple(n + 1 for n in before)
+        return out
+
+    ref = gt.solve_batched(spec, batch, opts, pcg_backend="torch")
+    got = once(lambda: gt.solve_batched(spec, batch, opts))
+    assert got.iters.tolist() == [0, 0, 0] and bool(got.converged.all())
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(got, name), getattr(ref, name))
+    one = once(lambda: gt.solve(spec, gt.KKTBlocks(*(a[0] for a in batch)), opts))
+    _close(one.lam, ref.lam[0])
+    short = gt.ProblemSpec(14, 7, 50)
+    sb = gt.blocks_to_torch(tt.random_batch(short, 2, seed0=161), dev)
+    res = once(lambda: gt.solve_batched(short, sb, opts, pcg_backend="pcg_kernel"))
+    row4, _, _ = kd.direct_fused_cuda(*sb, rho=1e-3)
+    _close(res.lam, row4.lam)
+    packed = gt.pack(spec, batch, method="direct")
+    assert packed.plan.tier == "longk"
+    res = once(lambda: gt.solve_packed(packed, opts))
+    assert torch.equal(res.lam_p, got.lam)
+    res = once(lambda: gt.solve_packed(gt.pack(spec, batch), opts))
+    assert torch.equal(res.lam_p, got.lam)
+    farm = tt.random_farm(spec, 2, 3, seed0=162)
+    seq = once(lambda: gt.solve_sequence_batched(spec, farm, opts))
+    assert tuple(seq.lam.shape) == (2, 3, 800, 14) and bool(seq.converged.all())
+    step = gt.solve_batched(spec, gt.KKTBlocks(*(a[1] for a in farm)), opts,
+                            pcg_backend="torch")
+    _close(seq.lam[1], step.lam)
+    before = (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES)
+    hy, _, _ = kl.solve_direct_longk_batched(*gt.blocks_to_torch(batch, dev), rho=1e-3,
+                                             force_tier="hybrid")
+    assert (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close(hy.lam, ref.lam)

@@ -331,9 +331,11 @@ def test_sequence_errors():
                  jmpc.solve_sequence_batched(_jspec(spec), _jblocks(farm), jdirect))
     _same_direct(gt.solve_sequence(spec, single, direct, device="cpu"),
                  jmpc.solve_sequence(_jspec(spec), _jblocks(single), jdirect))
-    with pytest.raises(NotImplementedError, match="rows 11 and 12"):
-        gt.solve_sequence(spec, single, direct, pcg_backend="pcg_kernel",
-                          device="cpu")
+    # 'pcg_kernel' is the long-K exact tier (gato_tpu's 'pallas'), here in
+    # its plain versions.
+    _same_direct(gt.solve_sequence(spec, single, direct, pcg_backend="pcg_kernel",
+                                   device="cpu"),
+                 jmpc.solve_sequence(_jspec(spec), _jblocks(single), jdirect))
     with pytest.raises(ValueError, match="unknown pcg_backend"):
         gt.solve_sequence_batched(spec, farm, pcg_backend="nope", device="cpu")
     f64 = gt.SolverOptions(dtype="float64")

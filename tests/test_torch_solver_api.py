@@ -160,12 +160,11 @@ def test_backend_resolution():
         solver._resolve_backend("pallas", opts, "cpu")
     spec = gt.ProblemSpec(2, 1, 5)
     # method='direct' resolves like 'pcg' and matches gato_tpu's exact solve;
-    # only gato_tpu's long-K direct route ('pallas' there) raises.
+    # 'pcg_kernel' is gato_tpu's 'pallas' direct route, the long-K tier.
     direct = gt.SolverOptions(method="direct", rho=1e-3)
     assert solver._resolve_backend(None, direct, "cpu") == "torch"
     assert solver._resolve_backend(None, direct, "cuda") == "fused"
-    with pytest.raises(NotImplementedError, match="rows 11 and 12"):
-        solver._resolve_backend("pcg_kernel", direct, "cpu")
+    assert solver._resolve_backend("pcg_kernel", direct, "cpu") == "pcg_kernel"
     blocks = tt.random_blocks(spec)
     ours = gt.solve(spec, blocks, direct, device="cpu")
     ref = gato_tpu.solve(gato_tpu.ProblemSpec(2, 1, 5), gato_tpu.KKTBlocks(*blocks),
