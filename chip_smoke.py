@@ -77,6 +77,25 @@ Phases, each of which raises on failure (exit code not 0):
    solve (K=1024) and the Thomas pair (B=15); the long-K PCG kernel, its
    plain version and its route at row 14's shape, K=16384.
 
+3f. row 15 (the knot shard's halo matvec) against its plain version at
+   IIWA s = 14, Kl = 256 and 2048, and s = 4: a first shard (zero left
+   halo), an interior one and a last one (zero right halo);
+4f. the knot-sharded path on Mesh(["cuda:0"] * n), n = 1, 2, 4 (shards on
+   the one card): solve_sharded at IIWA K = 1024 with every
+   preconditioner, the kernel tier (rows 7, 15, 13 on every shard) against
+   the torch tier, the single-device solve and the float64 dense KKT solve;
+   K = 8192 on four shards against the torch tier and solve;
+   method='direct' at K = 1024 and 8192 on four shards; one-knot shards
+   and the refusals; row 15's launches against the count the iterations
+   imply; solve_batched_dp (B = 256, both methods) and
+   solve_sequence_batched_dp (B = 256 x T = 16) on four groups against the
+   single-device surfaces;
+5f. row 15's time at Kl = 256 and 2048 beside its bound, its plain version
+   and torch.bmm; solve_sharded per call on both tiers at K = 1024 and 8192,
+   n = 1, 2, 4, beside the single-device solve; one sharded PCG
+   iteration's cost on four shards; the dp entry points beside their
+   single-device surfaces.
+
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -100,11 +119,12 @@ if not torch.cuda.is_available():
              "needs one CUDA card")
 
 import gato_tpu_torch as gt  # noqa: E402
-from gato_tpu_torch import assemble, testing  # noqa: E402
+from gato_tpu_torch import assemble, blocktri, testing  # noqa: E402
 from gato_tpu_torch.kernels import _build  # noqa: E402
 from gato_tpu_torch.kernels import direct_fused as kd  # noqa: E402
 from gato_tpu_torch.kernels import fused_sequence as ks  # noqa: E402
 from gato_tpu_torch.kernels import fused_solve as kb  # noqa: E402
+from gato_tpu_torch.kernels import halo_matvec as hm  # noqa: E402
 from gato_tpu_torch.kernels import longk as kl  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
 from gato_tpu_torch.kernels import thomas_batch as kt  # noqa: E402
@@ -134,7 +154,7 @@ HBM_BYTES = 3.35e12
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
            kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kl.CONDENSE_NAME: 0.0,
            kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0,
-           kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0}
+           kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0, hm.NAME: 0.0}
 # An exact solve's eta is a squared residual at round-off level: kernel and
 # plain version agree when |eta_k - eta_p| <= ETA_REL (1 + ||gamma||^2), a
 # relative residual of 1e-5, float32 round-off for these systems.
@@ -2153,6 +2173,412 @@ def phase_direct_longk_times(card: str):
     return times, routes
 
 
+# --------------------------------------------------------------------------
+# The knot-sharded path (row 15 on every shard, rows 7 and 13 around it)
+# and the data-parallel entry points, on meshes that repeat the one card.
+
+SHARD_N = (1, 2, 4)
+SHARD_K = (1024, 8192)
+PRECS = ("symmetric_stair", "block_jacobi", "jacobi")
+# Row 15 against its plain version: one matvec of 3 s terms a row in
+# another order, float32 round-off of ~s 6e-8 of scale, so 1e-5 of scale.
+HALO_TOL = 1e-5
+# The single-device solve may exit up to 2 iterations apart from a sharded
+# one (another operator round-off and sum order; tests/test_sharded.py:41).
+SHARD_ITERS = 2
+
+
+def sharded_counts() -> dict:
+    return {hm.NAME: hm.LAUNCHES, kl.CONDENSE_NAME: kl.CONDENSE_LAUNCHES,
+            kl.RECOVER_NAME: kl.RECOVER_LAUNCHES}
+
+
+def zero_sharded_counts() -> None:
+    hm.LAUNCHES = kl.CONDENSE_LAUNCHES = kl.RECOVER_LAUNCHES = 0
+
+
+def halo_case(s: int, Kl: int, seed: int):
+    """S (Kl, 3, s, s), x (Kl, s) and two halo rows (s,) on the card."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=DEV)
+    return t(Kl, 3, s, s), t(Kl, s), t(s), t(s)
+
+
+def check_scaled(what: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """max |got - ref| <= tol max |ref|; returns max |got - ref|."""
+    g, r = got.double().cpu(), ref.double().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: not finite")
+    scale = max(float(r.abs().max()), 1e-30)
+    err = float((g - r).abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"{what}: max |d| = {err:.3e} exceeds {tol:g} of scale "
+                             f"{scale:.3e}")
+    return err
+
+
+def phase_halo_parity():
+    print(f"== phase 3f: row 15 ({hm.NAME}) against its plain version, within "
+          f"{HALO_TOL:g} of scale")
+    for s, Kl in ((14, 256), (14, 2048), (4, 256)):
+        S, x, left, right = halo_case(s, Kl, seed=100 * s + Kl)
+        worst = 0.0
+        for shard, lo, hi in (("first", None, right), ("interior", left, right),
+                              ("last", left, None)):
+            got = hm.halo_matvec_cuda(S, x, lo, hi)
+            torch.cuda.synchronize()
+            err = check_scaled(f"{hm.NAME} s={s} Kl={Kl} {shard}", got,
+                               hm.halo_matvec_plain(S, x, lo, hi), HALO_TOL)
+            worst = max(worst, err)
+        MAX_ERR[hm.NAME] = max(MAX_ERR[hm.NAME], worst)
+        print(f"  s={s} Kl={Kl}: first (zero left halo), interior, last (zero right "
+              f"halo) shards: max|d| {worst:.2e}")
+
+
+def halo_launches(n: int, res, max_iters: int) -> int:
+    """Row 15's launches in one sharded PCG solve at poly degree 1.  Each
+    matvec (of S or of Pinv) is one launch a shard.  The set-up makes two
+    (r = gamma - S lam0, r~ = Pinv r); each loop body two (upsilon = S p,
+    r~ = Pinv r).  A run that exits at loop index iters ran iters + 1
+    bodies, one that did not converge max_iters.  So n * 2 (1 + bodies)."""
+    bodies = int(res.iters) + 1 if bool(res.converged) else max_iters
+    return n * 2 * (1 + bodies)
+
+
+def as_batch(res, dz_x, dz_u) -> gt.SolveResult:
+    """A sharded solve's (PCGResult, dz_x, dz_u) as a SolveResult of B = 1."""
+    return gt.SolveResult(res.lam[None], dz_x[None], dz_u[None], res.iters[None],
+                          res.converged[None], res.eta[None])
+
+
+def phase_sharded_path():
+    print("== phase 4f: the knot-sharded path on Mesh(['cuda:0'] * n), n = 1, 2, 4: "
+          "solve_sharded (PCG: rows 7, 15 and 13 on every shard; method='direct'), "
+          "the degenerate placement and the refusals; solve_batched_dp and "
+          "solve_sequence_batched_dp")
+    total = dict.fromkeys(sharded_counts(), 0)
+
+    def run(what, fn, expect):
+        """fn() with the path's counts from 0; expect(out) gives the counts."""
+        zero_sharded_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = sharded_counts()
+        want = {key: expect(out).get(key, 0) for key in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for key, value in got.items():
+            total[key] += value
+        return out
+
+    def kernel_tier(n, max_iters=MAX_ITERS):
+        return lambda out: {hm.NAME: halo_launches(n, out[0], max_iters),
+                            kl.CONDENSE_NAME: n, kl.RECOVER_NAME: n}
+
+    def oracle_err(what, out, ref):
+        worst = 0.0
+        for name, got, r in zip(("lam", "dz_x", "dz_u"), (out[0].lam, *out[1:]), ref):
+            err = float((got.double() - r[0]).abs().max()) / max(1.0, float(r.abs().max()))
+            if err > 2e-3:
+                raise AssertionError(f"{what} {name}: {err:.3e} of scale off the "
+                                     "reference")
+            worst = max(worst, err)
+        return worst
+
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    meshes = {n: gt.Mesh([DEV] * n) for n in SHARD_N}
+    for K in SHARD_K:
+        spec = longk_spec(K)
+        one = gt.KKTBlocks(*(a[0] for a in longk_batch(K, 1, seed0=7000 + K)))
+        oracle = (dense_kkt_solve64(gt.KKTBlocks(*(a[None] for a in one)), RHO)
+                  if K == 1024 else None)
+        for prec in PRECS if K == 1024 else ("symmetric_stair",):
+            opts = gt.SolverOptions(preconditioner=prec, **kw)
+            single = gt.solve(spec, one, opts)
+            for n in SHARD_N if K == 1024 else (4,):
+                what = f"solve_sharded K={K} n={n} {prec}"
+                out = run(what, lambda: gt.solve_sharded(
+                    meshes[n], *one, preconditioner=prec, **kw), kernel_tier(n))
+                ref = gt.solve_sharded(meshes[n], *one, preconditioner=prec,
+                                       use_kernel=False, **kw)
+                got_b, ref_b = as_batch(*out), as_batch(*ref)
+                if not bool(out[0].converged):
+                    raise AssertionError(f"{what}: did not converge")
+                ties = check_iters(f"{what} kernel vs torch tier", got_b, ref_b, EXIT_TOL)
+                if prec == "jacobi":
+                    # Scalar Jacobi compared over a capped run, as in phase 3:
+                    # its float32 round-off grows past 1e-4 along ~70 iterations.
+                    cap = 10
+                    c_k = run(f"{what} capped", lambda: gt.solve_sharded(
+                        meshes[n], *one, preconditioner=prec, **{**kw, "max_iters": cap}),
+                        kernel_tier(n, cap))
+                    c_t = gt.solve_sharded(meshes[n], *one, preconditioner=prec,
+                                           use_kernel=False, **{**kw, "max_iters": cap})
+                    pair = (as_batch(*c_k), as_batch(*c_t))
+                else:
+                    pair = (got_b, ref_b) if not ties else None
+                err = 0.0
+                for name in ("lam", "dz_x", "dz_u") if pair else ():
+                    err = max(err, check_close(f"{what} {name}", getattr(pair[0], name),
+                                               getattr(pair[1], name)))
+                d_it = int(out[0].iters) - int(single.iters)
+                if abs(d_it) > SHARD_ITERS:
+                    raise AssertionError(f"{what}: {int(out[0].iters)} iterations, the "
+                                         f"single-device solve {int(single.iters)}")
+                if oracle is not None:
+                    o_err = oracle_err(what, out, oracle)
+                    o_text = f"within {o_err:.2e} of scale of the float64 dense KKT solve"
+                else:
+                    o_err = oracle_err(what, out, tuple(
+                        x.double()[None] for x in (single.lam, single.dz_x, single.dz_u)))
+                    o_text = f"within {o_err:.2e} of scale of the single-device solve"
+                print(f"  {what}: iters {int(out[0].iters)} (torch tier "
+                      f"{int(ref[0].iters)}, {ties} ties; single-device solve "
+                      f"{int(single.iters)}), kernel vs torch tier max|d| {err:.2e}"
+                      f"{' over 10 iterations' if prec == 'jacobi' else ''}; {o_text}")
+        # The exact path, in torch ops: no launch of rows 7, 13 or 15.
+        what = f"solve_sharded method='direct' K={K} n=4"
+        out = run(what, lambda: gt.solve_sharded(meshes[4], *one, rho=RHO,
+                                                 method="direct"), lambda out: {})
+        if not bool(out[0].converged) or int(out[0].iters) != 0:
+            raise AssertionError(f"{what}: not converged with iters 0")
+        if oracle is not None:
+            err = oracle_err(what, out, oracle)
+            ref_text = "the float64 dense KKT solve"
+        else:
+            single = gt.solve(spec, one, gt.SolverOptions(rho=RHO, method="direct"))
+            err = oracle_err(what, out, tuple(
+                x.double()[None] for x in (single.lam, single.dz_x, single.dz_u)))
+            ref_text = "the single-device solve(method='direct')"
+        print(f"  {what}: converged, iters 0, within {err:.2e} of scale of {ref_text}")
+        del oracle
+        torch.cuda.empty_cache()
+
+    # One-knot shards (K = n = 4): the torch tier and block Thomas.
+    spec = longk_spec(4)
+    one = gt.KKTBlocks(*(a[0] for a in longk_batch(4, 1, seed0=7100)))
+    out = run("solve_sharded K=n=4", lambda: gt.solve_sharded(meshes[4], *one, **kw),
+              lambda out: {})
+    single = gt.solve(spec, one, gt.SolverOptions(**kw), pcg_backend="torch")
+    if int(out[0].iters) != int(single.iters):
+        raise AssertionError("solve_sharded K=n=4: iterations differ from 'torch'")
+    check_close("solve_sharded K=n=4 lam", out[0].lam, single.lam)
+    out = run("solve_sharded direct K=n=4", lambda: gt.solve_sharded(
+        meshes[4], *one, rho=RHO, method="direct"), lambda out: {})
+    single = gt.solve(spec, one, gt.SolverOptions(rho=RHO, method="direct"))
+    check_close("solve_sharded direct K=n=4 lam", out[0].lam, single.lam)
+    print("  K = n = 4 (one knot a shard): 'pcg' on the torch tier (no launch), "
+          "iterations equal to 'torch'; 'direct' by block Thomas, equal to solve")
+    for what, fn in (
+            ("K=1023 on 4 shards", lambda: gt.solve_sharded(
+                meshes[4], *gt.KKTBlocks(*(a[0] for a in longk_batch(1023, 1, 7200))),
+                **kw)),
+            ("method='direct' with use_kernel=True", lambda: gt.solve_sharded(
+                meshes[4], *one, rho=RHO, method="direct", use_kernel=True))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"  {what} raises: {e}")
+        else:
+            raise AssertionError(f"{what} ran")
+
+    # The data-parallel entry points: four groups on the card, each the
+    # single-device surface on its problems.
+    dp = gt.Mesh([DEV] * 4, "dp")
+    blocks = gt.blocks_to_torch(testing.random_batch(IIWA, BATCH, seed0=7300), DEV)
+    for method, counters in (("pcg", lambda: {kb.NAME: kb.LAUNCHES}),
+                             ("direct", lambda: {kt.FWD_NAME: kt.FWD_LAUNCHES,
+                                                 kt.REV_NAME: kt.REV_LAUNCHES})):
+        before = counters()
+        got = gt.solve_batched_dp(dp, *blocks, rho=RHO, exit_tol=EXIT_TOL,
+                                  max_iters=MAX_ITERS, method=method)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counters().items()}
+        if any(v != 4 for v in launched.values()):
+            raise AssertionError(f"solve_batched_dp {method}: launches {launched}")
+        ref = gt.solve_batched(IIWA, blocks, gt.SolverOptions(method=method, **kw))
+        got_r = gt.SolveResult(got[0].lam, got[1], got[2], got[0].iters,
+                               got[0].converged, got[0].eta)
+        bitwise = dp_compare(f"solve_batched_dp B={BATCH} {method}", got_r, ref)
+        print(f"  solve_batched_dp B={BATCH} on 4 groups, {method}: launches "
+              f"{launched}; against solve_batched: iterations equal, "
+              f"{'bit for bit' if bitwise else 'not bit for bit (within 1e-4 of scale)'}")
+    farm_blocks = gt.blocks_to_torch(testing.random_farm(IIWA, T_STEPS, BATCH,
+                                                         seed0=7400), DEV)
+    rhos = farm_rhos(T_STEPS)
+    before = ks.LAUNCHES
+    out = gt.solve_sequence_batched_dp(dp, *farm_blocks, rhos=rhos,
+                                       exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    torch.cuda.synchronize()
+    if ks.LAUNCHES - before != 4:
+        raise AssertionError(f"solve_sequence_batched_dp: {ks.LAUNCHES - before} "
+                             "farm-kernel launches, expected 4")
+    ref = gt.solve_sequence_batched(IIWA, farm_blocks, gt.SolverOptions(**kw),
+                                    rhos=rhos)
+    bitwise = dp_compare(f"solve_sequence_batched_dp B={BATCH} T={T_STEPS}",
+                         gt.SolveResult(*out), ref)
+    print(f"  solve_sequence_batched_dp B={BATCH} x T={T_STEPS} on 4 groups: 4 farm-"
+          f"kernel launches; against solve_sequence_batched: iterations equal, "
+          f"{'bit for bit' if bitwise else 'not bit for bit (within 1e-4 of scale)'}")
+    print(f"  launches on the knot-sharded path: {total}")
+    for name, count in total.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the knot-sharded path")
+    return total
+
+
+def dp_compare(what: str, got: gt.SolveResult, ref: gt.SolveResult) -> bool:
+    """Equal iterations and converged flags, results within TOL of scale;
+    True when every field is equal bit for bit."""
+    for name in ("iters", "converged"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"{what}: {name} differ from the single-device surface")
+    for name in ("lam", "dz_x", "dz_u"):
+        check_close(f"{what} {name}", getattr(got, name), getattr(ref, name))
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def graph_ms_per_call(fn, calls: int = 50) -> float:
+    """Device time of one fn() without the host's launch cost: ``calls``
+    calls captured in a CUDA graph, the replay timed, over calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_median_ms(graph.replay) / calls
+
+
+def device_busy_ms(fn):
+    """(device ms, wall ms) of one fn(): the summed durations of the CUDA
+    activities (kernels, copies, fills) a torch.profiler trace records,
+    and CUDA events around the call.  Device ms is None where the trace
+    holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (busy / 1e3 if busy > 0 else None), start.elapsed_time(end)
+
+
+def phase_sharded_times(card: str):
+    print(f"== phase 5f: row 15 and the knot-sharded path's times (CUDA events, median "
+          f"of {TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for plain versions, library "
+          f"calls and the torch tier) on {card}")
+    s = IIWA.state_size
+    times = {}
+    for Kl in (256, 2048):
+        S, x, left, right = halo_case(s, Kl, seed=500 + Kl)
+        y = hm.halo_matvec_cuda(S, x, left, right)
+        # The library call: S as (Kl, s, 3s) against the halo stack as (Kl,
+        # 3s, 1), both laid out before the timing (the port never calls it).
+        S_lib = S.permute(0, 2, 1, 3).reshape(Kl, s, 3 * s).contiguous()
+        h_lib = blocktri.halo_stack(x, left, right).reshape(Kl, 3 * s, 1).contiguous()
+        lib = torch.bmm(S_lib, h_lib)[..., 0]
+        check_scaled(f"torch.bmm Kl={Kl}", lib, y, HALO_TOL)
+        bound_ms, bound_by = bound(nbytes(S, x, left, right, y), 6 * s * s * Kl)
+        kern = lambda: hm.halo_matvec_cuda(S, x, left, right)
+        plain = lambda: hm.halo_matvec_plain(S, x, left, right)
+        library = lambda: torch.bmm(S_lib, h_lib)
+        # Each timed twice (plain, kernel, kernel, plain): a call as the
+        # sharded loop makes it, host work included, and its device time
+        # alone (50 calls in a CUDA graph).  At these sizes a call's host
+        # work is the larger.
+        call, dev = {}, {}
+        for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
+                         ("plain", plain), ("library", library)):
+            call.setdefault(name, []).append(cuda_median_ms(fn))
+            dev.setdefault(name, []).append(graph_ms_per_call(fn))
+        c, d = ({k: float(np.mean(v)) for k, v in m.items()} for m in (call, dev))
+        times[(hm.NAME, Kl)] = dict(
+            ms=d["kernel"], plain_ms=d["plain"], library_ms=d["library"],
+            bound_ms=bound_ms, bound_by=bound_by, call_ms=c["kernel"],
+            plain_call_ms=c["plain"], library_call_ms=c["library"])
+        print(f"  {hm.NAME} s={s} Kl={Kl}, device time a call (CUDA graph): kernel "
+              f"{dev['kernel'][0]:.5f} / {dev['kernel'][1]:.5f} ms, plain "
+              f"{dev['plain'][0]:.5f} / {dev['plain'][1]:.5f} ms, library (torch.bmm) "
+              f"{d['library']:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}; "
+              f"{100 * bound_ms / d['kernel']:.1f} % of the kernel's time); a whole "
+              f"call with its host work: kernel {c['kernel']:.4f}, plain "
+              f"{c['plain']:.4f}, library {c['library']:.4f} ms  [{card}]")
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    for K in SHARD_K:
+        spec = longk_spec(K)
+        one = gt.KKTBlocks(*(a[0] for a in longk_batch(K, 1, seed0=7000 + K)))
+        single = gt.solve(spec, one, gt.SolverOptions(**kw))
+        single_ms = cuda_median_ms(lambda: gt.solve(spec, one, gt.SolverOptions(**kw)))
+        times[("single", K)] = single_ms
+        print(f"  solve K={K} (one device, the long-K route): {single_ms:.4f} ms, "
+              f"{int(single.iters)} iterations  [{card}]")
+        for n in SHARD_N:
+            mesh = gt.Mesh([DEV] * n)
+            res = gt.solve_sharded(mesh, *one, **kw)[0]
+            k_ms = cuda_median_ms(lambda: gt.solve_sharded(mesh, *one, **kw))
+            t_ms = cuda_median_ms(lambda: gt.solve_sharded(mesh, *one, use_kernel=False,
+                                                           **kw), runs=SLOW_RUNS, warmup=1)
+            times[("sharded", K, n)] = dict(kernel=k_ms, torch=t_ms, iters=int(res.iters))
+            print(f"  solve_sharded K={K} n={n}: kernel tier {k_ms:.4f} ms, torch tier "
+                  f"{t_ms:.4f} ms ({int(res.iters)} iterations; {k_ms / single_ms:.1f}x "
+                  f"the single-device solve)  [{card}]")
+        # One sharded PCG iteration on four shards: 20 iterations against
+        # none (exit_tol = 0, so the loop never exits early), row 15 on
+        # operators condensed once.
+        ops = kl.condense_longk_cuda(*(a[None] for a in one), rho=RHO)
+        mesh = gt.Mesh([DEV] * 4)
+        runs = {}
+        for iters in (0, 20):
+            runs[iters] = cuda_median_ms(lambda: gt.pcg_sharded(
+                mesh, ops.S[0], ops.Pinv[0], ops.gamma[0], exit_tol=0.0,
+                max_iters=iters))
+        per_it = (runs[20] - runs[0]) / 20
+        times[("iteration", K)] = per_it
+        busy, wall = device_busy_ms(lambda: gt.pcg_sharded(
+            mesh, ops.S[0], ops.Pinv[0], ops.gamma[0], exit_tol=0.0, max_iters=20))
+        idle = ("not measured (the trace holds no device activity)" if busy is None
+                else f"device busy {busy:.4f} of {wall:.4f} ms, idle "
+                     f"{100 * (1 - busy / wall):.1f} %")
+        times[("busy", K)] = (busy, wall)
+        print(f"  pcg_sharded K={K} n=4: max_iters=0 {runs[0]:.4f} ms, 20 {runs[20]:.4f} "
+              f"ms: {1e3 * per_it:.1f} us an iteration (2 matvecs of 4 launches and 6 "
+              f"halo copies each, 2 dots, 3 updates, one host read); 20 iterations "
+              f"under torch.profiler: {idle}  [{card}]")
+        del ops
+        torch.cuda.empty_cache()
+    dp = gt.Mesh([DEV] * 4, "dp")
+    blocks = gt.blocks_to_torch(testing.random_batch(IIWA, BATCH, seed0=7300), DEV)
+    for method in ("pcg", "direct"):
+        opts = gt.SolverOptions(method=method, **kw)
+        dp_ms = cuda_median_ms(lambda: gt.solve_batched_dp(
+            dp, *blocks, rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS, method=method))
+        one_ms = cuda_median_ms(lambda: gt.solve_batched(IIWA, blocks, opts))
+        times[("dp", method)] = (dp_ms, one_ms)
+        print(f"  solve_batched_dp B={BATCH} on 4 groups, {method}: {dp_ms:.4f} ms; "
+              f"solve_batched {one_ms:.4f} ms  [{card}]")
+    farm_blocks = gt.blocks_to_torch(testing.random_farm(IIWA, T_STEPS, BATCH,
+                                                         seed0=7400), DEV)
+    rhos = farm_rhos(T_STEPS)
+    dp_ms = cuda_median_ms(lambda: gt.solve_sequence_batched_dp(
+        dp, *farm_blocks, rhos=rhos, exit_tol=EXIT_TOL, max_iters=MAX_ITERS),
+        runs=SLOW_RUNS, warmup=1)
+    one_ms = cuda_median_ms(lambda: gt.solve_sequence_batched(
+        IIWA, farm_blocks, gt.SolverOptions(**kw), rhos=rhos), runs=SLOW_RUNS, warmup=1)
+    times[("dp", "farm")] = (dp_ms, one_ms)
+    print(f"  solve_sequence_batched_dp B={BATCH} x T={T_STEPS} on 4 groups: "
+          f"{dp_ms:.4f} ms; solve_sequence_batched {one_ms:.4f} ms  [{card}]")
+    return times
+
+
 def main():
     t_start = time.perf_counter()
     card = card_line()
@@ -2174,16 +2600,19 @@ def main():
     phase_direct_parity()
     phase_longk_parity()
     phase_direct_longk_parity()
+    phase_halo_parity()
     launches, avg = phase_main_path()
     seq_launches = phase_mpc_path()
     direct_launches = phase_direct_path()
     longk_launches = phase_longk_path()
     exact_launches = phase_direct_longk_path()
+    sharded_launches = phase_sharded_path()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
     exact_times, exact_routes = phase_direct_longk_times(card)
+    sharded_times = phase_sharded_times(card)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
@@ -2248,6 +2677,21 @@ def main():
             row.update({f"{key}_k{K}_b{n}": value for key, value in
                         exact_times[(name, K, n)].items() if key != "bound_by"})
         kernels.append(row)
+    # Row 15: Kl = 256 (K = 1024 on four shards), with Kl = 2048 (K = 8192)
+    # beside; its launches from the knot-sharded path (phase 4f).
+    row = {"name": hm.NAME, "route": "cuda", "source": hm.SOURCE,
+           "replaces": hm.REPLACES, "launches": sharded_launches[hm.NAME],
+           "max_abs_err": MAX_ERR[hm.NAME], **sharded_times[(hm.NAME, 256)],
+           "Kl": 256}
+    row.update({f"{key}_kl2048": value for key, value in
+                sharded_times[(hm.NAME, 2048)].items() if key != "bound_by"})
+    kernels.append(row)
+    for K in SHARD_K:
+        print(f"  solve_sharded K={K}: " + ", ".join(
+            f"n={n} kernel {sharded_times[('sharded', K, n)]['kernel']:.4f} / torch "
+            f"{sharded_times[('sharded', K, n)]['torch']:.4f} ms" for n in SHARD_N)
+            + f"; single-device solve {sharded_times[('single', K)]:.4f} ms; "
+            f"{1e3 * sharded_times[('iteration', K)]:.1f} us a sharded iteration at n=4")
     for (K, n), (f_ms, x_ms) in longk_routes.items():
         print(f"  long-K route K={K} B={n}: fused_xl {f_ms:.4f} ms, xl {x_ms:.4f} ms")
     for key, r in exact_routes.items():

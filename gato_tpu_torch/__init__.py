@@ -14,12 +14,18 @@ Public surface:
   * :func:`pack`, :func:`solve_packed`, :func:`pack_sequence`,
     :func:`solve_packed_sequence`: the packed serving API, inputs staged
     once (:mod:`gato_tpu_torch.packed`)
+  * :class:`Mesh`, :func:`solve_sharded`, :func:`pcg_sharded`,
+    :func:`btd_solve_sharded`: one long trajectory with its knots sharded
+    over a mesh of devices; :func:`solve_batched_dp`,
+    :func:`solve_sequence_batched_dp`: batches and farms split over it
+    (:mod:`gato_tpu_torch.parallel`)
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
   * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
     loop, the fused whole solve, the warm-started farm, the cyclic-reduction
-    exact solve, the block-Thomas pair and the long-horizon PCG tier), each
-    with its plain PyTorch version
+    exact solve, the block-Thomas pair, the long-horizon PCG and exact
+    tiers and the knot shard's halo matvec), each with its plain PyTorch
+    version
 """
 
 from .api import infer_spec, linsys_solve
@@ -29,6 +35,8 @@ from .mpc import solve_sequence, solve_sequence_batched
 from .packed import (PackedKKT, PackedKKTSequence, PackedSequenceResult,
                      PackedSolveResult, pack, pack_sequence, solve_packed,
                      solve_packed_sequence, update_vectors)
+from .parallel import (Mesh, btd_solve_sharded, pcg_sharded, solve_batched_dp,
+                       solve_sequence_batched_dp, solve_sharded)
 from .problem import DEFAULT_OPTIONS, Preconditioner, ProblemSpec, SolverOptions
 from .solver import SolveResult, default_pcg_backend, solve, solve_batched
 
@@ -51,6 +59,12 @@ __all__ = [
     "PackedSolveResult",
     "PackedKKTSequence",
     "PackedSequenceResult",
+    "Mesh",
+    "solve_sharded",
+    "pcg_sharded",
+    "btd_solve_sharded",
+    "solve_batched_dp",
+    "solve_sequence_batched_dp",
     "default_pcg_backend",
     "SolveResult",
     "KKTBlocks",

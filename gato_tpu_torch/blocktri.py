@@ -9,23 +9,32 @@ zero at row K-1).  Edges are exact: the halo is zero-padded.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 
-def halo_stack(x: torch.Tensor) -> torch.Tensor:
-    """(..., K, s) segments -> (..., K, 3, s) halo [x_{k-1}, x_k, x_{k+1}],
-    out-of-range neighbours zero."""
+def halo_stack(x: torch.Tensor, left: Optional[torch.Tensor] = None,
+               right: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., K, s) segments -> (..., K, 3, s) halo [x_{k-1}, x_k, x_{k+1}].
+    The out-of-range neighbours x_{-1} and x_K are ``left`` and ``right``
+    (..., s), zero where not given: a shard of a longer trajectory takes
+    its neighbours' boundary rows there."""
     zero = torch.zeros_like(x[..., :1, :])
-    xm = torch.cat([zero, x[..., :-1, :]], dim=-2)
-    xp = torch.cat([x[..., 1:, :], zero], dim=-2)
+    xl = zero if left is None else left.unsqueeze(-2)
+    xr = zero if right is None else right.unsqueeze(-2)
+    xm = torch.cat([xl, x[..., :-1, :]], dim=-2)
+    xp = torch.cat([x[..., 1:, :], xr], dim=-2)
     return torch.stack([xm, x, xp], dim=-2)
 
 
-def btd_matvec(S: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def btd_matvec(S: torch.Tensor, x: torch.Tensor,
+               left: Optional[torch.Tensor] = None,
+               right: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y_k = L_k x_{k-1} + D_k x_k + U_k x_{k+1} for a (..., K, 3, s, s)
-    operator and (..., K, s) vectors."""
-    return torch.einsum("...kjab,...kjb->...ka", S, halo_stack(x))
+    operator and (..., K, s) vectors, x_{-1} and x_K from :func:`halo_stack`."""
+    return torch.einsum("...kjab,...kjb->...ka", S, halo_stack(x, left, right))
 
 
 def btd_to_dense(S) -> np.ndarray:

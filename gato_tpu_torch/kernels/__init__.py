@@ -9,5 +9,8 @@ use (_build.py), each beside its plain PyTorch version:
 * thomas_batch:   rows 5 and 6, the exact solve by block Thomas
 * longk:          rows 7, 8/10, 9 and 13, the long-horizon PCG tier
                   (condensation, cooperative PCG, both in one launch, and
-                  recovery) past kernels A and B's shared memory
+                  recovery) past kernels A and B's shared memory, and rows
+                  11 and 12, its exact tier (cyclic reduction)
+* halo_matvec:    row 15, the block-tridiagonal matvec of one knot shard
+                  with its neighbours' halo rows (parallel/sharded.py)
 """

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
-           "thomas_batch.cu", "longk.cu", "longk_direct.cu")
+           "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
@@ -69,6 +69,7 @@ _SIGNATURES = {
     "gato_longk_cr": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -19,6 +19,7 @@ from gato_tpu_torch import testing as tt
 from gato_tpu_torch.kernels import direct_fused as kd
 from gato_tpu_torch.kernels import fused_sequence as ks
 from gato_tpu_torch.kernels import fused_solve as kb
+from gato_tpu_torch.kernels import halo_matvec as hm
 from gato_tpu_torch.kernels import longk as kl
 from gato_tpu_torch.kernels import pcg_kernel as ka
 from gato_tpu_torch.kernels import thomas_batch as kt
@@ -648,3 +649,135 @@ def test_longk_direct_entry_points_launch_the_kernels(dev):
                                              force_tier="hybrid")
     assert (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
     _close(hy.lam, ref.lam)
+
+
+# --------------------------------------------------------------------------
+# Row 15 (kernels/halo_matvec.py) and the sharded paths on one card.
+
+# (s, Kl): IIWA at two shard sizes, narrow and widest blocks, a one-row shard.
+HALO_CASES = [(14, 256), (14, 2048), (4, 64), (3, 37), (32, 19), (7, 1)]
+
+
+@pytest.mark.parametrize("s,Kl", HALO_CASES)
+@pytest.mark.parametrize("shard", ["first", "interior", "last", "alone"])
+def test_halo_matvec_matches_plain(dev, s, Kl, shard):
+    """Row 15 against its plain version; an edge shard's missing halo is
+    zeros.  Tolerance 1e-5 of scale: one matvec, float32 sum order."""
+    rng = np.random.default_rng(1000 * s + Kl)
+
+    def rand(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    # S as a view one block row into a larger tensor: at s = 3 its first
+    # float is not 16-byte aligned, the kernel's scalar head.
+    S = rand(Kl + 1, 3, s, s)[1:]
+    x = rand(Kl, s)
+    left = rand(s) if shard in ("interior", "last") else None
+    right = rand(s) if shard in ("first", "interior") else None
+    before = hm.LAUNCHES
+    got = hm.halo_matvec_cuda(S, x, left, right)
+    torch.cuda.synchronize()
+    assert hm.LAUNCHES == before + 1
+    ref = hm.halo_matvec_plain(S, x, left, right)
+    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * float(np.abs(b).max()))
+
+
+def test_halo_matvec_refuses_what_it_does_not_take(dev):
+    S = torch.zeros(8, 3, 4, 4, device=dev)
+    x = torch.zeros(8, 4, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        hm.halo_matvec_cuda(S.double(), x.double())
+    with pytest.raises(ValueError, match="shape"):
+        hm.halo_matvec_cuda(S[:7], x)
+    with pytest.raises(ValueError, match="shape"):
+        hm.halo_matvec_cuda(S, x, torch.zeros(5, device=dev))
+
+
+def _sharded_counts():
+    return hm.LAUNCHES, kl.CONDENSE_LAUNCHES, kl.RECOVER_LAUNCHES
+
+
+@pytest.mark.parametrize("prec", ["symmetric_stair", "block_jacobi"])
+def test_solve_sharded_kernel_tier_on_one_card(dev, prec):
+    """solve_sharded on four shards of one card: the kernel tier (rows 7,
+    15 and 13) against the torch tier, equal iterations (IIWA K = 256 at
+    seed 41 meets no round-off tie) and lambda, dz within 1e-4 of scale;
+    row 15 launched 2 (iters + 2) times a shard at poly degree 1 (two
+    matvecs to set up, two a loop body, iters + 1 bodies), rows 7 and 13
+    once a shard."""
+    spec = gt.ProblemSpec(14, 7, 256)
+    blocks = tt.random_blocks(spec, seed=41)
+    mesh = gt.Mesh(["cuda:0"] * 4)
+    kw = dict(rho=1e-3, exit_tol=1e-6, max_iters=100, preconditioner=prec)
+    before = _sharded_counts()
+    got = gt.solve_sharded(mesh, *blocks, **kw)
+    torch.cuda.synchronize()
+    after = _sharded_counts()
+    ref = gt.solve_sharded(mesh, *blocks, use_kernel=False, **kw)
+    assert bool(got[0].converged) and int(got[0].iters) == int(ref[0].iters)
+    iters = int(got[0].iters)
+    assert tuple(a - b for a, b in zip(after, before)) == (4 * 2 * (iters + 2), 4, 4)
+    _close(got[0].lam, ref[0].lam)
+    _close(got[1], ref[1])
+    _close(got[2], ref[2])
+    assert got[0].lam.device == torch.device("cuda", 0)
+
+
+def test_sharded_paths_on_one_card(dev):
+    """pcg_sharded (both tiers), the exact path and the degenerate
+    placement on Mesh(["cuda:0"] * n); float64 takes the torch tier and an
+    explicit use_kernel=True in float64 raises."""
+    spec = gt.ProblemSpec(14, 7, 128)
+    blocks = tt.random_blocks(spec, seed=42)
+    sys_ = assemble.condense(*gt.blocks_to_torch(blocks, dev), 1e-3)
+    kw = dict(exit_tol=1e-6, max_iters=100)
+    for n in (1, 2, 4):
+        mesh = gt.Mesh(["cuda:0"] * n)
+        a = gt.pcg_sharded(mesh, sys_.S, sys_.Pinv, sys_.gamma, **kw)
+        b = gt.pcg_sharded(mesh, sys_.S, sys_.Pinv, sys_.gamma, use_kernel=False, **kw)
+        assert int(a.iters) == int(b.iters) and bool(a.converged)
+        _close(a.lam, b.lam)
+        exact = gt.solve_sharded(mesh, *blocks, rho=1e-3, method="direct")
+        single = gt.solve(spec, blocks, gt.SolverOptions(rho=1e-3, method="direct"))
+        assert bool(exact[0].converged)
+        _close(exact[0].lam, single.lam)
+    thin = gt.ProblemSpec(14, 7, 4)
+    tb = tt.random_blocks(thin, seed=43)
+    mesh = gt.Mesh(["cuda:0"] * 4)
+    before = hm.LAUNCHES
+    res = gt.solve_sharded(mesh, *tb, rho=1e-3, **kw)
+    assert hm.LAUNCHES == before          # one-knot shards: the torch tier
+    single = gt.solve(thin, tb, gt.SolverOptions(rho=1e-3, **kw), pcg_backend="torch")
+    assert int(res[0].iters) == int(single.iters)
+    b64 = [np.asarray(x, np.float64) for x in blocks]
+    res64 = gt.solve_sharded(mesh, *b64, rho=1e-3, **kw)
+    assert res64[0].lam.dtype == torch.float64
+    with pytest.raises(ValueError, match="float32-only"):
+        gt.solve_sharded(mesh, *b64, rho=1e-3, use_kernel=True, **kw)
+
+
+def test_dp_entry_points_on_one_card(dev):
+    """solve_batched_dp and solve_sequence_batched_dp on four groups of one
+    card: each group runs solve_batched / solve_sequence_batched on its
+    problems, so the results equal those calls on each group bit for bit."""
+    spec = tt.IIWA
+    batch = tt.random_batch(spec, 16, seed0=70)
+    mesh = gt.Mesh(["cuda:0"] * 4, "dp")
+    for method in ("pcg", "direct"):
+        opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-8, method=method)
+        got = gt.solve_batched_dp(mesh, *batch, rho=1e-3, exit_tol=1e-8,
+                                  method=method)
+        parts = [gt.solve_batched(spec, gt.KKTBlocks(*(a[i:i + 4] for a in batch)), opts)
+                 for i in range(0, 16, 4)]
+        for name, g in zip(("lam", "iters", "converged", "eta"), got[0]):
+            assert torch.equal(g, torch.cat([getattr(p, name) for p in parts])), name
+        assert torch.equal(got[1], torch.cat([p.dz_x for p in parts]))
+        assert torch.equal(got[2], torch.cat([p.dz_u for p in parts]))
+    farm = tt.random_farm(spec, 4, 8, seed0=71)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-8)
+    got = gt.solve_sequence_batched_dp(mesh, *farm, rho=1e-3, exit_tol=1e-8)
+    parts = [gt.solve_sequence_batched(spec, gt.KKTBlocks(*(a[:, i:i + 2] for a in farm)),
+                                       opts) for i in range(0, 8, 2)]
+    for g, field in zip(got, zip(*parts)):
+        assert torch.equal(g, torch.cat(field, dim=1))

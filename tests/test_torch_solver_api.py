@@ -244,14 +244,29 @@ def test_direct_batched_float64_matches_gato_tpu():
 
 
 def test_import_pulls_in_no_jax():
-    """The port never imports jax or gato_tpu, not even from a submodule."""
+    """The port never imports jax or gato_tpu, not even from a submodule:
+    every module of the port is imported (the list is checked against the
+    package's files, so a new module cannot be left out)."""
+    modules = [
+        "gato_tpu_torch", "gato_tpu_torch.api", "gato_tpu_torch.assemble",
+        "gato_tpu_torch.blocktri", "gato_tpu_torch.direct",
+        "gato_tpu_torch.formats", "gato_tpu_torch.mpc", "gato_tpu_torch.packed",
+        "gato_tpu_torch.pcg", "gato_tpu_torch.problem", "gato_tpu_torch.recover",
+        "gato_tpu_torch.solver", "gato_tpu_torch.testing",
+        "gato_tpu_torch.kernels", "gato_tpu_torch.kernels._build",
+        "gato_tpu_torch.kernels.pcg_kernel", "gato_tpu_torch.kernels.fused_solve",
+        "gato_tpu_torch.kernels.fused_sequence",
+        "gato_tpu_torch.kernels.direct_fused",
+        "gato_tpu_torch.kernels.thomas_batch", "gato_tpu_torch.kernels.longk",
+        "gato_tpu_torch.kernels.halo_matvec", "gato_tpu_torch.parallel",
+        "gato_tpu_torch.parallel.mesh", "gato_tpu_torch.parallel.sharded",
+        "gato_tpu_torch.tools.bitcheck",
+    ]
+    files = {".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+             for p in (REPO / "gato_tpu_torch").rglob("*.py")}
+    assert files == set(modules), sorted(files ^ set(modules))
     code = (
-        "import sys, gato_tpu_torch, gato_tpu_torch.api, gato_tpu_torch.solver,"
-        " gato_tpu_torch.testing, gato_tpu_torch.kernels._build,"
-        " gato_tpu_torch.kernels.pcg_kernel, gato_tpu_torch.kernels.fused_solve,"
-        " gato_tpu_torch.kernels.fused_sequence, gato_tpu_torch.mpc,"
-        " gato_tpu_torch.packed, gato_tpu_torch.direct,"
-        " gato_tpu_torch.kernels.direct_fused, gato_tpu_torch.kernels.thomas_batch;"
+        f"import sys, {', '.join(modules)};"
         " bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('gato_tpu') and not m.startswith('gato_tpu_torch')];"
         " assert not bad, bad; print('ok')")
