@@ -96,6 +96,26 @@ Phases, each of which raises on failure (exit code not 0):
    iteration's cost on four shards; the dp entry points beside their
    single-device surfaces.
 
+3g. rows 16, 17 and 18 (the probes, kernels/probes.py) against their plain
+   versions: row 18 (null_copy) bit for bit at IIWA K = 50, B = 1 and 256;
+   row 16 (null_chain) at block and grid scope, K = 50 over the five
+   (n_mv, n_dot) of the fit and K = 1024 at grid scope, 100 trips; row 17
+   (fma_chain) at K = 50, s = 14, B = 1 and 132, 100 trips of depth 2;
+   rows 16 and 17 on probes.chain_operator / fma_operator (each knot's own
+   step a scaled orthogonal block), checked within every (problem, knot);
+4g. the measurement path: timing.time_solve at IIWA B = 1 for 'fused',
+   'pcg_kernel' and method='direct', and at B = 256, with the host reads
+   and synchronisations one solve makes (from a trace); debug.solve_debug
+   against solve; debug.trace around one linsys_solve (kernel B's symbol
+   in its table, the call's split from the trace, and its steps on host
+   clocks without the profiler); the probe tools
+   (probe_dispatch, probe_iter_floor at both scopes, probe_throughput A and
+   D) with reduced trip counts, with the probes' launch counts from 0;
+5g. the probes' times beside their bounds and plain versions (row 18 beside
+   q * 1.0000001), the dispatch floor, the iteration floor's fit against
+   the measured iteration at both scopes, probe A's split at B = 256,
+   probe D's rate and the split of one IIWA linsys_solve.
+
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -109,7 +129,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -120,6 +142,8 @@ if not torch.cuda.is_available():
 
 import gato_tpu_torch as gt  # noqa: E402
 from gato_tpu_torch import assemble, blocktri, testing  # noqa: E402
+from gato_tpu_torch import debug as gdebug  # noqa: E402
+from gato_tpu_torch import timing as gtiming  # noqa: E402
 from gato_tpu_torch.kernels import _build  # noqa: E402
 from gato_tpu_torch.kernels import direct_fused as kd  # noqa: E402
 from gato_tpu_torch.kernels import fused_sequence as ks  # noqa: E402
@@ -127,7 +151,10 @@ from gato_tpu_torch.kernels import fused_solve as kb  # noqa: E402
 from gato_tpu_torch.kernels import halo_matvec as hm  # noqa: E402
 from gato_tpu_torch.kernels import longk as kl  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
+from gato_tpu_torch.kernels import probes as kp  # noqa: E402
 from gato_tpu_torch.kernels import thomas_batch as kt  # noqa: E402
+from gato_tpu_torch.tools import probe_dispatch, probe_iter_floor  # noqa: E402
+from gato_tpu_torch.tools import probe_throughput  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 IIWA = testing.IIWA
@@ -154,7 +181,9 @@ HBM_BYTES = 3.35e12
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
            kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kl.CONDENSE_NAME: 0.0,
            kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0,
-           kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0, hm.NAME: 0.0}
+           kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0, hm.NAME: 0.0,
+           kp.COPY_NAME: 0.0, kp.CHAIN_BLOCK_NAME: 0.0, kp.CHAIN_GRID_NAME: 0.0,
+           kp.FMA_NAME: 0.0}
 # An exact solve's eta is a squared residual at round-off level: kernel and
 # plain version agree when |eta_k - eta_p| <= ETA_REL (1 + ||gamma||^2), a
 # relative residual of 1e-5, float32 round-off for these systems.
@@ -2579,6 +2608,349 @@ def phase_sharded_times(card: str):
     return times
 
 
+# --------------------------------------------------------------------------
+# The measurement surface (timing, debug) and the three probe kernels (rows
+# 16, 17 and 18, kernels/probes.py).
+
+# Rows 16 and 17 against their plain versions, knot by knot: within 1e-4 of
+# the largest |y| of each (problem, knot).  Their inputs (probes.
+# chain_operator, fma_operator) make each knot's own step a scaled
+# orthogonal block, so every knot's y stays within 7x of every other's
+# over the 100 trips; the rest is float32 round-off along up to 600
+# dependent steps in another order (float32 against float64 drifts up to
+# 2.6e-5 of a knot's scale at IIWA).
+PROBE_TOL = 1e-4
+PROBE_TRIPS = 100
+
+
+def probe_counts() -> dict:
+    return {kp.COPY_NAME: kp.COPY_LAUNCHES, kp.CHAIN_BLOCK_NAME: kp.CHAIN_BLOCK_LAUNCHES,
+            kp.CHAIN_GRID_NAME: kp.CHAIN_GRID_LAUNCHES, kp.FMA_NAME: kp.FMA_LAUNCHES}
+
+
+def zero_probe_counts() -> None:
+    kp.COPY_LAUNCHES = kp.CHAIN_BLOCK_LAUNCHES = kp.CHAIN_GRID_LAUNCHES = 0
+    kp.FMA_LAUNCHES = 0
+
+
+def check_knots(what: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """max |got - ref| <= tol max |ref| within every (problem, knot) row of
+    (B, K, s); returns max |got - ref|."""
+    g, r = got.double().cpu(), ref.double().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: not finite")
+    err = (g - r).abs().amax(-1)
+    scale = r.abs().amax(-1).clamp_min(1e-30)
+    worst = (err / scale).flatten().argmax()
+    b, k = divmod(int(worst), r.shape[1])
+    if float(err[b, k]) > tol * float(scale[b, k]):
+        raise AssertionError(f"{what}: problem {b}, knot {k}: max |d| = "
+                             f"{float(err[b, k]):.3e} exceeds {tol:g} of its scale "
+                             f"{float(scale[b, k]):.3e}")
+    return float(err.max())
+
+
+def phase_probe_parity():
+    print(f"== phase 3g: rows 16, 17 and 18 against their plain versions (row 18 bit "
+          f"for bit; rows 16, 17 over {PROBE_TRIPS} trips within {PROBE_TOL:g} of "
+          "each knot's scale)")
+    s = IIWA.state_size
+    for B in (1, BATCH):
+        q = gt.blocks_to_torch(testing.random_batch(IIWA, B, seed0=8000), DEV).q
+        got = kp.null_copy_cuda(q)
+        torch.cuda.synchronize()
+        if not torch.equal(got, kp.null_copy_plain(q)):
+            raise AssertionError(f"{kp.COPY_NAME} B={B}: not bit for bit q * 1.0000001")
+    print(f"  {kp.COPY_NAME} at IIWA K=50, B=1 and {BATCH}: bit for bit")
+    for scope, K in (("block", 50), ("grid", 50), ("grid", 1024)):
+        name = kp.CHAIN_BLOCK_NAME if scope == "block" else kp.CHAIN_GRID_NAME
+        cases = probe_iter_floor.GRID if K == 50 else ((2, 2), (4, 1))
+        worst = 0.0
+        for n_mv, n_dot in cases:
+            M, y0 = kp.chain_operator(1, K, s, seed=8100 + K + 10 * n_mv + n_dot, device=DEV)
+            kw = dict(n_mv=n_mv, n_dot=n_dot, trips=PROBE_TRIPS)
+            got = kp.null_chain_cuda(M, y0, scope=scope, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, check_knots(f"{name} K={K} ({n_mv}, {n_dot})", got,
+                                           kp.null_chain_plain(M, y0, **kw), PROBE_TOL))
+        MAX_ERR[name] = max(MAX_ERR[name], worst)
+        print(f"  {name} at IIWA K={K}, (n_mv, n_dot) in {list(cases)}: max|d| {worst:.2e}")
+    for B in (1, 132):
+        M, y0 = kp.fma_operator(B, 50, seed=8200 + B, device=DEV)
+        got = kp.fma_chain_cuda(M, y0, depth=2, trips=PROBE_TRIPS)
+        torch.cuda.synchronize()
+        err = check_knots(f"{kp.FMA_NAME} B={B}", got,
+                          kp.fma_chain_plain(M, y0, depth=2, trips=PROBE_TRIPS), PROBE_TOL)
+        MAX_ERR[kp.FMA_NAME] = max(MAX_ERR[kp.FMA_NAME], err)
+        print(f"  {kp.FMA_NAME} at IIWA K=50, s=14, B={B}, depth 2: max|d| {err:.2e} "
+              f"(scale {float(got.abs().max()):.2e})")
+
+
+def traced_events(fn, label: str):
+    """Run fn() once under debug.trace inside a record_function span named
+    ``label``; returns the Chrome trace's events and the span's start and
+    end (us)."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with gdebug.trace(tmp):
+            with torch.profiler.record_function(label):
+                fn()
+        (path,) = Path(tmp).glob("*.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == label]
+    if len(span) != 1:
+        raise AssertionError(f"trace: {len(span)} spans named {label!r}, not 1")
+    return events, span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+
+
+def runtime_calls(events, lo: float, hi: float) -> list:
+    """The CUDA runtime calls the host made within [lo, hi], in order."""
+    return sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                   and lo <= e["ts"] <= hi), key=lambda e: e["ts"])
+
+
+def host_reads(fn) -> tuple:
+    """(scalar reads, synchronisations) of one fn(), from its trace:
+    ``aten::_local_scalar_dense`` ops (a tensor read on the host) and
+    runtime calls that wait for the device (cuda*Synchronize, a pageable
+    copy's stream synchronisation)."""
+    events, lo, hi = traced_events(fn, "gato_host_reads")
+    reads = sum(e.get("cat") == "cpu_op" and e["name"] == "aten::_local_scalar_dense"
+                and lo <= e["ts"] <= hi for e in events)
+    syncs = sum("Synchronize" in e["name"] for e in runtime_calls(events, lo, hi))
+    return reads, syncs
+
+
+def linsys_split(fn) -> dict:
+    """The parts of one linsys_solve (testiters=1, staged, on the card) from
+    its trace, in us: host packing (CSR to blocks, before the first runtime
+    call), staging (the copies up to linsys_solve's first device
+    synchronisation), the solve call (from there to the second, which waits
+    for kernel B: routing, staging checks, allocations, the wrapper and the
+    launch, and within it the host work up to kernel B's launch call),
+    the wait, and the copy back (the two copies to the host and the lists);
+    kernel B's and the copies' device time."""
+    events, lo, hi = traced_events(fn, "linsys_solve")
+    calls = runtime_calls(events, lo, hi)
+    syncs = [e for e in calls if e["name"] == "cudaDeviceSynchronize"]
+    kernel = [e for e in events if e.get("cat") == "kernel"
+              and "fused_solve_kernel" in e["name"] and lo <= e["ts"]]
+    if len(syncs) != 2 or len(kernel) != 1:
+        raise AssertionError(f"linsys_solve trace: {len(syncs)} device synchronisations "
+                             f"and {len(kernel)} kernel-B launches, not 2 and 1")
+    launch = [e for e in calls if e["name"] == "cudaLaunchKernel"
+              and syncs[0]["ts"] < e["ts"] <= kernel[0]["ts"]][-1]
+    first, s1, s2 = calls[0]["ts"], syncs[0], syncs[1]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and lo <= e["ts"] <= hi]
+    return {
+        "total_us": hi - lo,
+        "host_packing_us": first - lo,
+        "staging_us": s1["ts"] + s1["dur"] - first,
+        "solve_call_us": s2["ts"] - (s1["ts"] + s1["dur"]),
+        "to_launch_us": launch["ts"] - (s1["ts"] + s1["dur"]),
+        "launch_call_us": launch["dur"],
+        "wait_us": s2["dur"],
+        "copy_back_us": hi - (s2["ts"] + s2["dur"]),
+        "kernel_b_us": kernel[0]["dur"],
+        "h2d_us": sum(e["dur"] for e in copies if "HtoD" in e["name"]),
+        "d2h_us": sum(e["dur"] for e in copies if "DtoH" in e["name"]),
+    }
+
+
+def dbg_batch(res) -> gt.SolveResult:
+    """A single solve's result as a batch of one, for check_iters."""
+    return gt.SolveResult(*(t[None] for t in res))
+
+
+def untraced_split(csr) -> dict:
+    """linsys_solve's steps (testiters=1) on host clocks without a
+    profiler, medians of 7 calls in us: packing (infer_spec, pack_kkt),
+    staging (the copies and a device synchronisation), the solve call, the
+    wait for the card, the copy back (lam_flat, dz_flat)."""
+    opts = gt.SolverOptions(exit_tol=EXIT_TOL, max_iters=MAX_ITERS, rho=RHO)
+    parts = []
+    for _ in range(7):
+        t = [time.perf_counter()]
+        spec = gt.infer_spec(csr.C_row, csr.g, csr.c)
+        blocks = gt.pack_kkt(spec, csr.G_row, csr.G_col, csr.G_val, csr.C_row, csr.C_col,
+                             csr.C_val, csr.g, csr.c)
+        t.append(time.perf_counter())
+        staged = gt.blocks_to_torch(blocks, DEV)
+        lam = torch.zeros(spec.knot_points, spec.state_size, device=DEV)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        res = gt.solve(spec, staged, opts, lam0=lam)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        res.lam_flat(), res.dz_flat()
+        t.append(time.perf_counter())
+        parts.append(np.diff(t) * 1e6)
+    med = np.median(np.array(parts), axis=0)
+    return dict(zip(("host_packing_us", "staging_us", "solve_call_us", "wait_us",
+                     "copy_back_us"), map(float, med)), total_us=float(med.sum()))
+
+
+def phase_measurement_path():
+    print("== phase 4g: the measurement path: timing.time_solve, debug.solve_debug, "
+          "debug.trace around linsys_solve, probe_dispatch, probe_iter_floor, "
+          "probe_throughput A and D (reduced R), with the probes' launch counts")
+    zero_probe_counts()
+    out = {}
+    one = testing.random_blocks(IIWA, seed=8300)
+    staged = gt.blocks_to_torch(one, DEV)
+    for label, backend, method, T in (("fused", "fused", "pcg", 16),
+                                      ("pcg_kernel", "pcg_kernel", "pcg", 4),
+                                      ("direct", None, "direct", 16)):
+        opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS,
+                                method=method)
+        ms, info = gtiming.time_solve(IIWA, one, opts, backend, T=T, reps=3,
+                                      min_diff_ms=1.0)
+        reads, syncs = host_reads(lambda: gt.solve(IIWA, staged, opts, pcg_backend=backend))
+        out[("time_solve", label)] = (ms, info, reads, syncs)
+        print(f"  time_solve IIWA B=1 {label}: {ms:.4f} ms a solve (T={info['T']}, "
+              f"estimates {info['reps_ms']}); one solve reads {reads} scalars and "
+              f"synchronises {syncs} times on the host")
+    batch = testing.random_batch(IIWA, BATCH, seed0=8400)
+    opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    ms, info = gtiming.time_solve(IIWA, batch, opts, T=8, reps=3, min_diff_ms=1.0)
+    out[("time_solve", "b256")] = (ms, info)
+    print(f"  time_solve IIWA B={BATCH} (auto = fused): {ms:.4f} ms a batch (T="
+          f"{info['T']}, estimates {info['reps_ms']})")
+    print(f"  measure_rtt_ms: {gtiming.measure_rtt_ms(5):.4f} ms")
+
+    dbg = gdebug.solve_debug(IIWA, one, opts)
+    ref = gt.solve(IIWA, one, opts)
+    ties = check_iters("solve_debug vs solve", dbg_batch(dbg.result), dbg_batch(ref),
+                       EXIT_TOL)
+    err = check_scaled("solve_debug lam", dbg.result.lam, ref.lam, TOL)
+    hist = dbg.eta_history
+    if hist.shape != (MAX_ITERS + 1,) or not bool(torch.isfinite(hist).all()):
+        raise AssertionError(f"solve_debug eta history {tuple(hist.shape)} not finite")
+    print(f"  solve_debug IIWA against solve (kernel B): {int(dbg.result.iters)} "
+          f"iterations both ({ties} ties), lam within {err:.2e}; true residual "
+          f"{float(dbg.final_residual_norm):.3e}")
+
+    csr = testing.blocks_to_csr(IIWA, one)
+    args = (csr.G_row, csr.G_col, csr.G_val, csr.C_row, csr.C_col, csr.C_val, csr.g,
+            csr.c, [0.0] * IIWA.nl, 1, EXIT_TOL, MAX_ITERS, False, RHO)
+    Path("build").mkdir(exist_ok=True)
+    tdir = tempfile.mkdtemp(prefix="trace_", dir="build")
+    gt.linsys_solve(*args, verbose=False)
+    with gdebug.trace(tdir, with_stack=True) as prof:
+        gt.linsys_solve(*args, verbose=False)
+    if not any("fused_solve_kernel" in e.key for e in prof.key_averages()):
+        raise AssertionError("trace of linsys_solve names no fused_solve_kernel")
+    print(f"  trace of one IIWA linsys_solve (with Python stacks) names kernel B's "
+          f"symbol; written to {tdir}")
+    out["split"] = linsys_split(lambda: gt.linsys_solve(*args, verbose=False))
+    out["untraced"] = untraced_split(csr)
+
+    out["dispatch"] = probe_dispatch.probe_dispatch(calls=200, T=64, reps=3)
+    for scope, R in (("block", 2000), ("grid", 500)):
+        out[("null", scope)] = probe_iter_floor.probe_null(scope, R=R, reps=3)
+        out[("real", scope)] = probe_iter_floor.probe_real(scope, T=16, reps=3)
+    out["A"] = probe_throughput.probe_A(T=4, reps=3)
+    out["D"] = probe_throughput.probe_D(R=5000, reps=3)
+    for key in ("dispatch", ("null", "block"), ("real", "block"), ("null", "grid"),
+                ("real", "grid"), "A", "D"):
+        print(f"  {json.dumps(out[key])}")
+    out["launches"] = probe_counts()
+    print(f"  launches on the measurement path: {out['launches']}")
+    for name, count in out["launches"].items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the measurement path")
+    return out
+
+
+def chain_flops(K: int, s: int, n_mv: int, n_dot: int, trips: int) -> float:
+    """Row 16's operations on one problem: the scaled operator once; a
+    matvec 2 s per block row of its 3 K - 2 blocks a row and 3 a row for
+    0.25 acc + 0.5 y; a dot 2 a row for y^2 and its sum, 3 for the axpy."""
+    mv = 2 * s * s * (3 * K - 2) + 3 * K * s
+    return 3 * K * s * s + trips * (n_mv * mv + n_dot * 5 * K * s)
+
+
+def fma_flops(K: int, s: int, depth: int, trips: int) -> float:
+    """Row 17's operations on one problem: the scaled operator once, then a
+    matvec's 2 s + 2 a row (probe_throughput.fma_rates)."""
+    return K * s * s + trips * depth * K * s * (2 * s + 2)
+
+
+def phase_probe_times(card: str, meas: dict):
+    print(f"== phase 5g: the probes' times beside their bounds (CUDA events, median of "
+          f"{TIMING_RUNS} runs; device times of one launch from 50 in a CUDA graph) and "
+          f"the measurement path's numbers, on {card}")
+    s = IIWA.state_size
+    times = {}
+    q = gt.blocks_to_torch(testing.random_batch(IIWA, 1, seed0=8500), DEV).q
+    kern = lambda: kp.null_copy_cuda(q)  # noqa: E731
+    plain = lambda: kp.null_copy_plain(q)  # noqa: E731
+    dev_t = {n: graph_ms_per_call(f) for n, f in (("kernel", kern), ("plain", plain))}
+    call_t = {n: cuda_median_ms(f) for n, f in (("kernel", kern), ("plain", plain))}
+    bound_ms, bound_by = bound(2 * nbytes(q), q.numel())
+    # The plain version is the library call q * 1.0000001 itself.
+    times[kp.COPY_NAME] = dict(ms=dev_t["kernel"], plain_ms=dev_t["plain"],
+                               library_ms=dev_t["plain"], bound_ms=bound_ms,
+                               bound_by=bound_by, call_ms=call_t["kernel"],
+                               plain_call_ms=call_t["plain"], batch=1)
+    for name, scope, K in ((kp.CHAIN_BLOCK_NAME, "block", 50),
+                           (kp.CHAIN_GRID_NAME, "grid", 1024)):
+        M, y0 = kp.chain_operator(1, K, s, seed=8600 + K, device=DEV)
+        kw = dict(n_mv=2, n_dot=2, trips=PROBE_TRIPS)
+        k_ms = cuda_median_ms(lambda: kp.null_chain_cuda(M, y0, scope=scope, **kw))
+        p_ms = cuda_median_ms(lambda: kp.null_chain_plain(M, y0, **kw), runs=SLOW_RUNS,
+                              warmup=1)
+        b_ms, b_by = bound(nbytes(M, y0, y0), chain_flops(K, s, **kw))
+        times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by, K=K, n_mv=2, n_dot=2, trips=PROBE_TRIPS)
+    M, y0 = kp.fma_operator(1, 50, seed=8700, device=DEV)
+    kw = dict(depth=2, trips=PROBE_TRIPS)
+    k_ms = cuda_median_ms(lambda: kp.fma_chain_cuda(M, y0, **kw))
+    p_ms = cuda_median_ms(lambda: kp.fma_chain_plain(M, y0, **kw), runs=SLOW_RUNS,
+                          warmup=1)
+    b_ms, b_by = bound(nbytes(M, y0, y0), fma_flops(50, s, **kw))
+    times[kp.FMA_NAME] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                              bound_by=b_by, K=50, depth=2, trips=PROBE_TRIPS)
+    for name, r in times.items():
+        print(f"  {name}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.7f} ms ({r['bound_by']}; "
+              f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time)  [{card}]")
+    d = meas["dispatch"]
+    print(f"  dispatch floor at IIWA B=1: row 18 device {d['kernel_device_us']:.2f} us, "
+          f"per call {d['kernel_per_call_us']:.2f} us, chained {d['kernel_chain_us']:.2f} "
+          f"us; q * 1.0000001 device {d['torch_device_us']:.2f} us, per call "
+          f"{d['torch_per_call_us']:.2f} us, chained {d['torch_chain_us']:.2f} us  [{card}]")
+    for scope in ("block", "grid"):
+        n, r = meas[("null", scope)], meas[("real", scope)]
+        print(f"  iteration floor, {scope} scope (K={n['K']}): c0 {n['c0_ns_per_trip']:.0f}"
+              f" ns, c_mv {n['c_mv_ns']:.0f} ns, c_dot {n['c_dot_ns']:.0f} ns; predicted "
+              f"poly-1 iteration {n['predicted_poly1_iter_ns']:.0f} ns, measured "
+              f"{r['poly1_per_iter_ns']:.0f} ns through time_solve ({r['backend']}, "
+              f"K={r['K']}; poly 2 {r['poly2_per_iter_ns']:.0f} ns), the kernel alone "
+              f"{r['poly1_kernel_per_iter_ns']:.0f} ns (poly 2 "
+              f"{r['poly2_kernel_per_iter_ns']:.0f} ns)  [{card}]")
+    a, dd = meas["A"], meas["D"]
+    print(f"  probe A, kernel B at B={a['batch']}: fixed {a['fixed_ms']:.4f} ms, "
+          f"{1e3 * a['per_iter_ms_batch']:.2f} us an iteration, full default "
+          f"{a['full_default_ms']:.4f} ms ({a['full_us_per_solve']:.3f} us a solve)  [{card}]")
+    print(f"  probe D, row 17: {dd['ns_per_matvec']:.1f} ns a matvec, "
+          f"{dd['ns_per_col_fma']:.2f} ns a column FMA, {dd['gflops_one_cta']:.1f} GFLOP/s "
+          f"one CTA, {dd['gflops_132_ctas']:.0f} GFLOP/s 132 CTAs "
+          f"({100 * dd['share_of_f32_peak_132_ctas']:.2f} % of 67 TFLOP/s)  [{card}]")
+    print("  one IIWA linsys_solve from its trace (us): " + ", ".join(
+        f"{k[:-3]} {v:.1f}" for k, v in meas["split"].items()) + f"  [{card}]")
+    print("  its steps on host clocks without the profiler (us, median of 7): " + ", ".join(
+        f"{k[:-3]} {v:.1f}" for k, v in meas["untraced"].items()) + f"  [{card}]")
+    for label in ("fused", "pcg_kernel", "direct"):
+        ms, _, reads, syncs = meas[("time_solve", label)]
+        print(f"  time_solve B=1 {label}: {ms:.4f} ms; {reads} host reads, {syncs} "
+              f"synchronisations a solve  [{card}]")
+    return times
+
+
 def main():
     t_start = time.perf_counter()
     card = card_line()
@@ -2601,18 +2973,21 @@ def main():
     phase_longk_parity()
     phase_direct_longk_parity()
     phase_halo_parity()
+    phase_probe_parity()
     launches, avg = phase_main_path()
     seq_launches = phase_mpc_path()
     direct_launches = phase_direct_path()
     longk_launches = phase_longk_path()
     exact_launches = phase_direct_longk_path()
     sharded_launches = phase_sharded_path()
+    meas = phase_measurement_path()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
     exact_times, exact_routes = phase_direct_longk_times(card)
     sharded_times = phase_sharded_times(card)
+    probe_times = phase_probe_times(card, meas)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
 
@@ -2686,6 +3061,14 @@ def main():
     row.update({f"{key}_kl2048": value for key, value in
                 sharded_times[(hm.NAME, 2048)].items() if key != "bound_by"})
     kernels.append(row)
+    # Rows 16, 17 and 18: their launches from the measurement path (phase 4g).
+    for name, replaces in ((kp.CHAIN_BLOCK_NAME, kp.CHAIN_REPLACES),
+                           (kp.CHAIN_GRID_NAME, kp.CHAIN_REPLACES),
+                           (kp.FMA_NAME, kp.FMA_REPLACES),
+                           (kp.COPY_NAME, kp.COPY_REPLACES)):
+        kernels.append({"name": name, "route": "cuda", "source": kp.SOURCE,
+                        "replaces": replaces, "launches": meas["launches"][name],
+                        "max_abs_err": MAX_ERR[name], **probe_times[name]})
     for K in SHARD_K:
         print(f"  solve_sharded K={K}: " + ", ".join(
             f"n={n} kernel {sharded_times[('sharded', K, n)]['kernel']:.4f} / torch "

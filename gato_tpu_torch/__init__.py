@@ -19,13 +19,16 @@ Public surface:
     over a mesh of devices; :func:`solve_batched_dp`,
     :func:`solve_sequence_batched_dp`: batches and farms split over it
     (:mod:`gato_tpu_torch.parallel`)
+  * :mod:`gato_tpu_torch.timing` (``time_solve``, ``chain_time``,
+    ``measure_rtt_ms``) and :mod:`gato_tpu_torch.debug` (``solve_debug``,
+    ``residual_history``, ``trace``): the measurement and debug surface
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
   * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
     loop, the fused whole solve, the warm-started farm, the cyclic-reduction
     exact solve, the block-Thomas pair, the long-horizon PCG and exact
-    tiers and the knot shard's halo matvec), each with its plain PyTorch
-    version
+    tiers, the knot shard's halo matvec and the measurement probes), each
+    with its plain PyTorch version
 """
 
 from .api import infer_spec, linsys_solve

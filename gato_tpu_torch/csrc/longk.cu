@@ -60,19 +60,17 @@
 #include <cuda_runtime.h>
 
 #include "condense.cuh"
+#include "grid_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace gato {
 
-constexpr int kLongkThreads = 256;
+constexpr int kLongkThreads = kGridThreads;
 // Own knots of a condensation tile, at most, and the shared memory a tile
 // aims to stay under (three tiles of 74 KB share an SM at IIWA).
 constexpr int kTileKnots = 8;
 constexpr long long kTileBudgetBytes = 100 * 1024;
-// Resident cooperative CTAs an SM takes, at most: every CTA arrives at every
-// grid barrier, so more CTAs make each barrier dearer.
-constexpr int kMaxCtasPerSm = 2;
 // Knots of one recovery block.
 constexpr int kRecoverKnots = 32;
 
@@ -318,44 +316,6 @@ struct PcgArrays {
   float exit_tol;
 };
 
-// One cooperative launch: problems first .. first + nprob - 1, per CTAs
-// each, counter done[index].
-struct Round {
-  int first, nprob, per, index;
-};
-
-// Problems of a round and CTAs a problem: as many problems as CTAs fit
-// (grid_max), and no more CTAs to a problem than it has rows for.
-inline Round next_round(int first, int B, long long rows, int grid_max,
-                        int index) {
-  Round rd;
-  rd.first = first;
-  rd.index = index;
-  rd.nprob = B - first < grid_max ? B - first : grid_max;
-  long long per = grid_max / rd.nprob;
-  const long long useful = (rows + kLongkThreads - 1) / kLongkThreads;
-  if (per > useful) per = useful;
-  rd.per = per < 1 ? 1 : (int)per;
-  return rd;
-}
-
-// Sum of a problem's per-CTA partials, returned to every thread: lane j of
-// warp 0 adds partials j, j + 32, ... in order, then a shuffle tree.  Every
-// CTA of the problem computes the same bits.  The loads bypass L1: the
-// partials were written by other CTAs before the last grid barrier.
-__device__ float sum_partials(const float* part, int per, float* red) {
-  if (threadIdx.x < 32) {
-    float v = 0.f;
-    for (int j = threadIdx.x; j < per; j += 32) v += __ldcg(part + j);
-    v = warp_sum(v);
-    if (threadIdx.x == 0) red[32] = v;
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
-}
-
 // y = M r on the rows [i0, i1), M = P or its Horner polynomial (a grid
 // barrier before each read of a neighbour's y or tmp).  Every CTA of the
 // grid calls it (the barriers); only active ones compute.
@@ -404,10 +364,8 @@ __device__ void pcg_longk_rows(cg::grid_group& grid, const PcgArrays& a,
   float* nu_part = a.parts + pl * rd.per;
   float* eta_part = a.parts + gridDim.x + pl * rd.per;
   int* done = a.done + rd.index;
-  const int nk = (K + rd.per - 1) / rd.per;
-  const int k0 = part * nk < K ? part * nk : K;
-  const int k1 = k0 + nk < K ? k0 + nk : K;
-  const int i0 = k0 * s, i1 = k1 * s;
+  const OwnRows own = own_rows(K, s, rd.per, part);
+  const int i0 = own.i0, i1 = own.i1;
   const bool lead = part == 0 && tid == 0;
   bool active = !frozen;
 
@@ -548,28 +506,6 @@ recover_longk_kernel(const float* Qinv, const float* Rinv, const float* A,
 inline long long recover_smem_bytes(int s, int c) {
   return (2LL * (kRecoverKnots + 1) * s + 2LL * kRecoverKnots * c) *
          (long long)sizeof(float);
-}
-
-// Resident CTAs of `kernel` with `smem` bytes of dynamic shared memory:
-// blocks per SM (at most kMaxCtasPerSm) times SMs; 0 if none fits, a
-// negative CUDA error code if a query fails.
-inline int coresident_ctas(const void* kernel, size_t smem) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 0)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kLongkThreads, smem);
-  if (err != cudaSuccess) return -(int)err;
-  if (!coop) return -(int)cudaErrorNotSupported;
-  if (per_sm > kMaxCtasPerSm) per_sm = kMaxCtasPerSm;
-  return per_sm * sms;
 }
 
 }  // namespace gato

@@ -13,4 +13,7 @@ use (_build.py), each beside its plain PyTorch version:
                   11 and 12, its exact tier (cyclic reduction)
 * halo_matvec:    row 15, the block-tridiagonal matvec of one knot shard
                   with its neighbours' halo rows (parallel/sharded.py)
+* probes:         rows 16-18, the measurement probes (the iteration chain
+                  at block and grid scope, the column-FMA chain, the null
+                  copy of the dispatch floor; tools/probe_*.py)
 """

@@ -25,8 +25,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
-           "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu")
-HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh")
+           "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
+           "probes.cu")
+HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh", "grid_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -70,6 +71,11 @@ _SIGNATURES = {
     "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),
+    "gato_null_copy": (_I, [_P, _P, _I, _I, _P]),
+    "gato_null_chain_grid_ctas": (_I, []),
+    "gato_null_chain_grid_per": (_I, [_I, _I, _I]),
+    "gato_null_chain": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+    "gato_fma_chain": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

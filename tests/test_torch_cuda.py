@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import gato_tpu_torch as gt
-from gato_tpu_torch import assemble
+from gato_tpu_torch import assemble, debug, timing
 from gato_tpu_torch import testing as tt
 from gato_tpu_torch.kernels import direct_fused as kd
 from gato_tpu_torch.kernels import fused_sequence as ks
@@ -23,6 +23,7 @@ from gato_tpu_torch.kernels import halo_matvec as hm
 from gato_tpu_torch.kernels import longk as kl
 from gato_tpu_torch.kernels import pcg_kernel as ka
 from gato_tpu_torch.kernels import thomas_batch as kt
+from gato_tpu_torch.kernels import probes
 
 pytestmark = pytest.mark.cuda
 
@@ -781,3 +782,113 @@ def test_dp_entry_points_on_one_card(dev):
                                        opts) for i in range(0, 8, 2)]
     for g, field in zip(got, zip(*parts)):
         assert torch.equal(g, torch.cat(field, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# Rows 16, 17 and 18 (kernels/probes.py) and the measurement surface
+# (timing, debug) on the card.
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_null_copy_matches_plain_bit_for_bit(dev, B):
+    q = gt.blocks_to_torch(tt.random_batch(tt.IIWA, B, seed0=5), dev).q
+    before = probes.COPY_LAUNCHES
+    got = probes.null_copy_cuda(q)
+    torch.cuda.synchronize()
+    assert probes.COPY_LAUNCHES == before + 1
+    assert torch.equal(got, probes.null_copy_plain(q))
+
+
+def _knots_close(got, ref, tol):
+    """|got - ref| <= tol max |ref| within every (problem, knot) row."""
+    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    assert np.isfinite(a).all()
+    scale = np.abs(b).max(axis=-1, keepdims=True)
+    assert scale.min() > 1e-30
+    assert (np.abs(a - b) <= tol * scale).all(), float((np.abs(a - b) / scale).max())
+
+
+@pytest.mark.parametrize("scope", ["block", "grid"])
+@pytest.mark.parametrize("n_mv,n_dot", [(2, 2), (1, 2), (4, 2), (2, 1), (2, 4)])
+@pytest.mark.parametrize("B,K", [(1, 50), (3, 37), (1, 1024)])
+def test_null_chain_matches_plain(dev, scope, n_mv, n_dot, B, K):
+    """Row 16 against its plain version over 100 trips, knot by knot.
+    Tolerance 1e-4 of each (problem, knot)'s scale: chain_operator keeps
+    every knot's y within a few times every other's, and float32 round-off
+    along up to 600 dependent steps in another order is the rest (float32
+    against float64 drifts up to 2.6e-5 of a knot's scale here)."""
+    M, y0 = probes.chain_operator(B, K, 14, seed=K + n_mv + 10 * n_dot, device=dev)
+    counter = "CHAIN_BLOCK_LAUNCHES" if scope == "block" else "CHAIN_GRID_LAUNCHES"
+    before = getattr(probes, counter)
+    got = probes.null_chain_cuda(M, y0, n_mv=n_mv, n_dot=n_dot, trips=100, scope=scope)
+    torch.cuda.synchronize()
+    assert getattr(probes, counter) == before + 1
+    ref = probes.null_chain_plain(M, y0, n_mv=n_mv, n_dot=n_dot, trips=100)
+    _knots_close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("K,B", [(50, 1), (50, 132), (5, 3), (73, 2)])
+def test_fma_chain_matches_plain(dev, K, B):
+    """Row 17 against its plain version over 100 trips of depth 2, knot by
+    knot, within 1e-4 of each knot's scale, as row 16."""
+    M, y0 = probes.fma_operator(B, K, seed=K + B, device=dev)
+    before = probes.FMA_LAUNCHES
+    got = probes.fma_chain_cuda(M, y0, depth=2, trips=100)
+    torch.cuda.synchronize()
+    assert probes.FMA_LAUNCHES == before + 1
+    _knots_close(got, probes.fma_chain_plain(M, y0, depth=2, trips=100), 1e-4)
+
+
+def test_probes_refuse_what_they_do_not_take(dev):
+    M, y0 = probes.chain_operator(1, 8, 4, seed=1, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        probes.null_copy_cuda(y0.double())
+    with pytest.raises(ValueError, match="shape"):
+        probes.null_chain_cuda(M[:, :7], y0, n_mv=1, n_dot=1, trips=1)
+    with pytest.raises(ValueError, match="width"):
+        probes.fma_chain_cuda(torch.zeros(1, 8, 5, 5, device=dev),
+                              torch.zeros(1, 8, 5, device=dev), depth=1, trips=1)
+    with pytest.raises(ValueError, match="1024"):
+        probes.fma_chain_cuda(torch.zeros(1, 80, 14, 14, device=dev),
+                              torch.zeros(1, 80, 14, device=dev), depth=1, trips=1)
+    grid = probes.grid_ctas(torch.cuda.current_device())
+    with pytest.raises(ValueError, match="cooperative grid"):
+        probes.null_chain_cuda(*probes.chain_operator(grid + 1, 2, 2, seed=2, device=dev),
+                               n_mv=1, n_dot=1, trips=1, scope="grid")
+
+
+def test_trace_records_the_cuda_kernels(dev, tmp_path):
+    """debug.trace around one linsys_solve names kernel B's CUDA symbol and
+    writes a Chrome trace."""
+    p = tt.pendulum_problem()
+    args = (p.G_row, p.G_col, p.G_val, p.C_row, p.C_col, p.C_val, p.g, p.c,
+            [0.0] * 10, 1, 1e-6, 10, False, 1e-3)
+    gt.linsys_solve(*args, verbose=False)
+    with debug.trace(str(tmp_path)) as prof:
+        gt.linsys_solve(*args, verbose=False)
+    assert any("fused_solve_kernel" in e.key for e in prof.key_averages())
+    assert len(list(tmp_path.iterdir())) == 1
+
+
+@pytest.mark.parametrize("backend,method,B", [("fused", "pcg", 1), ("pcg_kernel", "pcg", 1),
+                                              ("torch", "pcg", 1), (None, "direct", 1),
+                                              ("fused", "pcg", 16), (None, "direct", 16)])
+def test_time_solve_runs_each_backend(dev, backend, method, B):
+    spec = tt.IIWA
+    blocks = (tt.random_blocks(spec, seed=3) if B == 1
+              else tt.random_batch(spec, B, seed0=3))
+    ms, info = timing.time_solve(spec, blocks, gt.SolverOptions(rho=1e-3, method=method),
+                                 backend, T=4, reps=2, min_diff_ms=0.0)
+    assert ms > 0 and info["T"] >= 4 and info["reps_ms"]
+
+
+def test_solve_debug_on_the_card_matches_solve(dev):
+    spec = tt.IIWA
+    blocks = tt.random_blocks(spec, seed=9)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-6, max_iters=100)
+    dbg = debug.solve_debug(spec, blocks, opts)
+    ref = gt.solve(spec, blocks, opts, pcg_backend="torch")
+    assert dbg.eta_history.device.type == "cuda"
+    assert int(dbg.result.iters) == int(ref.iters)
+    _close(dbg.result.lam, ref.lam)
+    assert timing.measure_rtt_ms(3) > 0
