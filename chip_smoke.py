@@ -78,8 +78,8 @@ Phases, each of which raises on failure (exit code not 0):
    plain version and its route at row 14's shape, K=16384.
 
 3f. row 15 (the knot shard's halo matvec) against its plain version at
-   IIWA s = 14, Kl = 256 and 2048, and s = 4: a first shard (zero left
-   halo), an interior one and a last one (zero right halo);
+   IIWA s = 14, Kl = 256, 2048 and 65, s = 4, 3 and 32: a first shard (no
+   left halo), an interior one and a last one (no right halo);
 4f. the knot-sharded path on Mesh(["cuda:0"] * n), n = 1, 2, 4 (shards on
    the one card): solve_sharded at IIWA K = 1024 with every
    preconditioner, the kernel tier (rows 7, 15, 13 on every shard) against
@@ -90,14 +90,19 @@ Phases, each of which raises on failure (exit code not 0):
    imply; solve_batched_dp (B = 256, both methods) and
    solve_sequence_batched_dp (B = 256 x T = 16) on four groups against the
    single-device surfaces;
-5f. row 15's time at Kl = 256 and 2048 beside its bound, its plain version
-   and torch.bmm; solve_sharded per call on both tiers at K = 1024 and 8192,
-   n = 1, 2, 4, beside the single-device solve; one sharded PCG
+5f. in a child process (chip_smoke.py --profiled), one row-15 call without
+   halos is one CUDA activity in a torch.profiler trace and allocates y
+   alone, and the device's busy shares below; row 15's time at Kl = 256
+   and 2048 beside its bound, its plain version and torch.bmm; solve_sharded per call on both tiers at K = 1024 and 8192,
+   n = 1, 2, 4, beside the single-device solve, with the device's busy
+   share of one kernel-tier call; one sharded PCG
    iteration's cost on four shards; the dp entry points beside their
    single-device surfaces.
 
 3g. rows 16, 17 and 18 (the probes, kernels/probes.py) against their plain
-   versions: row 18 (null_copy) bit for bit at IIWA K = 50, B = 1 and 256;
+   versions: row 18 (null_copy) bit for bit at IIWA K = 50, B = 1 and 256,
+   at (3, 7, 3) (K s not a multiple of 4) and on q one float off a 16-byte
+   boundary;
    row 16 (null_chain) at block and grid scope, K = 50 over the five
    (n_mv, n_dot) of the fit and K = 1024 at grid scope, 100 trips; row 17
    (fma_chain) at K = 50, s = 14, B = 1 and 132, 100 trips of depth 2;
@@ -2251,7 +2256,7 @@ def check_scaled(what: str, got: torch.Tensor, ref: torch.Tensor, tol: float) ->
 def phase_halo_parity():
     print(f"== phase 3f: row 15 ({hm.NAME}) against its plain version, within "
           f"{HALO_TOL:g} of scale")
-    for s, Kl in ((14, 256), (14, 2048), (4, 256)):
+    for s, Kl in ((14, 256), (14, 2048), (4, 256), (14, 65), (3, 37), (32, 2048)):
         S, x, left, right = halo_case(s, Kl, seed=100 * s + Kl)
         worst = 0.0
         for shard, lo, hi in (("first", None, right), ("interior", left, right),
@@ -2264,6 +2269,74 @@ def phase_halo_parity():
         MAX_ERR[hm.NAME] = max(MAX_ERR[hm.NAME], worst)
         print(f"  s={s} Kl={Kl}: first (zero left halo), interior, last (zero right "
               f"halo) shards: max|d| {worst:.2e}")
+
+
+def halo_call_check():
+    """One row-15 call with both halos absent: exactly one CUDA activity
+    in a torch.profiler trace (the kernel; no fill of a zero halo, no
+    copy), and torch.cuda.memory_allocated() grown by y's block alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S, x, _, _ = halo_case(IIWA.state_size, 256, seed=9)
+    hm.halo_matvec_cuda(S, x)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = hm.halo_matvec_cuda(S, x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    y_block = -(-y.numel() * y.element_size() // 512) * 512
+    if grown > y_block:
+        raise AssertionError(f"{hm.NAME} without halos allocated {grown} B, y's block "
+                             f"is {y_block} B")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hm.halo_matvec_cuda(S, x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(names) != 1 or "halo_matvec" not in names[0]:
+        raise AssertionError(f"{hm.NAME} without halos: CUDA activities {names}, not "
+                             "the one kernel")
+    return {"kernel": names[0], "allocated": grown, "y_block": y_block}
+
+
+def profiled_sharded() -> dict:
+    """The knot-sharded measurements that need torch.profiler, run in a
+    process of their own (``python3 chip_smoke.py --profiled``): in one
+    process, a profiler session before the long-K phases left every later
+    session of this run without device activity.  Row 15's call check,
+    and the device's busy share of one kernel-tier solve_sharded per (K,
+    n) and of 20 pcg_sharded iterations on four shards per K."""
+    out = {"halo": halo_call_check(), "solve_sharded": {}, "pcg_sharded": {}}
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    for K in SHARD_K:
+        one = gt.KKTBlocks(*(a[0] for a in longk_batch(K, 1, seed0=7000 + K)))
+        for n in SHARD_N:
+            mesh = gt.Mesh([DEV] * n)
+            out["solve_sharded"][f"{K},{n}"] = device_busy_ms(
+                lambda: gt.solve_sharded(mesh, *one, **kw))
+        ops = kl.condense_longk_cuda(*(a[None] for a in one), rho=RHO)
+        mesh = gt.Mesh([DEV] * 4)
+        out["pcg_sharded"][str(K)] = device_busy_ms(lambda: gt.pcg_sharded(
+            mesh, ops.S[0], ops.Pinv[0], ops.gamma[0], exit_tol=0.0, max_iters=20))
+        del ops
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_profiled_sharded() -> dict:
+    """profiled_sharded() in a child process; raises if it fails."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--profiled"],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --profiled failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def busy_text(busy, wall) -> str:
+    if busy is None:
+        return "not measured (the trace holds no device activity)"
+    return f"device busy {busy:.4f} of {wall:.4f} ms, idle {100 * (1 - busy / wall):.1f} %"
 
 
 def halo_launches(n: int, res, max_iters: int) -> int:
@@ -2505,6 +2578,11 @@ def phase_sharded_times(card: str):
     print(f"== phase 5f: row 15 and the knot-sharded path's times (CUDA events, median "
           f"of {TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for plain versions, library "
           f"calls and the torch tier) on {card}")
+    prof = run_profiled_sharded()
+    h = prof["halo"]
+    print(f"  one {hm.NAME} call without halos (Kl=256) under torch.profiler: one CUDA "
+          f"activity ({h['kernel']}); {h['allocated']} B allocated, y's block "
+          f"{h['y_block']} B")
     s = IIWA.state_size
     times = {}
     for Kl in (256, 2048):
@@ -2556,10 +2634,13 @@ def phase_sharded_times(card: str):
             k_ms = cuda_median_ms(lambda: gt.solve_sharded(mesh, *one, **kw))
             t_ms = cuda_median_ms(lambda: gt.solve_sharded(mesh, *one, use_kernel=False,
                                                            **kw), runs=SLOW_RUNS, warmup=1)
-            times[("sharded", K, n)] = dict(kernel=k_ms, torch=t_ms, iters=int(res.iters))
+            busy, wall = prof["solve_sharded"][f"{K},{n}"]
+            times[("sharded", K, n)] = dict(kernel=k_ms, torch=t_ms, iters=int(res.iters),
+                                           busy=busy, wall=wall)
             print(f"  solve_sharded K={K} n={n}: kernel tier {k_ms:.4f} ms, torch tier "
                   f"{t_ms:.4f} ms ({int(res.iters)} iterations; {k_ms / single_ms:.1f}x "
-                  f"the single-device solve)  [{card}]")
+                  f"the single-device solve); one kernel-tier call under torch.profiler: "
+                  f"{busy_text(busy, wall)}  [{card}]")
         # One sharded PCG iteration on four shards: 20 iterations against
         # none (exit_tol = 0, so the loop never exits early), row 15 on
         # operators condensed once.
@@ -2572,16 +2653,12 @@ def phase_sharded_times(card: str):
                 max_iters=iters))
         per_it = (runs[20] - runs[0]) / 20
         times[("iteration", K)] = per_it
-        busy, wall = device_busy_ms(lambda: gt.pcg_sharded(
-            mesh, ops.S[0], ops.Pinv[0], ops.gamma[0], exit_tol=0.0, max_iters=20))
-        idle = ("not measured (the trace holds no device activity)" if busy is None
-                else f"device busy {busy:.4f} of {wall:.4f} ms, idle "
-                     f"{100 * (1 - busy / wall):.1f} %")
+        busy, wall = prof["pcg_sharded"][str(K)]
         times[("busy", K)] = (busy, wall)
         print(f"  pcg_sharded K={K} n=4: max_iters=0 {runs[0]:.4f} ms, 20 {runs[20]:.4f} "
               f"ms: {1e3 * per_it:.1f} us an iteration (2 matvecs of 4 launches and 6 "
               f"halo copies each, 2 dots, 3 updates, one host read); 20 iterations "
-              f"under torch.profiler: {idle}  [{card}]")
+              f"under torch.profiler: {busy_text(busy, wall)}  [{card}]")
         del ops
         torch.cuda.empty_cache()
     dp = gt.Mesh([DEV] * 4, "dp")
@@ -2661,7 +2738,19 @@ def phase_probe_parity():
         torch.cuda.synchronize()
         if not torch.equal(got, kp.null_copy_plain(q)):
             raise AssertionError(f"{kp.COPY_NAME} B={B}: not bit for bit q * 1.0000001")
-    print(f"  {kp.COPY_NAME} at IIWA K=50, B=1 and {BATCH}: bit for bit")
+    # The scalar tail (K s not a multiple of 4) and the scalar path (q one
+    # float off a 16-byte boundary).
+    for shape, offset in (((3, 7, 3), 0), ((1, 50, 14), 1), ((3, 7, 3), 1)):
+        flat = torch.tensor(np.random.default_rng(8001 + offset).normal(
+            size=offset + int(np.prod(shape))), dtype=torch.float32, device=DEV)
+        q = flat[offset:].view(shape)
+        got = kp.null_copy_cuda(q)
+        torch.cuda.synchronize()
+        if not torch.equal(got, kp.null_copy_plain(q)):
+            raise AssertionError(f"{kp.COPY_NAME} {shape} offset {offset}: not bit for "
+                                 "bit q * 1.0000001")
+    print(f"  {kp.COPY_NAME} at IIWA K=50, B=1 and {BATCH}, (3, 7, 3), and q one float "
+          "off a 16-byte boundary: bit for bit")
     for scope, K in (("block", 50), ("grid", 50), ("grid", 1024)):
         name = kp.CHAIN_BLOCK_NAME if scope == "block" else kp.CHAIN_GRID_NAME
         cases = probe_iter_floor.GRID if K == 50 else ((2, 2), (4, 1))
@@ -2923,6 +3012,9 @@ def phase_probe_times(card: str, meas: dict):
           f"per call {d['kernel_per_call_us']:.2f} us, chained {d['kernel_chain_us']:.2f} "
           f"us; q * 1.0000001 device {d['torch_device_us']:.2f} us, per call "
           f"{d['torch_per_call_us']:.2f} us, chained {d['torch_chain_us']:.2f} us  [{card}]")
+    print("  row 18's call, each step alone (us): " + ", ".join(
+        f"{k[6:-3]} {v:.2f}" for k, v in d.items() if k.startswith("split_"))
+        + f"  [{card}]")
     for scope in ("block", "grid"):
         n, r = meas[("null", scope)], meas[("real", scope)]
         print(f"  iteration floor, {scope} scope (K={n['K']}): c0 {n['c0_ns_per_trip']:.0f}"
@@ -3090,4 +3182,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profiled"]:
+        print(json.dumps(profiled_sharded()))
+    else:
+        main()

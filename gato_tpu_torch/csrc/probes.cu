@@ -6,9 +6,17 @@
 //
 // Row 18, null_copy (replaces bench.py's null_kernel, pallas_call at :899,
 // the dispatch-floor probe): out = q * 1.0000001 on the rhs of B problems
-// (B, K s), one CTA of 128 threads a problem, grid-stride over its K s
-// floats.  Its bound (2 K s 4 bytes over 3.35 TB/s) is nanoseconds; what it
-// measures is the launch.
+// (B K s floats).  Its bound (2 B K s 4 bytes over 3.35 TB/s) is
+// nanoseconds: what bounds it on an H100 is the launch and one round trip
+// to memory, and the probe exists to show that floor, so the kernel must
+// add nothing to it.  One float4 a thread (16-byte loads and stores, at
+// IIWA K s = 700 175 float4 in one round trip of one CTA, not a
+// grid-stride walk of 4-byte loads), over a grid of 256-thread CTAs that
+// covers B K s / 4 float4; threads 0-2 also take the 1-3 floats past the
+// last whole float4.  Where q or out does not start on a 16-byte boundary
+// (a view of q one float in), every thread takes one float instead.  The
+// product is a rounded float32 multiply (__fmul_rn, no contraction), bit
+// for bit q * 1.0000001.
 //
 // Row 16, null_chain (replaces tools/probe_iter_floor.py's null kernel,
 // pallas_call at :105): the dependent op chain of one PCG iteration without
@@ -48,6 +56,7 @@
 // knots in lanes).  Bound: the dependent FMA latency of one thread.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "grid_common.cuh"
 #include "pcg_common.cuh"
@@ -56,15 +65,30 @@ namespace cg = cooperative_groups;
 
 namespace gato {
 
-constexpr int kCopyThreads = 128;
+constexpr int kCopyThreads = 256;
+constexpr float kCopyFactor = 1.0000001f;
 // Row 17's width: its row of 0.01 M lives in registers.
 constexpr int kFmaWidth = 14;
 
+// n floats; vec: q and out both 16-byte aligned.
 __global__ void __launch_bounds__(kCopyThreads)
-null_copy_kernel(const float* __restrict__ q, float* __restrict__ out, int n) {
-  const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[base + i] = q[base + i] * 1.0000001f;
+null_copy_kernel(const float* __restrict__ q, float* __restrict__ out,
+                 long long n, int vec) {
+  const long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (!vec) {
+    if (i < n) out[i] = __fmul_rn(__ldg(q + i), kCopyFactor);
+    return;
+  }
+  const long long n4 = n >> 2;
+  if (i < n4) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(q) + i);
+    v.x = __fmul_rn(v.x, kCopyFactor);
+    v.y = __fmul_rn(v.y, kCopyFactor);
+    v.z = __fmul_rn(v.z, kCopyFactor);
+    v.w = __fmul_rn(v.w, kCopyFactor);
+    reinterpret_cast<float4*>(out)[i] = v;
+  }
+  if (i < (n & 3)) out[4 * n4 + i] = __fmul_rn(__ldg(q + 4 * n4 + i), kCopyFactor);
 }
 
 // What the chain kernels read and write.  M (B, K, 3, s, s), y0 and out
@@ -229,8 +253,14 @@ extern "C" {
 // floats each.  Returns the CUDA error code (0 on success); nothing is
 // synchronised.
 int gato_null_copy(const float* q, float* out, int B, int n, void* stream) {
-  gato::null_copy_kernel<<<B, gato::kCopyThreads, 0, (cudaStream_t)stream>>>(
-      q, out, n);
+  const long long total = (long long)B * n;
+  if (total <= 0) return 0;
+  const int vec = (((uintptr_t)q | (uintptr_t)out) & 15u) == 0;
+  const long long n4 = total >> 2;
+  const long long threads = vec ? (n4 > (total & 3) ? n4 : (total & 3)) : total;
+  const long long grid = (threads + gato::kCopyThreads - 1) / gato::kCopyThreads;
+  gato::null_copy_kernel<<<(unsigned)grid, gato::kCopyThreads, 0,
+                           (cudaStream_t)stream>>>(q, out, total, vec);
   return (int)cudaGetLastError();
 }
 

@@ -176,6 +176,49 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+# The short call path (rows 15 and 18): checks that cost a few attribute
+# reads, pointers and the stream passed as Python ints (the argtypes,
+# c_void_p, keep them 64 bits), the launcher looked up once, and the device
+# guard entered only where the tensors' device is not the current one.
+
+
+def checked(what: str, key: str, t: torch.Tensor, shape: tuple,
+            device: torch.device) -> torch.Tensor:
+    """``t`` itself if it has ``shape``, is float32 on ``device`` and is
+    contiguous, a contiguous copy if only the last fails; raises
+    ValueError otherwise."""
+    if t.shape != shape:
+        raise ValueError(f"{what}: {key} shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype is not torch.float32:
+        raise ValueError(f"{what}: {key} is {t.dtype}; the kernel takes float32")
+    if t.device != device:
+        raise ValueError(f"{what}: {key} is on {t.device}, expected {device}")
+    return t if t.is_contiguous() else t.contiguous()
+
+
+@functools.cache
+def function(name: str):
+    """The exported launcher ``name`` of the kernel library (built and
+    loaded on first use)."""
+    return getattr(library(), name)
+
+
+def launch(what: str, name: str, device: torch.device, *args) -> None:
+    """Call launcher ``name`` with ``args`` and the current stream of
+    ``device`` as its last argument, on ``device``; raise RuntimeError if it
+    returns a CUDA error code.  Pointers in ``args`` are ``data_ptr()``
+    ints, or None for a null pointer."""
+    fn = function(name)
+    index = device.index
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    if code:
+        check_launch(code, what)
+
+
 def max_shared_bytes(device) -> int:
     """Per-block shared memory a kernel may opt in to on ``device``."""
     props = torch.cuda.get_device_properties(device)

@@ -4,27 +4,29 @@ CUDA kernel.
 Replaces ``gato_tpu/parallel/sharded.py::_mv_halo_kernel`` (through
 ``_packed_matvec``): on one shard of Kl knots, y_k = L_k x_{k-1} + D_k x_k +
 U_k x_{k+1}, with x_{-1} and x_{Kl} the halo rows ``left`` and ``right``,
-the boundary rows of the neighbouring shards (zeros at the trajectory's
-ends).  The CUDA source is ``gato_tpu_torch/csrc/halo_matvec.cu``; its note
-gives the design: a CTA stages a run of block rows of S into shared memory
-with 16-byte loads, and a thread computes one output element.
+the boundary rows of the neighbouring shards (None for zeros, at the
+trajectory's ends).  The CUDA source is ``gato_tpu_torch/csrc/halo_matvec.cu``;
+its note gives the design: a warp a block row, its operator loaded with
+16-byte loads straight into registers, the products summed through a small
+shared transpose.
 
 :func:`halo_matvec_cuda` takes tensors on a CUDA device to the kernel and
 raises if the kernel cannot take them; tensors on the CPU go to the plain
 version, :func:`halo_matvec_plain` (``blocktri.btd_matvec`` with the halos
-in place of its zero padding).  ``LAUNCHES`` counts the kernel's launches.
+in place of its zero padding).  A call allocates ``y`` and nothing else
+(an absent halo is a null pointer, not a tensor of zeros) and launches one
+kernel, through ``_build``'s short call path.  ``LAUNCHES`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from ..blocktri import btd_matvec
 from . import _build
-from .fused_solve import check_tensors
 
 NAME = "halo_matvec_cuda"
 SOURCE = "gato_tpu_torch/csrc/halo_matvec.cu"
@@ -45,32 +47,28 @@ def halo_matvec_cuda(
     right: Optional[torch.Tensor] = None,  # (s,) x_{Kl}; zeros if None
 ) -> torch.Tensor:
     """y (Kl, s) = S x on one shard, its halo rows ``left`` and ``right``."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return halo_matvec_plain(S, x, left, right)
-    if x.device.type != "cuda":
-        raise ValueError(f"{NAME}: tensors on {x.device} are neither CPU nor CUDA")
+    if dev.type != "cuda":
+        raise ValueError(f"{NAME}: tensors on {dev} are neither CPU nor CUDA")
     if x.ndim != 2:
         raise ValueError(f"{NAME}: x must be (Kl, s), got {tuple(x.shape)}")
     Kl, s = x.shape
-    zero = None
-    if left is None or right is None:
-        zero = torch.zeros(s, dtype=x.dtype, device=x.device)
-    tensors = {"S": S, "x": x, "left": zero if left is None else left,
-               "right": zero if right is None else right}
-    check_tensors(NAME, {"S": (Kl, 3, s, s), "x": (Kl, s), "left": (s,),
-                         "right": (s,)}, tensors, x.device)
     if s > _build.MAX_BLOCK:
         raise ValueError(f"{NAME}: state size {s} > {_build.MAX_BLOCK}")
-    S, x, left, right = (t.contiguous() for t in tensors.values())
+    S = _build.checked(NAME, "S", S, (Kl, 3, s, s), dev)
+    x = _build.checked(NAME, "x", x, (Kl, s), dev)
+    if left is not None:
+        left = _build.checked(NAME, "left", left, (s,), dev)
+    if right is not None:
+        right = _build.checked(NAME, "right", right, (s,), dev)
     y = torch.empty_like(x)
-    if Kl == 0:
+    if Kl == 0 or s == 0:
         return y
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.gato_halo_matvec(*map(_build.ptr, (S, x, left, right, y)),
-                                    Kl, s, ctypes.c_void_p(stream))
-    _build.check_launch(code, NAME)
+    _build.launch(NAME, "gato_halo_matvec", dev, S.data_ptr(), x.data_ptr(),
+                  None if left is None else left.data_ptr(),
+                  None if right is None else right.data_ptr(), y.data_ptr(), Kl, s)
     global LAUNCHES
     LAUNCHES += 1
     return y

@@ -6,7 +6,8 @@ beside its plain PyTorch version (the CUDA source and its note:
 ``gato_tpu_torch/tools/probe_*.py``):
 
 * row 18, :func:`null_copy_cuda` (``bench.py``'s ``null_kernel``, the
-  dispatch floor): ``out = q * 1.0000001`` on B problems' rhs;
+  dispatch floor): ``out = q * 1.0000001`` on B problems' rhs, one float4
+  a thread, through the short call path of ``_build`` that row 15 takes;
 * row 16, :func:`null_chain_cuda` (``tools/probe_iter_floor.py``'s null
   kernel): trips of n_mv block-tridiagonal matvec contractions, n_dot
   reduce -> broadcast -> axpy steps and three freeze selects, at block
@@ -157,23 +158,22 @@ def _stream(dev) -> ctypes.c_void_p:
 
 
 def null_copy_cuda(q: torch.Tensor) -> torch.Tensor:
-    """out = q * 1.0000001 on q (B, K, s): one CTA a problem."""
-    if q.device.type == "cpu":
+    """out = q * 1.0000001 on q (B, K, s): one float4 a thread.  The call
+    takes row 15's short path (``_build.checked`` / ``_build.launch``), so
+    its cost is what a kernel call of the port costs at least."""
+    dev = q.device
+    if dev.type == "cpu":
         return null_copy_plain(q)
     _check_device(COPY_NAME, q)
     if q.ndim != 3:
         raise ValueError(f"{COPY_NAME}: q must be (B, K, s), got {tuple(q.shape)}")
-    check_tensors(COPY_NAME, {"q": tuple(q.shape)}, {"q": q}, q.device)
-    q = q.contiguous()
+    Bn, K, s = q.shape
+    q = _build.checked(COPY_NAME, "q", q, (Bn, K, s), dev)
     out = torch.empty_like(q)
-    Bn = q.shape[0]
-    if Bn == 0:
+    if out.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        code = lib.gato_null_copy(_build.ptr(q), _build.ptr(out), Bn,
-                                  q.shape[1] * q.shape[2], _stream(q.device))
-    _build.check_launch(code, COPY_NAME)
+    _build.launch(COPY_NAME, "gato_null_copy", dev, q.data_ptr(), out.data_ptr(),
+                  Bn, K * s)
     global COPY_LAUNCHES
     COPY_LAUNCHES += 1
     return out

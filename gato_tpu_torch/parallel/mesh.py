@@ -73,21 +73,21 @@ class Mesh:
         return f"Mesh({[str(d) for d in self.devices]}, {self.axis_name!r})"
 
 
-def shift_right(values: Sequence[torch.Tensor], devices) -> list:
+def shift_right(values: Sequence[torch.Tensor], devices, *, edge_zeros=True) -> list:
     """``ppermute`` i -> i+1: shard i gets a copy of shard i-1's value on
-    its own device, shard 0 zeros."""
-    out = [torch.zeros_like(values[0])]
+    its own device, shard 0 zeros (None if not ``edge_zeros``)."""
+    out = [torch.zeros_like(values[0]) if edge_zeros else None]
     for i in range(1, len(devices)):
         out.append(values[i - 1].to(devices[i], copy=True))
     return out
 
 
-def shift_left(values: Sequence[torch.Tensor], devices) -> list:
+def shift_left(values: Sequence[torch.Tensor], devices, *, edge_zeros=True) -> list:
     """``ppermute`` i -> i-1: shard i gets a copy of shard i+1's value on
-    its own device, the last shard zeros."""
+    its own device, the last shard zeros (None if not ``edge_zeros``)."""
     n = len(devices)
     out = [values[i + 1].to(devices[i], copy=True) for i in range(n - 1)]
-    out.append(torch.zeros_like(values[n - 1]))
+    out.append(torch.zeros_like(values[n - 1]) if edge_zeros else None)
     return out
 
 

@@ -17,8 +17,8 @@ contiguous shards of Kl = K / n knots, one on each device of the mesh
   ghosts cost three knots of condensation a shard.
 * PCG: the recurrence of ``pcg.pcg`` on per-shard lists.  A matvec (of S
   and of Pinv) sends each shard's first and last rows to its neighbours
-  (:func:`mesh.shift_left` / :func:`mesh.shift_right`, zeros at the
-  trajectory's ends) and runs row 15 (kernels/halo_matvec.py) on every
+  (:func:`mesh.shift_left` / :func:`mesh.shift_right`; no halo, meaning
+  zeros, at the trajectory's ends) and runs row 15 (kernels/halo_matvec.py) on every
   shard; a dot adds the shards' partial sums in shard order
   (:func:`mesh.psum`).  The loop runs on the host and reads eta every
   iteration, as ``pcg.pcg`` does.
@@ -119,9 +119,10 @@ def _split(x: torch.Tensor, devices, Kl: int) -> list:
 
 
 def _matvec(mv, devices, M: list, x: list) -> list:
-    """M x on every shard: the neighbours' boundary rows in as halos."""
-    left = shift_right([xi[-1] for xi in x], devices)
-    right = shift_left([xi[0] for xi in x], devices)
+    """M x on every shard: the neighbours' boundary rows in as halos, none
+    (zeros, with no tensor filled) at the trajectory's ends."""
+    left = shift_right([xi[-1] for xi in x], devices, edge_zeros=False)
+    right = shift_left([xi[0] for xi in x], devices, edge_zeros=False)
     return [mv(Mi, xi, li, ri) for Mi, xi, li, ri in zip(M, x, left, right)]
 
 

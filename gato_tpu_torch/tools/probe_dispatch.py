@@ -5,12 +5,13 @@
 The counterpart of ``bench.py``'s ``bench_dispatch_floor``: the price of
 ANY kernel call at IIWA (14, 7, 50), one problem, measured on row 18
 (``kernels/probes.py``'s ``null_copy_cuda``: out = q * 1.0000001 on the
-rhs, one CTA of 128 threads), whose own work is nanoseconds.  Its wrapper
-does what the solver's wrappers do before a launch (the device, type,
-shape and contiguity checks, the device guard, the current stream, the
-ctypes call, the error check), so its time a call is what a real call
-pays at least.  Three numbers, each beside the one PyTorch call
-``q * 1.0000001``:
+rhs, one float4 a thread), whose own work is nanoseconds.  Its wrapper
+takes the port's short call path (``kernels/_build.py``'s ``checked`` and
+``launch``: the device, type, shape and contiguity checks, the current
+stream, the ctypes call, the error check, a device guard only off the
+current device), the one row 15 takes, so its time a call is what a
+kernel call of the port pays at least.  Three numbers, each beside the
+one PyTorch call ``q * 1.0000001``:
 
 * device: the kernel's own duration, the mean over ``calls`` launches in a
   ``torch.profiler`` trace (debug.trace);
@@ -20,6 +21,13 @@ pays at least.  Three numbers, each beside the one PyTorch call
 * chain: ``timing.chain_time`` of dependent steps (a perturbation of q by
   the step counter and the previous output, then the call), T against 2T:
   what one step of a control loop costs on the device's clock.
+
+Beside them, the split of row 18's call on host clocks, each step alone in
+a loop as ``per call`` times it (``split_*_us``): the checks of one tensor
+(``_build.checked``), the output's allocation (``torch.empty_like``), the
+current-device query, the current stream's handle
+(``torch.cuda.current_stream(i).cuda_stream``) and the ctypes call of the
+launcher, which launches the kernel.
 
 Prints one JSON line.  Needs a CUDA card (it raises without one).
 """
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from gato_tpu_torch import debug, testing, timing
-from gato_tpu_torch.kernels import probes
+from gato_tpu_torch.kernels import _build, probes
 from gato_tpu_torch.solver import resolve_device
 
 
@@ -86,6 +94,25 @@ def chain_us(fn, q, T: int, reps: int, log=None, label: str = ""):
     return ms * 1e3, info
 
 
+def call_split_us(q, calls: int) -> dict:
+    """Host us of each step of one ``null_copy_cuda(q)`` call, each alone
+    in a loop of ``calls`` (per_call_us)."""
+    device = q.device
+    index = device.index
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    launcher = _build.function("gato_null_copy")
+    args = (q.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1] * q.shape[2], stream)
+    steps = {
+        "checked": lambda: _build.checked(probes.COPY_NAME, "q", q, tuple(q.shape), device),
+        "empty_like": lambda: torch.empty_like(q),
+        "current_device": torch.cuda.current_device,
+        "current_stream": lambda: torch.cuda.current_stream(index).cuda_stream,
+        "launcher": lambda: launcher(*args),
+    }
+    return {f"split_{name}_us": per_call_us(fn, calls, device) for name, fn in steps.items()}
+
+
 def probe_dispatch(*, calls: int = 1000, T: int = 256, reps: int = 7,
                    device="cuda", log=None) -> dict:
     """The dispatch floor at IIWA, B = 1: row 18 and ``q * 1.0000001``."""
@@ -106,6 +133,7 @@ def probe_dispatch(*, calls: int = 1000, T: int = 256, reps: int = 7,
         out[f"{name}_chain_T"] = info["T"]
         if "noise_warning" in info:
             out[f"{name}_chain_noise_warning"] = info["noise_warning"]
+    out.update(call_split_us(q, calls))
     return out
 
 

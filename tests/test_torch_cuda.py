@@ -655,8 +655,13 @@ def test_longk_direct_entry_points_launch_the_kernels(dev):
 # --------------------------------------------------------------------------
 # Row 15 (kernels/halo_matvec.py) and the sharded paths on one card.
 
-# (s, Kl): IIWA at two shard sizes, narrow and widest blocks, a one-row shard.
-HALO_CASES = [(14, 256), (14, 2048), (4, 64), (3, 37), (32, 19), (7, 1)]
+# (s, Kl): IIWA at two shard sizes, narrow and widest blocks, a one-row
+# shard; IIWA at the edges of the kernel's tiling (two block rows a CTA:
+# one CTA half used, 32 CTAs, 33 half used, 129) and the widest blocks at
+# the largest shard.
+HALO_CASES = [(14, 256), (14, 2048), (4, 64), (3, 37), (32, 19), (7, 1),
+              (14, 1), (14, 2), (14, 63), (14, 64), (14, 65), (14, 257),
+              (32, 2048)]
 
 
 @pytest.mark.parametrize("s,Kl", HALO_CASES)
@@ -682,6 +687,55 @@ def test_halo_matvec_matches_plain(dev, s, Kl, shard):
     ref = hm.halo_matvec_plain(S, x, left, right)
     a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * float(np.abs(b).max()))
+
+
+def _halo_inputs(dev, s, Kl, seed):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+    return rand(Kl, 3, s, s), rand(Kl, s), rand(s), rand(s)
+
+
+@pytest.mark.parametrize("layout", ["offset", "strided"])
+def test_halo_matvec_takes_misaligned_and_strided_x(dev, layout):
+    """x as a view one float into its storage (not 16-byte aligned), and x
+    as a non-contiguous view (the wrapper's copy), against the plain
+    version within 1e-5 of scale, as above."""
+    s, Kl = 14, 65
+    S, x, left, right = _halo_inputs(dev, s, Kl, seed=3)
+    if layout == "offset":
+        x = torch.cat([torch.zeros(1, device=dev), x.flatten()])[1:].view(Kl, s)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    else:
+        x = torch.stack([x, x], -1)[..., 0]
+        assert not x.is_contiguous()
+    got = hm.halo_matvec_cuda(S, x, left, right)
+    ref = hm.halo_matvec_plain(S, x, left, right)
+    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * float(np.abs(b).max()))
+
+
+def test_halo_matvec_without_halos_launches_one_kernel_and_allocates_y(dev):
+    """Both halos absent: one call records exactly one CUDA activity in a
+    torch.profiler trace (the kernel: no fill of a zero halo, no copy),
+    and the caching allocator's count grows by y's block alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S, x, _, _ = _halo_inputs(dev, 14, 256, seed=4)
+    hm.halo_matvec_cuda(S, x)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = hm.halo_matvec_cuda(S, x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    assert grown <= -(-y.numel() * 4 // 512) * 512, grown
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hm.halo_matvec_cuda(S, x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "halo_matvec" in names[0], names
 
 
 def test_halo_matvec_refuses_what_it_does_not_take(dev):
@@ -789,9 +843,17 @@ def test_dp_entry_points_on_one_card(dev):
 # (timing, debug) on the card.
 
 
-@pytest.mark.parametrize("B", [1, 256])
-def test_null_copy_matches_plain_bit_for_bit(dev, B):
-    q = gt.blocks_to_torch(tt.random_batch(tt.IIWA, B, seed0=5), dev).q
+@pytest.mark.parametrize("B,K,s,offset", [(1, 50, 14, 0), (256, 50, 14, 0),
+                                          (3, 7, 3, 0), (1, 50, 14, 1), (3, 7, 3, 1)])
+def test_null_copy_matches_plain_bit_for_bit(dev, B, K, s, offset):
+    """Row 18 bit for bit against q * 1.0000001: IIWA at B = 1 and 256, K s
+    not a multiple of 4 (the scalar tail), and q a view ``offset`` floats
+    into its storage (not 16-byte aligned: the scalar path)."""
+    rng = np.random.default_rng(B + K + s + offset)
+    flat = torch.tensor(rng.normal(size=offset + B * K * s), dtype=torch.float32,
+                        device=dev)
+    q = flat[offset:].view(B, K, s)
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
     before = probes.COPY_LAUNCHES
     got = probes.null_copy_cuda(q)
     torch.cuda.synchronize()

@@ -122,7 +122,7 @@ def test_fma_chain_plain_matches_the_restatement(depth, trips, dtype, tol):
         _knots_close(got[b].numpy(), restate_fma_chain(M[b], y0[b], depth, trips), tol)
 
 
-@pytest.mark.parametrize("shape", [(1, 50, 14), (4, 5, 2)])
+@pytest.mark.parametrize("shape", [(1, 50, 14), (4, 5, 2), (1, 7, 3), (256, 50, 14)])
 def test_null_copy_plain_is_the_restatement_bit_for_bit(shape):
     q = np.random.default_rng(18).normal(size=shape).astype(np.float32)
     got = probes.null_copy_cuda(torch.tensor(q)).numpy()

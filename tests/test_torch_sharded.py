@@ -100,14 +100,19 @@ def _tpu_halo_matvec(S, x, left, right):
     return np.asarray(y)[:s, :Kl].T
 
 
+# (K, Kl, s): three shards of K; IIWA's s = 14, odd s = 3 and the widest
+# s = 32 with Kl not a multiple of 4.
+HALO_SHAPES = [(48, 16, 4), (21, 7, 14), (33, 11, 3), (15, 5, 32)]
+
+
+@pytest.mark.parametrize("K,Kl,s", HALO_SHAPES)
 @pytest.mark.parametrize("shard", ["first", "interior", "last"])
-def test_halo_matvec_matches_tpu_kernel(shard):
+def test_halo_matvec_matches_tpu_kernel(shard, K, Kl, s):
     """Row 15's wrapper on CPU tensors (its plain version) against
     gato_tpu's kernel in interpret mode, and against the whole vector's
     btd_matvec on the shard's rows: an edge shard takes zero halos.
     Tolerance 1e-6 of scale: one matvec, float32 sum-order round-off."""
     rng = np.random.default_rng(7)
-    K, Kl, s = 48, 16, 4
     S = rng.normal(size=(K, 3, s, s)).astype(np.float32)
     S[0, 0] = S[-1, 2] = 0.0
     x = rng.normal(size=(K, s)).astype(np.float32)
