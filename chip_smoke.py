@@ -11,17 +11,20 @@ Phases, each of which raises on failure (exit code not 0):
    (state 14, control 7, K=50; data from testing.random_blocks), B=1 and
    B=256: the PCG kernel (A) against pcg.pcg, the fused solve (B) against
    condense -> pcg -> recover_dz for all three preconditioners and
-   precond_poly_degree 1 and 2, and one exactly singular input;
+   precond_poly_degree 1 and 2, at the cluster size its rule picks and at
+   every one forced (C = 1, 2, 4, 8, 16), and one exactly singular input
+   at every C;
 3b. the sequence kernel (row 3) against its plain version at IIWA on a
    farm of B=1 and B=256 streams of T=16 steps (each stream's matrices
    fixed, q, r, c drifting by ~1 % a step, per-step rho), bit for bit
-   against T chained launches of kernel B, and with one exactly singular
-   step in the middle of one stream;
+   against T chained launches of kernel B at the same cluster size, at the
+   rule's C and every C forced, and with one exactly singular step in the
+   middle of one stream at every C;
 4. the main path through the user entry points: linsys_solve on the
    pendulum (the original's gate) and at IIWA (against the dense float64
    oracle), solve_batched at B=256, with each kernel's launch count;
 4b. the MPC and packed paths: solve_sequence_batched (B=256, T=16) and
-   solve_sequence (B=1), two pack_sequence -> solve_packed_sequence
+   solve_sequence (B=1, against stream 0), two pack_sequence -> solve_packed_sequence
    windows carried by lam_tail_packed, and pack -> solve_packed ->
    update_vectors -> solve_packed with the lam_packed carry, with their
    launch counts;
@@ -42,6 +45,9 @@ Phases, each of which raises on failure (exit code not 0):
 5. times with CUDA events, medians of 25 runs after warm-up (fewer for the
    slow plain versions and library calls), beside each kernel's bound and
    the time of one PyTorch library call computing the same function;
+   kernel B at B=1, 4, 16, 64, 256 at the rule's cluster size (with its
+   device time from a CUDA graph) and at every C forced; the farm kernel
+   (5b) at every C, with the C each launch used;
 5c. the same for the exact-solve kernels at B=1 and B=256, the forward and
    reverse kernels' own times, and the per-solve time of row 4 and of the
    Thomas pair at B=1, 4, 16, 64, 256 (their crossover on this card);
@@ -90,9 +96,10 @@ Phases, each of which raises on failure (exit code not 0):
    imply; solve_batched_dp (B = 256, both methods) and
    solve_sequence_batched_dp (B = 256 x T = 16) on four groups against the
    single-device surfaces;
-5f. in a child process (chip_smoke.py --profiled), one row-15 call without
-   halos is one CUDA activity in a torch.profiler trace and allocates y
-   alone, and the device's busy shares below; row 15's time at Kl = 256
+5f. one row-15 call without halos is one node, the kernel, in a CUDA
+   graph captured around it, and allocates y alone; in a child process
+   (chip_smoke.py --profiled, run after phase 2, before this process
+   opens a profiler session) the device's busy shares below; row 15's time at Kl = 256
    and 2048 beside its bound, its plain version and torch.bmm; solve_sharded per call on both tiers at K = 1024 and 8192,
    n = 1, 2, 4, beside the single-device solve, with the device's busy
    share of one kernel-tier call; one sharded PCG
@@ -356,18 +363,22 @@ def phase_parity():
                                                                 MAX_ITERS)
                 kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=cap,
                           poly_degree=poly, preconditioner=prec)
-                kres, kdx, kdu = kb.fused_solve_cuda(*blocks, lam0, **kw)
                 pres, pdx, pdu = kb.fused_solve_plain(*blocks, lam0, **kw)
-                torch.cuda.synchronize()
-                what = f"{kb.NAME} B={n} {prec} poly={poly} max_iters={cap}"
-                ties = check_iters(what, kres, pres, EXIT_TOL)
-                err = max(check_close(what + " lam", kres.lam, pres.lam),
-                          check_close(what + " dz_x", kdx, pdx),
-                          check_close(what + " dz_u", kdu, pdu))
-                MAX_ERR[kb.NAME] = max(MAX_ERR[kb.NAME], err)
-                it = kres.iters.cpu().numpy()
-                print(f"  {what}: iters {it.min()}..{it.max()} equal "
-                      f"({ties} ties), max|d| {err:.3e}")
+                # The rule's cluster size, then every one forced.
+                for C in (None, *kb.CLUSTER_SIZES):
+                    kres, kdx, kdu = kb.fused_solve_cuda(*blocks, lam0, cluster=C, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"{kb.NAME} B={n} C={kb.LAST_CLUSTER}"
+                            f"{' (rule)' if C is None else ''} {prec} poly={poly} "
+                            f"max_iters={cap}")
+                    ties = check_iters(what, kres, pres, EXIT_TOL)
+                    err = max(check_close(what + " lam", kres.lam, pres.lam),
+                              check_close(what + " dz_x", kdx, pdx),
+                              check_close(what + " dz_u", kdu, pdu))
+                    MAX_ERR[kb.NAME] = max(MAX_ERR[kb.NAME], err)
+                    it = kres.iters.cpu().numpy()
+                    print(f"  {what}: iters {it.min()}..{it.max()} equal "
+                          f"({ties} ties), max|d| {err:.3e}")
 
     # One exactly singular problem (zero row/column in Q[2], rho=0) among
     # healthy ones: only it is frozen, unconverged, at max_iters, eta 1e30.
@@ -377,21 +388,23 @@ def phase_parity():
     blocks = gt.blocks_to_torch(mix, DEV)
     lam0 = torch.zeros_like(blocks.q)
     kw = dict(rho=0.0, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
-    kres, kdx, kdu = kb.fused_solve_cuda(*blocks, lam0, **kw)
     pres, pdx, pdu = kb.fused_solve_plain(*blocks, lam0, **kw)
-    torch.cuda.synchronize()
-    conv = kres.converged.cpu().tolist()
-    if conv != [True, False, True] or int(kres.iters[1]) != MAX_ITERS \
-            or float(kres.eta[1]) != float(np.float32(1e30)):
-        raise AssertionError(f"singular input: converged {conv}, iters "
-                             f"{kres.iters.tolist()}, eta {kres.eta.tolist()}")
-    check_iters(f"{kb.NAME} singular mix", kres, pres, EXIT_TOL)
-    for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
-                       ("dz_u", kdu, pdu)):
-        check_close(f"{kb.NAME} singular mix {name}", k, p)
-    print(f"  {kb.NAME} singular input: converged {conv}, iters "
-          f"{kres.iters.tolist()}, eta[1] = {float(kres.eta[1]):g} "
-          "(plain version agrees)")
+    for C in kb.CLUSTER_SIZES:
+        kres, kdx, kdu = kb.fused_solve_cuda(*blocks, lam0, cluster=C, **kw)
+        torch.cuda.synchronize()
+        conv = kres.converged.cpu().tolist()
+        if conv != [True, False, True] or int(kres.iters[1]) != MAX_ITERS \
+                or float(kres.eta[1]) != float(np.float32(1e30)) \
+                or not torch.equal(kres.lam[1], lam0[1]):
+            raise AssertionError(f"singular input, C={C}: converged {conv}, iters "
+                                 f"{kres.iters.tolist()}, eta {kres.eta.tolist()}")
+        check_iters(f"{kb.NAME} C={C} singular mix", kres, pres, EXIT_TOL)
+        for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
+                           ("dz_u", kdu, pdu)):
+            check_close(f"{kb.NAME} C={C} singular mix {name}", k, p)
+    print(f"  {kb.NAME} singular input at C = {kb.CLUSTER_SIZES}: converged {conv}, "
+          f"iters {kres.iters.tolist()}, eta[1] = {float(kres.eta[1]):g}, lambda_0 "
+          "kept (plain version agrees)")
 
 
 def farm(n: int, T: int, seed0: int) -> gt.KKTBlocks:
@@ -410,18 +423,19 @@ def farm_result(res, dz_x, dz_u) -> gt.SolveResult:
                           res.eta)
 
 
-def farm_steps(blocks, lam0, rhos, kw):
-    """check_farm's one-step solvers for the sequence kernel: kernel B (each
-    step of the sequence kernel is kernel B, bit for bit) and its plain
-    version, on step t of the streams bs."""
-    def step(fn):
+def farm_steps(blocks, lam0, rhos, kw, cluster=None):
+    """check_farm's one-step solvers for the sequence kernel: kernel B at
+    ``cluster`` (each step of the sequence kernel is kernel B at the same
+    cluster size, bit for bit) and its plain version, on step t of the
+    streams bs."""
+    def step(fn, **extra):
         def solve(t, bs, lam_prev, max_iters):
             one = gt.KKTBlocks(*(a[t, bs] for a in blocks))
             start = lam0[bs] if lam_prev is None else lam_prev
             return farm_result(*fn(*one, start, rho=float(rhos[t]),
-                                   **dict(kw, max_iters=max_iters)))
+                                   **dict(kw, max_iters=max_iters), **extra))
         return solve
-    return step(kb.fused_solve_cuda), step(kb.fused_solve_plain)
+    return step(kb.fused_solve_cuda, cluster=cluster), step(kb.fused_solve_plain)
 
 
 def phase_sequence_parity():
@@ -440,39 +454,51 @@ def phase_sequence_parity():
             cap = MAX_ITERS if prec != "jacobi" else 10
             kw = dict(exit_tol=EXIT_TOL, max_iters=cap, poly_degree=poly,
                       preconditioner=prec)
-            kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw))
             pres = farm_result(*ks.fused_sequence_plain(*blocks, lam0, rhos, **kw))
-            torch.cuda.synchronize()
-            what = f"{ks.NAME} B={n} T={T_STEPS} {prec} poly={poly} max_iters={cap}"
-            ties, err = check_farm(what, kres, pres,
-                                   *farm_steps(blocks, lam0, rhos, kw),
-                                   stepwise=prec == "jacobi", max_iters=cap)
-            MAX_ERR[ks.NAME] = max(MAX_ERR[ks.NAME], err)
-            it = kres.iters.float()
-            how = "step by step" if prec == "jacobi" else "whole farm"
-            print(f"  {what}: iters {int(it.min())}..{int(it.max())} equal "
-                  f"({ties} ties; {how}), mean step 0 {float(it[0].mean()):.2f}, "
-                  f"steps 1.. {float(it[1:].mean()):.2f}; max|d| {err:.3e}")
+            # The rule's cluster size, then every one forced.
+            for C in (None, *kb.CLUSTER_SIZES):
+                kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos,
+                                                           cluster=C, **kw))
+                torch.cuda.synchronize()
+                what = (f"{ks.NAME} B={n} T={T_STEPS} C={ks.LAST_CLUSTER}"
+                        f"{' (rule)' if C is None else ''} {prec} poly={poly} "
+                        f"max_iters={cap}")
+                ties, err = check_farm(what, kres, pres,
+                                       *farm_steps(blocks, lam0, rhos, kw,
+                                                   ks.LAST_CLUSTER),
+                                       stepwise=prec == "jacobi", max_iters=cap)
+                MAX_ERR[ks.NAME] = max(MAX_ERR[ks.NAME], err)
+                it = kres.iters.float()
+                how = "step by step" if prec == "jacobi" else "whole farm"
+                print(f"  {what}: iters {int(it.min())}..{int(it.max())} equal "
+                      f"({ties} ties; {how}), mean step 0 {float(it[0].mean()):.2f}, "
+                      f"steps 1.. {float(it[1:].mean()):.2f}; max|d| {err:.3e}")
 
         # Step t of the farm is kernel B on step t's inputs with step t-1's
-        # lambda and rhos[t], bit for bit.
+        # lambda and rhos[t] at the same cluster size, bit for bit.
         kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
-        kres, kdx, kdu = ks.fused_sequence_cuda(*blocks, lam0, rhos, **kw)
-        lam = lam0
-        for t in range(T_STEPS):
-            bres, bdx, bdu = kb.fused_solve_cuda(*(a[t] for a in blocks), lam,
-                                                 rho=float(rhos[t]), **kw)
-            for name, x, y in (("lam", kres.lam[t], bres.lam),
-                               ("dz_x", kdx[t], bdx), ("dz_u", kdu[t], bdu),
-                               ("iters", kres.iters[t], bres.iters),
-                               ("converged", kres.converged[t], bres.converged),
-                               ("eta", kres.eta[t], bres.eta)):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{ks.NAME} B={n} step {t} {name} is not "
-                                         f"bit-identical to chained {kb.NAME}")
-            lam = bres.lam
-        print(f"  {ks.NAME} B={n}: all {T_STEPS} steps bit-identical to "
-              f"{T_STEPS} chained {kb.NAME} launches")
+        for C in (None, *kb.CLUSTER_SIZES):
+            kres, kdx, kdu = ks.fused_sequence_cuda(*blocks, lam0, rhos, cluster=C, **kw)
+            used = ks.LAST_CLUSTER
+            lam = lam0
+            for t in range(T_STEPS):
+                bres, bdx, bdu = kb.fused_solve_cuda(*(a[t] for a in blocks), lam,
+                                                     rho=float(rhos[t]), cluster=C, **kw)
+                if kb.LAST_CLUSTER != used:
+                    raise AssertionError(f"{ks.NAME} B={n} took C={used}, {kb.NAME} "
+                                         f"C={kb.LAST_CLUSTER}")
+                for name, x, y in (("lam", kres.lam[t], bres.lam),
+                                   ("dz_x", kdx[t], bdx), ("dz_u", kdu[t], bdu),
+                                   ("iters", kres.iters[t], bres.iters),
+                                   ("converged", kres.converged[t], bres.converged),
+                                   ("eta", kres.eta[t], bres.eta)):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{ks.NAME} B={n} C={used} step {t} {name} "
+                                             f"is not bit-identical to chained {kb.NAME}")
+                lam = bres.lam
+            print(f"  {ks.NAME} B={n} C={used}{' (rule)' if C is None else ''}: all "
+                  f"{T_STEPS} steps bit-identical to {T_STEPS} chained {kb.NAME} "
+                  "launches")
 
     # One exactly singular step (zero row/column in Q[2], rho=0 at that step)
     # in the middle of stream 1: only that (t, b) is frozen, it hands its
@@ -485,20 +511,24 @@ def phase_sequence_parity():
     rhos_bad[t_bad] = 0.0
     lam0 = torch.zeros_like(blocks.q[0])
     kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
-    kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos_bad, **kw))
     pres = farm_result(*ks.fused_sequence_plain(*blocks, lam0, rhos_bad, **kw))
-    torch.cuda.synchronize()
-    conv = kres.converged.cpu().numpy()
-    expect = np.ones_like(conv)
-    expect[t_bad, 1] = False
-    if not np.array_equal(conv, expect) or int(kres.iters[t_bad, 1]) != MAX_ITERS \
-            or float(kres.eta[t_bad, 1]) != float(np.float32(1e30)) \
-            or not torch.equal(kres.lam[t_bad, 1], kres.lam[t_bad - 1, 1]):
-        raise AssertionError(f"singular step: converged {conv.tolist()}, iters "
-                             f"{kres.iters[:, 1].tolist()}, eta {kres.eta[:, 1].tolist()}")
-    check_farm(f"{ks.NAME} singular step", kres, pres,
-               *farm_steps(blocks, lam0, rhos_bad, kw))
-    print(f"  {ks.NAME} singular step (t={t_bad}, stream 1 of {n}): only it "
+    for C in kb.CLUSTER_SIZES:
+        kres = farm_result(*ks.fused_sequence_cuda(*blocks, lam0, rhos_bad, cluster=C,
+                                                   **kw))
+        torch.cuda.synchronize()
+        conv = kres.converged.cpu().numpy()
+        expect = np.ones_like(conv)
+        expect[t_bad, 1] = False
+        if not np.array_equal(conv, expect) or int(kres.iters[t_bad, 1]) != MAX_ITERS \
+                or float(kres.eta[t_bad, 1]) != float(np.float32(1e30)) \
+                or not torch.equal(kres.lam[t_bad, 1], kres.lam[t_bad - 1, 1]):
+            raise AssertionError(f"singular step, C={C}: converged {conv.tolist()}, iters "
+                                 f"{kres.iters[:, 1].tolist()}, eta "
+                                 f"{kres.eta[:, 1].tolist()}")
+        check_farm(f"{ks.NAME} C={C} singular step", kres, pres,
+                   *farm_steps(blocks, lam0, rhos_bad, kw, C))
+    print(f"  {ks.NAME} singular step (t={t_bad}, stream 1 of {n}) at C = "
+          f"{kb.CLUSTER_SIZES}: only it "
           f"frozen (iters {int(kres.iters[t_bad, 1])}, eta "
           f"{float(kres.eta[t_bad, 1]):g}, lambda passed on unchanged); stream "
           f"1 iters {kres.iters[:, 1].tolist()}; plain version agrees")
@@ -561,7 +591,8 @@ def phase_main_path():
             raise AssertionError(f"IIWA linsys_solve ({backend}) did not launch {kmod.NAME}")
         np.testing.assert_allclose(l, lam_ref, rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(dz, dz_ref, rtol=1e-3, atol=1e-3)
-        print(f"  IIWA linsys_solve (backend {backend or 'auto = fused'}, "
+        print(f"  IIWA linsys_solve (backend {backend or 'auto = fused'}"
+              f"{f', C={kb.LAST_CLUSTER}' if kmod is kb else ''}, "
               "testiters=10, exit_tol=1e-8): lam, dz within 1e-3 of the dense "
               f"oracle; max|dlam| {np.max(np.abs(np.array(l) - lam_ref)):.3e}")
 
@@ -591,7 +622,8 @@ def phase_main_path():
         worst = max(worst, float(np.max(np.abs(res.lam[i].cpu().numpy().reshape(-1) - lr))))
     if worst > 5e-3:
         raise AssertionError(f"solve_batched: lam off the dense oracle by {worst:.3e}")
-    print(f"  solve_batched B={BATCH}: finite, all converged, iters "
+    print(f"  solve_batched B={BATCH} (kernel B at C={kb.LAST_CLUSTER}): finite, all "
+          "converged, iters "
           f"{int(res.iters.min())}..{int(res.iters.max())} equal to the "
           f"'torch' backend ({ties} ties); 4 problems within {worst:.2e} of "
           "the dense oracle")
@@ -631,7 +663,8 @@ def phase_mpc_path():
     second = gt.solve_packed(packed, opts, lam0=first.lam_packed)
     torch.cuda.synchronize()
     launches = {ka.NAME: ka.LAUNCHES, kb.NAME: kb.LAUNCHES, ks.NAME: ks.LAUNCHES}
-    print(f"  launches on the MPC and packed paths: {launches}")
+    print(f"  launches on the MPC and packed paths: {launches}; the farm's last "
+          f"launch at C={ks.LAST_CLUSTER}, kernel B's at C={kb.LAST_CLUSTER}")
     if launches[ks.NAME] != 4 or launches[kb.NAME] != 2:
         raise AssertionError(f"expected 4 {ks.NAME} and 2 {kb.NAME} launches")
 
@@ -677,13 +710,22 @@ def phase_mpc_path():
           f"iterations step 0 {cold:.2f}, steps 1..{T_STEPS - 1} {warm:.2f}; "
           f"last step of 2 streams within {worst:.2e} of the dense oracle")
 
-    # solve_sequence is stream 0 of the farm.
-    for name in ("lam", "dz_x", "dz_u", "iters", "converged", "eta"):
-        if not torch.equal(getattr(one, name), getattr(seq, name)[:, 0]):
-            raise AssertionError(f"solve_sequence {name} differs from stream 0 "
-                                 "of the farm")
-    print(f"  solve_sequence B=1 T={T_STEPS}: bit-identical to stream 0 of "
-          f"the farm; iters {one.iters.tolist()}")
+    # solve_sequence is stream 0 of the farm, each at the cluster size the
+    # rule takes for its stream count (so their sums run in other orders):
+    # equal iterations but for round-off ties, within TOL of scale.
+    shape = (IIWA.knot_points, IIWA.state_size, IIWA.control_size)
+    c_one = kb.cluster_size(1, *shape, *kb.device_limits(0))
+    c_all = kb.cluster_size(BATCH, *shape, *kb.device_limits(0))
+    stream0 = gt.KKTBlocks(*(a[:, :1] for a in full))
+    kw0 = dict(exit_tol=EXIT_TOL)
+    ties, err = check_farm(
+        "solve_sequence vs stream 0 of the farm",
+        gt.SolveResult(*(x[:, None] for x in one)), gt.SolveResult(*(x[:, :1] for x in seq)),
+        farm_steps(stream0, lam0[:1], rhos, kw0, c_one)[0],
+        farm_steps(stream0, lam0[:1], rhos, kw0, c_all)[0])
+    print(f"  solve_sequence B=1 T={T_STEPS} (C={c_one}) against stream 0 of the farm "
+          f"(C={c_all}): iters equal ({ties} ties), max|d| {err:.3e}; iters "
+          f"{one.iters.tolist()}")
 
     # Two packed windows carried by lam_tail_packed equal one farm run at
     # rho = options.rho.
@@ -1253,6 +1295,27 @@ def phase_times(card: str):
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
         del S_dense, M, rhs, lib_a, lib_b
         torch.cuda.empty_cache()
+    # Kernel B at B = 1, 4, 16, 64, 256: the rule's cluster size (events,
+    # and the device time of one launch from 20 in a CUDA graph), and every
+    # cluster size forced (events), the table the rule is set from.
+    for n in CROSSOVER_B:
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        lam0 = lam0_full[:n]
+        fkw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+        by_c = {}
+        for C in kb.CLUSTER_SIZES:
+            by_c[C] = cuda_median_ms(lambda: kb.fused_solve_cuda(*blocks, lam0, cluster=C,
+                                                                 **fkw))
+        rule = lambda: kb.fused_solve_cuda(*blocks, lam0, **fkw)  # noqa: E731
+        ms = cuda_median_ms(rule)
+        dev_ms = graph_ms_per_call(rule, calls=20)
+        C = kb.LAST_CLUSTER
+        times[("rule", n)] = dict(ms=ms, device_ms=dev_ms, cluster=C,
+                                  by_cluster={str(k): v for k, v in by_c.items()})
+        best = min(by_c, key=by_c.get)
+        print(f"  {kb.NAME} B={n}: rule C={C} {ms:.4f} ms (device {dev_ms:.4f} ms); by C "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in by_c.items())
+              + f"; fastest C={best}  [{card}]")
     return times
 
 
@@ -1289,10 +1352,17 @@ def phase_sequence_times(card: str):
         k2 = cuda_median_ms(kern)
         c2 = cuda_median_ms(chained)
         p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+        C = ks.LAST_CLUSTER
+        by_c = {str(k): cuda_median_ms(
+            lambda: ks.fused_sequence_cuda(*blocks, lam0, rhos, cluster=k, **kw),
+            runs=SLOW_RUNS, warmup=1) for k in kb.CLUSTER_SIZES}
         times[n] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                         chained_ms=(c1 + c2) / 2, library_ms=None,
-                        bound_ms=bound_ms, bound_by=bound_by)
-        print(f"  {ks.NAME} B={n} T={T_STEPS}: kernel {k1:.4f} / {k2:.4f} ms, "
+                        bound_ms=bound_ms, bound_by=bound_by, cluster=C,
+                        by_cluster=by_c)
+        print(f"  {ks.NAME} B={n} T={T_STEPS} C={C}: by C "
+              + ", ".join(f"{k}: {v:.3f}" for k, v in by_c.items()) + " ms")
+        print(f"  {ks.NAME} B={n} T={T_STEPS} C={C}: kernel {k1:.4f} / {k2:.4f} ms, "
               f"{T_STEPS} chained {kb.NAME} {c1:.4f} / {c2:.4f} ms, plain "
               f"{p1:.4f} / {p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
               f"iterations {int(res.iters.sum())} in all  [{card}]")
@@ -2271,12 +2341,58 @@ def phase_halo_parity():
               f"halo) shards: max|d| {worst:.2e}")
 
 
-def halo_call_check():
-    """One row-15 call with both halos absent: exactly one CUDA activity
-    in a torch.profiler trace (the kernel; no fill of a zero halo, no
-    copy), and torch.cuda.memory_allocated() grown by y's block alone."""
-    from torch.profiler import ProfilerActivity, profile
+def _cu_check(code: int, what: str) -> None:
+    if code:
+        raise AssertionError(f"{what} returned CUresult {code}")
 
+
+def graph_nodes(fn) -> list:
+    """What one fn() puts on the device, as a CUDA graph captured around
+    it: a (type, kernel name) per node, the types of libcuda's
+    CUgraphNodeType (0 a kernel, 1 a copy, 2 a fill) and the name None
+    for every node but a kernel.  Read through libcuda, so it does
+    not rest on a profiler's trace."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    _cu_check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    out = []
+    for node in nodes[:count.value]:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        name = None
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56.
+            params = (ctypes.c_void_p * 16)()
+            _cu_check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+                      "cuGraphKernelNodeGetParams_v2")
+            text = ctypes.c_char_p()
+            if params[0]:
+                _cu_check(cu.cuFuncGetName(ctypes.byref(text), ctypes.c_void_p(params[0])),
+                          "cuFuncGetName")
+            else:
+                _cu_check(cu.cuKernelGetName(ctypes.byref(text), ctypes.c_void_p(params[7])),
+                          "cuKernelGetName")
+            name = text.value.decode()
+        out.append((kind.value, name))
+    del graph
+    return out
+
+
+def halo_call_check():
+    """One row-15 call with both halos absent: a CUDA graph captured
+    around it holds one node, the kernel (no fill of a zero halo, no
+    copy), and torch.cuda.memory_allocated() grows by y's block alone."""
     S, x, _, _ = halo_case(IIWA.state_size, 256, seed=9)
     hm.halo_matvec_cuda(S, x)
     torch.cuda.synchronize()
@@ -2288,25 +2404,22 @@ def halo_call_check():
     if grown > y_block:
         raise AssertionError(f"{hm.NAME} without halos allocated {grown} B, y's block "
                              f"is {y_block} B")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        hm.halo_matvec_cuda(S, x)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if len(names) != 1 or "halo_matvec" not in names[0]:
-        raise AssertionError(f"{hm.NAME} without halos: CUDA activities {names}, not "
-                             "the one kernel")
-    return {"kernel": names[0], "allocated": grown, "y_block": y_block}
+    nodes = graph_nodes(lambda: hm.halo_matvec_cuda(S, x))
+    if len(nodes) != 1 or nodes[0][0] != 0 or "halo_matvec" not in nodes[0][1]:
+        raise AssertionError(f"{hm.NAME} without halos: graph nodes {nodes}, not the "
+                             "one kernel")
+    return {"kernel": nodes[0][1], "allocated": grown, "y_block": y_block}
 
 
 def profiled_sharded() -> dict:
     """The knot-sharded measurements that need torch.profiler, run in a
-    process of their own (``python3 chip_smoke.py --profiled``): in one
-    process, a profiler session before the long-K phases left every later
-    session of this run without device activity.  Row 15's call check,
-    and the device's busy share of one kernel-tier solve_sharded per (K,
-    n) and of 20 pcg_sharded iterations on four shards per K."""
-    out = {"halo": halo_call_check(), "solve_sharded": {}, "pcg_sharded": {}}
+    process of their own (``python3 chip_smoke.py --profiled``) before the
+    main process opens any profiler session: in one process, a profiler
+    session before the long-K phases left every later session of this run
+    without device activity.  The device's busy share of one kernel-tier
+    solve_sharded per (K, n) and of 20 pcg_sharded iterations on four
+    shards per K (None where the trace holds no device activity)."""
+    out = {"solve_sharded": {}, "pcg_sharded": {}}
     kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
     for K in SHARD_K:
         one = gt.KKTBlocks(*(a[0] for a in longk_batch(K, 1, seed0=7000 + K)))
@@ -2574,14 +2687,13 @@ def device_busy_ms(fn):
     return (busy / 1e3 if busy > 0 else None), start.elapsed_time(end)
 
 
-def phase_sharded_times(card: str):
+def phase_sharded_times(card: str, prof: dict):
     print(f"== phase 5f: row 15 and the knot-sharded path's times (CUDA events, median "
           f"of {TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for plain versions, library "
           f"calls and the torch tier) on {card}")
-    prof = run_profiled_sharded()
-    h = prof["halo"]
-    print(f"  one {hm.NAME} call without halos (Kl=256) under torch.profiler: one CUDA "
-          f"activity ({h['kernel']}); {h['allocated']} B allocated, y's block "
+    h = halo_call_check()
+    print(f"  one {hm.NAME} call without halos (Kl=256) captured in a CUDA graph: one "
+          f"node, the kernel ({h['kernel']}); {h['allocated']} B allocated, y's block "
           f"{h['y_block']} B")
     s = IIWA.state_size
     times = {}
@@ -2829,7 +2941,7 @@ def linsys_split(fn) -> dict:
     if len(syncs) != 2 or len(kernel) != 1:
         raise AssertionError(f"linsys_solve trace: {len(syncs)} device synchronisations "
                              f"and {len(kernel)} kernel-B launches, not 2 and 1")
-    launch = [e for e in calls if e["name"] == "cudaLaunchKernel"
+    launch = [e for e in calls if e["name"].startswith("cudaLaunchKernel")
               and syncs[0]["ts"] < e["ts"] <= kernel[0]["ts"]][-1]
     first, s1, s2 = calls[0]["ts"], syncs[0], syncs[1]
     copies = [e for e in events if e.get("cat") == "gpu_memcpy" and lo <= e["ts"] <= hi]
@@ -3058,6 +3170,9 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
+    # 5f's profiler sessions, in a child process that ends before this one
+    # opens a session of its own; 5f prints them.
+    prof = run_profiled_sharded()
 
     phase_parity()
     phase_sequence_parity()
@@ -3078,7 +3193,7 @@ def main():
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
     exact_times, exact_routes = phase_direct_longk_times(card)
-    sharded_times = phase_sharded_times(card)
+    sharded_times = phase_sharded_times(card, prof)
     probe_times = phase_probe_times(card, meas)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
@@ -3113,6 +3228,10 @@ def main():
                "max_abs_err": MAX_ERR[name], **at_b, "batch": BATCH, **extra}
         row.update({f"{key}_b1": value for key, value in at_1.items()
                     if key != "bound_by"})
+        if name == kb.NAME:
+            for n in CROSSOVER_B:
+                row.update({f"{key}_rule_b{n}": value
+                            for key, value in times[("rule", n)].items()})
         kernels.append(row)
     # The long-K kernels: K=1024 at B=16 (and _b1), with K=8192 beside.
     for name, replaces in ((kl.CONDENSE_NAME, kl.CONDENSE_REPLACES),

@@ -8,110 +8,117 @@
 // scratch, with rho = rhos[t].  Plain version and wrapper:
 // gato_tpu_torch/kernels/fused_sequence.py.
 //
-// Design: one thread block per stream b.  The TPU runs its grid in order,
-// so the T axis there is sequential; blocks of a CUDA grid run in no order,
-// so the block walks t = 0..T-1 in a loop of its own (the hopper-kernels
-// translation of a sequential grid axis).  Step t runs the body of
-// fused_body.cuh, kernel B's body, on the inputs at (t, b), with
-// rho = rhos[t] and lambda_0 = lam0[b] at t = 0 and the lambda that step
-// t-1 wrote to the global output lam[t-1, b] afterwards.  That lambda is
-// visible to the whole block after the barrier that ends step t-1; it is
-// not kept in shared memory, where the next step's Gauss-Jordan overwrites
-// the PCG vectors.  Each step clears the zero-pivot flag, so a singular
-// step freezes only itself and hands its lambda_0 on unchanged, as
-// `carry[i] = lam_out` does on the TPU.  The block's scratch slice
-// (S, Pinv, Qinv, ...: ~342 KB at IIWA) is reused by every step.
+// Design: one cluster of C CTAs a stream, C from the same cluster_size of
+// the stream count that kernel B takes of its batch.  The TPU runs its grid
+// in order, so the T axis there is sequential; here the cluster walks
+// t = 0..T-1 in a loop of its own, a cluster barrier between steps.  Step t
+// runs cluster_body.cuh, kernel B's body, on the inputs at (t, b) with
+// rho = rhos[t]; at t > 0 lambda_0 is the lambda step t-1 left in the CTAs'
+// shared memory (with its halo rows), which step t-1 also wrote to
+// lam[t-1, b].  Each step clears the zero-pivot flag, so a singular step
+// freezes only itself and hands its lambda_0 on unchanged, as
+// `carry[i] = lam_out` does on the TPU.  A stream's records (shared memory,
+// or its global scratch slice) are reused by every step.
 //
-// A step computes exactly what kernel B computes for the same inputs, rho
-// and lambda_0: the same body, the same thread count (threads_for of the
-// vector length) and the same fixed-order block sums, so the farm equals T
-// chained kernel-B launches bit for bit.
+// A step computes exactly what kernel B computes for the same inputs, rho,
+// lambda_0 and C: the same body, thread count and reduction order, so the
+// farm equals T chained kernel-B launches bit for bit.
 //
-// What bounds it on an H100: per step, what bounds kernel B (the dependent
-// chain of one block's PCG loop, operators read from L1/L2); the T steps of
-// a stream are dependent, so a block's time is the sum of its steps and the
-// launch ends with its slowest stream.  One launch replaces T launches and
-// their host round trips.
-//
-// Occupancy: with one block per SM (launch bounds 1024 threads) ptxas gives
-// this kernel 64 registers a thread, so at IIWA (704 threads) one block
-// fits an SM and 256 streams run in two waves on 132 SMs; asked for two
-// blocks per SM it caps the registers at 32 and spills more, which makes
-// one block slower but fits 264 blocks in one wave.  (Kernel B gets 32
-// from ptxas unasked.)  The kernel is built both ways and the launcher
-// takes two blocks per SM only when the streams outnumber the SMs.
-// Register allocation does not change the arithmetic.
+// What bounds it on an H100: per step, what bounds kernel B; a stream's T
+// steps are dependent, so the launch ends with its slowest stream.  One
+// launch replaces T launches and their host round trips.
 #include <cuda_runtime.h>
 
-#include "fused_body.cuh"
+#include "cluster_body.cuh"
 
 namespace gato {
 
-template <int kMinBlocksPerSm>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSm)
+template <int kS, int kC>
+__global__ void __launch_bounds__(cl::kMaxThreads, 1)
 fused_sequence_kernel(const float* Qg, const float* Rg, const float* Ag,
                       const float* Bg, const float* qg, const float* rg,
                       const float* cg, const float* lam0g, const float* rhos,
                       float* scratch, float* lam_out, float* dzx_out,
-                      float* dzu_out, int* iters_out, int* conv_out,
+                      float* dzu_out, int* iters_out, bool* conv_out,
                       float* eta_out, int T, int B, int K, int s, int c,
                       float exit_tol, int max_iters, int poly_degree,
-                      int precond, int arena_floats,
-                      long long scratch_floats) {
+                      int precond, int C) {
   extern __shared__ float smem[];
-  __shared__ float red[33];
-  __shared__ int bad;
-  const size_t b = blockIdx.x;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const size_t n = (size_t)K * s, nu = (size_t)(K - 1) * c;
-  float* scr = scratch + b * scratch_floats;
+  if (C > 1) cooperative_groups::this_cluster().sync();  // all CTAs running
+  const long long b = blockIdx.x / C;
+  const long long ss = (long long)s * s, sc = (long long)s * c,
+                  cc2 = (long long)c * c;
+  const long long n = (long long)K * s, nu = (long long)(K - 1) * c;
+  float* scr = scratch == nullptr ? nullptr : scratch + b * K * cl::record_floats(s, c);
   for (int t = 0; t < T; ++t) {
-    const size_t p = (size_t)t * B + b;  // (t, b) in the (T, B) stacks
-    const float* lam0 = t == 0 ? lam0g + b * n : lam_out + (p - B) * n;
-    fused_body(Qg + p * K * ss, Rg + p * (K - 1) * cc2, Ag + p * (K - 1) * ss,
-               Bg + p * (K - 1) * sc, qg + p * n, rg + p * nu, cg + p * n,
-               lam0, scr, lam_out + p * n, dzx_out + p * n, dzu_out + p * nu,
-               iters_out + p, conv_out + p, eta_out + p, K, s, c, rhos[t],
-               exit_tol, max_iters, poly_degree, precond, arena_floats, smem,
-               red, &bad);
-    // Step t's lam_out, written by every thread, is step t+1's lambda_0.
-    __syncthreads();
+    const long long p = (long long)t * B + b;  // (t, b) in the (T, B) stacks
+    cl::Problem pb{Qg + p * K * ss,      Rg + p * (K - 1) * cc2,
+                   Ag + p * (K - 1) * ss, Bg + p * (K - 1) * sc,
+                   qg + p * n,           rg + p * nu,
+                   cg + p * n,           t == 0 ? lam0g + b * n : nullptr,
+                   lam_out + p * n,      dzx_out + p * n,
+                   dzu_out + p * nu,     iters_out + p,
+                   conv_out + p,         eta_out + p};
+    cl::cluster_body<kS, kC>(pb, smem, scr, K, s, c, C, rhos[t], exit_tol,
+                             max_iters, poly_degree, precond);
+    // No CTA starts step t+1 (whose Gauss-Jordan reuses the shared memory)
+    // while another still recovers step t.
+    if (C > 1)
+      cooperative_groups::this_cluster().sync();
+    else
+      __syncthreads();
   }
+}
+
+using SequenceKernel = void (*)(const float*, const float*, const float*,
+                                const float*, const float*, const float*,
+                                const float*, const float*, const float*,
+                                float*, float*, float*, float*, int*, bool*,
+                                float*, int, int, int, int, int, float, int,
+                                int, int, int);
+// The kernel for (s, c): compiled-in widths for IIWA and the pendulum.
+inline SequenceKernel sequence_kernel_for(int s, int c) {
+  if (s == 14 && c == 7) return fused_sequence_kernel<14, 7>;
+  if (s == 2 && c == 1) return fused_sequence_kernel<2, 1>;
+  return fused_sequence_kernel<0, 0>;
 }
 
 }  // namespace gato
 
 extern "C" {
 
-// Launches the sequence kernel on `stream` for B streams of T steps.
-// Inputs are (T, B, ...) stacks, lam0 (B, K, s), rhos (T,) on the device;
-// `scratch` holds B * gato_fused_scratch_floats(K, s, c) floats (one slice
-// per stream, reused by its steps).  Returns the CUDA error code of the
-// launch (0 on success); nothing is synchronised.
+// Clusters of C CTAs of the farm kernel the card holds at once; 0 means
+// such a cluster cannot run, a negative value is a negated CUDA error.
+int gato_sequence_max_clusters(int K, int s, int c, int C, int ops_in_smem) {
+  return gato::cl::max_active_clusters(gato::sequence_kernel_for(s, c), K, s, c, C,
+                                       ops_in_smem);
+}
+
+// Launches the farm kernel on `stream` for B streams of T steps in
+// clusters of C CTAs.  Inputs are (T, B, ...) stacks, lam0 (B, K, s), rhos
+// (T,) on the device; `scratch` holds B * gato_fused_scratch_floats(K, s,
+// c) floats (one slice a stream) when ops_in_smem is 0, else it is null.
+// Returns the CUDA error code of the launch (0 on success); nothing is
+// synchronised.
 int gato_fused_sequence(const float* Q, const float* R, const float* A,
                         const float* Bm, const float* q, const float* r,
                         const float* c, const float* lam0, const float* rhos,
                         float* scratch, float* lam, float* dzx, float* dzu,
-                        int* iters, int* conv, float* eta, int T, int B, int K,
+                        int* iters, bool* conv, float* eta, int T, int B, int K,
                         int s, int cdim, float exit_tol, int max_iters,
-                        int poly_degree, int precond, void* stream) {
-  const long long arena = gato::fused_arena_floats(K, s, cdim);
-  const size_t smem = (size_t)arena * sizeof(float);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
+                        int poly_degree, int precond, int C, int ops_in_smem,
+                        void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const auto kernel = gato::sequence_kernel_for(s, cdim);
+  cudaError_t err = gato::cl::launch_config(kernel, B, K, s, cdim, C, ops_in_smem,
+                                             (cudaStream_t)stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaLaunchKernelEx(&cfg, kernel, Q, R, A, Bm, q, r, c, lam0, rhos,
+                           ops_in_smem ? nullptr : scratch, lam, dzx, dzu, iters,
+                           conv, eta, T, B, K, s, cdim, exit_tol, max_iters,
+                           poly_degree, precond, C);
   if (err != cudaSuccess) return (int)err;
-  const auto kernel = B <= sms ? gato::fused_sequence_kernel<1>
-                               : gato::fused_sequence_kernel<2>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = gato::threads_for(gato::vec_len(K, s, cdim));
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      Q, R, A, Bm, q, r, c, lam0, rhos, scratch, lam, dzx, dzu, iters, conv,
-      eta, T, B, K, s, cdim, exit_tol, max_iters, poly_degree, precond,
-      (int)arena, gato::fused_scratch_floats(K, s, cdim));
   return (int)cudaGetLastError();
 }
 

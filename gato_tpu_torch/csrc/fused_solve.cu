@@ -7,91 +7,136 @@
 // _recover_cols.  Plain version and wrapper:
 // gato_tpu_torch/kernels/fused_solve.py.
 //
-// Design: one thread block per problem, which runs the per-problem body of
-// fused_body.cuh once (its note gives the stages and the memory layout).
+// Design: one thread-block cluster of C CTAs a problem, which runs the body
+// of cluster_body.cuh once (its note gives the layout, the halos and the
+// reductions).  C comes from cluster_size (kernels/fused_solve.py gives the
+// rule and its reasons): at B = 1 one IIWA problem spreads over 16 SMs with
+// its operators in shared memory; at large B, C = 1 keeps one CTA a
+// problem with its records in a global scratch slice.
 //
-// What bounds it on an H100: S and Pinv do not fit one block's shared
-// memory at IIWA, so they live in a global scratch tensor that the wrapper
-// allocates and are read back from L1/L2 in the PCG loop.  The
-// condensation is about (K s^3) multiply-adds per stage, done by up to
-// 1024 threads of one SM; the PCG loop is bound as kernel A's is, by the
-// dependent matvec/reduction chain and the operator reads.
+// What bounds it on an H100: latency, not bytes or FLOPs (PERF.md §5-6):
+// at B = 1 a PCG iteration of ~3.4 us (two matvecs over a few knots, two
+// cluster-wide reductions, each a cluster barrier) and, before it, three
+// Gauss-Jordan batches of s pivot steps, two CTA barriers a step; at
+// B = 256 the same chain on 512 CTAs of C = 2 in four waves.
 //
-// Registers: 40 a thread (__maxnreg__), so that at IIWA two 704-thread
-// blocks share an SM and 256 problems run in one wave on 132 SMs.  Left
-// alone, ptxas gives this body 32 registers and 1,072 B of spill loads a
-// thread since its condensation and recovery moved into condense.cuh (356
-// B before); at 40 it spills 564 B.  Register allocation does not change
-// the arithmetic.
-//
-// Shapes are runtime values: s, c <= 32; the wrapper checks the shared
-// memory against the device's per-block limit before launching.
+// Registers: __launch_bounds__(384, 1).  ptxas gives the <14, 7> kernel 168
+// registers and no spill (the farm kernel's <14, 7> 168 and 12 bytes of
+// spill); the generic <0, 0> kernel keeps its per-row arrays of width
+// <= 32 in a 1,408-byte stack frame.  (The one-CTA kernel's __maxnreg__(40),
+// for two 704-thread CTAs an SM, went with it: here C = 1 is the rule's
+// choice only where the records fit shared memory, one CTA an SM.)
 #include <cuda_runtime.h>
 
-#include "fused_body.cuh"
+#include "cluster_body.cuh"
 
 namespace gato {
 
-__global__ void __maxnreg__(40)
+template <int kS, int kC>
+__global__ void __launch_bounds__(cl::kMaxThreads, 1)
 fused_solve_kernel(const float* Qg, const float* Rg, const float* Ag,
                    const float* Bg, const float* qg, const float* rg,
                    const float* cg, const float* lam0g, float* scratch,
                    float* lam_out, float* dzx_out, float* dzu_out,
-                   int* iters_out, int* conv_out, float* eta_out, int K, int s,
+                   int* iters_out, bool* conv_out, float* eta_out, int K, int s,
                    int c, float rho, float exit_tol, int max_iters,
-                   int poly_degree, int precond, int arena_floats,
-                   long long scratch_floats) {
+                   int poly_degree, int precond, int C) {
   extern __shared__ float smem[];
-  __shared__ float red[33];
-  __shared__ int bad;
-  const size_t b = blockIdx.x;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const size_t n = (size_t)K * s, nu = (size_t)(K - 1) * c;
-  fused_body(Qg + b * K * ss, Rg + b * (K - 1) * cc2, Ag + b * (K - 1) * ss,
-             Bg + b * (K - 1) * sc, qg + b * n, rg + b * nu, cg + b * n,
-             lam0g + b * n, scratch + b * scratch_floats, lam_out + b * n,
-             dzx_out + b * n, dzu_out + b * nu, iters_out + b, conv_out + b,
-             eta_out + b, K, s, c, rho, exit_tol, max_iters, poly_degree,
-             precond, arena_floats, smem, red, &bad);
+  if (C > 1) cooperative_groups::this_cluster().sync();  // all CTAs running
+  const long long b = blockIdx.x / C;
+  const long long ss = (long long)s * s, sc = (long long)s * c,
+                  cc2 = (long long)c * c;
+  const long long n = (long long)K * s, nu = (long long)(K - 1) * c;
+  cl::Problem pb{Qg + b * K * ss,      Rg + b * (K - 1) * cc2,
+                 Ag + b * (K - 1) * ss, Bg + b * (K - 1) * sc,
+                 qg + b * n,           rg + b * nu,
+                 cg + b * n,           lam0g + b * n,
+                 lam_out + b * n,      dzx_out + b * n,
+                 dzu_out + b * nu,     iters_out + b,
+                 conv_out + b,         eta_out + b};
+  float* scr = scratch == nullptr ? nullptr : scratch + b * K * cl::record_floats(s, c);
+  cl::cluster_body<kS, kC>(pb, smem, scr, K, s, c, C, rho, exit_tol, max_iters,
+                           poly_degree, precond);
+}
+
+
+using FusedKernel = void (*)(const float*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             const float*, const float*, float*, float*,
+                             float*, float*, int*, bool*, float*, int, int, int,
+                             float, float, int, int, int, int);
+// The kernel for (s, c): compiled-in widths for IIWA and the pendulum.
+inline FusedKernel fused_kernel_for(int s, int c) {
+  if (s == 14 && c == 7) return fused_solve_kernel<14, 7>;
+  if (s == 2 && c == 1) return fused_solve_kernel<2, 1>;
+  return fused_solve_kernel<0, 0>;
 }
 
 }  // namespace gato
 
 extern "C" {
 
-// Floats of global scratch one problem needs: S, Pinv, Qinv, Rinv, B Rinv
-// and a product temporary.
+// The plan's mirrors (kernels/fused_solve.py holds the same functions).
+long long gato_cluster_smem_bytes(int K, int s, int c, int C, int ops_in_smem) {
+  return gato::cl::cluster_smem_floats(K, s, c, C, ops_in_smem) * 4;
+}
+int gato_cluster_threads(int K, int s, int c, int C) {
+  return gato::cl::cluster_threads(K, s, c, C);
+}
+int gato_cluster_size(int B, int K, int s, int c, int n_sms, long long limit) {
+  return gato::cl::cluster_size(B, K, s, c, n_sms, limit);
+}
 long long gato_fused_scratch_floats(int K, int s, int c) {
-  return gato::fused_scratch_floats(K, s, c);
+  return (long long)K * gato::cl::record_floats(s, c);
 }
 
-// Dynamic shared memory of one fused_solve_kernel block, in bytes.
-long long gato_fused_smem_bytes(int K, int s, int c) {
-  return gato::fused_arena_floats(K, s, c) * (long long)sizeof(float);
+// Clusters of C CTAs of kernel B at (K, s, c) that the card holds at once
+// (cudaOccupancyMaxActiveClusters); 0 means such a cluster cannot run.
+// A negative value is a CUDA error code, negated.
+int gato_fused_max_clusters(int K, int s, int c, int C, int ops_in_smem) {
+  return gato::cl::max_active_clusters(gato::fused_kernel_for(s, c), K, s, c, C,
+                                       ops_in_smem);
 }
 
-// Launches kernel B on `stream` for B problems.  `scratch` holds
-// B * gato_fused_scratch_floats(K, s, c) floats.  Returns the CUDA error
-// code of the launch (0 on success); nothing is synchronised.
+// Launches kernel B on `stream` for B problems in clusters of C CTAs;
+// `scratch` holds B * gato_fused_scratch_floats(K, s, c) floats when the
+// records do not fit shared memory (ops_in_smem 0), else it is null.
+// Returns the CUDA error code of the launch (0 on success); nothing is
+// synchronised.
 int gato_fused_solve(const float* Q, const float* R, const float* A,
                      const float* Bm, const float* q, const float* r,
                      const float* c, const float* lam0, float* scratch,
-                     float* lam, float* dzx, float* dzu, int* iters, int* conv,
+                     float* lam, float* dzx, float* dzu, int* iters, bool* conv,
                      float* eta, int B, int K, int s, int cdim, float rho,
                      float exit_tol, int max_iters, int poly_degree,
-                     int precond, void* stream) {
-  const long long arena = gato::fused_arena_floats(K, s, cdim);
-  const size_t smem = (size_t)arena * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gato::fused_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                     int precond, int C, int ops_in_smem, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const auto kernel = gato::fused_kernel_for(s, cdim);
+  cudaError_t err = gato::cl::launch_config(kernel, B, K, s, cdim, C, ops_in_smem,
+                                             (cudaStream_t)stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  const int threads = gato::threads_for(gato::vec_len(K, s, cdim));
-  gato::fused_solve_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      Q, R, A, Bm, q, r, c, lam0, scratch, lam, dzx, dzu, iters, conv, eta, K,
-      s, cdim, rho, exit_tol, max_iters, poly_degree, precond, (int)arena,
-      gato_fused_scratch_floats(K, s, cdim));
+  err = cudaLaunchKernelEx(&cfg, kernel, Q, R, A, Bm, q, r, c, lam0,
+                           ops_in_smem ? nullptr : scratch, lam, dzx, dzu, iters,
+                           conv, eta, K, s, cdim, rho, exit_tol, max_iters,
+                           poly_degree, precond, C);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The stage stamps of the last launch (CTA 0; %globaltimer, ns) into
+// out[0..kStamps) (cluster_body.cuh lists the points).  Returns kStamps,
+// or 0 in a build without GATO_STAGE_STAMPS.
+int gato_fused_stage_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  return cudaMemcpyFromSymbol(out, gato::cl::stage_stamps,
+                              sizeof(gato::cl::stage_stamps)) == cudaSuccess
+             ? gato::cl::kStamps
+             : -1;
+#else
+  (void)out;
+  return 0;
+#endif
 }
 
 }  // extern "C"

@@ -193,7 +193,7 @@ __device__ void condense_tile(const float* Q, const float* R, const float* A,
     __syncthreads();
     return;
   }
-  // The stair, in kernel B's order (fused_body.cuh): T_k = theta_k^{-1}
+  // The stair, in kernel B's order (cluster_body.cuh): T_k = theta_k^{-1}
   // phi_k, Pinv[k][0] = -(T_k theta_{k-1}^{-1}); T_k = theta_k^{-1}
   // phi_{k+1}^T, Pinv[k][2] = -(T_k theta_{k+1}^{-1}); zero past either end.
   for (size_t e = tid; e < nk * ss; e += nt) {

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
            "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
            "probes.cu")
-HEADERS = ("pcg_common.cuh", "condense.cuh", "fused_body.cuh", "grid_common.cuh")
+HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -37,6 +37,10 @@ MAX_BLOCK = 32
 RESERVED_SHARED_BYTES = 1024
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Extra preprocessor flags of the build, part of the library's hash: empty
+# for the shipped build; tools/stage_split.py sets ("-DGATO_STAGE_STAMPS",)
+# before the first CUDA call to build the stage-stamped kernel B beside it.
+DEFINES: tuple = ()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,10 +51,15 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "gato_pcg_batched": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P]),
     "gato_pcg_smem_bytes": (_LL, [_I, _I]),
-    "gato_fused_solve": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P]),
+    "gato_fused_solve": (_I, [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P]),
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
-    "gato_fused_smem_bytes": (_LL, [_I, _I, _I]),
-    "gato_fused_sequence": (_I, [_P] * 16 + [_I] * 5 + [_F, _I, _I, _I, _P]),
+    "gato_fused_max_clusters": (_I, [_I] * 5),
+    "gato_fused_stage_stamps": (_I, [_P]),
+    "gato_cluster_smem_bytes": (_LL, [_I] * 5),
+    "gato_cluster_threads": (_I, [_I] * 4),
+    "gato_cluster_size": (_I, [_I] * 5 + [_LL]),
+    "gato_fused_sequence": (_I, [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
+    "gato_sequence_max_clusters": (_I, [_I] * 5),
     "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _P]),
     "gato_direct_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
@@ -97,7 +106,7 @@ def source_hash() -> str:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + DEFINES).encode())
     return h.hexdigest()[:16]
 
 
@@ -124,7 +133,7 @@ def build() -> dict:
     t0 = time.perf_counter()
     try:
         for name, obj in zip(SOURCES, objects):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            cmd = [nvcc, *NVCC_FLAGS, *DEFINES, "-c", "-o", str(obj), str(CSRC / name)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

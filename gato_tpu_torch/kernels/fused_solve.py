@@ -2,26 +2,29 @@
 
 Replaces ``gato_tpu/kernels/fused_solve.py::_fused_kernel`` (entry points
 ``_call_fused`` and ``solve_fused_batched``): rho-condensation with the
-zero-pivot flag, any of the three preconditioners, the PCG loop shared with
-kernel A, and dz recovery.  The CUDA source is
-``gato_tpu_torch/csrc/fused_solve.cu``, with the per-problem body in
-``fused_body.cuh`` (shared with the sequence kernel, fused_sequence.py);
-their notes give the design: one thread block per problem, the
-Gauss-Jordan work area and then the PCG vectors in shared memory, S and
-Pinv written to a global scratch tensor that this wrapper allocates,
-because together (235,200 B at IIWA) they exceed the 232,448 B of shared
-memory a block may use.
+zero-pivot flag, any of the three preconditioners, the PCG loop, and dz
+recovery.  The CUDA source is ``gato_tpu_torch/csrc/fused_solve.cu``, with
+the per-problem body in ``cluster_body.cuh`` (shared with the farm kernel,
+fused_sequence.py); their notes give the design: one thread-block cluster
+of C CTAs a problem, CTA r owning a contiguous range of knots (its
+operators in its shared memory where they fit, else in a global scratch
+slice that this wrapper allocates), halos and dot products through
+distributed shared memory.
 
-:func:`fused_solve_cuda` takes tensors on a CUDA device to the kernel and
-raises if the kernel cannot take them; tensors on the CPU go to the plain
-version, :func:`fused_solve_plain`: ``condense(flag=True)`` -> ``pcg`` with
-flagged problems frozen -> ``recover_dz``.  ``LAUNCHES`` counts the
-kernel's launches.
+The plan of a launch is pure Python here, mirrored by the library's
+``gato_cluster_*`` functions: :func:`knot_range`, :func:`cta_threads`,
+:func:`cta_smem_bytes`, :func:`ops_in_smem`, :func:`cluster_fits` and the
+rule :func:`cluster_size`.  :func:`fused_solve_cuda` takes tensors on a
+CUDA device to the kernel and raises if the kernel cannot take them
+(``cluster=`` forces C, for tests and measurements); tensors on the CPU go
+to the plain version, :func:`fused_solve_plain`: ``condense(flag=True)``
+-> ``pcg`` with flagged problems frozen -> ``recover_dz``.  ``LAUNCHES``
+counts the kernel's launches, ``LAST_CLUSTER`` holds the C of the last.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -34,10 +37,16 @@ from . import _build
 NAME = "fused_solve_cuda"
 SOURCE = "gato_tpu_torch/csrc/fused_solve.cu"
 REPLACES = "gato_tpu/kernels/fused_solve.py:568"
-# The kernel's preconditioner codes (enum Precond in fused_solve.cu).
+# The kernel's preconditioner codes (enum Precond in cluster_body.cuh).
 PRECOND_CODES = {"jacobi": 0, "block_jacobi": 1, "symmetric_stair": 2}
+# The cluster sizes the kernels take (16 is a non-portable size on Hopper).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# cluster_body.cuh's fixed area and its eight vectors with halo rows.
+_FIXED_FLOATS = 96
+_NUM_VEC = 8
 
 LAUNCHES = 0
+LAST_CLUSTER = None
 
 
 def fused_solve_plain(Q, R, A, B, q, r, c, lam0, *, rho=0.0, exit_tol=1e-6,
@@ -71,10 +80,15 @@ def check_tensors(name: str, expect: dict, tensors: dict, device) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, q on {device}")
 
 
+# ---- The horizons kernel B serves (the routing's domain) ----
+
 def smem_bytes(K: int, s: int, cdim: int) -> int:
-    """Shared memory of one kernel-B (or farm-kernel) block, as
-    ``gato_fused_smem_bytes`` computes it: the Gauss-Jordan work area and,
-    reusing it, six PCG vectors (fused_body.cuh's fused_arena_floats)."""
+    """The shared memory one block of the one-CTA-a-problem kernel B needed:
+    a Gauss-Jordan work area of at most 64 KB and, reusing it, six PCG
+    vectors.  It no longer sizes a launch (:func:`cta_smem_bytes` does); it
+    fixes the horizons that kernel B and the farm kernel serve, so that the
+    routing to the long-K tier (IIWA K >= 689 on an H100) stays where it
+    was."""
     def gj(n):
         return 2 * n * n + 3 * n + 2
     floats = max(6 * max(K * s, (K - 1) * cdim), gj(s), gj(cdim),
@@ -83,8 +97,9 @@ def smem_bytes(K: int, s: int, cdim: int) -> int:
 
 
 def fits(K: int, s: int, cdim: int, smem_limit: int) -> bool:
-    """True iff kernel B and the farm kernel take (K, s, c) on a device whose
-    blocks may opt in to ``smem_limit`` bytes of shared memory."""
+    """True iff kernel B and the farm kernel serve (K, s, c) on a device
+    whose blocks may opt in to ``smem_limit`` bytes of shared memory.  Every
+    such shape has a cluster size whose plan fits (:func:`cluster_fits`)."""
     return (K >= 2 and max(s, cdim) <= _build.MAX_BLOCK
             and smem_bytes(K, s, cdim) <= smem_limit - _build.RESERVED_SHARED_BYTES)
 
@@ -97,75 +112,206 @@ def past_limit_message(name: str, K: int, s: int, cdim: int, smem: int,
             "None (auto) or 'pcg_kernel'")
 
 
-def check_kernel_limits(name: str, K: int, s: int, cdim: int, poly_degree,
-                        device) -> ctypes.CDLL:
-    """Raise unless the fused body can take (K, s, c) and ``poly_degree`` on
-    ``device``; returns the kernel library (built on first use)."""
+# ---- The plan of one launch (mirrors of cluster_body.cuh) ----
+
+def knot_range(K: int, C: int, r: int) -> tuple:
+    """Knots [k0, k1) of CTA r in a cluster of C: contiguous, balanced to
+    within one knot (cluster_body.cuh's knot_begin)."""
+    return r * K // C, (r + 1) * K // C
+
+
+def cluster_knots(K: int, C: int) -> int:
+    """The most knots one CTA holds."""
+    return -(-K // C)
+
+
+def record_floats(s: int, cdim: int) -> int:
+    """One knot's record: S, Pinv (three blocks each), Qinv, Rinv_{k-1}
+    and B_{k-1} Rinv_{k-1}."""
+    return 7 * s * s + cdim * cdim + s * cdim
+
+
+def cta_threads(K: int, s: int, cdim: int, C: int) -> int:
+    """Threads of one CTA: a row of its Gauss-Jordan batch each (its knots,
+    and the halo knot when C > 1), whole warps, from 64 to 384."""
+    t = -(-(cluster_knots(K, C) + (C > 1)) * max(s, cdim) // 32) * 32
+    return min(max(t, 64), 384)
+
+
+def cta_smem_bytes(K: int, s: int, cdim: int, C: int, in_smem: bool) -> int:
+    """Dynamic shared memory of one CTA: the fixed reduction area, the
+    knots' records when ``in_smem``, lambda's rows, the halo rows of eight
+    vectors and three halo blocks, and the larger of the Gauss-Jordan pivot
+    rows and seven vectors with the recovery's dz_u temporary."""
+    kn, nt = cluster_knots(K, C), cta_threads(K, s, cdim, C)
+
+    def gj(count, n):
+        chunk = min(nt // n, count)
+        return 2 * chunk * n * n + 2 * chunk * n + chunk
+
+    union = max(gj(kn + 1, s), gj(kn, cdim), 7 * kn * s + kn * cdim)
+    floats = (_FIXED_FLOATS + (kn * record_floats(s, cdim) if in_smem else 0)
+              + kn * s + 2 * _NUM_VEC * s + 3 * s * s + union)
+    return 4 * floats
+
+
+def ops_in_smem(K: int, s: int, cdim: int, C: int, smem_limit: int) -> bool:
+    """True iff the records of a CTA fit its shared memory at this C."""
+    return cta_smem_bytes(K, s, cdim, C, True) <= smem_limit - _build.RESERVED_SHARED_BYTES
+
+
+def cluster_fits(K: int, s: int, cdim: int, C: int, smem_limit: int) -> bool:
+    """True iff a cluster of C CTAs takes (K, s, c): at least a knot each,
+    and the plan without the records fits shared memory."""
+    return (C <= K and cta_smem_bytes(K, s, cdim, C, False)
+            <= smem_limit - _build.RESERVED_SHARED_BYTES)
+
+
+def cluster_size(B: int, K: int, s: int, cdim: int, n_sms: int,
+                 smem_limit: int) -> int:
+    """The cluster size kernel B takes for B problems (and the farm kernel
+    for B streams, so that a farm and B chained kernel-B launches compute
+    the same bits): the largest C that fits with B C <= n_sms, but never
+    below the floor, the smallest C whose records fit shared memory (else
+    the smallest C that fits).  Non-increasing in B.
+
+    Why: one problem is a chain of dependent stages (three Gauss-Jordan
+    batches of s pivot steps, then ~27 PCG iterations of two matvecs and
+    two cluster-wide reductions), so at small B its time is latency, and
+    spreading its knots over C SMs cuts each stage's work by C while a
+    cluster barrier costs well under a microsecond.  Once B C CTAs would
+    pass the card's SMs, more CTAs only queue.  The floor: where the
+    records (S, Pinv, ... ; 304 KB a problem at IIWA) stay in global
+    memory, every PCG matvec streams them from L2, since an SM's L1 beside
+    its shared memory holds less; on the chip that costs more than the
+    extra waves of a cluster size whose records sit in shared memory (at
+    IIWA, B = 256: C = 2 against C = 1, PERF.md §6).  Every C the rule can
+    pick is co-resident on an H100 (the wrapper checks it with
+    cudaOccupancyMaxActiveClusters and raises otherwise).  The chip's
+    numbers for each C at B = 1, 4, 16, 64 and 256 are in PERF.md §6
+    (chip_smoke.py phase 5)."""
+    floor = pick = 0
+    fitting = [C for C in CLUSTER_SIZES if cluster_fits(K, s, cdim, C, smem_limit)]
+    if not fitting:
+        raise ValueError(f"no cluster size takes (K, s, c) = ({K}, {s}, {cdim}) "
+                         f"under {smem_limit} B of shared memory")
+    floor = next((C for C in fitting if ops_in_smem(K, s, cdim, C, smem_limit)),
+                 fitting[0])
+    for C in fitting:
+        if B * C <= n_sms:
+            pick = C
+    return max(pick, floor)
+
+
+@functools.cache
+def device_limits(index: int) -> tuple:
+    """(SMs, opt-in shared bytes a block) of CUDA device ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, _build.max_shared_bytes(index)
+
+
+def launch_plan(name: str, B: int, K: int, s: int, cdim: int, poly_degree,
+                device: torch.device, cluster=None, *,
+                occupancy: str = "gato_fused_max_clusters") -> tuple:
+    """(C, ops_in_smem) of a launch of B problems (or streams) at (K, s, c)
+    on ``device``; raises ValueError for a shape, poly degree or forced
+    ``cluster`` the kernel does not take, and RuntimeError when the card
+    cannot hold one such cluster (``occupancy`` names the library's
+    cudaOccupancyMaxActiveClusters query for the kernel)."""
+    if not isinstance(poly_degree, int) or poly_degree < 1:
+        raise ValueError(f"{name}: poly_degree must be an int >= 1")
+    return _plan(name, B, K, s, cdim, device.index, cluster, occupancy)
+
+
+@functools.cache
+def _plan(name: str, B: int, K: int, s: int, cdim: int, index: int, cluster,
+          occupancy: str) -> tuple:
     if K < 2 or s > _build.MAX_BLOCK or cdim > _build.MAX_BLOCK:
         raise ValueError(f"{name}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; got "
                          f"K={K}, s={s}, c={cdim}")
-    if not isinstance(poly_degree, int) or poly_degree < 1:
-        raise ValueError(f"{name}: poly_degree must be an int >= 1")
-    lib = _build.library()
-    smem = lib.gato_fused_smem_bytes(K, s, cdim)
-    limit = _build.max_shared_bytes(device) - 1024
-    if smem > limit:
-        raise ValueError(past_limit_message(name, K, s, cdim, smem, limit))
-    return lib
+    n_sms, limit = device_limits(index)
+    if not fits(K, s, cdim, limit):
+        raise ValueError(past_limit_message(
+            name, K, s, cdim, smem_bytes(K, s, cdim), limit - _build.RESERVED_SHARED_BYTES))
+    if cluster is None:
+        C = cluster_size(B, K, s, cdim, n_sms, limit)
+    elif cluster not in CLUSTER_SIZES or not cluster_fits(K, s, cdim, cluster, limit):
+        raise ValueError(f"{name}: cluster={cluster!r} does not take (K, s, c) = "
+                         f"({K}, {s}, {cdim}); it must be one of {CLUSTER_SIZES}, "
+                         f"at most K, with a plan that fits {limit} B")
+    else:
+        C = cluster
+    in_smem = ops_in_smem(K, s, cdim, C, limit)
+    with torch.cuda.device(index):
+        held = _build.function(occupancy)(K, s, cdim, C, int(in_smem))
+    if held < 0:
+        _build.check_launch(-held, name)
+    if held == 0:
+        raise RuntimeError(f"{name}: the card holds no cluster of {C} CTAs of "
+                           f"{cta_smem_bytes(K, s, cdim, C, in_smem)} B at (K, s, c) "
+                           f"= ({K}, {s}, {cdim})")
+    return C, in_smem
+
+
+def outputs(lead: tuple, K: int, s: int, cdim: int, device) -> tuple:
+    """The kernels' outputs: lam, dz_x (*lead, K, s), dz_u (*lead, K-1, c),
+    eta (*lead) float32, iters (*lead) int32 and converged (*lead) bool."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (empty(*lead, K, s), empty(*lead, K, s), empty(*lead, K - 1, cdim),
+            empty(*lead), empty(*lead, dtype=torch.int32), empty(*lead, dtype=torch.bool))
 
 
 def fused_solve_cuda(
     Q, R, A, B, q, r, c, lam0=None, *,
     rho: float = 0.0, exit_tol: float = 1e-6, max_iters: int = 100,
     poly_degree: int = 1, preconditioner: str = "symmetric_stair",
+    cluster=None,
 ):
     """Whole batched solve (condense + PCG + recover).
 
     Arguments follow ``formats.KKTBlocks`` with one leading batch axis.
     Returns (PCGResult with a batch axis, dz_x (B, K, s), dz_u (B, K-1, c)).
     A problem whose condensation met a zero pivot in a live Q or R block
-    reports iters = max_iters, converged False and eta = 1e30."""
+    reports iters = max_iters, converged False and eta = 1e30.  On CUDA
+    tensors ``cluster`` forces the cluster size (one of 1, 2, 4, 8, 16; a
+    size the shape or the card does not take raises); None takes
+    :func:`cluster_size`."""
     if preconditioner not in PRECOND_CODES:
         raise ValueError(f"unknown preconditioner {preconditioner!r}; valid: "
                          f"{sorted(PRECOND_CODES)}")
     if lam0 is None:
         lam0 = torch.zeros_like(q)
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return fused_solve_plain(Q, R, A, B, q, r, c, lam0, rho=rho,
                                  exit_tol=exit_tol, max_iters=max_iters,
                                  poly_degree=poly_degree,
                                  preconditioner=preconditioner)
-    if q.device.type != "cuda":
-        raise ValueError(f"{NAME}: tensors on {q.device} are neither CPU nor CUDA")
+    if dev.type != "cuda":
+        raise ValueError(f"{NAME}: tensors on {dev} are neither CPU nor CUDA")
     if Q.ndim != 4:
         raise ValueError(f"{NAME}: Q must be (B, K, s, s), got {tuple(Q.shape)}")
     Bn, K, s, _ = Q.shape
     cdim = R.shape[-1]
     expect = dict(block_shapes((Bn,), K, s, cdim), lam0=(Bn, K, s))
-    tensors = dict(zip(expect, (Q, R, A, B, q, r, c, lam0)))
-    check_tensors(NAME, expect, tensors, q.device)
-    lib = check_kernel_limits(NAME, K, s, cdim, poly_degree, q.device)
-    Q, R, A, B, q, r, c, lam0 = (t.contiguous() for t in tensors.values())
-    dev = q.device
-    scratch = torch.empty(Bn, lib.gato_fused_scratch_floats(K, s, cdim),
-                          dtype=torch.float32, device=dev)
-    lam = torch.empty_like(q)
-    dz_x = torch.empty_like(q)
-    dz_u = torch.empty_like(r)
-    iters = torch.empty(Bn, dtype=torch.int32, device=dev)
-    conv = torch.empty(Bn, dtype=torch.int32, device=dev)
-    eta = torch.empty(Bn, dtype=torch.float32, device=dev)
+    Q, R, A, B, q, r, c, lam0 = (
+        _build.checked(NAME, key, t, torch.Size(expect[key]), dev)
+        for key, t in zip(expect, (Q, R, A, B, q, r, c, lam0)))
+    C, in_smem = launch_plan(NAME, Bn, K, s, cdim, poly_degree, dev, cluster)
+    scratch = None if in_smem else torch.empty(
+        Bn * K * record_floats(s, cdim), dtype=torch.float32, device=dev)
+    lam, dz_x, dz_u, eta, iters, conv = outputs((Bn,), K, s, cdim, dev)
     if Bn > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.gato_fused_solve(
-                *map(_build.ptr, (Q, R, A, B, q, r, c, lam0, scratch, lam,
-                                  dz_x, dz_u, iters, conv, eta)),
-                Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
-                poly_degree, PRECOND_CODES[preconditioner],
-                ctypes.c_void_p(stream))
-        _build.check_launch(code, NAME)
-        global LAUNCHES
+        _build.launch(NAME, "gato_fused_solve", dev,
+                      *(t.data_ptr() for t in (Q, R, A, B, q, r, c, lam0)),
+                      None if scratch is None else scratch.data_ptr(),
+                      lam.data_ptr(), dz_x.data_ptr(), dz_u.data_ptr(),
+                      iters.data_ptr(), conv.data_ptr(), eta.data_ptr(),
+                      Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
+                      poly_degree, PRECOND_CODES[preconditioner], C, int(in_smem))
+        global LAUNCHES, LAST_CLUSTER
         LAUNCHES += 1
-    res = PCGResult(lam=lam, iters=iters, converged=conv != 0, eta=eta)
+        LAST_CLUSTER = C
+    res = PCGResult(lam=lam, iters=iters, converged=conv, eta=eta)
     return res, dz_x, dz_u

@@ -11,9 +11,18 @@ B = 1 and 256 streams, and saves every output with ptxas's register and
 spill report of the build.  ``compare`` exits 1 unless every output of the
 two dumps is bit-identical, and prints both builds' ptxas reports.  It
 needs one CUDA card; the inputs come from testing's seeded generators.
-Every change to csrc/condense.cuh or csrc/fused_body.cuh must pass it
-against the parent's checkout: the direct kernels share that code with
-kernel B and the farm kernel, whose outputs must not move.
+
+A refactor of csrc/cluster_body.cuh (the body both kernels compile) must
+pass it against the parent's checkout: it may move registers, not bits.
+A change of the arithmetic by design does not pass, and says so: the
+cluster layout of kernel B and the farm kernel (cluster_body.cuh, which
+replaced the one-CTA fused_body.cuh) sums each dot product over C CTAs in
+rank order and reads its Gauss-Jordan pivot rows differently, so its bits
+differ from the one-CTA kernel's, within the plain version's tolerance.
+csrc/condense.cuh and csrc/pcg_common.cuh, shared by kernel A, rows 4, 5,
+7, 8/10 and 13 and the probes, are no longer compiled into kernel B or the
+farm; a change to them is checked by those kernels' card tests and by this
+tool extended to them.
 """
 
 from __future__ import annotations

@@ -93,6 +93,130 @@ def test_fused_kernel_singular_problem_is_frozen(dev):
     assert float(got.eta[1]) == float(np.float32(1e30))
 
 
+# Kernel B and the farm kernel at every cluster size: IIWA and pendulum
+# widths, an odd width, and K at the edge of fused_solve.fits (IIWA 688).
+CLUSTER_SHAPES = [(14, 7, 50), (2, 1, 5), (5, 3, 20), (14, 7, 688)]
+
+
+def _iters_agree(got, ref, exit_tol):
+    """Equal exit indices, or one apart where the earlier exit's eta lies
+    within 1e-3 of exit_tol (a float32 round-off tie, the documented
+    exception to equal iteration counts)."""
+    for gi, ri, ge, re_ in zip(got.iters.tolist(), ref.iters.tolist(),
+                               got.eta.tolist(), ref.eta.tolist()):
+        if gi != ri:
+            early = ge if gi < ri else re_
+            assert abs(gi - ri) == 1 and abs(early - exit_tol) <= 1e-3 * exit_tol, \
+                (gi, ri, ge, re_)
+    assert got.converged.tolist() == ref.converged.tolist()
+
+
+@pytest.mark.parametrize("sizes", CLUSTER_SHAPES)
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("prec", ["symmetric_stair", "block_jacobi", "jacobi"])
+@pytest.mark.parametrize("poly", [1, 2])
+def test_fused_kernel_matches_plain_at_every_cluster_size(dev, sizes, cluster, prec, poly):
+    spec = gt.ProblemSpec(*sizes)
+    K = spec.knot_points
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if cluster > K or not kb.cluster_fits(K, *sizes[:2], cluster, limit):
+        with pytest.raises(ValueError, match="cluster="):
+            kb.fused_solve_cuda(*gt.blocks_to_torch(tt.random_batch(spec, 1), dev),
+                                cluster=cluster)
+        return
+    # the data of test_fused_kernel_matches_plain
+    b = gt.blocks_to_torch(tt.random_batch(spec, 1 if K > 100 else 5, seed0=8), dev)
+    # scalar Jacobi over a capped run, as in chip_smoke.py.  Composed to
+    # degree 2 it may be indefinite (the exception gato_tpu's
+    # tests/test_precond_poly.py documents), and
+    # float32 round-off parts the plain version's own lambda from its
+    # float64 run by 1.1e-4 of scale after 3 iterations at (5, 3, 20)
+    # (2.6e-6 at most after 2, at every shape here; measured on the CPU).
+    cap = {("jacobi", 1): 10, ("jacobi", 2): 2}.get((prec, poly), 300)
+    kw = dict(rho=1e-3, exit_tol=1e-8, max_iters=cap, preconditioner=prec,
+              poly_degree=poly)
+    before = kb.LAUNCHES
+    got, gx, gu = kb.fused_solve_cuda(*b, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == before + 1 and kb.LAST_CLUSTER == cluster
+    ref, rx, ru = kb.fused_solve_plain(*b, torch.zeros_like(b.q), **kw)
+    _iters_agree(got, ref, 1e-8)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_singular_problem_is_frozen_at_every_cluster_size(dev, cluster):
+    spec = gt.ProblemSpec(4, 2, 8)
+    mix = tt.stack_blocks([tt.random_blocks(spec, seed=1),
+                           tt.singular_blocks(spec, seed=3, knot=2),
+                           tt.random_blocks(spec, seed=2)])
+    b = gt.blocks_to_torch(mix, dev)
+    got, gx, gu = kb.fused_solve_cuda(*b, rho=0.0, exit_tol=1e-8, max_iters=25,
+                                      cluster=cluster)
+    assert got.converged.tolist() == [True, False, True]
+    assert int(got.iters[1]) == 25
+    assert float(got.eta[1]) == float(np.float32(1e30))
+    assert torch.equal(got.lam[1], torch.zeros_like(got.lam[1]))
+    ref, rx, ru = kb.fused_solve_plain(*b, torch.zeros_like(b.q), rho=0.0,
+                                       exit_tol=1e-8, max_iters=25)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("sizes", CLUSTER_SHAPES)
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_farm_equals_chained_kernel_b_at_every_cluster_size(dev, sizes, cluster):
+    """The farm kernel at a forced C equals T chained kernel-B launches at
+    the same C bit for bit, and its plain version within 1e-4 of scale;
+    one step with a singular Q is frozen alone and hands lambda_0 on."""
+    spec = gt.ProblemSpec(*sizes)
+    K = spec.knot_points
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if cluster > K or not kb.cluster_fits(K, *sizes[:2], cluster, limit):
+        with pytest.raises(ValueError, match="cluster="):
+            farm = gt.blocks_to_torch(tt.random_farm(spec, 1, 1), dev)
+            ks.fused_sequence_cuda(*farm, torch.zeros_like(farm.q[0]),
+                                   torch.zeros(1, device=dev), cluster=cluster)
+        return
+    T, B = 4, 1 if K > 100 else 3
+    farm = tt.random_farm(spec, T, B, seed0=17)
+    if sizes == (14, 7, 50):
+        Q = farm.Q.copy()
+        Q[2, 0] = tt.singular_blocks(spec, seed=3, knot=1).Q
+        farm = farm._replace(Q=Q)
+    b = gt.blocks_to_torch(farm, dev)
+    lam = torch.randn(B, K, spec.state_size, device=dev) * 0.1
+    rhos = torch.tensor([1e-3, 1e-2, 1e-3, 3e-3], device=dev)
+    if sizes == (14, 7, 50):
+        rhos[2] = 0.0
+    kw = dict(exit_tol=1e-8, max_iters=300, poly_degree=2)
+    before = ks.LAUNCHES
+    got, gx, gu = ks.fused_sequence_cuda(*b, lam, rhos, cluster=cluster, **kw)
+    assert ks.LAUNCHES == before + 1 and ks.LAST_CLUSTER == cluster
+    ref, rx, ru = ks.fused_sequence_plain(*b, lam, rhos, **kw)
+    lam0 = lam
+    for t in range(T):
+        res, dx, du = kb.fused_solve_cuda(*(a[t] for a in b), lam0,
+                                          rho=float(rhos[t]), cluster=cluster, **kw)
+        for x, y in ((got.lam[t], res.lam), (gx[t], dx), (gu[t], du),
+                     (got.iters[t], res.iters), (got.eta[t], res.eta),
+                     (got.converged[t], res.converged)):
+            assert torch.equal(x, y), t
+        lam0 = res.lam
+    if sizes == (14, 7, 50):
+        assert not bool(got.converged[2, 0]) and int(got.iters[2, 0]) == 300
+        assert torch.equal(got.lam[2, 0], got.lam[1, 0])
+    assert got.converged.tolist() == ref.converged.tolist()
+    for t in range(T):
+        _iters_agree(gt.SolveResult(*(x[t] for x in (got.lam, gx, gu, got.iters,
+                                                     got.converged, got.eta))),
+                     gt.SolveResult(*(x[t] for x in (ref.lam, rx, ru, ref.iters,
+                                                     ref.converged, ref.eta))), 1e-8)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     spec = gt.ProblemSpec(2, 1, 5)
     b64 = gt.blocks_to_torch(tt.random_batch(spec, 1), dev, torch.float64)
@@ -102,6 +226,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     b = gt.blocks_to_torch(tt.random_batch(big, 1), dev)
     with pytest.raises(ValueError, match="<= 32"):
         kb.fused_solve_cuda(*b)
+    b = gt.blocks_to_torch(tt.random_batch(spec, 1), dev)
+    for cluster in (3, 8, 32, 0):   # not a cluster size, or more CTAs than knots
+        with pytest.raises(ValueError, match="cluster="):
+            kb.fused_solve_cuda(*b, cluster=cluster)
 
 
 def test_solve_entry_points_on_cuda(dev):
@@ -148,7 +276,8 @@ def test_sequence_kernel_matches_plain(dev, sizes, prec):
 def test_sequence_kernel_equals_chained_kernel_b(dev, sizes, wide):
     """Step t of one sequence launch equals kernel B launched with step
     t-1's lambda and rhos[t], bit for bit; with more streams than SMs the
-    launcher takes the kernel built for two blocks per SM."""
+    rule takes its floor (the smallest cluster size whose records fit
+    shared memory), for the farm and for kernel B alike."""
     spec = gt.ProblemSpec(*sizes)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     T, B = 4, sms + 8 if wide else 3
@@ -472,14 +601,26 @@ def test_longk_entry_points_launch_the_kernels(dev):
 
 
 def test_shared_memory_mirrors_match_the_library(dev):
-    """The routing's pure functions (fused_solve.smem_bytes,
-    pcg_kernel.smem_bytes, direct_fused.smem_bytes) agree with what the
-    kernels' launchers compute."""
+    """The routing's and the launch plan's pure functions (fused_solve's
+    cta_smem_bytes, cta_threads and cluster_size, pcg_kernel.smem_bytes,
+    direct_fused.smem_bytes) agree with what the kernels' launchers
+    compute."""
     from gato_tpu_torch.kernels import _build
     lib = _build.library()
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
     for K, s, c in ((5, 2, 1), (50, 14, 7), (700, 14, 7), (37, 20, 9), (3, 32, 32),
                     (740, 14, 7), (741, 14, 7)):
-        assert kb.smem_bytes(K, s, c) == lib.gato_fused_smem_bytes(K, s, c)
+        for C in kb.CLUSTER_SIZES:
+            for ops in (0, 1):
+                assert kb.cta_smem_bytes(K, s, c, C, ops) == lib.gato_cluster_smem_bytes(
+                    K, s, c, C, ops)
+            assert kb.cta_threads(K, s, c, C) == lib.gato_cluster_threads(K, s, c, C)
+        if kb.fits(K, s, c, limit):
+            for B in (1, 4, 16, 64, 256, 4096):
+                assert kb.cluster_size(B, K, s, c, props.multi_processor_count, limit) == \
+                    lib.gato_cluster_size(B, K, s, c, props.multi_processor_count,
+                                          limit - 1024)
         assert ka.smem_bytes(K, s) == lib.gato_pcg_smem_bytes(K, s)
         assert kd.smem_bytes(K, s, c) == lib.gato_direct_smem_bytes(K, s, c)
 
