@@ -54,7 +54,10 @@ Phases, each of which raises on failure (exit code not 0):
 3d. the long-horizon PCG kernels (rows 7, 8/10, 9 and 13) against their
    plain versions at IIWA widths: K=1024 at B=1 and B=16 with every
    preconditioner (scalar Jacobi over 10 iterations) and poly degree 2,
-   K=2048 and K=8192 at B=1, a warm start, and one exactly singular
+   K=2048 and K=8192 at B=1; the edges of rows 8/10's split (K=689 and
+   1025, one knot a CTA, two CTAs an SM, poly degree 2 and 3, a batch past
+   the SMs in rounds), rows 8/10 bit for bit on both meetings (flagged
+   partials, grid barriers); a warm start, and one exactly singular
    problem among healthy ones through both routes;
 4d. the long-horizon main path: solve at K=1024 and K=8192, solve_batched
    at B=16, K=2048, solve_sequence_batched (B=4, T=8, K=1024) and
@@ -66,7 +69,9 @@ Phases, each of which raises on failure (exit code not 0):
    counts;
 5d. the long-horizon kernels' times at K=1024, 2048, 4096, 8192 and B=1,
    16 beside their bounds, their plain versions and (K=1024) the dense
-   Schur solve, and the two routes' times (the tier crossover);
+   Schur solve, rows 8/10's plan (CTAs a problem, operators in shared
+   memory, grid barriers an iteration) and one iteration's cost, and the
+   two routes' times (the tier crossover);
 3e. the long-horizon exact kernels (rows 11 and 12 and the unpeel kernel)
    against their plain versions at IIWA widths, K=50, 741, 1025, 1536 and
    8192 at B=1 and 15, both exact tiers against the plain cyclic
@@ -1397,14 +1402,42 @@ def zero_longk_counts() -> None:
     kl.RECOVER_LAUNCHES = 0
 
 
+def _longk_limits() -> tuple:
+    """(SMs, shared bytes a block may use) of the card, as the wrappers
+    plan with them."""
+    return (torch.cuda.get_device_properties(DEV).multi_processor_count,
+            _build.max_shared_bytes(DEV.index) - _build.RESERVED_SHARED_BYTES)
+
+
+def pcg_plan_text(n: int, K: int, poly: int = 1, ctas=None) -> str:
+    """Rows 8/10's plan of n problems of horizon K at IIWA width on this
+    card: its rounds, the CTAs a problem and knots a CTA, what sits in
+    shared memory, how the CTAs meet and the grid barriers an iteration."""
+    rounds = kl.pcg_rounds(n, K, IIWA.state_size, *_longk_limits(), ctas)
+    rd = rounds[0]
+    held = [name for bit, name in ((kl.VEC_IN_SMEM, "vectors"), (kl.S_RESIDENT, "S"),
+                                   (kl.P_RESIDENT, "Pinv")) if rd.flags & bit]
+    streamed = [name for bit, name in ((kl.S_RESIDENT, "S"), (kl.P_RESIDENT, "Pinv"))
+                if not rd.flags & bit]
+    meeting = ("grid barriers (cg::grid_group::sync)" if rd.meet == "grid"
+               else "barriers over each problem's CTAs (flagged partials)")
+    return (f"{len(rounds)} round(s), {rd.nprob} x {rd.per} CTAs, "
+            f"{-(-K // rd.per)} knots a CTA, in shared memory: "
+            f"{', '.join(held) or 'nothing'}"
+            + (f"; streamed ({rd.ring}-knot ring): {', '.join(streamed)}" if streamed else "")
+            + f"; {kl.grid_barriers(poly)} {meeting} an iteration")
+
+
 def check_longk_kernels(what: str, blocks, lam0, *, rho=RHO,
                         prec="symmetric_stair", poly=1, cap=MAX_ITERS,
-                        keep=None) -> str:
+                        keep=None, ctas=None) -> str:
     """The four long-K kernels against their plain versions on one batch:
     row 7 on the inputs, rows 8/10 and 13 on the plain version's operators
-    and multipliers (each kernel alone), row 9 end to end.  ``keep`` limits
-    the value comparisons to those problems (a singular mix).  Returns a
-    summary line."""
+    and multipliers (each kernel alone; rows 8/10 at ``ctas`` CTAs a
+    problem, None for the plan's, one launch a round, and, where every
+    round holds one problem, bit for bit on flagged partials too), row 9
+    end to end.  ``keep`` limits the value comparisons to those problems (a
+    singular mix).  Returns a summary line."""
     kw = dict(exit_tol=EXIT_TOL, max_iters=cap, poly_degree=poly)
     sel = slice(None) if keep is None else keep
     kops = kl.condense_longk_cuda(*blocks, rho=rho, preconditioner=prec)
@@ -1415,11 +1448,33 @@ def check_longk_kernels(what: str, blocks, lam0, *, rho=RHO,
                              f"{kops.bad.tolist()} vs plain {pops.bad.tolist()}")
     e7 = max(check_close(f"{what} {kl.CONDENSE_NAME} {name}", x[sel], y[sel])
              for name, x, y in zip(OPS_FIELDS, kops, pops))
-    kres = kl.pcg_longk_cuda(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    n, K, s = pops.gamma.shape
+    rounds = kl.pcg_rounds(n, K, s, *_longk_limits(), ctas)
+    before = kl.PCG_LAUNCHES
+    kres = kl.pcg_longk_cuda(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad,
+                             _rounds=None if ctas is None else rounds, **kw)
+    if kl.PCG_LAUNCHES - before != len(rounds):
+        raise AssertionError(f"{what} {kl.PCG_NAME}: {kl.PCG_LAUNCHES - before} launches "
+                             f"counted for {len(rounds)} rounds")
+    # The same sums in the same order on either meeting: the same bits.
+    if all(rd.meet == "grid" for rd in rounds):
+        other = kl.pcg_longk_cuda(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad,
+                                  _rounds=tuple(rd._replace(meet="flags") for rd in rounds),
+                                  **kw)
+        if not all(torch.equal(x, y) for x, y in zip(kres, other)):
+            raise AssertionError(f"{what} {kl.PCG_NAME}: flagged partials differ from "
+                                 "grid barriers")
     pres = kl.pcg_longk_plain(pops.S, pops.Pinv, pops.gamma, lam0, pops.bad, **kw)
+    one_an_sm = kl.pcg_rounds(n, K, s, *_longk_limits(), per_sm=1)
+    before = kl.FUSED_LAUNCHES
     fres, fqi, fri = kl.fused_longk_cuda(*blocks, lam0, rho=rho,
                                          preconditioner=prec, **kw)
-    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad, **kw)
+    if kl.FUSED_LAUNCHES - before != len(one_an_sm):
+        raise AssertionError(f"{what} {kl.FUSED_NAME}: {kl.FUSED_LAUNCHES - before} "
+                             f"launches counted for {len(one_an_sm)} rounds")
+    # Rows 7 and 8/10 on row 9's plan (one CTA an SM).
+    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad,
+                              _rounds=one_an_sm, **kw)
     kdx, kdu = kl.recover_longk_cuda(pops.Qinv, pops.Rinv, blocks.A, blocks.B,
                                      blocks.q, blocks.r, pres.lam)
     pdx, pdu = kl.recover_longk_plain(pops.Qinv, pops.Rinv, blocks.A, blocks.B,
@@ -1436,14 +1491,15 @@ def check_longk_kernels(what: str, blocks, lam0, *, rho=RHO,
               check_close(f"{what} {kl.RECOVER_NAME} dz_u", kdu[sel], pdu[sel]))
     if not (torch.equal(fres.lam, split.lam) and torch.equal(fres.iters, split.iters)
             and torch.equal(fqi, kops.Qinv) and torch.equal(fri, kops.Rinv)):
-        raise AssertionError(f"{what}: row 9 differs from rows 7 + 8/10 (the same "
-                             "device code on the same inputs)")
+        raise AssertionError(f"{what}: row 9 differs from rows 7 + 8/10 on its plan "
+                             "(the same device code on the same inputs)")
     for name, err in ((kl.CONDENSE_NAME, e7), (kl.PCG_NAME, e8),
                       (kl.FUSED_NAME, e9), (kl.RECOVER_NAME, e13)):
         MAX_ERR[name] = max(MAX_ERR[name], err)
     it = kres.iters.cpu().numpy()
-    return (f"iters {it.min()}..{it.max()} equal ({ties} ties); max|d| row 7 "
-            f"{e7:.2e}, 8/10 {e8:.2e}, 9 {e9:.2e} (bit-equal to 7 + 8/10), "
+    return (f"{len(rounds)} launch(es) of 8/10, {len(one_an_sm)} of 9; "
+            f"iters {it.min()}..{it.max()} equal ({ties} ties); max|d| row 7 "
+            f"{e7:.2e}, 8/10 {e8:.2e}, 9 {e9:.2e} (bit-equal to 7 + 8/10 on its plan), "
             f"13 {e13:.2e}")
 
 
@@ -1465,6 +1521,30 @@ def phase_longk_parity():
         blocks = longk_batch(K, 1, seed0=4100 + K)
         line = check_longk_kernels(f"K={K} B=1", blocks, torch.zeros_like(blocks.q))
         print(f"  K={K} B=1 symmetric_stair: {line}")
+    # The edges of the PCG kernel's split: K just past kernel B (689) and
+    # not a multiple of the CTAs a problem (1025: a short last CTA), one knot
+    # a CTA, two CTAs an SM (operators partly streamed), two and three
+    # Horner terms, and a batch past the SMs, which runs in rounds.  Every
+    # multi-CTA case has a first CTA without a left halo and a last one
+    # without a right one.
+    n_sms = _longk_limits()[0]
+    # check_longk_kernels asserts a launch counted a round; the batch past
+    # the SMs takes two rounds of each kernel.
+    for per_sm in (1, 2):
+        past = kl.pcg_rounds(n_sms + 8, 64, IIWA.state_size, *_longk_limits(),
+                             per_sm=per_sm)
+        if len(past) != 2:
+            raise AssertionError(f"{n_sms + 8} problems at K=64 plan {len(past)} rounds "
+                                 f"(per_sm={per_sm}), not 2")
+    for K, n, kwargs in ((689, 1, {}), (1025, 1, {}), (1025, 3, dict(poly=3)),
+                         (1024, 2, dict(poly=2, prec="block_jacobi")),
+                         (132, 1, dict(ctas=132)), (1024, 1, dict(ctas=264)),
+                         (8192, 1, dict(ctas=264)), (64, n_sms + 8, {})):
+        blocks = longk_batch(K, n, seed0=4300 + K)
+        line = check_longk_kernels(f"K={K} B={n} {kwargs}", blocks,
+                                   torch.zeros_like(blocks.q), **kwargs)
+        plan = pcg_plan_text(n, K, kwargs.get("poly", 1), kwargs.get("ctas"))
+        print(f"  K={K} B={n} {kwargs}: {plan}; {line}")
 
     # Warm starts: from the solution (at most one iteration), and from a
     # random lambda_0 against the plain version.
@@ -1489,6 +1569,9 @@ def phase_longk_parity():
     good = [testing.random_blocks(longk_spec(1024), seed=4200 + i) for i in range(2)]
     bad = testing.singular_blocks(longk_spec(1024), seed=3, knot=2)
     mix = gt.blocks_to_torch(testing.stack_blocks([good[0], bad, good[1]]), DEV)
+    # check_longk_kernels holds rows 8/10 on both meetings: B = 3 meets on
+    # flagged partials, and on grid barriers the frozen problem keeps the
+    # round's counter.
     line = check_longk_kernels("singular mix", mix, torch.zeros_like(mix.q),
                                rho=0.0, keep=[0, 2])
     for route in ("fused_xl", "xl"):
@@ -1756,7 +1839,7 @@ def phase_longk_times(card: str):
             dx, du = kl.recover_longk_cuda(ops.Qinv, ops.Rinv, blocks.A, blocks.B,
                                            blocks.q, blocks.r, res.lam)
             torch.cuda.synchronize()
-            flags = 4 * n                                  # bad (int32)
+            flags = n                                      # bad (bool)
             outs = nbytes(res.lam, res.iters, res.converged, res.eta)
             cflops = n * (condense_flops(Kb, s, c) + precond_flops(Kb, s, "symmetric_stair"))
             pflops = pcg_flops(Kb, s, res.iters, res.converged, 1)
@@ -1807,17 +1890,20 @@ def phase_longk_times(card: str):
                 p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1) if plain_ok else None
                 has_lib = name in (kl.PCG_NAME, kl.FUSED_NAME)
                 bound_ms, bound_by = bounds[name]
+                # The device's time alone (CUDA events also hold the host's
+                # enqueue while the card waits for it).
+                dev_ms = graph_ms_per_call(kern, calls=20 if k1 < 1.0 else 4)
                 times[(name, K, n)] = dict(
                     ms=(k1 + k2) / 2, plain_ms=None if p1 is None else (p1 + p2) / 2,
                     library_ms=lib_ms if has_lib else None, bound_ms=bound_ms,
-                    bound_by=bound_by)
+                    bound_by=bound_by, device_ms=dev_ms)
                 plain_text = (f"plain {p1:.4f} / {p2:.4f} ms" if plain_ok
                               else "plain not timed (B=16 at K=8192)")
                 lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
                             else "no library call")
-                print(f"  {name} K={K} B={n}: kernel {k1:.4f} / {k2:.4f} ms, "
-                      f"{plain_text}, {lib_text}, bound {bound_ms:.5f} ms "
-                      f"({bound_by}); launches 1  [{card}]")
+                print(f"  {name} K={K} B={n}: kernel {k1:.4f} / {k2:.4f} ms (device "
+                      f"{dev_ms:.4f} ms, a CUDA graph), {plain_text}, {lib_text}, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}); launches 1  [{card}]")
             # The two routes end to end (one call of solve_longk_batched each).
             fused_ms, split_ms = [], []
             for _ in range(2):
@@ -1826,11 +1912,17 @@ def phase_longk_times(card: str):
                 split_ms.append(cuda_median_ms(lambda: kl.solve_longk_batched(
                     *blocks, lam0, rho=RHO, force_tier="xl", **kw)))
             routes[(K, n)] = (float(np.mean(fused_ms)), float(np.mean(split_ms)))
+            xl_dev = graph_ms_per_call(lambda: kl.solve_longk_batched(
+                *blocks, lam0, rho=RHO, force_tier="xl", **kw),
+                calls=20 if split_ms[0] < 1.0 else 4)
             it = res.iters
+            print(f"  plan K={K} B={n}: rows 8/10 {pcg_plan_text(n, K)}; row 7 tiles of "
+                  f"{kl.tile_knots(n, K, s, c, *_longk_limits())} knots")
             print(f"  route K={K} B={n}: 'fused_xl' (rows 9 + 13) "
                   f"{fused_ms[0]:.4f} / {fused_ms[1]:.4f} ms, 'xl' = 'stream' "
-                  f"(rows 7 + 8/10 + 13) {split_ms[0]:.4f} / {split_ms[1]:.4f} ms; "
-                  f"PCG iterations {int(it.min())}..{int(it.max())}  [{card}]")
+                  f"(rows 7 + 8/10 + 13) {split_ms[0]:.4f} / {split_ms[1]:.4f} ms "
+                  f"(device {xl_dev:.4f} ms); PCG iterations "
+                  f"{int(it.min())}..{int(it.max())}  [{card}]")
             del ops, res, fres, fqi, fri, dx, du
         del full
         torch.cuda.empty_cache()
@@ -1848,9 +1940,70 @@ def phase_longk_times(card: str):
         per_it = (runs[20] - runs[0]) / 20
         times[("iteration", K)] = per_it
         print(f"  {kl.PCG_NAME} K={K} B=1: max_iters=0 {runs[0]:.4f} ms, 20 "
-              f"{runs[20]:.4f} ms: {1e3 * per_it:.2f} us an iteration (4 grid "
-              f"barriers and 4 phases)  [{card}]")
+              f"{runs[20]:.4f} ms: {1e3 * per_it:.2f} us an iteration ("
+              f"{pcg_plan_text(1, K)}: two dot products, S p and M r on own "
+              f"knots, the halo knots' r and p formed locally)  [{card}]")
         del ops
+    # The plan's choices measured against the others (device time, CUDA
+    # graphs): how the CTAs meet (flagged partials, the hand-rolled one,
+    # against cg::grid_group::sync), the CTAs a problem at K = 1024 (more
+    # CTAs, fewer knots each, more arrivals at each barrier), and row 7's
+    # tile (more tiles against the recomputed share, 3 of nk + 3 knots).
+    def per_iteration_us(ops, lam0, rounds=None):
+        g = {iters: graph_ms_per_call(lambda: kl.pcg_longk_cuda(
+            ops.S, ops.Pinv, ops.gamma, lam0, ops.bad, exit_tol=0.0, max_iters=iters,
+            _rounds=rounds), calls=10) for iters in (0, 20)}
+        return 1e3 * (g[20] - g[0]) / 20
+
+    limits = _longk_limits()
+    for K, n in ((1024, 1), (8192, 1), (1024, 16)):
+        blocks = longk_batch(K, n, seed0=6000 + K)
+        ops = kl.condense_longk_cuda(*blocks, rho=RHO)
+        lam0 = torch.zeros_like(blocks.q)
+        plan = kl.pcg_rounds(n, K, s, *limits)
+        if n == 1:
+            meets = {b: per_iteration_us(ops, lam0, tuple(rd._replace(meet=b) for rd in plan))
+                     for b in kl.BARRIERS}
+            print(f"  {kl.PCG_NAME} K={K} B=1, an iteration by meeting (device): flagged "
+                  f"partials {meets['flags']:.2f} us, grid barriers {meets['grid']:.2f} us; "
+                  f"the plan takes {plan[0].meet}  [{card}]")
+        else:
+            print(f"  {kl.PCG_NAME} K={K} B={n}, an iteration (device) on flagged partials "
+                  f"(grid barriers only for one problem): {per_iteration_us(ops, lam0):.2f} "
+                  f"us  [{card}]")
+        if (K, n) == (1024, 1):
+            sweep = {ctas: per_iteration_us(ops, lam0, kl.pcg_rounds(1, K, s, *limits, ctas))
+                     for ctas in (56, 64, 96, 128, 132, 264)}
+            print(f"  {kl.PCG_NAME} K={K} B=1, an iteration by CTAs a problem (device; "
+                  f"the plan {plan[0].per}, grid barriers): "
+                  + ", ".join(f"{c} {us:.2f} us" for c, us in sweep.items())
+                  + f"  [{card}]")
+        if n == 1:
+            tiles = {t: graph_ms_per_call(lambda: kl.condense_longk_cuda(
+                *blocks, rho=RHO, _tile=t), calls=10) for t in (2, 3, 4, 6)}
+            print(f"  {kl.CONDENSE_NAME} K={K} B=1 by tile knots (device; the plan "
+                  f"{kl.tile_knots(1, K, s, c, *limits)}): "
+                  + ", ".join(f"{t} {ms:.4f} ms" for t, ms in tiles.items())
+                  + f"  [{card}]")
+        del ops
+    # Two CTAs an SM where the operators stream (the plan's rule at B = 16)
+    # against one, and a forced two where it would push the vectors out of
+    # shared memory (K = 4096).
+    for K in (1024, 4096, 8192):
+        blocks = longk_batch(K, 16, seed0=6000 + K)
+        ops = kl.condense_longk_cuda(*blocks, rho=RHO)
+        lam0 = torch.zeros_like(blocks.q)
+        one = kl.pcg_rounds(16, K, s, *limits, per_sm=1)
+        plan = kl.pcg_rounds(16, K, s, *limits)[0].per
+        t = {name: graph_ms_per_call(lambda: kl.pcg_longk_cuda(
+            ops.S, ops.Pinv, ops.gamma, lam0, ops.bad, _rounds=rounds, **kw), calls=4)
+             for name, rounds in (("one", one), ("plan", None),
+                                  ("two", kl.pcg_rounds(16, K, s, *limits,
+                                                        2 * one[0].per)))}
+        print(f"  {kl.PCG_NAME} K={K} B=16 by CTAs an SM (device): one ({one[0].per} a "
+              f"problem) {t['one']:.4f} ms, two ({2 * one[0].per}) {t['two']:.4f} ms; the "
+              f"plan takes {plan}  [{card}]")
+        del ops, blocks
     print("  the faster route per shape:")
     for (K, n), (f_ms, x_ms) in routes.items():
         print(f"    K={K:5d} B={n:2d}: {'fused_xl' if f_ms <= x_ms else 'xl'} "
@@ -2941,8 +3094,20 @@ def linsys_split(fn) -> dict:
     if len(syncs) != 2 or len(kernel) != 1:
         raise AssertionError(f"linsys_solve trace: {len(syncs)} device synchronisations "
                              f"and {len(kernel)} kernel-B launches, not 2 and 1")
-    launch = [e for e in calls if e["name"].startswith("cudaLaunchKernel")
-              and syncs[0]["ts"] < e["ts"] <= kernel[0]["ts"]][-1]
+    # Kernel B's launch call: the runtime call with the kernel's correlation
+    # id, else the last launch call before the second synchronisation (not
+    # "before the kernel's start": the trace's host and device clocks may
+    # be skewed by a few us).
+    corr = kernel[0].get("args", {}).get("correlation")
+    launches = [e for e in calls if e["name"].startswith("cudaLaunchKernel")
+                and syncs[0]["ts"] < e["ts"] < syncs[1]["ts"]]
+    launch = [e for e in launches
+              if corr is not None and e.get("args", {}).get("correlation") == corr]
+    launch = (launch or launches)[-1:]
+    if not launch:
+        raise AssertionError("linsys_solve trace: no launch call between its two "
+                             "device synchronisations")
+    launch = launch[0]
     first, s1, s2 = calls[0]["ts"], syncs[0], syncs[1]
     copies = [e for e in events if e.get("cat") == "gpu_memcpy" and lo <= e["ts"] <= hi]
     return {

@@ -1,7 +1,8 @@
-// Shared machinery of the cooperative-grid kernels (longk.cu's rows 8/10
-// and 9, probes.cu's grid-scope row 16): the grid's size from the occupancy
-// query, the split of a launch's problems over its CTAs, and the sum of a
-// problem's per-CTA partials after a grid barrier.
+// Shared machinery of the cooperative-grid kernels: the grid's size from
+// the occupancy query, the split of a launch's problems over its CTAs, and
+// the sum of a problem's per-CTA partials after a grid barrier, for
+// probes.cu's grid-scope row 16; longk.cu's rows 8/10 and 9 take the Round
+// and the thread count (their plans are longk.cu's own).
 #pragma once
 
 #include <cuda_runtime.h>

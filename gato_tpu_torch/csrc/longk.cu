@@ -8,58 +8,87 @@
 //                          and _pcg_stream_kernel (row 10, :661)
 //   fused_longk_kernel     _fused_xl_kernel (row 9, :547)
 //   recover_longk_kernel   _recover_kernel (row 13, :1464)
-// Plain versions and wrappers: gato_tpu_torch/kernels/longk.py.
+// Plain versions, wrappers and the Python mirror of the launch plans below:
+// gato_tpu_torch/kernels/longk.py.
 //
-// Design.  Several thread blocks (CTAs) share one problem, each owning a
-// contiguous range of knots.
+// Row 7, condensation tiles.  A CTA condenses the own knots [k0, k1) of
+// one tile (kernels/longk.py's tile_knots: enough tiles to cover the
+// card's SMs, the window's rows one Gauss-Jordan round).  The TPU kernel
+// walks lane chunks in order and carries the one-knot dependency between
+// grid steps; CUDA blocks run in no order, so a tile recomputes, in its own
+// shared memory, the neighbour knots it needs: a window of two knots to the
+// left (theta_{k0-1} needs phi_{k0-1} = A_{k0-2} Qinv_{k0-2}) and one to
+// the right (theta_{k1} for the stair).  A recomputed knot goes through the
+// same arithmetic as in the tile that owns it, so it has the same bits and
+// the outputs do not depend on the tile size.  Stages (kernel B's design,
+// cluster_body.cuh): Gauss-Jordan of the window's Q and R blocks in shared
+// memory (gauss_jordan.cuh: two phases a pivot, loads ahead of stores, a
+// thread a (matrix, row)); the products, a thread a (knot, row) holding
+// phi_k, B_{k-1} Rinv_{k-1} and theta_k's row in registers, which also
+// writes S, gamma and the scalar Jacobi Pinv; Gauss-Jordan of theta; the
+// stair's two off-diagonal blocks a thread a (knot, row), with no barrier.
+// Every stage is inlined (no context struct in local memory).
 //
-// * Condensation works in tiles of up to kTileKnots knots.  The TPU kernel
-//   walks lane chunks in order and carries the one-knot dependency (phi,
-//   theta, theta^{-1} of the chunk's last knot) between grid steps; CUDA
-//   blocks run in no order, so a tile instead recomputes, in its own shared
-//   memory, the neighbour knots it needs: two to the left (theta_{k0-1}
-//   needs phi_{k0-1} = A_{k0-2} Qinv_{k0-2}) and one to the right (theta_k1
-//   for the stair).  Tiles are independent, and the stair's next-neighbour
-//   block -theta_k^{-1} phi_{k+1}^T theta_{k+1}^{-1} is computed directly,
-//   as kernel B does, with no lane shift.  The stages are condense.cuh's
-//   (gj_invert, condense_products, gamma_row) run on the tile's window; a
-//   recomputed knot gets the same bits as in the tile that owns it.
-// * PCG (rows 8 and 10 compute one function; the TPU split them by whether
-//   the operators fit VMEM) is the original's cooperative parallelPCG: one
-//   cooperative launch, its grid sized by the occupancy query so that every
-//   CTA is resident, a range of CTAs per problem, the vectors in global
-//   memory (L2-resident: 5 vectors of 458 KB at IIWA, K = 8192), S and Pinv
-//   read from global memory on every matvec (4,704 B a knot at IIWA: 38.5
-//   MB at K = 8192, which the 50 MB L2 may hold; whether they stay there is
-//   the cache's business).  A vector that a CTA's neighbours read is
-//   written before a grid barrier: four barriers an iteration (after S p,
-//   after the lambda / r update, after M r, after the p update) and two
-//   more per Horner term.  A dot product is a block sum per CTA written to
-//   global memory; after the barrier every CTA of the problem sums its
-//   problem's partials in one fixed order, so all of them see the same eta
-//   and take the same exit decision, and a run is deterministic.  A problem
-//   that has left the loop keeps meeting the barriers; the loop ends when
-//   every problem of the launch has left, read from a counter that is only
-//   written between the third and fourth barriers.  More problems than
-//   resident CTAs run in rounds, one launch each.
-// * The fused kernel condenses every tile of its problem (CTA j takes tiles
-//   j, j + per, ...), meets a grid barrier, and runs the same PCG.
-// * Recovery is knot-parallel: a block reads lambda_{k+1} of the knot past
-//   its range directly (no shifted copy), through condense.cuh's
-//   recover_dz on its window, the last-row rule included.
+// Rows 8/10, PCG (one function; the TPU split it by whether the operators
+// fit VMEM) in one cooperative launch a round of problems: `per` CTAs a
+// problem (kernels/longk.py's pcg_per), CTA `part` owning the knots
+// [part nk, (part + 1) nk) (nk = ceil(K / per)) and a one-knot halo on
+// each side of its r and p.
+// An iteration meets two grid barriers, one after each dot product:
+//   A  ups = S p on own rows, its boundary rows published (global memory),
+//      nu's block partial written;                          grid barrier 1
+//   B  nu = the problem's partials summed in one fixed order (every CTA
+//      gets the same bits), alpha; lambda += alpha p; r -= alpha ups on own
+//      AND halo knots (the neighbours' published ups, the owner's fmaf, so
+//      the owner's bits); y = M r on own rows, its boundary rows published,
+//      eta's partial written;                               grid barrier 2
+//   C  eta, beta; p = y + beta p on own and halo knots; the exit test.
+// A problem's CTAs all see the same eta and take the same exit.  How they
+// meet (meet()): a round of one problem on cg::grid_group::sync and the
+// partials summed after it; a round of several on flagged partials, where
+// the problem's first CTA gathers its CTAs' {partial, tag} words and posts
+// the sum, so each problem meets only its own CTAs and leaves the loop at
+// its own exit.  Both add the partials in the same order (the same bits);
+// grid barriers bind the whole launch, so the launcher takes them only for
+// a round of one problem.  A Horner term (poly degree >= 2) adds two
+// barriers (tmp = r - S y, then y += P tmp).  Each published slot
+// is written in one phase and read in the next, and written again only
+// after the following barrier, so one buffer of each suffices.  The
+// operators: S and Pinv of a CTA's knots are copied once into its shared
+// memory (16-byte cp.async copies) where they fit (kernels/longk.py's
+// pcg_flags: the vectors first, then S, then Pinv); an operator that does
+// not fit is streamed a matvec through a two-buffer ring, the next chunk in
+// flight while the current one is used.  Either way a thread takes rows
+// t = tid, tid + 256, ... in order, and each row is btd_row's fmaf order,
+// so the bits do not depend on where an operator sits, and at the parent
+// design's CTA count (rows / 256 a problem) they are that design's bits.
 //
-// What bounds them on an H100.  The PCG loop streams S and Pinv (2 * 3 K s^2
-// floats) per iteration at ~0.5 flop a byte: bytes, from L2 or device
-// memory; at short K and B = 1 the grid barriers (four an iteration) are
-// the floor.  Condensation is ~25 s^3 flops a knot on Gauss-Jordan and
-// small products with __syncthreads between pivots; recovery is a pass over
-// Qinv, Rinv, A and B.
+// Row 9 condenses every tile of its problem on the round's CTAs (CTA j
+// takes tiles j, j + per, ...), meets its problem's CTAs, and runs the same
+// PCG on what they wrote: rows 7 and 8/10's bits.
 //
-// Shapes are runtime values: s, c <= 32 (the wrapper checks).
+// Recovery (row 13) is knot-parallel: a block reads lambda_{k+1} of the
+// knot past its range directly (no shifted copy), through condense.cuh's
+// recover_dz on its window, the last-row rule included.
+//
+// What bounds them on an H100.  Rows 8/10 stream S and Pinv (2 * 3 K s^2
+// floats) per iteration at ~0.5 flop a byte where they do not sit in
+// shared memory (B = 16: every iteration reads them from device memory);
+// at B = 1 the operators sit on chip and the iteration is the latency of
+// its two grid barriers (~1.5 us each, row 16's probe) and two reductions.
+// Condensation is ~25 s^3 flops a knot, each Gauss-Jordan a chain of 2 s
+// CTA barriers; a tile's time is that chain's latency, and the tiles of
+// a batch run in waves.  Recovery is a pass over Qinv, Rinv, A and B.
+//
+// Shapes are runtime values: s, c <= 32 (the wrapper checks); IIWA's
+// (14, 7) is compiled in as well.
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "condense.cuh"
+#include "gauss_jordan.cuh"
 #include "grid_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -67,180 +96,134 @@ namespace cg = cooperative_groups;
 namespace gato {
 
 constexpr int kLongkThreads = kGridThreads;
-// Own knots of a condensation tile, at most, and the shared memory a tile
-// aims to stay under (three tiles of 74 KB share an SM at IIWA).
-constexpr int kTileKnots = 8;
-constexpr long long kTileBudgetBytes = 100 * 1024;
 // Knots of one recovery block.
 constexpr int kRecoverKnots = 32;
 
 enum LongkPrecond { kLkJacobi = 0, kLkBlockJacobi = 1, kLkStair = 2 };
+// What a PCG CTA holds in shared memory (kernels/longk.py's pcg_flags).
+enum PcgFlags { kVecInSmem = 1, kSResident = 2, kPResident = 4 };
+
+inline __host__ __device__ long long round4(long long f) { return (f + 3) & ~3LL; }
+
+// ---- The layouts of the plans (kernels/longk.py chooses the plan and
+// mirrors these) ----
 
 // Shared-memory layout of a condensation tile of nk own knots, in floats:
 // a window of nw = nk + 3 knots (two left of the tile, one right).
-struct TileLayout {
-  int nk, nw, arena;
-  long long qinv, rinv, ops, br, thinv, t, gj, total;
+struct TilePlan {
+  int nk;
+  long long qinv, rinv, ops, thinv, gj, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int nk, int s, int c) {
-  TileLayout L;
+inline __host__ __device__ TilePlan tile_plan(int nk, int s, int c) {
+  TilePlan L;
   L.nk = nk;
-  L.nw = nk + 3;
+  const int nw = nk + 3, nt = kLongkThreads;
   const long long ss = (long long)s * s;
-  const int a1 = L.nw * gj_floats(s), a2 = (L.nw - 1) * gj_floats(c);
-  L.arena = a1 > a2 ? a1 : a2;
-  L.qinv = 0;                                  // (nw, s, s)   Qinv
-  L.rinv = L.qinv + L.nw * ss;                 // (nw-1, c, c) Rinv
-  L.ops = L.rinv + (L.nw - 1LL) * c * c;       // (nw, 3, s, s) phi, theta, phi^T
-  L.br = L.ops + 3LL * L.nw * ss;              // (nw-1, s, c) B Rinv
-  L.thinv = L.br + (L.nw - 1LL) * s * c;       // (nw, s, s)   theta^{-1}
-  L.t = L.thinv + L.nw * ss;                   // (nk, s, s)   stair product
-  L.gj = L.t + nk * ss;                        // Gauss-Jordan work area
-  L.total = L.gj + L.arena;
+  L.qinv = 0;                                        // (nw, s, s) Qinv
+  L.rinv = L.qinv + round4(nw * ss);                 // (nw-1, c, c) Rinv
+  L.ops = L.rinv + round4((nw - 1LL) * c * c);       // (nw, 3, s, s) phi, theta, phi^T
+  L.thinv = L.ops + round4(3LL * nw * ss);           // (nw, s, s) theta^{-1}
+  L.gj = L.thinv + round4(nw * ss);                  // Gauss-Jordan rounds
+  const long long gq = gj_round_floats(nt / s < nw ? nt / s : nw, s);
+  const long long gr = gj_round_floats(nt / c < nw - 1 ? nt / c : nw - 1, c);
+  L.total = L.gj + (gq > gr ? gq : gr);
   return L;
 }
 
-// The largest tile (at most kTileKnots) within kTileBudgetBytes, else one
-// knot.
-inline TileLayout choose_tile(int s, int c) {
-  for (int nk = kTileKnots; nk > 1; --nk) {
-    const TileLayout L = tile_layout(nk, s, c);
-    if (L.total * (long long)sizeof(float) <= kTileBudgetBytes) return L;
-  }
-  return tile_layout(1, s, c);
+// Threads of a row 7 CTA: a row of the window's Gauss-Jordan batch each,
+// whole warps, from 64 to kLongkThreads (row 9 runs its tiles on the PCG
+// loop's kLongkThreads).
+inline __host__ __device__ int tile_threads(int nk, int s, int c) {
+  const int w = s > c ? s : c;
+  const int t = ((nk + 3) * w + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > kLongkThreads ? kLongkThreads : t);
 }
 
-// Condenses the own knots [k0, k1) of one problem (pointers at the
-// problem's slices, the KKTBlocks layout) into S_out, P_out (K, 3, s, s),
-// gam_out (K, s), Qinv_out (K, s, s) and Rinv_out (K-1, c, c): the knots'
-// rows and the intervals k0 .. min(k1, K-1) - 1.  A zero pivot clamped in a
-// Q or R block of the window sets *bad.  Ends synchronised.
-__device__ void condense_tile(const float* Q, const float* R, const float* A,
-                              const float* Bm, const float* q, const float* r,
-                              const float* cv, float rho, int precond, int K,
-                              int s, int c, int k0, int k1,
-                              const TileLayout& L, float* smem, float* S_out,
-                              float* P_out, float* gam_out, float* Qinv_out,
-                              float* Rinv_out, int* bad) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const size_t slot3 = 3 * ss;
-  const int w0 = k0 >= 2 ? k0 - 2 : 0;
-  const int w1 = k1 + 1 < K ? k1 + 1 : K;
-  const int nw = w1 - w0, j0 = k0 - w0, nk = k1 - k0;
-  const int nr = (k1 < K ? k1 : K - 1) - k0;  // own intervals
-  float* Qw = smem + L.qinv;
-  float* Rw = smem + L.rinv;
-  float* Sw = smem + L.ops;
-  float* BRw = smem + L.br;
-  float* thw = smem + L.thinv;
-  float* Tw = smem + L.t;
-  float* arena = smem + L.gj;
+// A PCG CTA's layout, in floats: lambda's own rows and five halo vectors
+// (r, p, y, S p, tmp; (nk + 2) s each) when kVecInSmem, S's and Pinv's own
+// blocks when resident, and the two-buffer ring of `ring` knots a buffer
+// when either streams.
+struct PcgPlan {
+  int per, nk, flags, ring;
+  long long vec_floats, off_S, off_P, off_ring, total;
+};
 
-  // The window's inverses and blocks: window knot j is knot w0 + j, and
-  // its phi, theta and phi^T are those of the whole problem wherever the
-  // window holds their inputs (all but phi and theta of window knot 0 when
-  // w0 > 0, and phi^T of the last window knot when w1 < K; none of these is
-  // read below).
-  gj_invert(Q + w0 * ss, ss, Qw, ss, nw, s, rho, arena, L.arena, bad);
-  gj_invert(R + w0 * cc2, cc2, Rw, cc2, nw - 1, c, rho, arena, L.arena, bad);
-  condense_products<true>(A + w0 * ss, Bm + w0 * sc, Qw, Rw, Sw, Sw + ss,
-                          Sw + 2 * ss, slot3, BRw, nw, s, c);
-
-  for (int e = tid; e < nk * s; e += nt)
-    gam_out[(size_t)k0 * s + e] =
-        gamma_row(Qw, Sw, slot3, BRw, q + (size_t)w0 * s, r + (size_t)w0 * c,
-                  cv + (size_t)w0 * s, s, c, j0 * s + e);
-  for (size_t e = tid; e < nk * slot3; e += nt)
-    S_out[k0 * slot3 + e] = Sw[j0 * slot3 + e];
-  for (size_t e = tid; e < nk * ss; e += nt)
-    Qinv_out[k0 * ss + e] = Qw[j0 * ss + e];
-  for (size_t e = tid; e < nr * cc2; e += nt)
-    Rinv_out[k0 * cc2 + e] = Rw[j0 * cc2 + e];
-
-  if (precond == kLkJacobi) {
-    for (size_t e = tid; e < nk * slot3; e += nt) {
-      const size_t kl = e / slot3, rem = e % slot3;
-      const int jslot = rem / ss, a = (rem % ss) / s, j = rem % s;
-      float val = 0.f;
-      if (jslot == 1 && a == j) {
-        const float d = Sw[(j0 + kl) * slot3 + ss + a * s + a];
-        val = 1.f / (d != 0.f ? d : 1.f);
-      }
-      P_out[k0 * slot3 + e] = val;
-    }
-    __syncthreads();
-    return;
-  }
-  // theta^{-1} of the own knots and, for the stair, of one neighbour on
-  // each side.
-  const bool stair = precond == kLkStair;
-  const int lo = stair && k0 > 0 ? j0 - 1 : j0;
-  const int hi = stair && k1 < K ? j0 + nk + 1 : j0 + nk;
-  gj_invert(Sw + lo * slot3 + ss, slot3, thw + lo * ss, ss, hi - lo, s, 0.f,
-            arena, L.arena, nullptr);
-  for (size_t e = tid; e < nk * ss; e += nt) {
-    const size_t kl = e / ss, rem = e % ss;
-    float* Pk = P_out + (k0 + kl) * slot3;
-    Pk[ss + rem] = thw[(j0 + kl) * ss + rem];
-    if (!stair) {
-      Pk[rem] = 0.f;
-      Pk[2 * ss + rem] = 0.f;
-    }
-  }
-  if (!stair) {
-    __syncthreads();
-    return;
-  }
-  // The stair, in kernel B's order (cluster_body.cuh): T_k = theta_k^{-1}
-  // phi_k, Pinv[k][0] = -(T_k theta_{k-1}^{-1}); T_k = theta_k^{-1}
-  // phi_{k+1}^T, Pinv[k][2] = -(T_k theta_{k+1}^{-1}); zero past either end.
-  for (size_t e = tid; e < nk * ss; e += nt) {
-    const int kl = e / ss, a = (e % ss) / s, j = e % s, jw = j0 + kl;
-    const float* ti = thw + jw * ss + a * s;
-    const float* ph = Sw + jw * slot3 + j;
-    float acc = 0.f;
-    for (int e2 = 0; e2 < s; ++e2) acc = fmaf(ti[e2], ph[e2 * s], acc);
-    Tw[kl * ss + a * s + j] = acc;
-  }
-  __syncthreads();
-  for (size_t e = tid; e < nk * ss; e += nt) {
-    const int kl = e / ss, a = (e % ss) / s, j = e % s, jw = j0 + kl;
-    float val = 0.f;
-    if (k0 + kl > 0) {
-      const float* tr = Tw + kl * ss + a * s;
-      const float* tp = thw + (jw - 1) * ss + j;
-      float acc = 0.f;
-      for (int e2 = 0; e2 < s; ++e2) acc = fmaf(tr[e2], tp[e2 * s], acc);
-      val = -acc;
-    }
-    P_out[(k0 + kl) * slot3 + a * s + j] = val;
-  }
-  __syncthreads();
-  for (size_t e = tid; e < nk * ss; e += nt) {
-    const int kl = e / ss, a = (e % ss) / s, j = e % s, jw = j0 + kl;
-    const float* ti = thw + jw * ss + a * s;
-    const float* sr = Sw + jw * slot3 + 2 * ss + j;
-    float acc = 0.f;
-    for (int e2 = 0; e2 < s; ++e2) acc = fmaf(ti[e2], sr[e2 * s], acc);
-    Tw[kl * ss + a * s + j] = acc;
-  }
-  __syncthreads();
-  for (size_t e = tid; e < nk * ss; e += nt) {
-    const int kl = e / ss, a = (e % ss) / s, j = e % s, jw = j0 + kl;
-    float val = 0.f;
-    if (k0 + kl + 1 < K) {
-      const float* tr = Tw + kl * ss + a * s;
-      const float* tn = thw + (jw + 1) * ss + j;
-      float acc = 0.f;
-      for (int e2 = 0; e2 < s; ++e2) acc = fmaf(tr[e2], tn[e2 * s], acc);
-      val = -acc;
-    }
-    P_out[(k0 + kl) * slot3 + 2 * ss + a * s + j] = val;
-  }
-  __syncthreads();
+inline __host__ __device__ PcgPlan pcg_plan(int K, int s, int per, int flags, int ring) {
+  PcgPlan P;
+  P.per = per;
+  P.nk = (K + per - 1) / per;
+  P.flags = flags;
+  P.ring = ring;
+  const long long kf = 3LL * s * s;
+  P.vec_floats = round4((long long)P.nk * s + 5LL * (P.nk + 2) * s);
+  long long off = (flags & kVecInSmem) ? P.vec_floats : 0;
+  P.off_S = off;
+  if (flags & kSResident) off += round4(P.nk * kf);
+  P.off_P = off;
+  if (flags & kPResident) off += round4(P.nk * kf);
+  P.off_ring = off;
+  if ((flags & (kSResident | kPResident)) != (kSResident | kPResident))
+    off += 2 * round4(ring * kf);
+  P.total = off;
+  return P;
 }
+
+// Sets `kernel`'s dynamic shared-memory limit to at least `bytes`: once a
+// kernel and device (and again for a larger size), not on every launch.
+inline cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static thread_local const void* seen_kernel[16] = {};
+  static thread_local int seen_device[16] = {};
+  static thread_local size_t seen_bytes[16] = {};
+  int slot = 0;
+  while (slot < 15 && seen_kernel[slot] != nullptr &&
+         (seen_kernel[slot] != kernel || seen_device[slot] != device))
+    ++slot;
+  if (seen_kernel[slot] == kernel && seen_device[slot] == device &&
+      seen_bytes[slot] >= bytes)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  seen_kernel[slot] = kernel;
+  seen_device[slot] = device;
+  seen_bytes[slot] = bytes;
+  return cudaSuccess;
+}
+
+namespace lk {
+
+// Dot of p[0..n) and q[0..n), in order.
+template <int kN>
+__device__ __forceinline__ float dot(const float* p, const float* q, int n) {
+  float acc = 0.f;
+  if (kN > 0) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) acc = fmaf(p[e], q[e], acc);
+  } else {
+    for (int e = 0; e < n; ++e) acc = fmaf(p[e], q[e], acc);
+  }
+  return acc;
+}
+
+// Dot of a[0..n) with column j of the row-major n-wide matrix M, in order.
+template <int kN>
+__device__ __forceinline__ float dot_col(const float* a, const float* M, int j, int n) {
+  float acc = 0.f;
+  if (kN > 0) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) acc = fmaf(a[e], M[e * kN + j], acc);
+  } else {
+    for (int e = 0; e < n; ++e) acc = fmaf(a[e], M[e * n + j], acc);
+  }
+  return acc;
+}
+
+}  // namespace lk
 
 // The KKT blocks of a batch (formats.KKTBlocks with a leading batch axis).
 struct KktArrays {
@@ -258,219 +241,689 @@ struct KktArrays {
 
 // What the condensation writes: S, P (B, K, 3, s, s), gamma (B, K, s), Qinv
 // (B, K, s, s), Rinv (B, K-1, c, c), and one zero-pivot flag a problem
-// (zeroed by the caller).
+// (false from the caller).
 struct OpArrays {
   float* S;
   float* P;
   float* gamma;
   float* Qinv;
   float* Rinv;
-  int* bad;
+  bool* bad;
 };
 
-// Condenses the tile `tile` of problem b.
-__device__ __forceinline__ void condense_problem_tile(const KktArrays& in,
-                                                      const OpArrays& out,
-                                                      const TileLayout& L,
-                                                      size_t b, int tile,
-                                                      float* smem) {
-  const int K = in.K, s = in.s, c = in.c;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const int k0 = tile * L.nk, k1 = k0 + L.nk < K ? k0 + L.nk : K;
-  condense_tile(in.Q + b * K * ss, in.R + b * (K - 1) * cc2,
-                in.A + b * (K - 1) * ss, in.Bm + b * (K - 1) * sc,
-                in.q + b * K * s, in.r + b * (K - 1) * c, in.cv + b * K * s,
-                in.rho, in.precond, K, s, c, k0, k1, L, smem,
-                out.S + b * K * 3 * ss, out.P + b * K * 3 * ss,
-                out.gamma + b * K * s, out.Qinv + b * K * ss,
-                out.Rinv + b * (K - 1) * cc2, out.bad + b);
+// Condenses tile `tile` of problem b (its own knots [k0, k1), k0 = tile nk)
+// into the problem's rows of S, P, gamma and Qinv and its intervals k0 ..
+// min(k1, K-1) - 1 of Rinv; a clamped zero pivot in a live Q or R block of
+// the window sets bad[b].  `smem` holds tile_plan(L.nk, s, c).total floats.
+// Ends synchronised.
+template <int kS, int kC>
+__device__ __forceinline__ void condense_tile(const KktArrays& in, const OpArrays& out,
+                                              const TilePlan& L, size_t b, int tile,
+                                              float* smem) {
+  constexpr int kCapS = kS > 0 ? kS : 32, kCapC = kC > 0 ? kC : 32;
+  const int s = kS > 0 ? kS : in.s, c = kC > 0 ? kC : in.c, K = in.K;
+  const int ss = s * s, sc = s * c, cc = c * c, kf = 3 * ss;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int k0 = tile * L.nk, k1 = k0 + L.nk < K ? k0 + L.nk : K, nk = k1 - k0;
+  const int w0 = k0 >= 2 ? k0 - 2 : 0, w1 = k1 + 1 < K ? k1 + 1 : K;
+  const int nw = w1 - w0, j0 = k0 - w0;
+  const float* Q = in.Q + b * K * ss;
+  const float* R = in.R + b * (K - 1) * cc;
+  const float* A = in.A + b * (K - 1) * ss;
+  const float* Bm = in.Bm + b * (K - 1) * sc;
+  const float* q = in.q + b * K * s;
+  const float* r = in.r + b * (K - 1) * c;
+  const float* cv = in.cv + b * K * s;
+  float* S_out = out.S + b * K * kf;
+  float* P_out = out.P + b * K * kf;
+  float* Qw = smem + L.qinv;
+  float* Rw = smem + L.rinv;
+  float* Sw = smem + L.ops;
+  float* thw = smem + L.thinv;
+  float* gj = smem + L.gj;
+
+  // 1. (Q_k + rho I)^{-1} of the window's knots, (R_k + rho I)^{-1} of its
+  // intervals; the own ones out.
+  gj_invert_smem<kS>(gj, tid, nt, Q + (size_t)w0 * ss, ss, Qw, ss, nullptr, nw, s,
+                     in.rho, out.bad + b);
+  gj_invert_smem<kC>(gj, tid, nt, R + (size_t)w0 * cc, cc, Rw, cc, nullptr, nw - 1, c,
+                     in.rho, out.bad + b);
+  {
+    float* Qi = out.Qinv + (b * K + k0) * ss;
+    for (int e = tid; e < nk * ss; e += nt) Qi[e] = Qw[j0 * ss + e];
+    const int nr = (k1 < K ? k1 : K - 1) - k0;
+    float* Ri = out.Rinv + (b * (K - 1) + k0) * cc;
+    for (int e = tid; e < nr * cc; e += nt) Ri[e] = Rw[j0 * cc + e];
+  }
+
+  // 2. A thread a (window knot, row a): phi_k, B_{k-1} Rinv_{k-1} and
+  // theta_k's row a in registers (all loads before any store); for own
+  // knots also phi_{k+1}^T, the rows of S, gamma and the scalar Jacobi
+  // Pinv.  Window knot 0 has no phi when the window starts past knot 0.
+  const int jlo = w0 > 0 ? 1 : 0;
+  for (int t = tid; t < (nw - jlo) * s; t += nt) {
+    const int j = jlo + t / s, a = t % s, k = w0 + j;
+    float ph[kCapS], th[kCapS], br[kCapC];
+    if (k > 0) {
+      const float* Ap = A + (size_t)(k - 1) * ss;
+      const float* Bp = Bm + (size_t)(k - 1) * sc;
+      const float* Qp = Qw + (j - 1) * ss;
+      const float* Rp = Rw + (j - 1) * cc;
+      float ar[kCapS], brow[kCapC];
+#pragma unroll
+      for (int e = 0; e < s; ++e) ar[e] = Ap[a * s + e];
+#pragma unroll
+      for (int e = 0; e < c; ++e) brow[e] = Bp[a * c + e];
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) ph[jj] = lk::dot_col<kS>(ar, Qp, jj, s);
+#pragma unroll
+      for (int jj = 0; jj < c; ++jj) br[jj] = lk::dot_col<kC>(brow, Rp, jj, c);
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) {
+        const float t1 = lk::dot<kS>(ph, Ap + jj * s, s);
+        const float t2 = lk::dot<kC>(br, Bp + jj * c, c);
+        th[jj] = (t1 + t2) + Qw[j * ss + a * s + jj];
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) {
+        ph[jj] = 0.f;
+        th[jj] = Qw[j * ss + a * s + jj];
+      }
+    }
+    float* Sj = Sw + j * kf + a * s;
+#pragma unroll
+    for (int jj = 0; jj < s; ++jj) {
+      Sj[jj] = ph[jj];
+      Sj[ss + jj] = th[jj];
+    }
+    if (k < k0 || k >= k1) continue;
+    float ut[kCapS];
+    if (k < K - 1) {
+      const float* Ak = A + (size_t)k * ss;
+      float qc[kCapS];
+#pragma unroll
+      for (int e = 0; e < s; ++e) qc[e] = Qw[j * ss + e * s + a];
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) ut[jj] = lk::dot<kS>(Ak + jj * s, qc, s);
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) ut[jj] = 0.f;
+    }
+    const float* qk = q + (size_t)k * s;
+    float g = lk::dot<kS>(Qw + j * ss + a * s, qk, s);
+    if (k > 0) {
+      const float t1 = lk::dot<kS>(ph, qk - s, s);
+      const float t2 = lk::dot<kC>(br, r + (size_t)(k - 1) * c, c);
+      g = (t1 + t2) + g;
+    }
+    out.gamma[(b * K + k) * s + a] = g - cv[(size_t)k * s + a];
+    float* So = S_out + (size_t)k * kf + a * s;
+#pragma unroll
+    for (int jj = 0; jj < s; ++jj) {
+      Sj[2 * ss + jj] = ut[jj];
+      So[jj] = ph[jj];
+      So[ss + jj] = th[jj];
+      So[2 * ss + jj] = ut[jj];
+    }
+    if (in.precond == kLkJacobi) {
+      float d = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj)
+        if (jj == a) d = th[jj];
+      const float dinv = 1.f / (d != 0.f ? d : 1.f);
+      float* Po = P_out + (size_t)k * kf + a * s;
+#pragma unroll
+      for (int jj = 0; jj < s; ++jj) {
+        Po[jj] = 0.f;
+        Po[ss + jj] = jj == a ? dinv : 0.f;
+        Po[2 * ss + jj] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+  if (in.precond == kLkJacobi) return;
+
+  // 3. theta^{-1} of the own knots and, for the stair, of one neighbour on
+  // each side.
+  const bool stair = in.precond == kLkStair;
+  const int lo = stair && k0 > 0 ? j0 - 1 : j0;
+  const int hi = stair && k1 < K ? j0 + nk + 1 : j0 + nk;
+  gj_invert_smem<kS>(gj, tid, nt, Sw + lo * kf + ss, kf, thw + lo * ss, ss, nullptr,
+                     hi - lo, s, 0.f, static_cast<bool*>(nullptr));
+
+  // 4. Pinv, a thread a (own knot, row a): theta_k^{-1} and, for the stair,
+  // -(theta_k^{-1} phi_k) theta_{k-1}^{-1} and
+  // -(theta_k^{-1} phi_{k+1}^T) theta_{k+1}^{-1} (zero past either end).
+  for (int t = tid; t < nk * s; t += nt) {
+    const int kl = t / s, a = t % s, j = j0 + kl, k = k0 + kl;
+    float ti[kCapS], pl[kCapS], pu[kCapS];
+#pragma unroll
+    for (int e = 0; e < s; ++e) ti[e] = thw[j * ss + a * s + e];
+#pragma unroll
+    for (int jj = 0; jj < s; ++jj) pl[jj] = pu[jj] = 0.f;
+    if (stair) {
+      float tr[kCapS];
+      if (k > 0) {
+#pragma unroll
+        for (int jj = 0; jj < s; ++jj) tr[jj] = lk::dot_col<kS>(ti, Sw + j * kf, jj, s);
+#pragma unroll
+        for (int jj = 0; jj < s; ++jj)
+          pl[jj] = -lk::dot_col<kS>(tr, thw + (j - 1) * ss, jj, s);
+      }
+      if (k < K - 1) {
+#pragma unroll
+        for (int jj = 0; jj < s; ++jj)
+          tr[jj] = lk::dot_col<kS>(ti, Sw + j * kf + 2 * ss, jj, s);
+#pragma unroll
+        for (int jj = 0; jj < s; ++jj)
+          pu[jj] = -lk::dot_col<kS>(tr, thw + (j + 1) * ss, jj, s);
+      }
+    }
+    float* Po = P_out + (size_t)k * kf + a * s;
+#pragma unroll
+    for (int jj = 0; jj < s; ++jj) {
+      Po[jj] = pl[jj];
+      Po[ss + jj] = ti[jj];
+      Po[2 * ss + jj] = pu[jj];
+    }
+  }
+  __syncthreads();
 }
 
-// Row 7: one block per (problem, tile).
+// Row 7: one CTA a (problem, tile).
+template <int kS, int kC>
 __global__ void __launch_bounds__(kLongkThreads)
-condense_longk_kernel(KktArrays in, OpArrays out, TileLayout L, int ntiles) {
-  extern __shared__ float smem[];
-  condense_problem_tile(in, out, L, blockIdx.x / ntiles, blockIdx.x % ntiles,
-                        smem);
+condense_longk_kernel(KktArrays in, OpArrays out, TilePlan L, int ntiles) {
+  extern __shared__ float4 smem4[];
+  condense_tile<kS, kC>(in, out, L, blockIdx.x / ntiles, blockIdx.x % ntiles,
+                        reinterpret_cast<float*>(smem4));
 }
 
 // What the PCG loop reads and writes.  S, P, gamma, lam0, lam (B, K, ...);
-// frozen (B,) or null; iters, conv, eta (B,); vec (B, 5, K s) the loop's
-// vectors r, p, M r, S p and a Horner temporary; parts two floats a CTA of
-// a launch (the partial sums of the two dot products); done one counter a
-// round, zeroed by the caller.
+// frozen (B,) bools or null; iters, conv, eta (B,); vec the CTAs' vectors when
+// they are not in shared memory (vec_floats a CTA of the launch), xch six
+// boundary rows a CTA (S p, y, tmp at its first and last knot), parts two
+// floats a CTA (the dot products' partials) or the flagged meetings'
+// words.
 struct PcgArrays {
   const float* S;
   const float* P;
   const float* gamma;
   const float* lam0;
-  const int* frozen;
+  const bool* frozen;
   float* lam;
   int* iters;
-  int* conv;
+  bool* conv;
   float* eta;
   float* vec;
+  float* xch;
   float* parts;
-  int* done;
   int K, s, max_iters, poly_degree;
   float exit_tol;
 };
 
-// y = M r on the rows [i0, i1), M = P or its Horner polynomial (a grid
-// barrier before each read of a neighbour's y or tmp).  Every CTA of the
-// grid calls it (the barriers); only active ones compute.
-__device__ void precond_rows(cg::grid_group& grid, const float* S,
-                             const float* P, const float* r, float* y,
-                             float* tmp, int K, int s, int i0, int i1,
-                             int poly_degree, bool active) {
+// Published boundary rows: kinds, a side's s floats each.
+enum Xch { kXUps = 0, kXY = 1, kXTmp = 2 };
+
+// One CTA's view of its problem in the PCG loop.
+struct PcgCta {
+  int K, s, k0, nk, rows;
+  bool hasL, hasR;
+  float* lam;          // own rows
+  float* r;            // own knot 0 of each halo vector; [-s, 0) and
+  float* p;            // [nk s, nk s + s) are the halo knots
+  float* y;
+  float* ups;
+  float* tmp;
+  const float* Sres;   // resident own blocks in shared memory, or null
+  const float* Pres;
+  const float* Sg;     // own blocks in global memory
+  const float* Pg;
+  float* ring;
+  int ring_knots;
+  float* xme;          // this CTA's published rows
+  const float* xl;     // the left neighbour's, the right one's
+  const float* xr;
+};
+
+// Row a of knot k's block row of M (blocks at M: L, D, U) times the halo
+// vector x (xk = knot k's rows): btd_row's order, L x_{k-1} and U x_{k+1}
+// only where they exist, (left + right) + mid.
+template <int kS>
+__device__ __forceinline__ float btd_local(const float* M, const float* xk, int s, int a,
+                                           bool left_, bool right_) {
+  const int ss = s * s;
+  const float* row = M + a * s;
+  float left = 0.f, right = 0.f;
+  if (left_) left = lk::dot<kS>(row, xk - s, s);
+  const float mid = lk::dot<kS>(row + ss, xk, s);
+  if (right_) right = lk::dot<kS>(row + 2 * ss, xk + s, s);
+  return (left + right) + mid;
+}
+
+// Copies count floats from global src into shared dst with cp.async (16
+// bytes a copy where both are aligned), one commit group.
+__device__ __forceinline__ void stage(float* dst, const float* src, long long count) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  if (active)
-    for (int i = i0 + tid; i < i1; i += nt) y[i] = btd_row(P, r, K, s, i / s, i % s);
-  for (int d = 1; d < poly_degree; ++d) {
-    grid.sync();
-    if (active)
-      for (int i = i0 + tid; i < i1; i += nt)
-        tmp[i] = r[i] - btd_row(S, y, K, s, i / s, i % s);
-    grid.sync();
-    if (active)
-      for (int i = i0 + tid; i < i1; i += nt)
-        y[i] += btd_row(P, tmp, K, s, i / s, i % s);
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const long long n4 = count >> 2;
+    for (long long i = tid; i < n4; i += nt) __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+    head = 4 * n4;
+  }
+  for (long long i = head + tid; i < count; i += nt) __pipeline_memcpy_async(dst + i, src + i, 4);
+  __pipeline_commit();
+}
+
+// f(t, row t of M x) for this thread's own rows t = tid, tid + nt, ... in
+// order; M resident (Mres) or streamed from Mg through the ring.  Ends
+// synchronised only when streamed.
+template <int kS, class F>
+__device__ __forceinline__ void apply_op(const PcgCta& x, const float* Mres, const float* Mg,
+                                         const float* xv, F&& f) {
+  const int s = kS > 0 ? kS : x.s;
+  const int tid = threadIdx.x, nt = blockDim.x, kf = 3 * s * s;
+  if (Mres != nullptr) {
+    for (int t = tid; t < x.rows; t += nt) {
+      const int kl = t / s, a = t - kl * s, k = x.k0 + kl;
+      f(t, btd_local<kS>(Mres + kl * kf, xv + kl * s, s, a, k > 0, k < x.K - 1));
+    }
+    return;
+  }
+  const int rk = x.ring_knots, nch = (x.nk + rk - 1) / rk;
+  const long long buf = round4((long long)rk * kf);
+  if (nch > 0) stage(x.ring, Mg, (long long)(rk < x.nk ? rk : x.nk) * kf);
+  for (int ch = 0; ch < nch; ++ch) {
+    const int kc = ch * rk, n = x.nk - kc < rk ? x.nk - kc : rk;
+    if (ch + 1 < nch) {
+      const int nn = x.nk - kc - rk < rk ? x.nk - kc - rk : rk;
+      stage(x.ring + ((ch + 1) & 1) * buf, Mg + (size_t)(kc + rk) * kf, (long long)nn * kf);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const float* blk = x.ring + (ch & 1) * buf;
+    const int r0 = kc * s, r1 = r0 + n * s;
+    for (int t = r0 + ((tid - r0 % nt) % nt + nt) % nt; t < r1; t += nt) {
+      const int kl = t / s, a = t - kl * s, k = x.k0 + kl;
+      f(t, btd_local<kS>(blk + (kl - kc) * kf, xv + kl * s, s, a, k > 0, k < x.K - 1));
+    }
+    __syncthreads();
   }
 }
 
-// The PCG loop of problem first + blockIdx.x / per, rows of CTA
-// blockIdx.x % per: pcg_common.cuh's pcg_block (the same updates, exit test
-// on |r . M r| < exit_tol, 0-based exit index, alpha = 0 when p.Sp = 0,
-// beta = 0 when eta = 0, Horner form) spread over the problem's CTAs.  A
-// frozen problem runs no iteration, keeps lambda_0, and reports max_iters,
-// not converged and eta = 1e30.
-__device__ void pcg_longk_rows(cg::grid_group& grid, const PcgArrays& a,
-                               const Round& rd, bool frozen, float* red,
-                               int* flag) {
-  const int K = a.K, s = a.s, tid = threadIdx.x, nt = blockDim.x;
+// Writes value v of own row t into this CTA's published boundary rows of
+// kind `kind` where row t lies in its first or last knot.
+__device__ __forceinline__ void publish(const PcgCta& x, int kind, int t, float v) {
+  const int kl = t / x.s, a = t - kl * x.s;
+  if (kl == 0 && x.hasL) x.xme[kind * 2 * x.s + a] = v;
+  if (kl == x.nk - 1 && x.hasR) x.xme[kind * 2 * x.s + x.s + a] = v;
+}
+
+// Halo rows of kind `kind` from the neighbours' published rows into the
+// halo knots of v.  Call after a grid barrier; synchronise before reading.
+__device__ __forceinline__ void pull(const PcgCta& x, int kind, float* v) {
+  const int s = x.s;
+  for (int e = threadIdx.x; e < 2 * s; e += blockDim.x) {
+    if (e < s) {
+      if (x.hasL) v[e - s] = __ldcg(x.xl + kind * 2 * s + s + e);
+    } else if (x.hasR) {
+      v[x.nk * s + e - s] = __ldcg(x.xr + kind * 2 * s + e - s);
+    }
+  }
+}
+
+// Sum of a problem's per partials, to every thread: lane j of warp 0 adds
+// partials j, j + 32, ... in order (loads issued four at a time), then a
+// shuffle tree; every CTA of the problem computes the same bits (the order
+// of grid_common.cuh's sum_partials).
+__device__ __forceinline__ float sum_parts(const float* part, int per, float* red) {
+  if (threadIdx.x < 32) {
+    float v = 0.f;
+    int j = threadIdx.x;
+    for (; j + 96 < per; j += 128) {
+      const float a0 = __ldcg(part + j), a1 = __ldcg(part + j + 32);
+      const float a2 = __ldcg(part + j + 64), a3 = __ldcg(part + j + 96);
+      v += a0;
+      v += a1;
+      v += a2;
+      v += a3;
+    }
+    for (; j < per; j += 32) v += __ldcg(part + j);
+    v = warp_sum(v);
+    if (threadIdx.x == 0) red[32] = v;
+  }
+  __syncthreads();
+  const float out = red[32];
+  __syncthreads();
+  return out;
+}
+
+constexpr int kBarrierOnly = -1;
+
+// Where a CTA meets the other CTAs of its problem.  kFlags: `slots` holds
+// two 8-byte {partial, tag} words a CTA of the launch and two {sum, tag}
+// words a problem (at its first CTA's index, past the CTAs' words), by the
+// parity of `seq`, the meeting's number (from 1; the words zeroed before
+// the launch); else `parts` two floats a CTA (nu's and eta's partials) for
+// a grid barrier.
+struct PcgMeet {
+  int part, per, base;
+  unsigned seq;
+  unsigned long long* slots;
+  float* parts;
+};
+
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* w) {
+  return *reinterpret_cast<const volatile unsigned long long*>(w);
+}
+
+// The float of the 8-byte word at w once its tag is `seq`, x its first
+// read.  A poll that spins ~2^24 times (seconds) traps, so a fault cannot
+// hang the card.
+__device__ __forceinline__ float wait_word(const unsigned long long* w, unsigned seq,
+                                           unsigned long long x) {
+  for (unsigned spins = 0; (unsigned)(x >> 32) != seq; x = load_word(w))
+    if (++spins == (1u << 24)) __trap();
+  return __uint_as_float((unsigned)x);
+}
+
+__device__ __forceinline__ void post_word(unsigned long long* w, float v, unsigned seq) {
+  *reinterpret_cast<volatile unsigned long long*>(w) =
+      ((unsigned long long)seq << 32) | __float_as_uint(v);
+}
+
+// A barrier over the CTAs of this CTA's problem that returns the sum, in CTA
+// order, of their thread 0's `v`, to every thread (kind: which partial, 0
+// nu or 1 eta, for the grid barrier's slots; kBarrierOnly for a barrier
+// whose sum is not used, which with a grid barrier touches no slot: a slot
+// written while a slower CTA still reads it would race).  kFlags: thread 0
+// fences this CTA's earlier stores (the published rows) and posts {v, seq}
+// in one 8-byte store; the problem's first CTA gathers the words (lane j of
+// warp 0 adds words j, j + 32, ... in order, then a shuffle tree), fences,
+// and posts {sum, seq} in the problem's word, which the other CTAs' thread
+// 0 polls; every polling thread fences after its waits: two trips through L2 after the last CTA's store, and the polls
+// of all but one CTA on one word.  Else a grid barrier
+// (cg::grid_group::sync) and sum_parts.  Both add in the same order, so
+// they give the same bits.
+template <bool kFlags>
+__device__ __forceinline__ float meet(cg::grid_group& grid, PcgMeet& m, float v, int kind,
+                                      float* red) {
+  if (!kFlags) {
+    if (kind == kBarrierOnly) {
+      grid.sync();
+      return 0.f;
+    }
+    float* slot = m.parts + kind * gridDim.x + m.base;
+    if (threadIdx.x == 0) slot[m.part] = v;
+    grid.sync();
+    return sum_parts(slot, m.per, red);
+  }
+  ++m.seq;
+  unsigned long long* words = m.slots + (m.seq & 1) * gridDim.x + m.base;
+  unsigned long long* sum_word = m.slots + (2 + (m.seq & 1)) * gridDim.x + m.base;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    post_word(words + m.part, v, m.seq);
+  }
+  if (m.part == 0) {
+    if (threadIdx.x < 32) {
+      // Four words in flight a lane, added in order j, j + 32, ...
+      float acc = 0.f;
+      for (int j = threadIdx.x; j < m.per; j += 128) {
+        unsigned long long x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j + 32 * u < m.per) x[u] = load_word(words + j + 32 * u);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j + 32 * u < m.per) acc += wait_word(words + j + 32 * u, m.seq, x[u]);
+      }
+      // Each lane that saw a word orders its CTA's later reads (the
+      // neighbours' published rows) after it, whatever cache they go by.
+      __threadfence();
+      acc = warp_sum(acc);
+      if (threadIdx.x == 0) {
+        __threadfence();
+        post_word(sum_word, acc, m.seq);
+        red[32] = acc;
+      }
+    }
+  } else if (threadIdx.x == 0) {
+    red[32] = wait_word(sum_word, m.seq, load_word(sum_word));
+    __threadfence();
+  }
+  __syncthreads();
+  const float out = red[32];
+  __syncthreads();
+  return out;
+}
+
+// y = M r on own rows: P r, then y += P (r - S y) for poly_degree - 1
+// Horner terms (two barriers each), y's (and tmp's) boundary rows
+// published.  Every CTA that meets calls it; only active ones compute.
+// Returns this thread's partial of r . y, in row order.
+template <int kS, bool kFlags>
+__device__ __forceinline__ float precond_rows(cg::grid_group& grid, const PcgCta& x,
+                                              PcgMeet& m, int poly, bool active, float* red) {
+  float part = 0.f;
+  if (active)
+    apply_op<kS>(x, x.Pres, x.Pg, x.r, [&](int t, float v) {
+      x.y[t] = v;
+      publish(x, kXY, t, v);
+      if (poly == 1) part = fmaf(x.r[t], v, part);
+    });
+  for (int d = 1; d < poly; ++d) {
+    meet<kFlags>(grid, m, 0.f, kBarrierOnly, red);
+    if (active) {
+      pull(x, kXY, x.y);
+      __syncthreads();
+      apply_op<kS>(x, x.Sres, x.Sg, x.y, [&](int t, float v) {
+        const float u = x.r[t] - v;
+        x.tmp[t] = u;
+        publish(x, kXTmp, t, u);
+      });
+    }
+    meet<kFlags>(grid, m, 0.f, kBarrierOnly, red);
+    if (active) {
+      pull(x, kXTmp, x.tmp);
+      __syncthreads();
+      apply_op<kS>(x, x.Pres, x.Pg, x.tmp, [&](int t, float v) {
+        const float u = x.y[t] + v;
+        x.y[t] = u;
+        publish(x, kXY, t, u);
+        if (d == poly - 1) part = fmaf(x.r[t], u, part);
+      });
+    }
+  }
+  return part;
+}
+
+// The PCG loop of problem rd.first + blockIdx.x / per on the own knots of
+// CTA blockIdx.x % per: pcg_common.cuh's pcg_block (the same updates, exit
+// test on |r . M r| < exit_tol, 0-based exit index, alpha = 0 when p.Sp =
+// 0, beta = 0 when eta = 0, Horner form) with two barriers an iteration.
+// A frozen problem runs no iteration, keeps lambda_0, and reports
+// max_iters, not converged and eta = 1e30.  `m` comes in with the
+// problem's meetings so far.
+template <int kS, bool kFlags>
+__device__ __forceinline__ void pcg_longk_rows(cg::grid_group& grid, const PcgArrays& a,
+                                               const Round& rd, const PcgPlan& pl,
+                                               PcgMeet& m, bool frozen, float* smem,
+                                               float* red) {
+  const int s = kS > 0 ? kS : a.s;
+  const int K = a.K, kf = 3 * s * s, tid = threadIdx.x, nt = blockDim.x;
   const size_t n = (size_t)K * s;
-  const int pl = blockIdx.x / rd.per, part = blockIdx.x % rd.per;
-  const size_t b = rd.first + pl;
-  const float* S = a.S + b * n * 3 * s;
-  const float* P = a.P + b * n * 3 * s;
+  const size_t b = rd.first + blockIdx.x / rd.per;
+  PcgCta x;
+  x.K = K;
+  x.s = s;
+  x.k0 = m.part * pl.nk < K ? m.part * pl.nk : K;
+  const int k1 = x.k0 + pl.nk < K ? x.k0 + pl.nk : K;
+  x.nk = k1 - x.k0;
+  x.rows = x.nk * s;
+  x.hasL = x.k0 > 0 && x.nk > 0;
+  x.hasR = k1 < K && x.nk > 0;
+  const bool vec_in = (pl.flags & kVecInSmem) != 0;
+  float* vb = vec_in ? smem : a.vec + (size_t)blockIdx.x * pl.vec_floats;
+  x.lam = vec_in ? vb : a.lam + b * n + (size_t)x.k0 * s;
+  const int vl = (pl.nk + 2) * s;
+  x.r = vb + pl.nk * s + s;
+  x.p = x.r + vl;
+  x.y = x.p + vl;
+  x.ups = x.y + vl;
+  x.tmp = x.ups + vl;
+  const float* Sprob = a.S + b * n * 3 * s;
+  x.Sg = Sprob + (size_t)x.k0 * kf;
+  x.Pg = a.P + b * n * 3 * s + (size_t)x.k0 * kf;
+  x.Sres = (pl.flags & kSResident) ? smem + pl.off_S : nullptr;
+  x.Pres = (pl.flags & kPResident) ? smem + pl.off_P : nullptr;
+  x.ring = smem + pl.off_ring;
+  x.ring_knots = pl.ring;
+  x.xme = a.xch + (size_t)blockIdx.x * 6 * s;
+  x.xl = a.xch + (size_t)(blockIdx.x - (x.hasL ? 1 : 0)) * 6 * s;
+  x.xr = a.xch + (size_t)(blockIdx.x + (x.hasR ? 1 : 0)) * 6 * s;
   const float* gamma = a.gamma + b * n;
   const float* lam0 = a.lam0 + b * n;
-  float* lam = a.lam + b * n;
-  float* r = a.vec + b * 5 * n;
-  float* p = r + n;
-  float* y = p + n;
-  float* ups = y + n;
-  float* tmp = ups + n;
-  float* nu_part = a.parts + pl * rd.per;
-  float* eta_part = a.parts + gridDim.x + pl * rd.per;
-  int* done = a.done + rd.index;
-  const OwnRows own = own_rows(K, s, rd.per, part);
-  const int i0 = own.i0, i1 = own.i1;
-  const bool lead = part == 0 && tid == 0;
+  const bool lead = m.part == 0 && tid == 0;
   bool active = !frozen;
 
-  // r = gamma - S lambda_0
-  for (int i = i0 + tid; i < i1; i += nt) {
-    lam[i] = lam0[i];
-    if (active) r[i] = gamma[i] - btd_row(S, lam0, K, s, i / s, i % s);
-  }
-  if (frozen && lead) atomicAdd(done, 1);
-  grid.sync();
-  precond_rows(grid, S, P, r, y, tmp, K, s, i0, i1, a.poly_degree, active);
-  float acc = 0.f;
+  // The resident operators, once; lambda_0; r = gamma - S lambda_0 on own
+  // and halo knots (the halo's blocks from global memory, the same
+  // arithmetic as their owner's).
+  if (x.Sres != nullptr) stage(smem + pl.off_S, x.Sg, (long long)x.nk * kf);
+  if (x.Pres != nullptr) stage(smem + pl.off_P, x.Pg, (long long)x.nk * kf);
+  __pipeline_wait_prior(0);
+  for (int t = tid; t < x.rows; t += nt) x.lam[t] = lam0[(size_t)x.k0 * s + t];
+  __syncthreads();
   if (active)
-    for (int i = i0 + tid; i < i1; i += nt) {
-      p[i] = y[i];
-      acc = fmaf(r[i], y[i], acc);
+    for (int e = tid; e < (x.nk + 2) * s; e += nt) {
+      const int kl = e / s - 1, ar = e - (kl + 1) * s, k = x.k0 + kl;
+      if ((kl < 0 && !x.hasL) || (kl >= x.nk && !x.hasR)) continue;
+      const float* M = x.Sres != nullptr && kl >= 0 && kl < x.nk ? x.Sres + kl * kf
+                                                                  : Sprob + (size_t)k * kf;
+      x.r[kl * s + ar] = gamma[(size_t)k * s + ar] -
+                         btd_local<kS>(M, lam0 + (size_t)k * s, s, ar, k > 0, k < K - 1);
     }
+  __syncthreads();
+  // y = M r, p = y, eta = r . y
+  float acc = precond_rows<kS, kFlags>(grid, x, m, a.poly_degree, active, red);
+  if (active)
+    for (int t = tid; t < x.rows; t += nt) x.p[t] = x.y[t];
   float v = block_sum(acc, red);
-  if (tid == 0) eta_part[part] = v;
-  grid.sync();
-  float eta = active ? sum_partials(eta_part, rd.per, red) : 0.f;
+  float eta = meet<kFlags>(grid, m, v, 1, red);
+  if (active) pull(x, kXY, x.p);
+  __syncthreads();
 
   int iters = a.max_iters, conv = 0;
-  for (int it = 0; it < a.max_iters; ++it) {
-    if (tid == 0) *flag = atomicAdd(done, 0);
+  for (int it = 0; active && it < a.max_iters; ++it) {
+    // A: upsilon = S p, nu's partial.
+    acc = 0.f;
+    apply_op<kS>(x, x.Sres, x.Sg, x.p, [&](int t, float u) {
+      x.ups[t] = u;
+      publish(x, kXUps, t, u);
+      acc = fmaf(x.p[t], u, acc);
+    });
+    v = block_sum(acc, red);
+    const float nu = meet<kFlags>(grid, m, v, 0, red);
+    // B: alpha; lambda, r (own and halo); y = M r, eta's partial.
+    const float alpha = nu != 0.f ? eta / nu : 0.f;
+    for (int t = tid; t < x.rows; t += nt) {
+      x.lam[t] = fmaf(alpha, x.p[t], x.lam[t]);
+      x.r[t] = fmaf(-alpha, x.ups[t], x.r[t]);
+    }
+    for (int e = tid; e < 2 * s; e += nt) {
+      if (e < s) {
+        if (x.hasL)
+          x.r[e - s] = fmaf(-alpha, __ldcg(x.xl + kXUps * 2 * s + s + e), x.r[e - s]);
+      } else if (x.hasR) {
+        const int h = x.nk * s + e - s;
+        x.r[h] = fmaf(-alpha, __ldcg(x.xr + kXUps * 2 * s + e - s), x.r[h]);
+      }
+    }
     __syncthreads();
-    if (*flag == rd.nprob) break;
-    // upsilon = S p, nu = p . upsilon
-    acc = 0.f;
-    if (active)
-      for (int i = i0 + tid; i < i1; i += nt) {
-        const float u = btd_row(S, p, K, s, i / s, i % s);
-        ups[i] = u;
-        acc = fmaf(p[i], u, acc);
-      }
+    acc = precond_rows<kS, kFlags>(grid, x, m, a.poly_degree, true, red);
     v = block_sum(acc, red);
-    if (tid == 0) nu_part[part] = v;
-    grid.sync();
-    if (active) {
-      const float nu = sum_partials(nu_part, rd.per, red);
-      const float alpha = nu != 0.f ? eta / nu : 0.f;
-      for (int i = i0 + tid; i < i1; i += nt) {
-        lam[i] = fmaf(alpha, p[i], lam[i]);
-        r[i] = fmaf(-alpha, ups[i], r[i]);
+    const float eta_new = meet<kFlags>(grid, m, v, 1, red);
+    // C: beta; p (own and halo); the exit test.
+    const float beta = eta != 0.f ? eta_new / eta : 0.f;
+    for (int t = tid; t < x.rows; t += nt) x.p[t] = fmaf(beta, x.p[t], x.y[t]);
+    for (int e = tid; e < 2 * s; e += nt) {
+      if (e < s) {
+        if (x.hasL)
+          x.p[e - s] = fmaf(beta, x.p[e - s], __ldcg(x.xl + kXY * 2 * s + s + e));
+      } else if (x.hasR) {
+        const int h = x.nk * s + e - s;
+        x.p[h] = fmaf(beta, x.p[h], __ldcg(x.xr + kXY * 2 * s + e - s));
       }
     }
-    grid.sync();
-    // M r, eta_new = r . M r
-    precond_rows(grid, S, P, r, y, tmp, K, s, i0, i1, a.poly_degree, active);
-    acc = 0.f;
-    if (active)
-      for (int i = i0 + tid; i < i1; i += nt) acc = fmaf(r[i], y[i], acc);
-    v = block_sum(acc, red);
-    if (tid == 0) eta_part[part] = v;
-    grid.sync();
-    if (active) {
-      const float eta_new = sum_partials(eta_part, rd.per, red);
-      const float beta = eta != 0.f ? eta_new / eta : 0.f;
-      for (int i = i0 + tid; i < i1; i += nt) p[i] = fmaf(beta, p[i], y[i]);
-      eta = eta_new;
-      if (fabsf(eta_new) < a.exit_tol) {
-        iters = it;
-        conv = 1;
-        active = false;
-        if (lead) atomicAdd(done, 1);
-      }
+    eta = eta_new;
+    if (fabsf(eta_new) < a.exit_tol) {
+      iters = it;
+      conv = 1;
+      active = false;
     }
-    grid.sync();
+    __syncthreads();
   }
+  if (vec_in)
+    for (int t = tid; t < x.rows; t += nt) a.lam[b * n + (size_t)x.k0 * s + t] = x.lam[t];
   if (lead) {
     a.iters[b] = iters;
-    a.conv[b] = conv;
+    a.conv[b] = conv != 0;
     a.eta[b] = frozen ? kFrozenEta : fabsf(eta);
   }
 }
 
-// Rows 8 and 10: PCG on condensed operators, one cooperative launch a
-// round.
-__global__ void __launch_bounds__(kLongkThreads)
-pcg_longk_kernel(PcgArrays a, Round rd) {
-  __shared__ float red[33];
-  __shared__ int flag;
-  cg::grid_group grid = cg::this_grid();
-  const size_t b = rd.first + blockIdx.x / rd.per;
-  const bool frozen = a.frozen != nullptr && a.frozen[b] != 0;
-  pcg_longk_rows(grid, a, rd, frozen, red, &flag);
+// This CTA's meeting place: its problem's slots of the launch.
+__device__ __forceinline__ PcgMeet pcg_meet(const PcgArrays& a, const Round& rd) {
+  PcgMeet m;
+  m.part = blockIdx.x % rd.per;
+  m.per = rd.per;
+  m.base = blockIdx.x - m.part;
+  m.seq = 0;
+  m.slots = reinterpret_cast<unsigned long long*>(a.parts);
+  m.parts = a.parts;
+  return m;
 }
 
-// Row 9: condensation of every tile of the round's problems, a grid
-// barrier, then the PCG loop on what they wrote.
-__global__ void __launch_bounds__(kLongkThreads)
-fused_longk_kernel(KktArrays in, OpArrays ops, PcgArrays a, Round rd,
-                   TileLayout L) {
-  extern __shared__ float smem[];
+// Rows 8 and 10: PCG on condensed operators, one cooperative launch a
+// round (every CTA resident, which both meetings need); grid barriers
+// (!kFlags) only for a round of one problem (the launcher refuses more).
+template <int kS, bool kFlags>
+__global__ void __launch_bounds__(kLongkThreads, 2)
+pcg_longk_kernel(PcgArrays a, Round rd, PcgPlan pl) {
+  extern __shared__ float4 smem4[];
   __shared__ float red[33];
-  __shared__ int flag;
   cg::grid_group grid = cg::this_grid();
   const size_t b = rd.first + blockIdx.x / rd.per;
-  const int part = blockIdx.x % rd.per;
+  const bool frozen = a.frozen != nullptr && a.frozen[b];
+  PcgMeet m = pcg_meet(a, rd);
+  pcg_longk_rows<kS, kFlags>(grid, a, rd, pl, m, frozen, reinterpret_cast<float*>(smem4),
+                             red);
+}
+
+// Row 9: condensation of every tile of the round's problems (CTA j of a
+// problem takes tiles j, j + per, ...), a barrier over the problem's CTAs,
+// then the PCG loop on what they wrote.  Grid barriers (!kFlags) only for
+// a round of one problem (the launcher refuses more).
+template <int kS, int kC, bool kFlags>
+__global__ void __launch_bounds__(kLongkThreads, 1)
+fused_longk_kernel(KktArrays in, OpArrays ops, PcgArrays a, Round rd, PcgPlan pl,
+                   TilePlan L) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[33];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  const size_t b = rd.first + blockIdx.x / rd.per;
+  PcgMeet m = pcg_meet(a, rd);
   const int ntiles = (in.K + L.nk - 1) / L.nk;
-  for (int t = part; t < ntiles; t += rd.per)
-    condense_problem_tile(in, ops, L, b, t, smem);
-  grid.sync();
-  const bool frozen = __ldcg(ops.bad + b) != 0;
-  pcg_longk_rows(grid, a, rd, frozen, red, &flag);
+  for (int t = m.part; t < ntiles; t += rd.per) condense_tile<kS, kC>(in, ops, L, b, t, smem);
+  meet<kFlags>(grid, m, 0.f, kBarrierOnly, red);
+  const bool frozen = __ldcg(reinterpret_cast<const unsigned char*>(ops.bad + b)) != 0;
+  pcg_longk_rows<kS, kFlags>(grid, a, rd, pl, m, frozen, smem, red);
 }
 
 // Row 13: dz_x, dz_u of kRecoverKnots knots a block, from Qinv (B, K, s, s),
@@ -512,104 +965,130 @@ inline long long recover_smem_bytes(int s, int c) {
 
 extern "C" {
 
-// Own knots of one condensation tile, and its dynamic shared memory in bytes.
-int gato_longk_tile_knots(int s, int c) { return gato::choose_tile(s, c).nk; }
-
-long long gato_longk_tile_smem_bytes(int s, int c) {
-  return gato::choose_tile(s, c).total * (long long)sizeof(float);
+// The plans' layouts (kernels/longk.py holds the same functions).
+long long gato_longk_tile_smem_bytes(int nk, int s, int c) {
+  return gato::tile_plan(nk, s, c).total * 4;
 }
-
-// Resident CTAs of the cooperative kernels on the current device: kind 0
-// the PCG kernel, 1 the fused kernel (with its tile's shared memory); 0 if
-// none fits, a negative CUDA error code if a query fails.
-int gato_longk_grid(int kind, int s, int c) {
-  if (kind == 0)
-    return gato::coresident_ctas((const void*)gato::pcg_longk_kernel, 0);
-  return gato::coresident_ctas((const void*)gato::fused_longk_kernel,
-                               (size_t)gato_longk_tile_smem_bytes(s, c));
+int gato_longk_tile_threads(int nk, int s, int c) { return gato::tile_threads(nk, s, c); }
+long long gato_longk_pcg_smem_bytes(int K, int s, int per, int flags, int ring) {
+  return gato::pcg_plan(K, s, per, flags, ring).total * 4;
+}
+long long gato_longk_pcg_vec_floats(int K, int s, int per) {
+  return gato::pcg_plan(K, s, per, 0, 0).vec_floats;
 }
 
 // Launches row 7 on `stream`: S, P, gamma, Qinv, Rinv and the zero-pivot
-// flags (`bad`, zeroed by the caller) of B problems.  Returns the CUDA error
-// code (0 on success); nothing is synchronised.
+// flags (`bad`, zeroed here) of B problems, in tiles of
+// `tile_knots` knots (kernels/longk.py's tile_knots).  Returns the CUDA error code
+// (0 on success); nothing is synchronised.
 int gato_longk_condense(const float* Q, const float* R, const float* A,
                         const float* Bm, const float* q, const float* r,
                         const float* cv, float* S, float* P, float* gamma,
-                        float* Qinv, float* Rinv, int* bad, int B, int K,
-                        int s, int c, float rho, int precond, void* stream) {
-  const gato::TileLayout L = gato::choose_tile(s, c);
+                        float* Qinv, float* Rinv, bool* bad, int B, int K,
+                        int s, int c, float rho, int precond, int tile_knots,
+                        void* stream) {
+  const gato::TilePlan L = gato::tile_plan(tile_knots, s, c);
   const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gato::condense_longk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const bool iiwa = s == 14 && c == 7;
+  const void* kernel = iiwa ? (const void*)gato::condense_longk_kernel<14, 7>
+                            : (const void*)gato::condense_longk_kernel<0, 0>;
+  cudaError_t err = gato::opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(bad, 0, (size_t)B * sizeof(bool), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int ntiles = (K + L.nk - 1) / L.nk;
+  const int threads = gato::tile_threads(tile_knots, s, c);
   gato::KktArrays in{Q, R, A, Bm, q, r, cv, K, s, c, rho, precond};
   gato::OpArrays out{S, P, gamma, Qinv, Rinv, bad};
-  gato::condense_longk_kernel<<<(unsigned)B * ntiles, gato::kLongkThreads,
-                                smem, (cudaStream_t)stream>>>(in, out, L,
-                                                              ntiles);
+  if (iiwa)
+      gato::condense_longk_kernel<14, 7><<<(unsigned)B * ntiles, threads, smem,
+                                         (cudaStream_t)stream>>>(in, out, L, ntiles);
+  else
+    gato::condense_longk_kernel<0, 0><<<(unsigned)B * ntiles, threads, smem,
+                                        (cudaStream_t)stream>>>(in, out, L, ntiles);
   return (int)cudaGetLastError();
 }
 
-// Launches rows 8/10 on `stream` for B problems, in rounds of at most
-// grid_max resident CTAs (gato_longk_grid(0, ...)).  `vec` holds B * 5 * K
-// * s floats, `parts` 2 * grid_max, `done` one zeroed int a round (B
-// suffice).  Returns the CUDA error code (0 on success).
+// Launches rows 8/10 on `stream` for one round: problems first .. first +
+// nprob - 1, `per` CTAs each, shared memory by `flags` and `ring` (the plan
+// of kernels/longk.py's pcg_rounds), one cooperative launch of nprob per
+// CTAs; `flag_meet` 1 meets a problem's CTAs through flagged partials, 0
+// through grid barriers (only for nprob 1).  `vec` holds nprob per
+// gato_longk_pcg_vec_floats floats (or is null when flags put the vectors
+// in shared memory), `xch` nprob per 6 s floats, `parts` 8 nprob per
+// (zeroed here for flag_meet).  Returns the CUDA error code (0 on success).
 int gato_longk_pcg(const float* S, const float* P, const float* gamma,
-                   const float* lam0, const int* frozen, float* lam,
-                   int* iters, int* conv, float* eta, float* vec, float* parts,
-                   int* done, int B, int K, int s, float exit_tol,
-                   int max_iters, int poly_degree, int grid_max,
-                   void* stream) {
-  if (grid_max < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  gato::PcgArrays a{S, P, gamma, lam0, frozen, lam, iters, conv, eta, vec,
-                    parts, done, K, s, max_iters, poly_degree, exit_tol};
-  for (int first = 0, index = 0; first < B; ++index) {
-    gato::Round rd = gato::next_round(first, B, (long long)K * s, grid_max, index);
-    void* args[] = {&a, &rd};
-    cudaError_t err = cudaLaunchCooperativeKernel(
-        (const void*)gato::pcg_longk_kernel, dim3(rd.nprob * rd.per),
-        dim3(gato::kLongkThreads), args, 0, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    first += rd.nprob;
+                   const float* lam0, const bool* frozen, float* lam,
+                   int* iters, bool* conv, float* eta, float* vec, float* xch,
+                   float* parts, int first, int nprob, int per, int flags, int ring,
+                   int K, int s, float exit_tol, int max_iters, int poly_degree,
+                   int flag_meet, void* stream) {
+  if (!flag_meet && nprob != 1) return (int)cudaErrorInvalidValue;
+  gato::PcgPlan pl = gato::pcg_plan(K, s, per, flags, ring);
+  const size_t smem = (size_t)pl.total * sizeof(float);
+  const void* kernel =
+      s == 14 ? (flag_meet ? (const void*)gato::pcg_longk_kernel<14, true>
+                           : (const void*)gato::pcg_longk_kernel<14, false>)
+              : (flag_meet ? (const void*)gato::pcg_longk_kernel<0, true>
+                           : (const void*)gato::pcg_longk_kernel<0, false>);
+  cudaError_t err = gato::opt_in_smem(kernel, smem);
+  if (err == cudaSuccess && flag_meet)
+    err = cudaMemsetAsync(parts, 0, (size_t)nprob * per * 8 * sizeof(float),
+                          (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  gato::PcgArrays a{S, P, gamma, lam0, frozen, lam, iters, conv, eta, vec, xch,
+                    parts, K, s, max_iters, poly_degree, exit_tol};
+  gato::Round rd{first, nprob, per, 0};
+  void* args[] = {&a, &rd, &pl};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nprob * per), dim3(gato::kLongkThreads),
+                                    args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error behind
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-// Launches row 9 on `stream` for B problems, in rounds of at most grid_max
-// resident CTAs (gato_longk_grid(1, ...)).  S, P (B, K, 3, s, s) and gamma
-// (B, K, s) are scratch, Qinv and Rinv outputs for the recovery, `bad` B
-// zeroed ints; vec, parts and done as for gato_longk_pcg.
+// Launches row 9 on `stream` for one round (as gato_longk_pcg; grid
+// barriers, flag_meet 0, only for nprob 1), its tiles of `tile_knots`
+// knots.  S, P (B, K, 3, s, s) and gamma (B, K, s) are scratch, Qinv and
+// Rinv outputs for the recovery, `bad` B false bools; vec, xch and parts
+// as for gato_longk_pcg.
 int gato_longk_fused(const float* Q, const float* R, const float* A,
                      const float* Bm, const float* q, const float* r,
                      const float* cv, const float* lam0, float* lam,
-                     int* iters, int* conv, float* eta, float* Qinv,
-                     float* Rinv, float* S, float* P, float* gamma, int* bad,
-                     float* vec, float* parts, int* done, int B, int K, int s,
-                     int c, float rho, float exit_tol, int max_iters,
-                     int poly_degree, int precond, int grid_max,
-                     void* stream) {
-  if (grid_max < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  gato::TileLayout L = gato::choose_tile(s, c);
-  const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gato::fused_longk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                     int* iters, bool* conv, float* eta, float* Qinv,
+                     float* Rinv, float* S, float* P, float* gamma, bool* bad,
+                     float* vec, float* xch, float* parts, int first, int nprob,
+                     int per, int flags, int ring, int tile_knots, int K, int s, int c,
+                     float rho, float exit_tol, int max_iters, int poly_degree,
+                     int precond, int flag_meet, void* stream) {
+  if (!flag_meet && nprob != 1) return (int)cudaErrorInvalidValue;
+  gato::TilePlan L = gato::tile_plan(tile_knots, s, c);
+  gato::PcgPlan pl = gato::pcg_plan(K, s, per, flags, ring);
+  const size_t smem = (size_t)(L.total > pl.total ? L.total : pl.total) * sizeof(float);
+  const bool iiwa = s == 14 && c == 7;
+  const void* kernel =
+      iiwa ? (flag_meet ? (const void*)gato::fused_longk_kernel<14, 7, true>
+                        : (const void*)gato::fused_longk_kernel<14, 7, false>)
+           : (flag_meet ? (const void*)gato::fused_longk_kernel<0, 0, true>
+                        : (const void*)gato::fused_longk_kernel<0, 0, false>);
+  cudaError_t err = gato::opt_in_smem(kernel, smem);
+  if (err == cudaSuccess && flag_meet)
+    err = cudaMemsetAsync(parts, 0, (size_t)nprob * per * 8 * sizeof(float),
+                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   gato::KktArrays in{Q, R, A, Bm, q, r, cv, K, s, c, rho, precond};
   gato::OpArrays ops{S, P, gamma, Qinv, Rinv, bad};
-  gato::PcgArrays a{S, P, gamma, lam0, nullptr, lam, iters, conv, eta, vec,
-                    parts, done, K, s, max_iters, poly_degree, exit_tol};
-  for (int first = 0, index = 0; first < B; ++index) {
-    gato::Round rd = gato::next_round(first, B, (long long)K * s, grid_max, index);
-    void* args[] = {&in, &ops, &a, &rd, &L};
-    err = cudaLaunchCooperativeKernel((const void*)gato::fused_longk_kernel,
-                                      dim3(rd.nprob * rd.per),
-                                      dim3(gato::kLongkThreads), args, smem,
-                                      (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    first += rd.nprob;
+  gato::PcgArrays a{S, P, gamma, lam0, nullptr, lam, iters, conv, eta, vec, xch,
+                    parts, K, s, max_iters, poly_degree, exit_tol};
+  gato::Round rd{first, nprob, per, 0};
+  void* args[] = {&in, &ops, &a, &rd, &pl, &L};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nprob * per), dim3(gato::kLongkThreads),
+                                    args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error behind
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,8 @@
-// Shared device code of the two Hopper kernels (pcg.cu, fused_solve.cu):
-// block-wide sums, the block-tridiagonal matvec and the PCG loop.
+// Shared device code of kernel A (pcg.cu): block-wide sums, the
+// block-tridiagonal matvec and the PCG loop; the sums, btd_row and
+// kFrozenEta also serve the exact kernels (condense.cuh's users), the
+// long-K tier (longk.cu, longk_direct.cu, grid_common.cuh) and the probes
+// (probes.cu).
 //
 // One thread block solves one problem.  Threads stride over the K*s
 // (knot, row) pairs of the problem's vectors; the vectors live in shared

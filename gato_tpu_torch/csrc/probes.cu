@@ -41,7 +41,9 @@
 //     partials, a grid barrier after each matvec, dot update and freeze.
 //     The grid's size (the occupancy query, at most 2 CTAs an SM), the
 //     split of a problem's knots over `per` CTAs and the sum of the
-//     partials are grid_common.cuh's, the code rows 8/10 run.
+//     partials are grid_common.cuh's: the schedule rows 8/10 ran before
+//     their two-meeting design (longk.cu), a grid barrier after every
+//     phase, which this scope measures.
 // What bounds it: the chain of barriers, not bytes or operations (a trip at
 // IIWA K = 50 is ~0.13 MFLOP, 2 ns at 67 TFLOP/s).
 //
@@ -265,15 +267,15 @@ int gato_null_copy(const float* q, float* out, int B, int n, void* stream) {
 }
 
 // Resident CTAs of the grid-scope chain kernel on the current device
-// (grid_common.cuh's occupancy query, as rows 8/10's); 0 if none fits, a
+// (grid_common.cuh's occupancy query); 0 if none fits, a
 // negative CUDA error code if a query fails.
 int gato_null_chain_grid_ctas(void) {
   return gato::coresident_ctas((const void*)gato::null_chain_grid_kernel, 0);
 }
 
-// CTAs a problem of n = K s floats gets at grid scope: rows 8/10's split
-// (grid_common.cuh's next_round) of the resident grid (grid_max) over B
-// problems in one round.
+// CTAs a problem of n = K s floats gets at grid scope: grid_common.cuh's
+// next_round split of the resident grid (grid_max) over B problems in one
+// round.
 int gato_null_chain_grid_per(int B, int n, int grid_max) {
   return gato::next_round(0, B, n, grid_max, 0).per;
 }

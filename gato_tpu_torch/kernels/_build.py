@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
            "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
            "probes.cu")
-HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh")
+HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh",
+           "gauss_jordan.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -67,12 +68,13 @@ _SIGNATURES = {
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
     "gato_thomas_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_thomas_smem_bytes": (_LL, [_I, _I, _I]),
-    "gato_longk_tile_knots": (_I, [_I, _I]),
-    "gato_longk_tile_smem_bytes": (_LL, [_I, _I]),
-    "gato_longk_grid": (_I, [_I, _I, _I]),
-    "gato_longk_condense": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _P]),
-    "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 3 + [_F, _I, _I, _I, _P]),
-    "gato_longk_fused": (_I, [_P] * 21 + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P]),
+    "gato_longk_tile_smem_bytes": (_LL, [_I] * 3),
+    "gato_longk_tile_threads": (_I, [_I] * 3),
+    "gato_longk_pcg_smem_bytes": (_LL, [_I] * 5),
+    "gato_longk_pcg_vec_floats": (_LL, [_I] * 3),
+    "gato_longk_condense": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P]),
+    "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
+    "gato_longk_fused": (_I, [_P] * 21 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P]),
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "gato_longk_cr_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_grid": (_I, [_I]),

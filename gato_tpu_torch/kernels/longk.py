@@ -9,15 +9,18 @@ inner kernel of ``_pcg_xl_call`` (row 8) and ``_pcg_stream_kernel`` (row
 entry points ``solve_longk_batched`` / ``solve_longk`` and
 ``solve_direct_longk_batched`` / ``solve_direct_longk``.  The CUDA sources
 are ``gato_tpu_torch/csrc/longk.cu`` (rows 7-10 and 13: condensation tiles
-that recompute their neighbour knots instead of carrying them, a
-cooperative PCG launch with grid barriers and per-CTA partial sums added
-in one fixed order, knot-parallel recovery) and ``csrc/longk_direct.cu``
-(rows 11 and 12: block cyclic reduction with one warp a block row, the
-whole reduction in one cooperative launch, a compacting level in two
-launches, and the back-substitution of a compacted level); their notes
-give the designs.  Rows 8 and 10 compute one function, PCG on condensed
-operators, which the TPU split by whether the operators fit VMEM; on the
-card that is the L2 cache's business, so one kernel, :func:`pcg_longk_cuda`,
+that recompute their neighbour knots instead of carrying them, on kernel
+B's Gauss-Jordan; a cooperative PCG launch whose CTAs each hold a knot
+range with a one-knot halo and meet twice an iteration, per-CTA partial
+sums added in one fixed order; knot-parallel recovery) and
+``csrc/longk_direct.cu`` (rows 11 and 12: block cyclic reduction with one
+warp a block row, the whole reduction in one cooperative launch, a
+compacting level in two launches, and the back-substitution of a
+compacted level); their notes give the designs.  Rows 8 and 10 compute one
+function, PCG on condensed operators, which the TPU split by whether the
+operators fit VMEM; on the card the launch plan (:func:`pcg_rounds`) puts
+each CTA's blocks of S and Pinv in its shared memory where they fit and
+streams them where they do not, so one kernel, :func:`pcg_longk_cuda`,
 replaces both.  The TPU layout (knots on 128 lanes, ``plan_longk``
 chunking, VMEM budgets, the lane shift of the stair's slot 2, the peel's
 lane padding and chunk schedule) has no counterpart: the port works in the
@@ -59,7 +62,7 @@ from ..pcg import PCGResult, pcg
 from ..problem import Preconditioner
 from ..recover import recover_dz
 from . import _build, direct_fused, pcg_kernel
-from .fused_solve import PRECOND_CODES, block_shapes, check_tensors
+from .fused_solve import PRECOND_CODES, block_shapes, check_tensors, device_limits
 
 SOURCE = "gato_tpu_torch/csrc/longk.cu"
 DIRECT_SOURCE = "gato_tpu_torch/csrc/longk_direct.cu"
@@ -89,17 +92,16 @@ UNPEEL_LAUNCHES = 0
 
 TIERS = ("fused_xl", "xl", "stream")
 # The tier of a call that forces none: rows 7 + 8/10 + 13, the faster
-# route on an H100 at every shape chip_smoke.py phase 5d times (K =
+# route on an H100 at the shapes chip_smoke.py phase 5d times (K =
 # 1024-8192, B = 1 and 16; PERF.md): row 9 condenses on the PCG loop's
-# resident CTAs only, which makes it 13-35 % slower there.
+# CTAs, one an SM, where row 7 runs two tiles an SM, and its PCG keeps
+# one CTA an SM, which makes the 'fused_xl' route up to ~40 % slower
+# (within the host's spread at K = 1024, B = 1).
 AUTO_TIER = "xl"
 # The per-block shared memory an H100 lets a kernel opt in to: the limit
 # the routing assumes for tensors on the CPU, whose plain versions then
 # take the route the card would.
 H100_SHARED_BYTES = 232448
-# The kernel selector's codes: the cooperative kernels of longk.cu, and
-# row 11 (longk_direct.cu).
-_PCG_KERNEL, _FUSED_KERNEL, _CR_KERNEL = 0, 1, 2
 
 DIRECT_TIERS = ("xl", "hybrid", "xla")
 # The exact tier of a call that forces none is 'hybrid' from this many
@@ -159,6 +161,251 @@ def hybrid_peels(K: int) -> int:
     while rows > HYBRID_CR_ROWS:
         peels, rows = peels + 1, (rows + 1) // 2
     return peels
+
+
+# --------------------------------------------------------------------------
+# The launch plans of rows 7, 8/10 and 9 (mirrors of longk.cu's; the card
+# tests compare them with the library's gato_longk_* functions).  ``limit``
+# is the shared memory a block may use, in bytes.
+
+THREADS = 256
+# Own knots of a condensation tile, at most, and the tiles an SM aims at.
+MAX_TILE_KNOTS = 6
+TILES_PER_SM = 2
+# Knots of one buffer of a streamed operator's two-buffer ring.
+RING_KNOTS = 8
+# Knots a PCG CTA takes at least.
+MIN_CTA_KNOTS = 8
+# What a PCG CTA holds in shared memory: its vectors, S's and Pinv's blocks.
+VEC_IN_SMEM, S_RESIDENT, P_RESIDENT = 1, 2, 4
+_FLAG_ORDER = (7, 3, 1, 6, 2, 0)
+# How a PCG CTA meets its problem's other CTAs at each dot product:
+# flagged partials (a problem's CTAs alone) or cg::grid_group::sync (the
+# whole launch, so only in a round of one problem).
+BARRIERS = ("flags", "grid")
+# Static shared memory of a PCG CTA, at most (its reduction slots).
+_STATIC_SHARED = 256
+
+
+def _round4(floats: int) -> int:
+    return (floats + 3) // 4 * 4
+
+
+def _gj_round_floats(chunk: int, n: int) -> int:
+    """One Gauss-Jordan round of ``chunk`` n x n matrices (gauss_jordan.cuh)."""
+    return 2 * chunk * n * n + 2 * chunk * n + chunk
+
+
+class TilePlan(NamedTuple):
+    """A condensation tile's shared memory, in floats: Qinv of its window
+    of nk + 3 knots, Rinv of the window's intervals, phi / theta / phi^T,
+    theta^{-1}, and the Gauss-Jordan round."""
+
+    nk: int
+    qinv: int
+    rinv: int
+    ops: int
+    thinv: int
+    gj: int
+    total: int
+
+
+def tile_plan(nk: int, s: int, cdim: int) -> TilePlan:
+    nw, ss = nk + 3, s * s
+    rinv = _round4(nw * ss)
+    ops = rinv + _round4((nw - 1) * cdim * cdim)
+    thinv = ops + _round4(3 * nw * ss)
+    gj = thinv + _round4(nw * ss)
+    area = max(_gj_round_floats(min(THREADS // s, nw), s),
+               _gj_round_floats(min(THREADS // cdim, nw - 1), cdim))
+    return TilePlan(nk, 0, rinv, ops, thinv, gj, gj + area)
+
+
+def tile_threads(nk: int, s: int, cdim: int) -> int:
+    """Threads of a row 7 CTA: one a row of its window's Gauss-Jordan
+    batch, whole warps, from 64 to 256 (row 9 runs its tiles on the PCG
+    loop's 256)."""
+    return min(max(-(-(nk + 3) * max(s, cdim) // 32) * 32, 64), THREADS)
+
+
+@functools.cache
+def tile_knots(B: int, K: int, s: int, cdim: int, n_sms: int, limit: int) -> int:
+    """Own knots of a row 7 / row 9 tile: ``TILES_PER_SM`` tiles an SM
+    where the knots allow (ceil(B K / (2 n_sms))), no more than one
+    Gauss-Jordan round's rows in the window ((nk + 3) max(s, c) <= 256), at
+    most ``MAX_TILE_KNOTS`` and K, and the tile's plan within ``limit``.
+
+    Why: a tile is a chain of three Gauss-Jordan batches (2 s CTA
+    barriers each), so its time hardly depends on its size, and the SMs
+    hide one tile's barriers behind another's work.  On an H100 at IIWA
+    widths (chip_smoke.py phase 5d's tile sweep, PERF.md), B = 1: at K =
+    1024 tiles of 2, 3, 4 and 6 knots took 0.061, 0.061, 0.058 and
+    0.066-0.068 ms, at K = 8192 0.41, 0.34, 0.32 and 0.29 ms."""
+    cap = min(THREADS // max(s, cdim) - 3, MAX_TILE_KNOTS, K)
+    nk = max(min(-(-B * K // (n_sms * TILES_PER_SM)), cap), 1)
+    while nk > 1 and tile_plan(nk, s, cdim).total * 4 > limit:
+        nk -= 1
+    return nk
+
+
+def tile_range(K: int, nk: int, tile: int) -> tuple:
+    """Own knots [k0, k1) of tile ``tile``."""
+    k0 = tile * nk
+    return k0, min(k0 + nk, K)
+
+
+def tile_window(K: int, k0: int, k1: int) -> tuple:
+    """The knots [w0, w1) a tile condenses: two left of its own, one right."""
+    return max(k0 - 2, 0), min(k1 + 1, K)
+
+
+class PcgPlan(NamedTuple):
+    """A PCG CTA's shared memory, in floats: lambda's rows and five halo
+    vectors (``vec_floats``) when VEC_IN_SMEM, S's and Pinv's blocks of its
+    knots when resident, and the two-buffer ring of ``ring`` knots a buffer
+    when either streams."""
+
+    per: int
+    nk: int
+    flags: int
+    ring: int
+    vec_floats: int
+    off_S: int
+    off_P: int
+    off_ring: int
+    total: int
+
+
+def pcg_plan(K: int, s: int, per: int, flags: int, ring: int) -> PcgPlan:
+    nk = -(-K // per)
+    kf = 3 * s * s
+    vec = _round4(nk * s + 5 * (nk + 2) * s)
+    off_S = vec if flags & VEC_IN_SMEM else 0
+    off_P = off_S + (_round4(nk * kf) if flags & S_RESIDENT else 0)
+    off_ring = off_P + (_round4(nk * kf) if flags & P_RESIDENT else 0)
+    both = S_RESIDENT | P_RESIDENT
+    total = off_ring + (0 if flags & both == both else 2 * _round4(ring * kf))
+    return PcgPlan(per, nk, flags, ring, vec, off_S, off_P, off_ring, total)
+
+
+def pcg_flags(K: int, s: int, per: int, limit: int) -> int:
+    """What a CTA of ``per`` holds in shared memory within ``limit``, with a
+    ring of ``RING_KNOTS``: the vectors first, then S, then Pinv; -1 if not
+    even the ring fits."""
+    ring = min(-(-K // per), RING_KNOTS)
+    return next((f for f in _FLAG_ORDER
+                 if pcg_plan(K, s, per, f, ring).total * 4 <= limit), -1)
+
+
+def pcg_ring(K: int, s: int, per: int, flags: int, limit: int) -> int:
+    """Knots of a ring buffer: all the shared memory ``flags`` leaves, at
+    least ``RING_KNOTS`` (or nk), at most nk: fewer, larger chunks keep more
+    of a streamed operator in flight."""
+    nk = -(-K // per)
+    base = min(nk, RING_KNOTS)
+    free = limit // 4 - pcg_plan(K, s, per, flags, base).off_ring - 8
+    return max(min(free // (2 * 3 * s * s), nk), base)
+
+
+def pcg_per(nprob: int, K: int, n_sms: int) -> int:
+    """CTAs a problem for a round of ``nprob`` problems, one CTA an SM: the
+    SMs shared out, at least ``MIN_CTA_KNOTS`` knots a CTA, and then as
+    few CTAs as give every CTA that many knots (none empty).  On an H100
+    at IIWA K = 1024, B = 1 (chip_smoke.py phase 5d's sweep) an iteration
+    took 7.6, 6.7, 6.2, 5.7, 6.2 and 7.3 us on 56, 64, 96, 128 (this
+    rule), 132 and 264 CTAs: fewer knots a CTA until the barriers'
+    arrivals and the extra halo work cost more."""
+    per = max(min(n_sms // nprob, -(-K // MIN_CTA_KNOTS)), 1)
+    nk = -(-K // per)
+    return -(-K // nk)
+
+
+def cta_range(K: int, per: int, part: int) -> tuple:
+    """Own knots [k0, k1) of CTA ``part`` of ``per``: ceil(K / per) each in
+    order, the last ones short or empty."""
+    nk = -(-K // per)
+    k0 = min(part * nk, K)
+    return k0, min(k0 + nk, K)
+
+
+class PcgRound(NamedTuple):
+    """One cooperative launch: problems first .. first + nprob - 1, ``per``
+    CTAs each, shared memory by ``flags`` and ``ring``, its CTAs meeting by
+    ``meet`` (one of ``BARRIERS``; 'grid' only for one problem)."""
+
+    first: int
+    nprob: int
+    per: int
+    flags: int
+    ring: int
+    meet: str
+
+
+def _share_limit(limit: int, per_sm: int) -> int:
+    """Shared bytes a CTA may plan with when ``per_sm`` CTAs share an SM
+    (``limit`` for one)."""
+    if per_sm == 1:
+        return limit
+    return ((limit + _build.RESERVED_SHARED_BYTES) // per_sm
+            - _build.RESERVED_SHARED_BYTES - _STATIC_SHARED)
+
+
+@functools.cache
+def pcg_rounds(B: int, K: int, s: int, n_sms: int, limit: int,
+               ctas: Optional[int] = None, per_sm: int = 2) -> tuple:
+    """The rounds of a PCG launch of B problems: as many problems as SMs a
+    round, :func:`pcg_per` CTAs each, and twice as many CTAs (two an SM,
+    up to ``per_sm``) where neither operator fits on chip at one CTA an SM
+    and the vectors stay where they were: more streams in flight.  On an
+    H100 at IIWA (chip_smoke.py phase 5d, PERF.md) two CTAs an SM run
+    rows 8/10 faster where the operators stream (K = 8192, B = 16) and
+    slower where they push the vectors out of shared memory (K = 4096, B =
+    16).
+    ``ctas`` (1 to 2 n_sms) forces the CTAs a problem, at most 2 n_sms CTAs
+    a round.  A round of more CTAs than SMs plans each CTA within its share
+    of an SM's shared memory, so that the cooperative launch's CTAs are all
+    resident.
+    A round of one problem meets on grid barriers, one of several on
+    flagged partials (each problem then leaves the loop at its own exit,
+    and grid barriers would bind it to the others).  On an H100 at IIWA
+    (chip_smoke.py phase 5d) an iteration took 5.7 us on grid barriers and
+    10.9 on flagged partials at K = 1024, B = 1 (15.4 and 21.8 at K =
+    8192)."""
+    if ctas is not None and (not isinstance(ctas, int) or not 1 <= ctas <= 2 * n_sms):
+        raise ValueError(f"{PCG_NAME}: ctas must be an int from 1 to {2 * n_sms}, "
+                         f"got {ctas!r}")
+    both = S_RESIDENT | P_RESIDENT
+    rounds, first = [], 0
+    while first < B:
+        if ctas is None:
+            nprob = min(B - first, n_sms)
+            per = pcg_per(nprob, K, n_sms)
+            flags = pcg_flags(K, s, per, limit)
+            lim = limit
+            if per_sm > 1 and flags >= 0 and not flags & both:
+                per2 = pcg_per(nprob, K, 2 * n_sms)
+                lim2 = _share_limit(limit, -(-nprob * per2 // n_sms))
+                flags2 = pcg_flags(K, s, per2, lim2)
+                if per2 > per and flags2 >= 0 and flags2 & VEC_IN_SMEM >= flags & VEC_IN_SMEM:
+                    per, flags, lim = per2, flags2, lim2
+        else:
+            per = ctas
+            nprob = min(B - first, max(2 * n_sms // ctas, 1))
+            lim = _share_limit(limit, -(-nprob * per // n_sms))
+            flags = pcg_flags(K, s, per, lim)
+        if flags < 0:
+            raise ValueError(f"{PCG_NAME}: no plan of {per} CTAs a problem takes "
+                             f"(K, s) = ({K}, {s}) within {lim} B of shared memory")
+        rounds.append(PcgRound(first, nprob, per, flags, pcg_ring(K, s, per, flags, lim),
+                               "grid" if nprob == 1 else "flags"))
+        first += nprob
+    return tuple(rounds)
+
+
+def grid_barriers(poly_degree: int) -> int:
+    """Barriers a PCG iteration meets: one after each dot product, and two
+    for each Horner term past the first."""
+    return 2 * poly_degree
 
 
 # --------------------------------------------------------------------------
@@ -257,98 +504,159 @@ def _check_widths(name: str, K: int, s: int, c: int) -> None:
                          f"got K={K}, s={s}, c={c}")
 
 
-def _kkt(name: str, Q, R, A, B, q, r, c, extra: Optional[dict] = None):
-    """Checked, contiguous block tensors (and ``extra`` ones) on one CUDA
-    device; returns (Bn, K, s, c, tensors)."""
-    if Q.ndim != 4:
-        raise ValueError(f"{name}: Q must be (B, K, s, s), got {tuple(Q.shape)}")
-    Bn, K, s, _ = Q.shape
-    cdim = R.shape[-1]
-    expect = block_shapes((Bn,), K, s, cdim)
-    tensors = dict(zip(expect, (Q, R, A, B, q, r, c)))
-    for key, (t, shape) in (extra or {}).items():
-        expect[key] = shape
-        tensors[key] = t
-    check_tensors(name, expect, tensors, q.device)
-    _check_widths(name, K, s, cdim)
-    return Bn, K, s, cdim, {k: t.contiguous() for k, t in tensors.items()}
-
-
 def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 @functools.cache
-def _resident_ctas(device_index: int, kind: int, s: int, c: int) -> int:
-    """The occupancy query of gato_longk_grid (gato_longk_cr_grid for row
-    11), once per device and shape (the caller has made ``device_index``
-    current)."""
-    lib = _build.library()
-    if kind == _CR_KERNEL:
-        return lib.gato_longk_cr_grid(s)
-    return lib.gato_longk_grid(kind, s, c)
+def _resident_ctas(device_index: int, s: int) -> int:
+    """Row 11's occupancy query (gato_longk_cr_grid), once per device and
+    width (the caller has made ``device_index`` current)."""
+    return _build.library().gato_longk_cr_grid(s)
 
 
-def _grid(lib, name: str, kind: int, s: int, c: int) -> int:
-    """Resident CTAs of a cooperative kernel on the current device; raises
-    with the numbers when none fits."""
-    grid = _resident_ctas(torch.cuda.current_device(), kind, s, c)
+def _grid(lib, name: str, s: int) -> int:
+    """Resident CTAs of row 11's cooperative kernel on the current device;
+    raises with the numbers when none fits."""
+    grid = _resident_ctas(torch.cuda.current_device(), s)
     if grid < 1:
-        smem = 0
-        if kind == _FUSED_KERNEL:
-            smem = lib.gato_longk_tile_smem_bytes(s, c)
-        elif kind == _CR_KERNEL:
-            smem = lib.gato_longk_cr_smem_bytes(s)
+        smem = lib.gato_longk_cr_smem_bytes(s)
         why = (f"CUDA error {-grid} ({lib.gato_error_string(-grid).decode()})"
                if grid < 0 else "0 resident blocks")
         raise RuntimeError(
             f"{name}: the cooperative grid does not fit the device: the "
             f"occupancy query for blocks of 256 threads and {smem} B of "
-            f"dynamic shared memory at (s, c) = ({s}, {c}) gave {why}")
+            f"dynamic shared memory at s = {s} gave {why}")
     return grid
 
 
-def _loop_buffers(Bn: int, K: int, s: int, grid: int, dev):
-    """The PCG loop's global vectors, partial sums and round counters."""
-    vec = torch.empty(Bn, 5, K * s, dtype=torch.float32, device=dev)
-    parts = torch.empty(2 * grid, dtype=torch.float32, device=dev)
-    done = torch.zeros(max(Bn, 1), dtype=torch.int32, device=dev)
-    return vec, parts, done
+def _limits(dev) -> tuple:
+    """(SMs, shared bytes a block may use) of a CUDA device: the opt-in
+    limit less what the runtime keeps."""
+    n_sms, optin = device_limits(dev.index)
+    return n_sms, optin - _build.RESERVED_SHARED_BYTES
+
+
+def _loop_buffers(rounds, K: int, s: int, dev):
+    """The PCG rounds' global buffers, each sized for the widest round: the
+    CTAs' vectors where they are not in shared memory, the published
+    boundary rows (six knots' rows a CTA) and the meetings' words (two
+    8-byte {partial, tag} words a CTA and two {sum, tag} words a problem,
+    or two partials a CTA for grid barriers)."""
+    grid = max(rd.nprob * rd.per for rd in rounds)
+    vec_floats = max((rd.nprob * rd.per * pcg_plan(K, s, rd.per, 0, 0).vec_floats
+                      for rd in rounds if not rd.flags & VEC_IN_SMEM), default=0)
+    vec = torch.empty(vec_floats, dtype=torch.float32, device=dev) if vec_floats else None
+    xch = torch.empty(grid * 6 * s, dtype=torch.float32, device=dev)
+    parts = torch.empty(8 * grid, dtype=torch.float32, device=dev)
+    return vec, xch, parts
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _round_args(rd: PcgRound, bufs) -> tuple:
+    """The launcher's buffer pointers (vec, xch, parts) and the round's
+    plan."""
+    vec, xch, parts = bufs
+    return (_ptr(vec), xch.data_ptr(), parts.data_ptr(), rd.first, rd.nprob, rd.per,
+            rd.flags, rd.ring)
+
+
+def _kkt(name: str, Q, R, A, B, q, r, c):
+    """The seven block tensors, checked (float32 on q's CUDA device, the
+    KKTBlocks shapes with a batch axis) and contiguous; returns (Bn, K, s,
+    c, tensors)."""
+    if Q.ndim != 4:
+        raise ValueError(f"{name}: Q must be (B, K, s, s), got {tuple(Q.shape)}")
+    Bn, K, s, _ = Q.shape
+    cdim = R.shape[-1]
+    expect = block_shapes((Bn,), K, s, cdim)
+    tensors = [_build.checked(name, key, x, shape, q.device)
+               for (key, shape), x in zip(expect.items(), (Q, R, A, B, q, r, c))]
+    _check_widths(name, K, s, cdim)
+    return Bn, K, s, cdim, tensors
 
 
 def condense_longk_cuda(Q, R, A, B, q, r, c, *, rho: float = 0.0,
-                        preconditioner: str = "symmetric_stair") -> LongkOperators:
+                        preconditioner: str = "symmetric_stair",
+                        _tile: Optional[int] = None) -> LongkOperators:
     """Row 7: the batched condensation with the zero-pivot flag.  Arguments
-    follow ``formats.KKTBlocks`` with one leading batch axis."""
+    follow ``formats.KKTBlocks`` with one leading batch axis.  ``_tile``,
+    for measurements and checks on CUDA tensors, overrides the plan's knots
+    a condensation tile (:func:`tile_knots`; the outputs do not depend on
+    it)."""
     _check_args(CONDENSE_NAME, q, preconditioner)
     if q.device.type == "cpu":
         return condense_longk_plain(Q, R, A, B, q, r, c, rho=rho,
                                     preconditioner=preconditioner)
     Bn, K, s, cdim, t = _kkt(CONDENSE_NAME, Q, R, A, B, q, r, c)
     dev = q.device
-    lib = _build.library()
+    n_sms, limit = _limits(dev)
+    nk = tile_knots(Bn, K, s, cdim, n_sms, limit) if _tile is None else _forced_tile(
+        CONDENSE_NAME, _tile, K, s, cdim, limit)
     S = torch.empty(Bn, K, 3, s, s, dtype=torch.float32, device=dev)
     ops = LongkOperators(S=S, Pinv=torch.empty_like(S), gamma=torch.empty_like(q),
                          Qinv=torch.empty_like(Q), Rinv=torch.empty_like(R),
-                         bad=torch.zeros(Bn, dtype=torch.int32, device=dev))
+                         bad=torch.empty(Bn, dtype=torch.bool, device=dev))
     if Bn > 0:
-        with torch.cuda.device(dev):
-            code = lib.gato_longk_condense(
-                *map(_build.ptr, (*t.values(), *ops)), Bn, K, s, cdim,
-                float(rho), PRECOND_CODES[preconditioner], _stream(dev))
-        _build.check_launch(code, CONDENSE_NAME)
+        _build.launch(CONDENSE_NAME, "gato_longk_condense", dev,
+                      *(x.data_ptr() for x in (*t, *ops)), Bn, K, s, cdim,
+                      float(rho), PRECOND_CODES[preconditioner], nk)
         global CONDENSE_LAUNCHES
         CONDENSE_LAUNCHES += 1
-    return ops._replace(bad=ops.bad != 0)
+    return ops
+
+
+def _forced_tile(name: str, tile, K: int, s: int, cdim: int, limit: int) -> int:
+    if (not isinstance(tile, int) or not 1 <= tile <= min(K, MAX_TILE_KNOTS)
+            or (tile + 3) * max(s, cdim) > THREADS
+            or tile_plan(tile, s, cdim).total * 4 > limit):
+        raise ValueError(f"{name}: _tile={tile!r} does not take (K, s, c) = ({K}, {s}, "
+                         f"{cdim}): 1 <= tile <= min(K, {MAX_TILE_KNOTS}), its window's "
+                         f"rows within {THREADS} threads and its plan within {limit} B")
+    return tile
+
+
+def _frozen(frozen, Bn: int, dev):
+    """``frozen`` as contiguous bools on ``dev`` (None stays None)."""
+    if frozen is None:
+        return None
+    if tuple(frozen.shape) != (Bn,):
+        raise ValueError(f"{PCG_NAME}: frozen shape {tuple(frozen.shape)}, "
+                         f"expected {(Bn,)}")
+    return frozen.to(device=dev, dtype=torch.bool).contiguous()
+
+
+def _forced_rounds(rounds, Bn: int) -> tuple:
+    """``rounds`` if they are a plan of :class:`PcgRound` that covers the
+    Bn problems in order, grid barriers only in a round of one problem."""
+    first = 0
+    for rd in rounds:
+        if (not isinstance(rd, PcgRound) or rd.first != first or rd.nprob < 1
+                or rd.per < 1 or rd.meet not in BARRIERS
+                or (rd.meet == "grid" and rd.nprob != 1)):
+            raise ValueError(f"{PCG_NAME}: _rounds must be PcgRounds covering the "
+                             f"{Bn} problems in order, grid barriers only for one "
+                             f"problem; got {rounds!r}")
+        first += rd.nprob
+    if first != Bn:
+        raise ValueError(f"{PCG_NAME}: _rounds cover {first} problems, not {Bn}")
+    return tuple(rounds)
 
 
 def pcg_longk_cuda(S, Pinv, gamma, lam0=None, frozen=None, *,
                    exit_tol: float = 1e-6, max_iters: int = 100,
-                   poly_degree: int = 1) -> PCGResult:
+                   poly_degree: int = 1, _rounds=None) -> PCGResult:
     """Rows 8 and 10: PCG on condensed operators S, Pinv (B, K, 3, s, s) and
-    gamma (B, K, s), one cooperative launch a round of resident CTAs.
+    gamma (B, K, s), one cooperative launch a round (:func:`pcg_rounds`).
     ``frozen`` (B,) marks problems that run no iteration and report
-    max_iters, not converged and eta = 1e30 (row 7's ``bad``)."""
+    max_iters, not converged and eta = 1e30 (row 7's ``bad``).  ``_rounds``,
+    for measurements and checks on CUDA tensors, overrides the plan with
+    one of :func:`pcg_rounds`'s (its CTAs a problem or CTAs an SM) or with
+    a round's other meeting: the bits depend on the CTAs a problem, not on
+    the meeting."""
     if lam0 is None:
         lam0 = torch.zeros_like(gamma)
     _check_args(PCG_NAME, gamma, poly_degree=poly_degree)
@@ -360,46 +668,41 @@ def pcg_longk_cuda(S, Pinv, gamma, lam0=None, frozen=None, *,
                          f"{tuple(gamma.shape)}")
     Bn, K, s = gamma.shape
     dev = gamma.device
-    if frozen is None:
-        frozen = torch.zeros(Bn, dtype=torch.int32, device=dev)
-    frozen = frozen.to(device=dev, dtype=torch.int32)
-    expect = {"S": (Bn, K, 3, s, s), "Pinv": (Bn, K, 3, s, s),
-              "gamma": (Bn, K, s), "lam0": (Bn, K, s)}
-    tensors = dict(zip(expect, (S, Pinv, gamma, lam0)))
-    check_tensors(PCG_NAME, expect, tensors, dev)
-    if tuple(frozen.shape) != (Bn,):
-        raise ValueError(f"{PCG_NAME}: frozen shape {tuple(frozen.shape)}, "
-                         f"expected {(Bn,)}")
+    S, Pinv, gamma, lam0 = (
+        _build.checked(PCG_NAME, key, x, shape, dev)
+        for key, x, shape in (("S", S, (Bn, K, 3, s, s)), ("Pinv", Pinv, (Bn, K, 3, s, s)),
+                              ("gamma", gamma, (Bn, K, s)), ("lam0", lam0, (Bn, K, s))))
+    frozen = _frozen(frozen, Bn, dev)
     _check_widths(PCG_NAME, K, s, 1)
-    S, Pinv, gamma, lam0 = (x.contiguous() for x in tensors.values())
     lam = torch.empty_like(gamma)
     iters = torch.empty(Bn, dtype=torch.int32, device=dev)
-    conv = torch.empty(Bn, dtype=torch.int32, device=dev)
+    conv = torch.empty(Bn, dtype=torch.bool, device=dev)
     eta = torch.empty(Bn, dtype=torch.float32, device=dev)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            grid = _grid(lib, PCG_NAME, _PCG_KERNEL, s, 1)
-            vec, parts, done = _loop_buffers(Bn, K, s, grid, dev)
-            code = lib.gato_longk_pcg(
-                *map(_build.ptr, (S, Pinv, gamma, lam0, frozen.contiguous(),
-                                  lam, iters, conv, eta, vec, parts, done)),
-                Bn, K, s, float(exit_tol), int(max_iters), poly_degree, grid,
-                _stream(dev))
-        _build.check_launch(code, f"{PCG_NAME} (cooperative, up to {grid} "
-                                  "resident CTAs)")
+        rounds = (pcg_rounds(Bn, K, s, *_limits(dev)) if _rounds is None
+                  else _forced_rounds(_rounds, Bn))
+        bufs = _loop_buffers(rounds, K, s, dev)
+        head = (S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
+                _ptr(frozen), lam.data_ptr(), iters.data_ptr(), conv.data_ptr(),
+                eta.data_ptr())
         global PCG_LAUNCHES
-        PCG_LAUNCHES += 1
-    return PCGResult(lam=lam, iters=iters, converged=conv != 0, eta=eta)
+        for rd in rounds:
+            _build.launch(f"{PCG_NAME} (cooperative, {rd.nprob} x {rd.per} CTAs)",
+                          "gato_longk_pcg", dev, *head, *_round_args(rd, bufs), K, s,
+                          float(exit_tol), int(max_iters), poly_degree,
+                          int(rd.meet == "flags"))
+            PCG_LAUNCHES += 1
+    return PCGResult(lam=lam, iters=iters, converged=conv, eta=eta)
 
 
 def fused_longk_cuda(Q, R, A, B, q, r, c, lam0=None, *, rho: float = 0.0,
                      exit_tol: float = 1e-6, max_iters: int = 100,
                      poly_degree: int = 1,
                      preconditioner: str = "symmetric_stair"):
-    """Row 9: condensation and PCG in one cooperative launch a round.
-    Returns (PCGResult, Qinv, Rinv) for the recovery; a problem whose
-    condensation met a zero pivot is frozen as in :func:`pcg_longk_cuda`."""
+    """Row 9: condensation and PCG in one cooperative launch a round (rows 7
+    and 8/10's plans, so their bits).  Returns (PCGResult, Qinv, Rinv) for
+    the recovery; a problem whose condensation met a zero pivot is frozen
+    as in :func:`pcg_longk_cuda`."""
     if lam0 is None:
         lam0 = torch.zeros_like(q)
     _check_args(FUSED_NAME, q, preconditioner, poly_degree)
@@ -408,34 +711,36 @@ def fused_longk_cuda(Q, R, A, B, q, r, c, lam0=None, *, rho: float = 0.0,
                                  exit_tol=exit_tol, max_iters=max_iters,
                                  poly_degree=poly_degree,
                                  preconditioner=preconditioner)
-    Bn, K, s, cdim, t = _kkt(FUSED_NAME, Q, R, A, B, q, r, c,
-                             {"lam0": (lam0, tuple(q.shape))})
+    Bn, K, s, cdim, t = _kkt(FUSED_NAME, Q, R, A, B, q, r, c)
     dev = q.device
+    lam0 = _build.checked(FUSED_NAME, "lam0", lam0, (Bn, K, s), dev)
     lam = torch.empty_like(q)
     iters = torch.empty(Bn, dtype=torch.int32, device=dev)
-    conv = torch.empty(Bn, dtype=torch.int32, device=dev)
+    conv = torch.empty(Bn, dtype=torch.bool, device=dev)
     eta = torch.empty(Bn, dtype=torch.float32, device=dev)
     Qinv = torch.empty_like(Q)
     Rinv = torch.empty_like(R)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            grid = _grid(lib, FUSED_NAME, _FUSED_KERNEL, s, cdim)
-            S = torch.empty(Bn, K, 3, s, s, dtype=torch.float32, device=dev)
-            P = torch.empty_like(S)
-            gamma = torch.empty_like(q)
-            bad = torch.zeros(Bn, dtype=torch.int32, device=dev)
-            vec, parts, done = _loop_buffers(Bn, K, s, grid, dev)
-            code = lib.gato_longk_fused(
-                *map(_build.ptr, (*t.values(), lam, iters, conv, eta, Qinv,
-                                  Rinv, S, P, gamma, bad, vec, parts, done)),
-                Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
-                poly_degree, PRECOND_CODES[preconditioner], grid, _stream(dev))
-        _build.check_launch(code, f"{FUSED_NAME} (cooperative, up to {grid} "
-                                  "resident CTAs)")
+        n_sms, limit = _limits(dev)
+        # Row 9 condenses on the same CTAs, one an SM.
+        rounds = pcg_rounds(Bn, K, s, n_sms, limit, per_sm=1)
+        nk = tile_knots(Bn, K, s, cdim, n_sms, limit)
+        S = torch.empty(Bn, K, 3, s, s, dtype=torch.float32, device=dev)
+        P = torch.empty_like(S)
+        gamma = torch.empty_like(q)
+        bad = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        bufs = _loop_buffers(rounds, K, s, dev)
+        head = (*(x.data_ptr() for x in (*t, lam0, lam, iters, conv, eta, Qinv, Rinv,
+                                         S, P, gamma, bad)),)
         global FUSED_LAUNCHES
-        FUSED_LAUNCHES += 1
-    return PCGResult(lam=lam, iters=iters, converged=conv != 0, eta=eta), Qinv, Rinv
+        for rd in rounds:
+            _build.launch(f"{FUSED_NAME} (cooperative, {rd.nprob} x {rd.per} CTAs)",
+                          "gato_longk_fused", dev, *head, *_round_args(rd, bufs), nk,
+                          K, s, cdim, float(rho), float(exit_tol), int(max_iters),
+                          poly_degree, PRECOND_CODES[preconditioner],
+                          int(rd.meet == "flags"))
+            FUSED_LAUNCHES += 1
+    return PCGResult(lam=lam, iters=iters, converged=conv, eta=eta), Qinv, Rinv
 
 
 def recover_longk_cuda(Qinv, Rinv, A, B, q, r, lam):
@@ -500,7 +805,7 @@ def cr_longk_cuda(S, gamma):
     if Bn > 0:
         lib = _build.library()
         with torch.cuda.device(dev):
-            grid = _grid(lib, CR_NAME, _CR_KERNEL, s, 1)
+            grid = _grid(lib, CR_NAME, s)
             W = torch.empty_like(S)
             bv = torch.empty_like(gamma)
             code = lib.gato_longk_cr(*map(_build.ptr, (S, gamma, W, bv, lam, bad)),

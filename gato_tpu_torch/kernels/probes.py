@@ -12,7 +12,7 @@ beside its plain PyTorch version (the CUDA source and its note:
   kernel): trips of n_mv block-tridiagonal matvec contractions, n_dot
   reduce -> broadcast -> axpy steps and three freeze selects, at block
   scope (one CTA a problem, as kernels A and B) or grid scope (one
-  cooperative grid, as rows 8/10);
+  cooperative grid, a grid barrier after every phase);
 * row 17, :func:`fma_chain_cuda` (``tools/probe_throughput.py``'s probe D
   kernel): trips x depth dependent block-diagonal matvecs, one thread an
   output row, s dependent FMAs each, at IIWA's s = 14 only.

@@ -34,8 +34,10 @@ scopes:
 
   block  one CTA a problem, y in shared memory, the barriers of kernels A
          and B; real: kernel B (``'fused'``) at IIWA (14, 7, 50), B = 1.
-  grid   one cooperative grid, y in global memory, grid barriers as rows
-         8/10 take them (sized by the same occupancy query); real: the
+  grid   one cooperative grid, y in global memory, a grid barrier after
+         every phase (the long-K PCG's older schedule; rows 8/10 now meet
+         twice an iteration and form their halo knots locally, so their
+         iteration can fall below this chain's prediction); real: the
          ``'pcg_kernel'`` route at IIWA K = 1024, B = 1 (rows 7, 8/10, 13).
 
 The summary sets the measured poly-1 iteration beside the chain's

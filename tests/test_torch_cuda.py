@@ -485,10 +485,15 @@ def test_direct_refuses_a_horizon_past_shared_memory(dev):
 
 
 # The long-K tier (rows 7, 8/10, 9 and 13): (K, B, preconditioner, poly,
-# max_iters) at IIWA widths; row 8's shape (K=2048) and row 10's (K=8192).
+# max_iters) at IIWA widths; row 8's shape (K=2048) and row 10's (K=8192);
+# the edges of the PCG kernel's split: K = 689 (just past kernel B) and
+# 1025 (not a multiple of the CTAs a problem, a short last CTA), three
+# Horner terms, and a batch whose operators stream.
 LONGK_CASES = [(1024, 1, "symmetric_stair", 1, 100), (1024, 4, "block_jacobi", 2, 100),
                (1024, 4, "jacobi", 1, 10), (2048, 1, "symmetric_stair", 1, 100),
-               (8192, 1, "symmetric_stair", 1, 100)]
+               (8192, 1, "symmetric_stair", 1, 100), (689, 1, "symmetric_stair", 1, 100),
+               (1025, 1, "symmetric_stair", 1, 100), (1025, 3, "block_jacobi", 1, 100),
+               (700, 2, "symmetric_stair", 3, 100), (2048, 16, "symmetric_stair", 1, 100)]
 
 
 @pytest.mark.parametrize("K,B,prec,poly,cap", LONGK_CASES)
@@ -509,7 +514,10 @@ def test_longk_kernels_match_plain(dev, K, B, prec, poly, cap):
     assert got.iters.tolist() == ref.iters.tolist()
     _close(got.lam, ref.lam)
     fused, fqi, fri = kl.fused_longk_cuda(*b, lam0, rho=1e-3, preconditioner=prec, **kw)
-    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad, **kw)
+    # Row 9 is rows 7 + 8/10 on its own plan (one CTA an SM).
+    one_an_sm = kl.pcg_rounds(B, K, 14, *kl._limits(dev), per_sm=1)
+    split = kl.pcg_longk_cuda(kops.S, kops.Pinv, kops.gamma, lam0, kops.bad,
+                              _rounds=one_an_sm, **kw)
     assert torch.equal(fused.lam, split.lam) and torch.equal(fqi, kops.Qinv)
     dx, du = kl.recover_longk_cuda(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, ref.lam)
     rx, ru = kl.recover_longk_plain(pops.Qinv, pops.Rinv, b.A, b.B, b.q, b.r, ref.lam)
@@ -539,22 +547,72 @@ def test_longk_tiers_match_plain_at_other_widths(dev, sizes):
 
 
 def test_longk_batch_past_the_resident_ctas_runs_in_rounds(dev):
-    """More problems than resident CTAs: the cooperative kernels take them
-    in rounds, one launch each, with the plain versions' outcome."""
+    """More problems than SMs: the cooperative kernels take them in rounds
+    (kl.pcg_rounds), one launch each, with the plain versions' outcome."""
     from gato_tpu_torch.kernels import _build
     spec = gt.ProblemSpec(4, 2, 30)
-    grid = _build.library().gato_longk_grid(0, 4, 2)
-    B = 2 * grid + 5
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = 2 * n_sms + 5
+    limit = _build.max_shared_bytes(dev.index) - _build.RESERVED_SHARED_BYTES
+    assert len(kl.pcg_rounds(B, 30, 4, n_sms, limit)) == 3
+    assert len(kl.pcg_rounds(B, 30, 4, n_sms, limit, per_sm=1)) == 3
     b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=100), dev)
     kw = dict(rho=1e-3, exit_tol=1e-8, max_iters=200)
     ref, rx, ru = kl.solve_longk_batched(*(a.cpu() for a in b), **kw)
     for tier in ("fused_xl", "xl"):
+        # Each round's launch is counted.
+        before = kl.FUSED_LAUNCHES if tier == "fused_xl" else kl.PCG_LAUNCHES
         got, gx, gu = kl.solve_longk_batched(*b, force_tier=tier, **kw)
+        after = kl.FUSED_LAUNCHES if tier == "fused_xl" else kl.PCG_LAUNCHES
+        assert after == before + 3
         torch.cuda.synchronize()
         assert got.iters.tolist() == ref.iters.tolist()
         assert bool(got.converged.all())
         for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
             _close(x, y)
+
+
+# (K, B, poly, ctas): the plan's split, one knot a CTA, a forced split of
+# two CTAs an SM (the operators partly streamed), several problems a round.
+LONGK_SPLITS = [(1024, 1, 1, None), (132, 1, 1, 132), (1024, 1, 2, 264), (8192, 1, 1, 264),
+                (1025, 3, 3, None), (2048, 16, 1, None), (64, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("K,B,poly,ctas", LONGK_SPLITS)
+def test_longk_pcg_meetings_and_splits_agree(dev, K, B, poly, ctas):
+    """Rows 8/10 at the plan's split and at forced ones, with the plain
+    version's iterations and lambda; a round of one problem gives the same
+    bits on flagged partials as on the plan's grid barriers (the same sums
+    in the same order), and grid barriers are refused for several
+    problems.  One problem of the batch is frozen."""
+    spec = gt.ProblemSpec(14, 7, K)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=160), dev)
+    ops = kl.condense_longk_plain(*b, rho=1e-3)
+    frozen = torch.zeros(B, dtype=torch.bool, device=dev)
+    frozen[-1] = B > 1
+    kw = dict(exit_tol=1e-6, max_iters=100, poly_degree=poly)
+    ref = kl.pcg_longk_plain(ops.S, ops.Pinv, ops.gamma, None, frozen, **kw)
+    rounds = kl.pcg_rounds(B, K, 14, *kl._limits(dev), ctas)
+    plans = [None if ctas is None else rounds]
+    if all(rd.nprob == 1 for rd in rounds):
+        plans.append(tuple(rd._replace(meet="flags") for rd in rounds))
+    else:
+        with pytest.raises(ValueError, match="grid barriers only"):
+            kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma, None, frozen, _rounds=tuple(
+                rd._replace(meet="grid") for rd in rounds), **kw)
+    runs = [kl.pcg_longk_cuda(ops.S, ops.Pinv, ops.gamma, None, frozen, _rounds=plan, **kw)
+            for plan in plans]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert torch.equal(x, y)
+    got = runs[0]
+    assert got.iters.tolist() == ref.iters.tolist()
+    assert got.converged.tolist() == ref.converged.tolist()
+    _close(got.lam, ref.lam)
+    if B > 1:
+        assert float(got.eta[-1]) >= 1e30 and torch.equal(got.lam[-1], torch.zeros_like(
+            got.lam[-1]))
 
 
 def test_longk_singular_problem_is_frozen(dev):
@@ -603,8 +661,8 @@ def test_longk_entry_points_launch_the_kernels(dev):
 def test_shared_memory_mirrors_match_the_library(dev):
     """The routing's and the launch plan's pure functions (fused_solve's
     cta_smem_bytes, cta_threads and cluster_size, pcg_kernel.smem_bytes,
-    direct_fused.smem_bytes) agree with what the kernels' launchers
-    compute."""
+    direct_fused.smem_bytes, longk's tile and PCG layouts) agree with what
+    the kernels' launchers compute."""
     from gato_tpu_torch.kernels import _build
     lib = _build.library()
     props = torch.cuda.get_device_properties(dev)
@@ -623,6 +681,21 @@ def test_shared_memory_mirrors_match_the_library(dev):
                                           limit - 1024)
         assert ka.smem_bytes(K, s) == lib.gato_pcg_smem_bytes(K, s)
         assert kd.smem_bytes(K, s, c) == lib.gato_direct_smem_bytes(K, s, c)
+    # The long-K plans' layouts (rows 7, 8/10 and 9; which plan to take is
+    # kernels/longk.py's alone).
+    lim = limit - 1024
+    for K, s, c in ((2, 3, 2), (50, 14, 7), (689, 14, 7), (1025, 14, 7), (8192, 14, 7),
+                    (16384, 14, 7), (37, 20, 9), (6, 32, 32)):
+        for nk in range(1, kl.MAX_TILE_KNOTS + 1):
+            assert kl.tile_plan(nk, s, c).total * 4 == lib.gato_longk_tile_smem_bytes(nk, s, c)
+            assert kl.tile_threads(nk, s, c) == lib.gato_longk_tile_threads(nk, s, c)
+        for per in (1, 7, 56, 132, 264):
+            for flags in (0, 1, 3, 7):
+                ring = kl.pcg_ring(K, s, per, flags, lim)
+                assert kl.pcg_plan(K, s, per, flags, ring).total * 4 == \
+                    lib.gato_longk_pcg_smem_bytes(K, s, per, flags, ring)
+            assert kl.pcg_plan(K, s, per, 0, 0).vec_floats == lib.gato_longk_pcg_vec_floats(
+                K, s, per)
 
 
 # The long-K exact tier (rows 11 and 12, the unpeel kernel; rows 7 and 13).
