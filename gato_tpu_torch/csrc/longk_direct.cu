@@ -69,6 +69,27 @@ constexpr int kCrWarps = kCrThreads / 32;
 // every grid barrier.
 constexpr int kCrMaxCtasPerSm = 4;
 
+// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
+// builds that way; the default build does not), block 0 of row 11 reads
+// %globaltimer at its start and after each grid barrier of the reduction
+// and after the root.
+constexpr int kCrStamps = 64;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long cr_stamps[kCrStamps];
+static __device__ int cr_stamp_count;
+__device__ __forceinline__ void cr_stamp(int i) {
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0 && i < kCrStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    cr_stamps[i] = t;
+    cr_stamp_count = i + 1;
+  }
+}
+#else
+__device__ __forceinline__ void cr_stamp(int) {}
+#endif
+
 // Shared memory of one warp, in floats: A, B and four staged blocks.
 inline __host__ __device__ int warp_floats(int s) { return 6 * s * s; }
 
@@ -272,6 +293,8 @@ __global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
   float* ws = smem + (threadIdx.x >> 5) * warp_floats(s);
   const float* src = a.S;       // the level's input rows
   const float* bsrc = a.gamma;
+  int st = 0;
+  cr_stamp(st++);
   int h = 1;
   for (; h < K; h *= 2) {
     const int h2 = 2 * h;
@@ -293,6 +316,7 @@ __global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
       }
     }
     grid.sync();
+    cr_stamp(st++);
     for (int t = warp; t < B * n_even; t += nwarps) {
       const size_t b = t / n_even;
       const int k = (t % n_even) * h2;
@@ -313,6 +337,7 @@ __global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
                       w + 2 * ss, a.bv + row * s, s, ws);
     }
     grid.sync();
+    cr_stamp(st++);
     src = a.W;
     bsrc = a.bv;
   }
@@ -337,6 +362,7 @@ __global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
   // in their D slot.
   for (h /= 2; h >= 1; h /= 2) {
     grid.sync();
+    cr_stamp(st++);
     const int h2 = 2 * h;
     const int n_odd = (K - 1 - h) / h2 + 1;
     for (int t = warp; t < B * n_odd; t += nwarps) {
@@ -349,6 +375,10 @@ __global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
                     xr, a.x + row * s, s, ws);
     }
   }
+#ifdef GATO_STAGE_STAMPS
+  grid.sync();
+  cr_stamp(st);
+#endif
 }
 
 // Row 12, phase 1: D_o^{-1} of every odd row 2j+1 of a level of W rows into
@@ -456,6 +486,22 @@ inline unsigned warp_blocks(long long tasks) {
 }  // namespace gato
 
 extern "C" {
+
+// Row 11's stamps of the last launch (block 0; %globaltimer, ns) into
+// out[kCrStamps]; returns how many were written, or 0 in a build without
+// GATO_STAGE_STAMPS.
+int gato_longk_cr_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::cr_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::cr_stamps, sizeof(gato::cr_stamps)) != cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
+}
 
 // Dynamic shared memory of a CTA of the cyclic reduction or the peel's
 // reduction, in bytes.

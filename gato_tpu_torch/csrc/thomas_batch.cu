@@ -58,6 +58,27 @@ inline long long thomas_scratch_floats(int K, int s, int c) {
 // Threads of a forward block: one per entry of an s x s product.
 inline int thomas_fwd_threads(int s) { return threads_for(s * s); }
 
+// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
+// builds that way; the default build does not), block 0 of the forward
+// kernel reads %globaltimer at its start, after the condensation and after
+// each knot of the walk (the first kThomasStamps - 2 knots).
+constexpr int kThomasStamps = 66;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long thomas_stamps[kThomasStamps];
+static __device__ int thomas_stamp_count;
+__device__ __forceinline__ void thomas_stamp(int i) {
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0 && i < kThomasStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    thomas_stamps[i] = t;
+    thomas_stamp_count = i + 1;
+  }
+}
+#else
+__device__ __forceinline__ void thomas_stamp(int) {}
+#endif
+
 // The walk's one inversion a knot, for n <= 16, in the registers of one
 // warp: lane l holds column l of [M | I] (2n <= 32 columns), the pivot
 // column reaches every lane by shuffles, and no barrier is needed.  The
@@ -139,6 +160,7 @@ thomas_fwd_kernel(const float* Qg, const float* Rg, const float* Ag,
   float* bp = Dh + ss;               // bhat_{j-1}
   float* bc = bp + s;                // bhat_j before the flag
 
+  thomas_stamp(0);
   // 1. Every knot's inverses and condensed blocks.
   gj_invert(Q, ss, Qinv, ss, K, s, rho, arena, arena_floats, nullptr, qflag);
   gj_invert(R, cc2, Rinv, cc2, K - 1, c, rho, arena, arena_floats, nullptr,
@@ -148,6 +170,7 @@ thomas_fwd_kernel(const float* Qg, const float* Rg, const float* Ag,
   for (int i = tid; i < n; i += nt)
     gam[i] = gamma_row(Qinv, phi, ss, BR, q, r, cv, s, c, i);
   __syncthreads();
+  thomas_stamp(1);
 
   // 2. The elimination walk.
   for (int j = 0; j < K; ++j) {
@@ -195,6 +218,7 @@ thomas_fwd_kernel(const float* Qg, const float* Rg, const float* Ag,
       bp[a] = v;
     }
     __syncthreads();
+    thomas_stamp(2 + j);
   }
 }
 
@@ -310,6 +334,23 @@ thomas_rev_kernel(const float* Cinv_g, const float* bhat_g, const float* Qinv_g,
 }  // namespace gato
 
 extern "C" {
+
+// The forward kernel's stamps of the last launch (block 0; %globaltimer,
+// ns) into out[kThomasStamps]; returns how many were written, or 0 in a
+// build without GATO_STAGE_STAMPS.
+int gato_thomas_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::thomas_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::thomas_stamps, sizeof(gato::thomas_stamps)) !=
+          cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
+}
 
 long long gato_thomas_scratch_floats(int K, int s, int c) {
   return gato::thomas_scratch_floats(K, s, c);

@@ -67,6 +67,7 @@ _SIGNATURES = {
     "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _P]),
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
     "gato_thomas_scratch_floats": (_LL, [_I, _I, _I]),
+    "gato_thomas_stamps": (_I, [_P]),
     "gato_thomas_smem_bytes": (_LL, [_I, _I, _I]),
     "gato_longk_tile_smem_bytes": (_LL, [_I] * 3),
     "gato_longk_tile_threads": (_I, [_I] * 3),
@@ -78,6 +79,7 @@ _SIGNATURES = {
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "gato_longk_cr_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_grid": (_I, [_I]),
+    "gato_longk_cr_stamps": (_I, [_P]),
     "gato_longk_cr": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
