@@ -32,7 +32,8 @@ Phases, each of which raises on failure (exit code not 0):
    rho=1e-3: the cyclic-reduction kernel (row 4) at B=1 and B=15, the
    block-Thomas pair (rows 5 and 6) at B=16 and B=256 (the forward
    kernel's factor stacks against the plain forward's, the reverse kernel
-   on the plain stacks against the plain reverse), and one exactly
+   on the plain stacks against the plain reverse), rows 5 and 6 at row 5's
+   plan edges (K = 2, 51 and 1024 at IIWA, s = 20 and 32), and one exactly
    singular problem in each tier with each tier's contract (row 4: finite,
    eta = 1e30; rows 5-6: non-finite, the other problems untouched);
 4c. the exact main path (method='direct') through solve (row 4),
@@ -49,8 +50,12 @@ Phases, each of which raises on failure (exit code not 0):
    device time from a CUDA graph) and at every C forced; the farm kernel
    (5b) at every C, with the C each launch used;
 5c. the same for the exact-solve kernels at B=1 and B=256, the forward and
-   reverse kernels' own times, and the per-solve time of row 4 and of the
-   Thomas pair at B=1, 4, 16, 64, 256 (their crossover on this card);
+   reverse kernels' own times and device times (a CUDA graph), the
+   per-solve time of row 4 and of the Thomas pair at B=1, 4, 16, 64, 256
+   (their crossover on this card), the pair at K=1024, B=16 beside the
+   long-K exact routes, and row 5 by stage beside kernel B's cluster
+   condensation (tools/direct_stamps.py's stamped build, built in a child
+   beside phase 2's build, measured there while this process waits);
 3d. the long-horizon PCG kernels (rows 7, 8/10, 9 and 13) against their
    plain versions at IIWA widths: K=1024 at B=1 and B=16 with every
    preconditioner (scalar Jacobi over 10 iterations) and poly degree 2,
@@ -73,10 +78,11 @@ Phases, each of which raises on failure (exit code not 0):
    memory, grid barriers an iteration) and one iteration's cost, and the
    two routes' times (the tier crossover);
 3e. the long-horizon exact kernels (rows 11 and 12 and the unpeel kernel)
-   against their plain versions at IIWA widths, K=50, 741, 1025, 1536 and
-   8192 at B=1 and 15, both exact tiers against the plain cyclic
-   reduction, a singular mix and a zero pivot in the condensed system;
-   rows 7 and 13 at K=50;
+   against their plain versions at IIWA widths, K=2, 50, 71, 72 (where
+   row 11's tail stops taking the whole problem), 741, 1025, 1536 and 8192
+   at B=1 and 15, and at s = 20 and 32 and B = 16, both exact tiers
+   against the plain cyclic reduction, a singular mix and a zero pivot in
+   the condensed system; rows 7 and 13 at K=50;
 4e. the exact long-K main path (method='direct' past row 4's shared
    memory below B=16): solve at K=1024 and 8192, solve_batched at B=8,
    K=2048 (the auto rule's 'hybrid'; 'xl' elsewhere), 'pcg_kernel' at
@@ -85,8 +91,9 @@ Phases, each of which raises on failure (exit code not 0):
    dense KKT solve where K <= 1024, with each path's launch counts;
 5e. the exact kernels' and both exact routes' times at K=1024-8192, B=1
    and 15, beside their bounds, their plain versions, the dense Schur
-   solve (K=1024) and the Thomas pair (B=15); the long-K PCG kernel, its
-   plain version and its route at row 14's shape, K=16384.
+   solve (K=1024) and the Thomas pair (B=15), row 11's device time and its
+   split by stage (the stamps child); the long-K PCG kernel, its plain
+   version and its route at row 14's shape, K=16384.
 
 3f. row 15 (the knot shard's halo matvec) against its plain version at
    IIWA s = 14, Kl = 256, 2048 and 65, s = 4, 3 and 32: a first shard (no
@@ -840,6 +847,33 @@ def phase_direct_parity():
               f"{rerr:.3e}, max|d eta| {deta:.3e}; the pair end to end: all "
               f"converged, max|d| {perr:.3e}")
 
+    # Rows 5 and 6 at row 5's plan edges: K = 2, an odd K, the horizon the
+    # exact routes reach (K = 1024), and the wide walk (s = 20, 32).
+    for sizes, n in (((14, 7, 2), 16), ((14, 7, 51), 15), ((14, 7, 1024), 16),
+                     ((20, 9, 37), 16), ((32, 32, 6), 16)):
+        spec = gt.ProblemSpec(*sizes)
+        blocks = gt.blocks_to_torch(testing.random_batch(spec, n, seed0=50), DEV)
+        kf = kt.thomas_fwd_cuda(*blocks, rho=RHO)
+        pf = kt.thomas_fwd_plain(*blocks, rho=RHO)
+        torch.cuda.synchronize()
+        what = f"{kt.FWD_NAME} {sizes} B={n}"
+        ferr = max(check_close(f"{what} {name}", x, y) for name, x, y in zip(fields, kf, pf))
+        MAX_ERR[kt.FWD_NAME] = max(MAX_ERR[kt.FWD_NAME], ferr)
+        rest = (blocks.q, blocks.A, blocks.B, blocks.r)
+        kres, kdx, kdu = kt.thomas_rev_cuda(kf, *rest)
+        pres, pdx, pdu = kt.thomas_rev_plain(pf, *rest)
+        torch.cuda.synchronize()
+        deta = check_direct(f"thomas pair {sizes} B={n}", kres, pres, pf.gamma)
+        if not bool(kres.converged.all()):
+            raise AssertionError(f"thomas pair {sizes} B={n}: a problem did not converge")
+        perr = max(check_close(f"thomas pair {sizes} B={n} {name}", k, p)
+                   for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
+                                      ("dz_u", kdu, pdu)))
+        MAX_ERR[kt.REV_NAME] = max(MAX_ERR[kt.REV_NAME], perr)
+        print(f"  {what}: the 7 factor stacks max|d| {ferr:.3e}; the pair on them "
+              f"against the plain pair: all converged, max|d| {perr:.3e}, max|d eta| "
+              f"{deta:.3e}")
+
     # Row 4's singular contract: finite outputs, eta >= 1e30, only it False.
     mix = singular_mix(2, seed0=40)
     kres, kdx, kdu = kd.direct_fused_cuda(*mix, rho=0.0)
@@ -1116,13 +1150,19 @@ def phase_direct_times(card: str):
             k2 = cuda_median_ms(kern)
             p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
             bound_ms, bound_by = bounds[name]
+            # Rows 5 and 6 (and the pair): one call's device time, from a
+            # CUDA graph of 20 calls.
+            dev_ms = graph_ms_per_call(kern, calls=20) if name != kd.NAME else None
             times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                     library_ms=lib_ms if has_lib else None,
-                                    bound_ms=bound_ms, bound_by=bound_by)
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    device_ms=dev_ms)
             lib_text = f"library {lib_ms:.4f} ms" if has_lib else "no library call"
-            print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+            dev_text = "" if dev_ms is None else f", device {dev_ms:.4f} ms"
+            print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms{dev_text}, plain "
                   f"{p1:.4f} / {p2:.4f} ms, {lib_text}, bound {bound_ms:.5f} ms "
-                  f"({bound_by})  [{card}]")
+                  f"({bound_by}; {100 * bound_ms / ((k1 + k2) / 2):.2f} % of the "
+                  f"kernel's time)  [{card}]")
         del M, rhs, lib
         torch.cuda.empty_cache()
 
@@ -1141,7 +1181,82 @@ def phase_direct_times(card: str):
              else "at no width")
     print(f"  the pair is faster {where} of {CROSSOVER_B} "
           f"(the port routes from B >= {kt.MIN_BATCH}, gato_tpu's constant)")
+    # Where auto sends a long horizon at B >= 16 (the pair) beside the
+    # long-K exact routes on the same inputs (ROADMAP queue 1 item 9).
+    K = 1024
+    blocks = longk_batch(K, 16, seed0=9700)
+    tp = cuda_median_ms(lambda: kt.solve_direct_thomas_cuda(*blocks, rho=RHO))
+    txl = cuda_median_ms(lambda: kl.solve_direct_longk_batched(*blocks, rho=RHO,
+                                                                force_tier="xl"))
+    thy = cuda_median_ms(lambda: kl.solve_direct_longk_batched(*blocks, rho=RHO,
+                                                                force_tier="hybrid"))
+    times[("long", K, 16)] = dict(pair=tp, xl=txl, hybrid=thy)
+    print(f"  K={K} B=16: the Thomas pair {tp:.4f} ms, 'xl' (rows 7 + 11 + 13) "
+          f"{txl:.4f} ms, 'hybrid' {thy:.4f} ms (auto: the pair)  [{card}]")
+    line = STAMPS.result()
+    print("  row 5 by stage (tools/direct_stamps.py, the stamped build's "
+          f"%globaltimer, median of {line['runs']} launches, us; the condensation "
+          "launch, the walk launch's knots): " + "; ".join(
+              f"{key}: condensation {r['stage1']:.1f}, walk {r['walk']:.1f} "
+              f"({r['knots_stamped']} knots, {r['knot']:.2f} a knot; the first with the "
+              f"launch gap {r['first_knot']:.2f})" for key, r in line["row5"].items())
+          + f"  [{card}]")
+    print("  the alternative condensation, kernel B's on one thread-block cluster a "
+          "problem (cluster_body.cuh stages 1-3, its stamps in the same build and "
+          "inputs, us): " + "; ".join(
+              f"{key}: {r['condensation']:.1f} (C = {r['cluster_ctas']}; row 5's tiles "
+              f"{line['row5'][key]['stage1']:.1f})" for key, r in line["cluster"].items())
+          + f"  [{card}]")
     return times
+
+
+class StampsChild:
+    """tools/direct_stamps.py's stamps child (rows 5 and 11 by stage, with
+    the kernels built again with -DGATO_STAGE_STAMPS): start() has it build
+    beside this process's build, wait_built() waits for its build to end
+    (so that no timed phase shares the host with nvcc); result() lets it
+    measure while this process waits (so the two never share the card),
+    and raises if it failed."""
+
+    RUNS = 10
+
+    def __init__(self):
+        self.proc = None
+        self.line = None
+
+    def start(self) -> None:
+        tool = Path(__file__).resolve().parent / "gato_tpu_torch" / "tools" / "direct_stamps.py"
+        self.proc = subprocess.Popen([sys.executable, str(tool), "--runs", str(self.RUNS),
+                                      "--stamps-child", "--wait"], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+
+    def wait_built(self) -> None:
+        said = self.proc.stdout.readline().strip()
+        if said != "built":
+            self.proc.wait(timeout=60)
+            raise AssertionError(f"direct_stamps.py --stamps-child did not build (exit "
+                                 f"{self.proc.returncode}, said {said!r}):\n"
+                                 f"{self.proc.stderr.read()[-4000:]}")
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self) -> dict:
+        if self.line is None:
+            torch.cuda.synchronize()
+            out, err = self.proc.communicate("go\n", timeout=900)
+            if self.proc.returncode != 0:
+                raise AssertionError(f"direct_stamps.py --stamps-child failed (exit "
+                                     f"{self.proc.returncode}):\n{out[-2000:]}{err[-4000:]}")
+            self.line = json.loads(out.strip().splitlines()[-1])
+            self.line["runs"] = self.RUNS
+        return self.line
+
+
+STAMPS = StampsChild()
 
 
 def cuda_median_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
@@ -2016,7 +2131,7 @@ def phase_longk_times(card: str):
 # The long-K exact tier: rows 11 and 12 and the unpeel kernel, with rows 7
 # and 13.
 
-DIRECT_K = (50, 741, 1025, 1536, 8192)
+DIRECT_K = (2, 50, 71, 72, 741, 1025, 1536, 8192)
 DIRECT_B = (1, 15)
 
 
@@ -2108,6 +2223,15 @@ def phase_direct_longk_parity():
             print(f"  K={K} B={n}: {line}")
         del full
         torch.cuda.empty_cache()
+
+    # Row 11 at the wide widths (s = 20, 32: the tail takes 13 rows at s =
+    # 32, so these run grid levels too) and at a batch of 16.
+    for sizes, n in (((20, 9, 300), 16), ((32, 32, 14), 15), ((32, 32, 200), 16),
+                     ((14, 7, 1024), 16)):
+        blocks = gt.blocks_to_torch(testing.random_batch(gt.ProblemSpec(*sizes), n,
+                                                         seed0=7300), DEV)
+        ops = kl.condense_longk_cuda(*blocks, rho=RHO, preconditioner="jacobi")
+        print(f"  {sizes} B={n}: {check_cr_kernels(f'{sizes} B={n}', ops.S, ops.gamma)}")
 
     # Singular input.  A zero row and column in Q[2] (rho = 0): row 7 flags
     # it, both tiers report it converged False with eta >= 1e30 and finite
@@ -2357,6 +2481,13 @@ def phase_direct_longk_times(card: str):
                     ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                     library_ms=lib_ms if has_lib else None, bound_ms=bound_ms,
                     bound_by=bound_by)
+                if name == kl.CR_NAME:
+                    # One call's device time, from a CUDA graph of 20 calls.
+                    times[(name, K, n)]["device_ms"] = graph_ms_per_call(kern, calls=20)
+                    print(f"  {name} K={K} B={n}: device {times[(name, K, n)]['device_ms']:.4f}"
+                          f" ms (tail stride {kl.cr_tail_stride(K, s, _longk_limits()[1])},"
+                          f" bound {100 * bound_ms / times[(name, K, n)]['device_ms']:.2f} % "
+                          f"of it)  [{card}]")
                 lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
                             else "no library call")
                 plain_text = (f"plain {p1:.4f} ms (once)" if once
@@ -2420,6 +2551,13 @@ def phase_direct_longk_times(card: str):
           f"iterations), plain {plain_ms:.4f} ms, no library call (the dense Schur "
           f"matrix is 210 GB), bound {pcg_bound[0]:.5f} ms ({pcg_bound[1]}); the "
           f"route (rows 7 + 8/10 + 13) {route_ms:.4f} ms  [{card}]")
+    line = STAMPS.result()
+    for key, r in line["row11"].items():
+        print(f"  row 11 {key} by stage (tools/direct_stamps.py, the stamped build's "
+              f"%globaltimer, median of {line['runs']} launches, us; {r['total']:.1f} in "
+              "all): " + ", ".join(f"{lab} {v:.2f}" for lab, v in zip(r["labels"],
+                                                                    r["phases"]))
+              + f"  [{card}]")
     print("  the faster exact route per shape:")
     for (K, n), r in ((key, r) for key, r in routes.items() if key != "row14"):
         best = min(("xl", "hybrid"), key=lambda t: r[t])
@@ -3329,9 +3467,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     print("== phase 2: build")
+    # Rows 5 and 11 by stage (5c, 5e): a child that builds the stamped
+    # library beside this build.
+    STAMPS.start()
     info = _build.build()
     _build.library()
-    print(f"  {info['path'].name}: built={info['built']} in {info['seconds']:.2f} s")
+    STAMPS.wait_built()
+    print(f"  {info['path'].name}: built={info['built']} in {info['seconds']:.2f} s "
+          f"(the stamped library beside it: both done)")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
@@ -3469,4 +3612,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--profiled"]:
         print(json.dumps(profiled_sharded()))
     else:
-        main()
+        try:
+            main()
+        finally:
+            STAMPS.stop()

@@ -1,11 +1,11 @@
-// Condensation device code of the one-block exact kernels: the
-// cyclic-reduction kernel (direct_fused.cu, row 4) and the block-Thomas
-// pair (thomas_batch.cu, rows 5 and 6); the long-K recovery (longk.cu, row
-// 13) takes recover_dz.  Kernel B and the farm kernel condense on a
-// cluster (cluster_body.cuh), the long-K tiles (row 7) on gauss_jordan.cuh
-// and their own products.  One block condenses one problem; the functions
-// below are that block's stages, each a loop of threads striding over
-// entries:
+// Condensation device code of the one-block exact kernel: the
+// cyclic-reduction kernel (direct_fused.cu, row 4); the block-Thomas
+// reverse pass (thomas_batch.cu, row 6) takes its constants, the long-K
+// recovery (longk.cu, row 13) recover_dz.  Kernel B and the farm kernel
+// condense on a cluster (cluster_body.cuh), the long-K tiles (rows 7 and
+// 9) and row 5 in condense_tile.cuh's tiles on gauss_jordan.cuh.  One
+// block condenses one problem; the functions below are that block's
+// stages, each a loop of threads striding over entries:
 //
 //   gj_invert          (Q_k + rho I)^{-1}, (R_k + rho I)^{-1} and any other
 //                      batch of small inverses, with the zero-pivot flag;
@@ -16,7 +16,7 @@
 //
 // Every product is an explicit fmaf loop in a fixed order, so two kernels
 // that call these functions on the same inputs compute the same bits.  A
-// change here is checked by the card tests of rows 4-6 and 13.
+// change here is checked by the card tests of rows 4, 6 and 13.
 #pragma once
 
 #include <cuda_runtime.h>

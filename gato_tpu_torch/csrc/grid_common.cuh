@@ -2,7 +2,8 @@
 // the occupancy query, the split of a launch's problems over its CTAs, and
 // the sum of a problem's per-CTA partials after a grid barrier, for
 // probes.cu's grid-scope row 16; longk.cu's rows 8/10 and 9 take the Round
-// and the thread count (their plans are longk.cu's own).
+// and the thread count (their plans are longk.cu's own); every kernel
+// with a large dynamic shared memory takes opt_in_smem.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +17,32 @@ constexpr int kGridThreads = 256;
 // Resident cooperative CTAs an SM takes, at most: every CTA arrives at every
 // grid barrier, so more CTAs make each barrier dearer.
 constexpr int kMaxCtasPerSm = 2;
+
+// Sets `kernel`'s dynamic shared-memory limit to at least `bytes`: once a
+// kernel and device (and again for a larger size), not on every launch.
+inline cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static thread_local const void* seen_kernel[16] = {};
+  static thread_local int seen_device[16] = {};
+  static thread_local size_t seen_bytes[16] = {};
+  int slot = 0;
+  while (slot < 15 && seen_kernel[slot] != nullptr &&
+         (seen_kernel[slot] != kernel || seen_device[slot] != device))
+    ++slot;
+  if (seen_kernel[slot] == kernel && seen_device[slot] == device &&
+      seen_bytes[slot] >= bytes)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  seen_kernel[slot] = kernel;
+  seen_device[slot] = device;
+  seen_bytes[slot] = bytes;
+  return cudaSuccess;
+}
 
 // One cooperative launch: problems first .. first + nprob - 1, per CTAs
 // each, counter done[index].

@@ -2,8 +2,9 @@
 // system S lambda = gamma, for horizons past row 4's shared memory.
 //
 // Replaces the solve stage of gato_tpu/kernels/longk.py's direct ladder:
-//   cr_longk_kernel         the inner kernel of _direct_xl_call (row 11,
-//                           pallas_call at :860) with _cr_solve_scratch
+//   cr_grid_kernel,         the inner kernel of _direct_xl_call (row 11,
+//   cr_tail_kernel          pallas_call at :860) with _cr_solve_scratch, in
+//                           up to three launches
 //   peel_invert_kernel,     _peel_kernel (row 12, pallas_call at :1171),
 //   peel_reduce_kernel      one compacting CR level, in two launches
 //   unpeel_kernel           the back-substitution of a peeled level, which
@@ -12,29 +13,34 @@
 // S (B, K, 3, s, s) row-major blocks, slots 0 = L (row k, column k-1),
 // 1 = D, 2 = U (column k+1); vectors (B, K, s).
 //
-// Design.  The unit of work is one block row, given to one warp:
-//
-// * warp_gj inverts one s x s block in the registers of a warp (lane l
-//   holds columns l and l + 32 of [M | I]), the Gauss-Jordan of condense.cuh
-//   (no pivoting, the pivot row divided explicitly, a zero pivot divided by
-//   1), and reports a clamped zero pivot in a block whose diagonal is not
-//   all zero.  A template on the widest block (16 or 32) keeps the
-//   registers of s <= 16 at one column a lane.
-// * warp_reduce_row eliminates an even row's two odd neighbours (the
-//   algebra of direct.cr_level), staging the blocks it multiplies in the
-//   warp's slice of shared memory; warp_back_row back-substitutes one odd
-//   row (direct.cr_back_level).
-// * cr_longk_kernel (row 11) is one cooperative launch sized by the
-//   occupancy query, with its warps striding over the (problem, row) tasks
-//   of every problem of the batch.  Level l (h = 2^l) touches the rows
-//   k = 0 mod h, in place on a working copy W of S: the odd rows (k = h mod
-//   2h) are inverted into their D slot, a grid barrier, the even rows
-//   (k = 0 mod 2h) reduced, a grid barrier.  Level 0 reads S and gamma and
-//   writes every row of W and bv, so S is never written and needs no copy
-//   pass.  Then the root (row 0), a barrier, and the back-substitution
-//   levels, one barrier each.  No row's time on an SM grows with K: a
-//   level's rows run on every resident warp, log2 K levels deep.
-// * The peel (row 12) is one such level that compacts: peel_invert_kernel
+// Row 11.  The TPU kernel keeps one problem's whole operator in VMEM and
+// runs every level there; a CTA's shared memory holds a problem's last
+// ~71 rows at IIWA (kernels/longk.py's cr_tail_stride: the rows k = 0 mod
+// ht), so the levels below ht run on a cooperative grid and the rest in
+// one CTA a problem:
+// * cr_grid_kernel<kUp = false>: levels h = 1 .. ht / 2 in place on a
+//   working copy W of S (level 0 reads S and gamma, so S is never
+//   written).  A level of few even rows is one grid barrier: each even row
+//   goes to a group of 2-8 warps that inverts both its odd neighbours on two
+//   warps at once, reduces the row with a thread an entry, and owns its
+//   right neighbour's D^{-1} (stored into Dinv).  A level of more rows than
+//   that has a warp invert each odd row into Dinv, a grid barrier, then a
+//   warp reduce each even row from it.
+// * cr_tail_kernel: one CTA of 512 threads a problem loads its rows k = 0
+//   mod ht into shared memory and runs the remaining levels there with CTA
+//   barriers (every odd row inverted in place by a warp; A and B, then the
+//   reduced rows, a thread an entry), the root and these levels' back-
+//   substitution, and writes x of its rows.
+// * cr_grid_kernel<kUp = true>: the back-substitution of the grid levels,
+//   a warp an odd row, a grid barrier a level.
+// warp_gj_pad inverts one block on a warp with no predicate on the width
+// (padded to kN; IIWA's 14 compiled in) and the pivot row scaled by the
+// correctly rounded reciprocal of the pivot; warp_gj (row 12) divides.
+// Row 12 keeps one warp a block row: warp_reduce_row eliminates an even
+// row's two odd neighbours (the algebra of direct.cr_level), staging the
+// blocks it multiplies in the warp's slice of shared memory, warp_back_row
+// back-substitutes one odd row (direct.cr_back_level).
+// * The peel (row 12) is one level that compacts: peel_invert_kernel
 //   inverts every odd row of a batch into D_o^{-1}; peel_reduce_kernel
 //   writes the ceil(W/2) reduced even rows into half-width buffers (no lane
 //   padding: a level of W rows writes all of them, where the TPU kernel's
@@ -49,14 +55,17 @@
 // What bounds them on an H100: the levels together eliminate ~K odd rows
 // and reduce ~K even rows, 2 s^3 + 12 s^3 flops a pair (an inverse, six
 // s x s products), ~14 K s^3 in all, about twice block Thomas's ~6 K s^3;
-// the operator (2,352 B a row at IIWA) moves through L2 a few times.  Each
-// row's products are a chain of dependent FMAs on one warp, so the first
-// levels are bound by how many warps run at once (at B = 15, K = 8192,
-// 61,440 rows at level 0), and the last ones, a few rows and a grid
-// barrier each, by latency.
+// the operator (2,352 B a row at IIWA) moves through L2 a few times.  The
+// first levels of a wide batch are bound by how many warps run at once
+// (B = 15, K = 8192: 61,440 rows at level 0); a level of few rows by the
+// latency of one inverse, two product phases and a barrier, which the
+// tail pays in shared memory with CTA barriers.
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "grid_common.cuh"
 #include "pcg_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -68,26 +77,30 @@ constexpr int kCrWarps = kCrThreads / 32;
 // Resident cooperative CTAs an SM takes, at most: every CTA arrives at
 // every grid barrier.
 constexpr int kCrMaxCtasPerSm = 4;
+// Threads of row 11's tail CTA.
+constexpr int kTailThreads = 512;
 
 // With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
-// builds that way; the default build does not), block 0 of row 11 reads
-// %globaltimer at its start and after each grid barrier of the reduction
-// and after the root.
+// builds that way; the default build does not), block 0 of each of row
+// 11's launches appends %globaltimer stamps: the grid levels' start and the
+// end of each level, the tail's start, its rows loaded, each of its
+// levels, its root, its back-substitution, then the end of each grid back
+// level.
 constexpr int kCrStamps = 64;
 #ifdef GATO_STAGE_STAMPS
 static __device__ unsigned long long cr_stamps[kCrStamps];
 static __device__ int cr_stamp_count;
-__device__ __forceinline__ void cr_stamp(int i) {
+__global__ void cr_stamp_reset() { cr_stamp_count = 0; }
+__device__ __forceinline__ void cr_stamp() {
   __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x == 0 && i < kCrStamps) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && cr_stamp_count < kCrStamps) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    cr_stamps[i] = t;
-    cr_stamp_count = i + 1;
+    cr_stamps[cr_stamp_count++] = t;
   }
 }
 #else
-__device__ __forceinline__ void cr_stamp(int) {}
+__device__ __forceinline__ void cr_stamp() {}
 #endif
 
 // Shared memory of one warp, in floats: A, B and four staged blocks.
@@ -266,119 +279,533 @@ __device__ void warp_back_row(const float* Lk, const float* Dinv,
   __syncwarp();
 }
 
-// What the cyclic reduction reads and writes: S (B, K, 3, s, s) and gamma
-// (B, K, s), read only; W (B, K, 3, s, s) and bv (B, K, s) the working
-// system; x (B, K, s) the solution; bad (B,) zeroed by the caller.
+// Row 11's block widths: kN = 14 compiles IIWA's width in (n = 14, no
+// predicates); 16 and 32 take any n up to kN.
+template <int kN>
+__device__ __forceinline__ int width(int n) {
+  return kN == 14 ? 14 : n;
+}
+
+// (a, j) of X Y, X and Y n x n row-major (global or shared memory), the
+// sum in e order (mm_entry's order).
+template <int kN>
+__device__ __forceinline__ float mm_at(const float* X, const float* Y, int n_rt, int a,
+                                       int j) {
+  const int n = width<kN>(n_rt);
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < kN; ++e)
+    if (e < n) acc = fmaf(X[a * n + e], Y[e * n + j], acc);
+  return acc;
+}
+
+// Row a of X times v, in order.
+template <int kN>
+__device__ __forceinline__ float mv_at(const float* X, const float* v, int n_rt, int a) {
+  const int n = width<kN>(n_rt);
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < kN; ++e)
+    if (e < n) acc = fmaf(X[a * n + e], v[e], acc);
+  return acc;
+}
+
+// Row 11's inverse: src (n x n) into dst on one warp, src may equal dst.
+// The Gauss-Jordan of warp_gj (no pivoting, the pivot row scaled, a zero
+// pivot taken as 1) on [M | I] padded to kN x kN with the identity, so that
+// every loop runs kN steps with no predicate on n: column J of the padded
+// [M | I] sits in lane J % 32, slot J / 32, the pivot column i in lane i.
+// The pivot row is scaled by the correctly rounded reciprocal (where
+// warp_gj divides): the division and the predicates on n were most of
+// warp_gj's time on an H100 (gato_tpu_torch/tools/gj_bench.cu).  Returns 1 on every lane
+// where a zero pivot was clamped in a block whose diagonal is not all zero.
+template <int kN>
+__device__ int warp_gj_pad(const float* src, float* dst, int n_rt) {
+  constexpr int kC = (2 * kN + 31) / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int n = width<kN>(n_rt);
+  const int lane = threadIdx.x & 31;
+  float col[kC][kN];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int J = c * 32 + lane;
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      if (J < kN)
+        col[c][r] = r < n && J < n ? src[r * n + J] : (r == J ? 1.f : 0.f);
+      else
+        col[c][r] = J - kN == r ? 1.f : 0.f;
+    }
+  }
+  float d = 0.f;
+#pragma unroll
+  for (int r = 0; r < kN; ++r)
+    if (r == lane && r < n) d = col[0][r];
+  const bool live = __any_sync(kAll, d != 0.f);
+  int zero = 0;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const float piv = __shfl_sync(kAll, col[0][i], i);
+    zero |= piv == 0.f;
+    const float inv = __frcp_rn(piv != 0.f ? piv : 1.f);
+    float rv[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) rv[c] = col[c][i] * inv;
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      if (r != i) {
+        const float f = __shfl_sync(kAll, col[0][r], i);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) col[c][r] = fmaf(-f, rv[c], col[c][r]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) col[c][i] = rv[c];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int J = c * 32 + lane - kN;
+#pragma unroll
+    for (int r = 0; r < kN; ++r)
+      if (r < n && J >= 0 && J < n) dst[r * n + J] = col[c][r];
+  }
+  return zero && live;
+}
+
+// One block row: its L, D, U blocks (row-major, s x s, consecutive) and b.
+struct Row {
+  const float* blk;
+  const float* b;
+};
+
+// The reduction of an even row given its odd neighbours' inverses, the
+// algebra of direct.cr_level in warp_reduce_row's order:
+//   A = L Dinv_l, B = U Dinv_r               (reduce_factor)
+//   L' = -A L_l,  U' = -B U_r,  D' = (D - A U_l) - B L_r,
+//   b' = (b - A b_l) - B b_r                 (reduce_entry)
+// one entry a call, so that any group of threads (a warp's group in the
+// grid, the tail's CTA) spreads a row's entries over its threads.  hl / hr
+// say whether the left / right neighbour exists (where not, its entries are
+// 0 and its pointers are not read; the tail passes pointers into its shared
+// memory even then, so that its loads stay shared-memory loads).
+// Entry e2 (< 2 n^2) of [A | B].
+template <int kN>
+__device__ __forceinline__ float reduce_factor(const float* blk, const float* DinvL, bool hl,
+                                               const float* DinvR, bool hr, int n, int e2) {
+  const int ss = n * n, e = e2 < ss ? e2 : e2 - ss, ai = e / n, j = e - ai * n;
+  if (e2 < ss) return hl ? mm_at<kN>(blk, DinvL, n, ai, j) : 0.f;
+  return hr ? mm_at<kN>(blk + 2 * ss, DinvR, n, ai, j) : 0.f;
+}
+
+// Entry t (< n^2 + n) of the reduced row given A and B: L', D', U' at t <
+// n^2, else b'.  The outputs may alias the row's own blocks (entry t of D'
+// and b' reads only entry t of D and b; L and U are read only by
+// reduce_factor).
+template <int kN>
+__device__ __forceinline__ void reduce_entry(Row row, Row l, bool hl, Row r, bool hr,
+                                             const float* A, const float* Bm, float* out,
+                                             float* outb, int n, int t) {
+  const int ss = n * n;
+  if (t < ss) {
+    const int ai = t / n, j = t - ai * n;
+    float lv = 0.f, au = 0.f, u = 0.f, bl = 0.f;
+    if (hl) {
+      lv = mm_at<kN>(A, l.blk, n, ai, j);
+      au = mm_at<kN>(A, l.blk + 2 * ss, n, ai, j);
+    }
+    if (hr) {
+      bl = mm_at<kN>(Bm, r.blk, n, ai, j);
+      u = mm_at<kN>(Bm, r.blk + 2 * ss, n, ai, j);
+    }
+    const float d = row.blk[ss + t];
+    out[t] = -lv;
+    out[ss + t] = (d - au) - bl;
+    out[2 * ss + t] = -u;
+  } else {
+    const int ai = t - ss;
+    const float ab = hl ? mv_at<kN>(A, l.b, n, ai) : 0.f;
+    const float bb = hr ? mv_at<kN>(Bm, r.b, n, ai) : 0.f;
+    outb[ai] = (row.b[ai] - ab) - bb;
+  }
+}
+
+// The reduction of an even row by a group of threads (gtid of gthreads)
+// given its odd neighbours' inverses (DinvL, DinvR; null where absent): A
+// and B into the group's A, Bm, `sync`, the reduced row into out, outb,
+// `sync`.
+template <int kN, class Sync>
+__device__ __forceinline__ void group_reduce(Row row, Row l, const float* DinvL, Row r,
+                                             const float* DinvR, float* A, float* Bm,
+                                             float* out, float* outb, int n, int gtid,
+                                             int gthreads, Sync sync) {
+  const int ss = n * n;
+  const bool hl = DinvL != nullptr, hr = DinvR != nullptr;
+  for (int t = gtid; t < 2 * ss; t += gthreads)
+    (t < ss ? A[t] : Bm[t - ss]) = reduce_factor<kN>(row.blk, DinvL, hl, DinvR, hr, n, t);
+  sync();
+  for (int t = gtid; t < ss + n; t += gthreads)
+    reduce_entry<kN>(row, l, hl, r, hr, A, Bm, out, outb, n, t);
+  sync();
+}
+
+// acc[c] = (X Y)(a, j0 + c), c < kJ, X and Y n x n row-major: row a of X
+// read once, each sum in e order (mm_at's bits).
+template <int kN, int kJ>
+__device__ __forceinline__ void row_times(const float* X, const float* Y, int n, int a,
+                                          int j0, float (&acc)[kJ]) {
+#pragma unroll
+  for (int c = 0; c < kJ; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    if (e < n) {
+      const float x = X[a * n + e];
+#pragma unroll
+      for (int c = 0; c < kJ; ++c)
+        if (j0 + c < n) acc[c] = fmaf(x, Y[e * n + j0 + c], acc[c]);
+    }
+  }
+}
+
+// group_reduce on one warp, for a level of more even rows than warps: a
+// lane takes row a of each product and kJ of its columns (two lanes a row
+// for kN <= 16), so that it loads a row of the left factor once for kJ
+// sums instead of once a sum.  The same sums in the same order as
+// group_reduce.  Ends after a __syncwarp.
+template <int kN>
+__device__ __forceinline__ void warp_reduce_rows(Row row, Row l, const float* DinvL, Row r,
+                                                 const float* DinvR, float* A, float* Bm,
+                                                 float* out, float* outb, int n_rt) {
+  constexpr int kH = kN <= 16 ? 2 : 1, kJ = kN / kH;
+  const int n = width<kN>(n_rt), ss = n * n;
+  const int lane = threadIdx.x & 31, a = lane / kH, j0 = (lane % kH) * kJ;
+  float p[kJ], q[kJ];
+  if (a < n) {
+    if (DinvL != nullptr) row_times<kN, kJ>(row.blk, DinvL, n, a, j0, p);
+#pragma unroll
+    for (int c = 0; c < kJ; ++c)
+      if (j0 + c < n) A[a * n + j0 + c] = DinvL != nullptr ? p[c] : 0.f;
+    if (DinvR != nullptr) row_times<kN, kJ>(row.blk + 2 * ss, DinvR, n, a, j0, p);
+#pragma unroll
+    for (int c = 0; c < kJ; ++c)
+      if (j0 + c < n) Bm[a * n + j0 + c] = DinvR != nullptr ? p[c] : 0.f;
+  }
+  __syncwarp();
+  if (a < n) {
+    const int e0 = a * n + j0;
+    if (DinvL != nullptr) row_times<kN, kJ>(A, l.blk, n, a, j0, p);
+#pragma unroll
+    for (int c = 0; c < kJ; ++c)
+      if (j0 + c < n) out[e0 + c] = -(DinvL != nullptr ? p[c] : 0.f);
+    if (DinvR != nullptr) row_times<kN, kJ>(Bm, r.blk + 2 * ss, n, a, j0, p);
+#pragma unroll
+    for (int c = 0; c < kJ; ++c)
+      if (j0 + c < n) out[2 * ss + e0 + c] = -(DinvR != nullptr ? p[c] : 0.f);
+    if (DinvL != nullptr) row_times<kN, kJ>(A, l.blk + 2 * ss, n, a, j0, p);
+    if (DinvR != nullptr) row_times<kN, kJ>(Bm, r.blk, n, a, j0, q);
+#pragma unroll
+    for (int c = 0; c < kJ; ++c) {
+      if (j0 + c < n) {
+        const float au = DinvL != nullptr ? p[c] : 0.f, bl = DinvR != nullptr ? q[c] : 0.f;
+        out[ss + e0 + c] = (row.blk[ss + e0 + c] - au) - bl;
+      }
+    }
+  }
+  if (lane < n) {
+    const float ab = DinvL != nullptr ? mv_at<kN>(A, l.b, n, lane) : 0.f;
+    const float bb = DinvR != nullptr ? mv_at<kN>(Bm, r.b, n, lane) : 0.f;
+    outb[lane] = (row.b[lane] - ab) - bb;
+  }
+  __syncwarp();
+}
+
+// What row 11 reads and writes: S (B, K, 3, s, s) and gamma (B, K, s), read
+// only; W (B, K, 3, s, s) and bv (B, K, s) the working system; Dinv (B, K,
+// s, s) the odd rows' inverses of the grid levels; x (B, K, s) the
+// solution; bad (B,) zeroed by the caller.  ht: the tail's stride (rows
+// k = 0 mod ht go to the tail), a power of two.
 struct CrArrays {
   const float* S;
   const float* gamma;
   float* W;
   float* bv;
+  float* Dinv;
   float* x;
   int* bad;
-  int B, K, s;
+  int B, K, s, ht;
 };
 
-// Row 11: the whole block cyclic reduction of every problem of the batch,
-// one cooperative launch.
-template <int kN>
-__global__ void __launch_bounds__(kCrThreads) cr_longk_kernel(CrArrays a) {
+// A group's shared scratch, in floats: Dinv of both neighbours, A and B.
+inline __host__ __device__ int group_floats(int s) { return 4 * ((4 * s * s + 3) / 4); }
+
+// A grid CTA's dynamic shared memory, in bytes: kCrWarps groups (one warp a
+// group at most).
+inline long long cr_grid_smem_bytes(int s) {
+  return (long long)kCrWarps * group_floats(s) * (long long)sizeof(float);
+}
+
+// The tail's layout, in floats: `rows` rows of [L D U | b | x] (row_floats
+// each), then A and B of the ceil(rows / 2) even rows of a level.
+inline __host__ __device__ int tail_row_floats(int s) {
+  return 4 * ((3 * s * s + 2 * s + 3) / 4);
+}
+inline __host__ __device__ long long tail_floats(int rows, int s) {
+  return (long long)rows * tail_row_floats(s) + (long long)((rows + 1) / 2) * 2 * s * s;
+}
+
+// Warps of a group at a level of `tasks` even rows on `warps` resident
+// warps: 8 (a CTA) down to 1, the most that still gives every task a group.
+// GATO_CR_TWO_MEETINGS (tools/direct_stamps.py --two-meetings) makes it 1,
+// every grid level two meetings, to time one schedule against the other.
+__device__ __forceinline__ int group_warps(long long tasks, long long warps) {
+#ifdef GATO_CR_TWO_MEETINGS
+  return 1;
+#else
+  int g = kCrWarps;
+  while (g > 1 && tasks * g > warps) g /= 2;
+  return g;
+#endif
+}
+
+// Row 11, the grid levels h = 1 .. ht / 2 (kUp false) or their back-
+// substitution, h = ht / 2 .. 1 (kUp true), one cooperative launch each.
+// A level of few even rows (at least two resident warps each) is one
+// meeting: each even row k (k = 0 mod 2h) goes to a group of G >= 2 warps,
+// warp 0 inverting its left odd neighbour's D and warp 1 its right one
+// (an odd row is inverted twice, by identical arithmetic, in exchange for
+// a grid barrier), which then reduces the row into W and owns its right
+// neighbour k + h: it stores that row's D^{-1} into Dinv (and at level 0
+// its L, U and b into W, bv), which no one reads before the back-
+// substitution.  A level of more even rows than that is two meetings, as
+// rows outnumber warps: a warp inverts each odd row into Dinv (level 0:
+// and copies it), a grid barrier, a warp reduces each even row from Dinv
+// (warp_reduce_rows).
+// A back level gives each odd row to a warp.
+template <int kN, bool kUp>
+__global__ void __launch_bounds__(kCrThreads) cr_grid_kernel(CrArrays a) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
-  const int K = a.K, s = a.s, B = a.B;
+  const int K = a.K, s = width<kN>(a.s), B = a.B;
   const size_t ss = (size_t)s * s, slot3 = 3 * ss;
-  const int lane = threadIdx.x & 31;
-  const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int nwarps = (int)((gridDim.x * blockDim.x) >> 5);
-  float* ws = smem + (threadIdx.x >> 5) * warp_floats(s);
-  const float* src = a.S;       // the level's input rows
-  const float* bsrc = a.gamma;
-  int st = 0;
-  cr_stamp(st++);
-  int h = 1;
-  for (; h < K; h *= 2) {
-    const int h2 = 2 * h;
-    const int n_odd = (K - 1 - h) / h2 + 1;   // rows h, 3h, ... < K
-    const int n_even = (K - 1) / h2 + 1;      // rows 0, 2h, ... < K
-    for (int t = warp; t < B * n_odd; t += nwarps) {
-      const size_t b = t / n_odd;
-      const size_t row = b * K + h + (size_t)(t % n_odd) * h2;
-      const float* in = src + row * slot3;
-      float* w = a.W + row * slot3;
-      const int hit = warp_gj<kN>(in + ss, w + ss, s);
-      if (lane == 0 && hit) a.bad[b] = 1;
-      if (in != w) {   // level 0: the row's L, U and b into the working copy
-        for (int e = lane; e < (int)ss; e += 32) {
-          w[e] = in[e];
-          w[2 * ss + e] = in[2 * ss + e];
-        }
-        if (lane < s) a.bv[row * s + lane] = bsrc[row * s + lane];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const long long warps = (long long)gridDim.x * kCrWarps;
+  const long long warp = (long long)blockIdx.x * kCrWarps + wib;
+  if (kUp) {
+    float* ws = smem + wib * group_floats(s);
+    for (int h = a.ht / 2; h >= 1; h /= 2) {
+      const int h2 = 2 * h, n_odd = (K - 1 - h) / h2 + 1;
+      for (long long t = warp; t < (long long)B * n_odd; t += warps) {
+        const size_t b = t / n_odd;
+        const int k = h + (int)(t % n_odd) * h2;
+        const size_t row = b * K + k;
+        const float* w = a.W + row * slot3;
+        const float* xr = k + h < K ? a.x + (row + h) * s : nullptr;
+        warp_back_row(w, a.Dinv + row * ss, w + 2 * ss, a.bv + row * s,
+                      a.x + (row - h) * s, xr, a.x + row * s, s, ws);
       }
-    }
-    grid.sync();
-    cr_stamp(st++);
-    for (int t = warp; t < B * n_even; t += nwarps) {
-      const size_t b = t / n_even;
-      const int k = (t % n_even) * h2;
-      const size_t row = b * K + k;
-      const float* in = src + row * slot3;
-      float* w = a.W + row * slot3;
-      OddRow l{nullptr, nullptr, nullptr, nullptr};
-      OddRow r{nullptr, nullptr, nullptr, nullptr};
-      if (k >= h) {
-        const float* o = a.W + (row - h) * slot3;
-        l = OddRow{o + ss, o, o + 2 * ss, a.bv + (row - h) * s};
-      }
-      if (k + h < K) {
-        const float* o = a.W + (row + h) * slot3;
-        r = OddRow{o + ss, o, o + 2 * ss, a.bv + (row + h) * s};
-      }
-      warp_reduce_row(in, in + ss, in + 2 * ss, bsrc + row * s, l, r, w, w + ss,
-                      w + 2 * ss, a.bv + row * s, s, ws);
-    }
-    grid.sync();
-    cr_stamp(st++);
-    src = a.W;
-    bsrc = a.bv;
-  }
-  // The root: row 0 alone, inverted into the warp's shared memory (for
-  // K = 1 it is S's own row, which is never written).
-  for (int t = warp; t < B; t += nwarps) {
-    const size_t row = (size_t)t * K;
-    const float* in = src + row * slot3;
-    float* dinv = ws + s;
-    const int hit = warp_gj<kN>(in + ss, dinv, s);
-    if (lane == 0 && hit) a.bad[t] = 1;
-    __syncwarp();
-    if (lane < s) {
-      float acc = 0.f;
-      for (int e2 = 0; e2 < s; ++e2)
-        acc = fmaf(dinv[lane * s + e2], bsrc[row * s + e2], acc);
-      a.x[row * s + lane] = acc;
-    }
-    __syncwarp();
-  }
-  // Back-substitution, level by level: this level's odd rows hold D^{-1}
-  // in their D slot.
-  for (h /= 2; h >= 1; h /= 2) {
-    grid.sync();
-    cr_stamp(st++);
-    const int h2 = 2 * h;
-    const int n_odd = (K - 1 - h) / h2 + 1;
-    for (int t = warp; t < B * n_odd; t += nwarps) {
-      const size_t b = t / n_odd;
-      const int k = h + (t % n_odd) * h2;
-      const size_t row = b * K + k;
-      const float* w = a.W + row * slot3;
-      const float* xr = k + h < K ? a.x + (row + h) * s : nullptr;
-      warp_back_row(w, w + ss, w + 2 * ss, a.bv + row * s, a.x + (row - h) * s,
-                    xr, a.x + row * s, s, ws);
-    }
-  }
-#ifdef GATO_STAGE_STAMPS
-  grid.sync();
-  cr_stamp(st);
+#ifndef GATO_STAGE_STAMPS
+      if (h > 1)
 #endif
+      {
+        grid.sync();
+        cr_stamp();
+      }
+    }
+    return;
+  }
+  cr_stamp();
+  for (int h = 1; h < a.ht; h *= 2) {
+    const int h2 = 2 * h, n_even = (K - 1) / h2 + 1, n_odd = (K - 1 - h) / h2 + 1;
+    const long long tasks = (long long)B * n_even;
+    const int G = group_warps(tasks, warps), g = wib / G, wig = wib - g * G;
+    const bool two = G == 1;
+    const int gtid = threadIdx.x - g * G * 32;
+    float* scratch = smem + g * G * group_floats(s);
+    const auto sync = [&]() {
+      if (G == 1)
+        __syncwarp();
+      else
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(32 * G) : "memory");
+    };
+    const float* src = h == 1 ? a.S : a.W;
+    const float* bsrc = h == 1 ? a.gamma : a.bv;
+    if (two) {
+      // Every odd row inverted into Dinv by a warp (level 0: and copied).
+      for (long long t = warp; t < (long long)B * n_odd; t += warps) {
+        const size_t b = t / n_odd;
+        const size_t row = b * K + h + (size_t)(t % n_odd) * h2;
+        const int hit = warp_gj_pad<kN>(src + row * slot3 + ss, a.Dinv + row * ss, s);
+        if (lane == 0 && hit) a.bad[b] = 1;
+        if (h == 1) {
+          for (int e = lane; e < (int)ss; e += 32) {
+            a.W[row * slot3 + e] = src[row * slot3 + e];
+            a.W[row * slot3 + 2 * ss + e] = src[row * slot3 + 2 * ss + e];
+          }
+          if (lane < s) a.bv[row * s + lane] = bsrc[row * s + lane];
+        }
+      }
+      grid.sync();
+    }
+    const long long groups = (long long)gridDim.x * (kCrWarps / G);
+    for (long long t = blockIdx.x * (kCrWarps / G) + g; t < tasks; t += groups) {
+      const size_t b = t / n_even;
+      const int k = (int)(t % n_even) * h2;
+      const size_t row = b * K + k;
+      const bool hl = k >= h, hr = k + h < K;
+      const float* DinvL = nullptr;
+      const float* DinvR = nullptr;
+      if (two) {
+        if (hl) DinvL = a.Dinv + (row - h) * ss;
+        if (hr) DinvR = a.Dinv + (row + h) * ss;
+      } else {
+        float* dl = scratch;
+        float* dr = scratch + ss;
+        int hit = 0;
+        if (wig == 0 && hl) hit = warp_gj_pad<kN>(src + (row - h) * slot3 + ss, dl, s);
+        if (wig == 1 && hr) hit = warp_gj_pad<kN>(src + (row + h) * slot3 + ss, dr, s);
+        if (lane == 0 && hit) a.bad[b] = 1;
+        sync();
+        if (hr) {  // the right neighbour's owner
+          const size_t o = row + h;
+          for (int e = gtid; e < (int)ss; e += 32 * G) {
+            a.Dinv[o * ss + e] = dr[e];
+            if (h == 1) {
+              a.W[o * slot3 + e] = src[o * slot3 + e];
+              a.W[o * slot3 + 2 * ss + e] = src[o * slot3 + 2 * ss + e];
+            }
+          }
+          if (h == 1 && gtid < s) a.bv[o * s + gtid] = bsrc[o * s + gtid];
+        }
+        if (hl) DinvL = dl;
+        if (hr) DinvR = dr;
+      }
+      // At level 0 the odd rows' L, U and b are read from S, gamma (their
+      // copies in W may still be in flight).
+      const Row l{hl ? src + (row - h) * slot3 : nullptr, hl ? bsrc + (row - h) * s : nullptr};
+      const Row r{hr ? src + (row + h) * slot3 : nullptr, hr ? bsrc + (row + h) * s : nullptr};
+      if (two)
+        warp_reduce_rows<kN>(Row{src + row * slot3, bsrc + row * s}, l, DinvL, r, DinvR,
+                             scratch + 2 * ss, scratch + 3 * ss, a.W + row * slot3,
+                             a.bv + row * s, s);
+      else
+        group_reduce<kN>(Row{src + row * slot3, bsrc + row * s}, l, DinvL, r, DinvR,
+                         scratch + 2 * ss, scratch + 3 * ss, a.W + row * slot3,
+                         a.bv + row * s, s, gtid, 32 * G, sync);
+    }
+#ifndef GATO_STAGE_STAMPS
+    if (2 * h < a.ht)
+#endif
+    {
+      grid.sync();
+      cr_stamp();
+    }
+  }
+}
+
+// Row 11, the tail: one CTA a problem takes the rows k = 0 mod ht (the
+// grid levels' output in W, bv; S, gamma when ht = 1) into shared memory
+// and runs the remaining levels there, each as three CTA-barrier phases
+// (every odd row inverted in place by a warp; A and B of every even row;
+// the even rows reduced in place), then the root and the back-substitution
+// of these levels, and writes x of its rows.
+template <int kN>
+__global__ void __launch_bounds__(kTailThreads) cr_tail_kernel(CrArrays a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int K = a.K, s = width<kN>(a.s), ht = a.ht;
+  const int ss = s * s, rf = tail_row_floats(s);
+  const int rows = (K - 1) / ht + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, wib = tid >> 5;
+  const int nw = nt >> 5;
+  float* AB = sm + (size_t)rows * rf;
+  const float* src = ht == 1 ? a.S : a.W;
+  const float* bsrc = ht == 1 ? a.gamma : a.bv;
+  cr_stamp();
+  // The rows' blocks in 16-byte cp.async copies where both ends allow (an
+  // even s), and b.
+  const int q4 = (3 * ss) % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                     ? 3 * ss / 4 : 0;
+  for (int t = tid; t < rows * q4; t += nt) {
+    const int i = t / q4, q = t - i * q4;
+    const size_t k = b * K + (size_t)i * ht;
+    __pipeline_memcpy_async(sm + i * rf + 4 * q, src + k * 3 * ss + 4 * q, 16);
+  }
+  __pipeline_commit();
+  const int rest = 3 * ss - 4 * q4 + s;
+  for (int t = tid; t < rows * rest; t += nt) {
+    const int i = t / rest, e = 4 * q4 + t - i * rest;
+    const size_t k = b * K + (size_t)i * ht;
+    sm[i * rf + e] = e < 3 * ss ? src[k * 3 * ss + e] : bsrc[k * s + e - 3 * ss];
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  cr_stamp();
+  int bad = 0;
+  const auto blk = [&](int i) { return sm + i * rf; };
+  int h = 1;
+  for (; h < rows; h *= 2) {
+    const int h2 = 2 * h, n_odd = (rows - 1 - h) / h2 + 1, n_even = (rows - 1) / h2 + 1;
+    for (int t = wib; t < n_odd; t += nw) {
+      float* d = blk(h + t * h2) + ss;
+      bad |= warp_gj_pad<kN>(d, d, s);
+    }
+    __syncthreads();
+    // A and B of every even row, then every even row reduced: the group is
+    // the CTA, its tasks the (even row, entry) pairs.
+    for (int t = tid; t < n_even * 2 * ss; t += nt) {
+      const int m = t / (2 * ss), i = m * h2;
+      const bool hl = i >= h, hr = i + h < rows;
+      AB[t] = reduce_factor<kN>(blk(i), blk(hl ? i - h : i) + ss, hl,
+                                blk(hr ? i + h : i) + ss, hr, s, t - m * 2 * ss);
+    }
+    __syncthreads();
+    for (int t = tid; t < n_even * (ss + s); t += nt) {
+      const int m = t / (ss + s), i = m * h2;
+      const bool hl = i >= h, hr = i + h < rows;
+      const int il = hl ? i - h : i, ir = hr ? i + h : i;
+      reduce_entry<kN>(Row{blk(i), blk(i) + 3 * ss}, Row{blk(il), blk(il) + 3 * ss}, hl,
+                       Row{blk(ir), blk(ir) + 3 * ss}, hr, AB + m * 2 * ss,
+                       AB + m * 2 * ss + ss, blk(i), blk(i) + 3 * ss, s, t - m * (ss + s));
+    }
+    __syncthreads();
+    cr_stamp();
+  }
+  // The root: row 0 alone.
+  if (wib == 0) {
+    float* d = blk(0) + ss;
+    bad |= warp_gj_pad<kN>(d, d, s);
+    __syncwarp();
+    if (lane < s) blk(0)[3 * ss + s + lane] = mv_at<kN>(d, blk(0) + 3 * ss, s, lane);
+  }
+  __syncthreads();
+  cr_stamp();
+  // Back-substitution: x_i = D_i^{-1} ((b_i - L_i x_{i-h}) - U_i x_{i+h}),
+  // the bracket into b_i's slot first.
+  for (h /= 2; h >= 1; h /= 2) {
+    const int h2 = 2 * h, n_odd = (rows - 1 - h) / h2 + 1;
+    for (int t = tid; t < n_odd * s; t += nt) {
+      const int i = h + (t / s) * h2, ai = t % s;
+      float* row = blk(i);
+      const float lx = mv_at<kN>(row, blk(i - h) + 3 * ss + s, s, ai);
+      const float ux = i + h < rows ? mv_at<kN>(row + 2 * ss, blk(i + h) + 3 * ss + s, s, ai)
+                                    : 0.f;
+      row[3 * ss + ai] = (row[3 * ss + ai] - lx) - ux;
+    }
+    __syncthreads();
+    for (int t = tid; t < n_odd * s; t += nt) {
+      const int i = h + (t / s) * h2, ai = t % s;
+      float* row = blk(i);
+      row[3 * ss + s + ai] = mv_at<kN>(row + ss, row + 3 * ss, s, ai);
+    }
+    __syncthreads();
+  }
+  cr_stamp();
+  for (int t = tid; t < rows * s; t += nt) {
+    const int i = t / s, ai = t - i * s;
+    a.x[(b * K + (size_t)i * ht) * s + ai] = blk(i)[3 * ss + s + ai];
+  }
+  if (lane == 0 && bad) a.bad[b] = 1;
 }
 
 // Row 12, phase 1: D_o^{-1} of every odd row 2j+1 of a level of W rows into
@@ -453,13 +880,11 @@ unpeel_kernel(const float* S, const float* bvec, const float* Doinv,
   }
 }
 
-// Resident CTAs of the cooperative kernel: blocks per SM (at most
-// kCrMaxCtasPerSm) times SMs; 0 if none fits, a negative CUDA error code if
-// a query fails.
-template <int kN>
-int cr_resident_ctas(int s) {
-  const void* kernel = (const void*)cr_longk_kernel<kN>;
-  const size_t smem = (size_t)cr_smem_bytes(s);
+// Resident CTAs of a cooperative kernel of kCrThreads threads and
+// cr_grid_smem_bytes(s): blocks per SM (at most kCrMaxCtasPerSm) times
+// SMs; 0 if none fits, a negative CUDA error code if a query fails.
+inline int cr_resident_ctas(const void* kernel, int s) {
+  const size_t smem = (size_t)cr_grid_smem_bytes(s);
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -470,12 +895,52 @@ int cr_resident_ctas(int s) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kCrThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCrThreads, smem);
   if (err != cudaSuccess) return -(int)err;
   if (!coop) return -(int)cudaErrorNotSupported;
   if (per_sm > kCrMaxCtasPerSm) per_sm = kCrMaxCtasPerSm;
   return per_sm * sms;
+}
+
+template <int kN>
+int cr_grid(int s) {
+  const int down = cr_resident_ctas((const void*)cr_grid_kernel<kN, false>, s);
+  const int up = cr_resident_ctas((const void*)cr_grid_kernel<kN, true>, s);
+  return down < 0 ? down : (up < 0 ? up : (down < up ? down : up));
+}
+
+// Launches row 11 (its grid levels, tail and grid back levels) on `st`.
+template <int kN>
+cudaError_t cr_launch(CrArrays a, int grid_max, cudaStream_t st) {
+  void* args[] = {&a};
+  const long long tasks = (long long)a.B * ((a.K + 1) / 2);
+  const unsigned grid = (unsigned)(tasks < grid_max ? tasks : grid_max);
+  const size_t gsmem = (size_t)cr_grid_smem_bytes(a.s);
+  cudaError_t err = cudaSuccess;
+#ifdef GATO_STAGE_STAMPS
+  cr_stamp_reset<<<1, 1, 0, st>>>();
+#endif
+  if (a.ht > 1) {
+    if (grid_max < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const void* down = (const void*)cr_grid_kernel<kN, false>;
+    err = opt_in_smem(down, gsmem);
+    if (err == cudaSuccess)
+      err = cudaLaunchCooperativeKernel(down, dim3(grid), dim3(kCrThreads), args, gsmem, st);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = (a.K - 1) / a.ht + 1;
+  const size_t tsmem = (size_t)tail_floats(rows, a.s) * sizeof(float);
+  const void* tail = (const void*)cr_tail_kernel<kN>;
+  err = opt_in_smem(tail, tsmem);
+  if (err != cudaSuccess) return err;
+  cr_tail_kernel<kN><<<a.B, kTailThreads, tsmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.ht == 1) return err;
+  const void* up = (const void*)cr_grid_kernel<kN, true>;
+  err = opt_in_smem(up, gsmem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(up, dim3(grid), dim3(kCrThreads), args, gsmem, st);
+  return err;
 }
 
 // Blocks of kCrThreads for one warp per task.
@@ -503,42 +968,36 @@ int gato_longk_cr_stamps(unsigned long long* out) {
 #endif
 }
 
-// Dynamic shared memory of a CTA of the cyclic reduction or the peel's
-// reduction, in bytes.
-long long gato_longk_cr_smem_bytes(int s) { return gato::cr_smem_bytes(s); }
+// Row 11's plan mirrors (kernels/longk.py): a grid CTA's dynamic shared
+// memory and the tail's, in bytes.
+long long gato_longk_cr_grid_smem_bytes(int s) { return gato::cr_grid_smem_bytes(s); }
+long long gato_longk_cr_tail_smem_bytes(int rows, int s) {
+  return gato::tail_floats(rows, s) * (long long)sizeof(float);
+}
 
-// Resident CTAs of row 11's cooperative kernel on the current device at
+// Resident CTAs of row 11's cooperative kernels on the current device at
 // block width s; 0 if none fits, a negative CUDA error code if a query
 // fails.
 int gato_longk_cr_grid(int s) {
-  return s <= 16 ? gato::cr_resident_ctas<16>(s) : gato::cr_resident_ctas<32>(s);
+  return s == 14 ? gato::cr_grid<14>(s)
+                 : (s <= 16 ? gato::cr_grid<16>(s) : gato::cr_grid<32>(s));
 }
 
-// Launches row 11 on `stream`: x (B, K, s) with S x = gamma for B problems,
-// W (B, K, 3, s, s) and bv (B, K, s) scratch, bad (B) zeroed ints.  Up to
-// grid_max CTAs (gato_longk_cr_grid), no more than the first level has
-// rows for.  Returns the CUDA error code (0 on success).
-int gato_longk_cr(const float* S, const float* gamma, float* W, float* bv,
-                  float* x, int* bad, int B, int K, int s, int grid_max,
+// Launches row 11 on `stream`: x (B, K, s) with S x = gamma for B problems;
+// rows k = 0 mod ht (a power of two, kernels/longk.py's cr_tail_stride) go
+// to the tail; below it the grid levels, on up to grid_max CTAs
+// (gato_longk_cr_grid), with W (B, K, 3, s, s), bv (B, K, s) and Dinv (B,
+// K, s, s) scratch (unused, and may be null, when ht = 1); bad (B) zeroed
+// ints.  Returns the CUDA error code (0 on success).
+int gato_longk_cr(const float* S, const float* gamma, float* W, float* bv, float* Dinv,
+                  float* x, int* bad, int B, int K, int s, int ht, int grid_max,
                   void* stream) {
-  if (grid_max < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long rows = (long long)B * ((K + 1) / 2);
-  long long grid = (rows + gato::kCrWarps - 1) / gato::kCrWarps;
-  if (grid > grid_max) grid = grid_max;
-  if (grid < 1) grid = 1;
-  gato::CrArrays a{S, gamma, W, bv, x, bad, B, K, s};
-  void* args[] = {&a};
-  const size_t smem = (size_t)gato::cr_smem_bytes(s);
-  const void* kernel = s <= 16 ? (const void*)gato::cr_longk_kernel<16>
-                               : (const void*)gato::cr_longk_kernel<32>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid),
-                                    dim3(gato::kCrThreads), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  gato::CrArrays a{S, gamma, W, bv, Dinv, x, bad, B, K, s, ht};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = s == 14   ? gato::cr_launch<14>(a, grid_max, st)
+                          : s <= 16 ? gato::cr_launch<16>(a, grid_max, st)
+                                    : gato::cr_launch<32>(a, grid_max, st);
+  return (int)err;
 }
 
 // Launches row 12 on `stream` (both phases) for a level of W >= 2 rows of B

@@ -1,25 +1,36 @@
 // Rows 5 and 6: the exact solve as block-Thomas elimination, one forward
-// and one reverse launch, batched.
+// and one reverse pass, batched.
 //
 // Replace gato_tpu/kernels/thomas_batch.py::_fwd_kernel (the pallas_call in
 // _fwd_call) and ::_rev_kernel (in _rev_call); entry
-// solve_direct_thomas_batched.  Plain versions and wrapper:
-// gato_tpu_torch/kernels/thomas_batch.py.
+// solve_direct_thomas_batched.  Plain versions, wrappers and the Python
+// mirror of the launch plan: gato_tpu_torch/kernels/thomas_batch.py.
 //
-// Forward (thomas_fwd_kernel), one thread block per problem:
-//   1. Qinv and Rinv of every knot at once (gj_invert, count = K and K-1,
-//      with one zero-pivot flag per block), then phi_j = A_{j-1} Qinv_{j-1},
-//      theta_j and gamma_j of every knot at once, with the shared device
-//      functions of condense.cuh: none of them depends on the elimination;
-//   2. the walk j = 0..K-1, in a loop of the block's own (the TPU walks K
-//      as a sequential grid axis; CUDA blocks run in no order):
-//        M_j = phi_j Cinv_{j-1};  Dhat_j = theta_j - M_j phi_j^T;
+// Forward (row 5), two launches:
+//   1. thomas_condense_kernel: every knot's Qinv, Rinv, phi_k = A_{k-1}
+//      Qinv_{k-1}, theta_k and gamma_k, in row 7's condensation tiles
+//      (condense_tile.cuh, its Thomas instantiation) spread over the card,
+//      B x ceil(K / nk) CTAs (nk from kernels/longk.py's tile_knots);
+//      none of it depends on the elimination.  A clamped zero pivot in Q_k
+//      or R_{k-1} sets knot k's flag.
+//   2. thomas_walk_kernel: the walk j = 0..K-1 of each problem on one warp,
+//        M_j = phi_j Cinv_{j-1};  Dhat_j = theta_j - M_j phi_j^T
 //        bhat_j = gamma_j - M_j bhat_{j-1};  Cinv_j = Dhat_j^{-1}
-//      one thread per entry of an s x s product, Cinv_{j-1} and bhat_{j-1}
-//      carried in shared memory.  For s <= 16 warp 0 inverts Dhat_j in
-//      registers (warp_gj_invert), with no barrier, instead of the
-//      block-wide Gauss-Jordan with its two barriers a pivot (PERF.md has
-//      the forward pass's time both ways).
+//      in registers: column J of [Dhat_j | I] (J < 2 kN, kN = 16 or 32)
+//      sits in lane J mod 32, slot J / 32, Dhat's columns at J = P.. and
+//      the identity's at the other half.  The lanes holding Cinv_{j-1}'s
+//      columns form M's columns from phi_j (shared memory, a broadcast
+//      read), M's columns go round the warp by shuffles to form Dhat_j in
+//      the same registers and bhat_j in every lane, and the Gauss-Jordan
+//      (no pivoting, the pivot row divided explicitly, a zero pivot divided
+//      by 1; the pivot column reaches every lane by shuffles) leaves
+//      Cinv_j where the identity was, so P alternates between the halves
+//      and nothing moves between knots.  No block barrier and no shared-
+//      memory round trip sit between the products and the inverse.  phi,
+//      theta, gamma and the flag of knots j+1..j+3 are in flight into a
+//      ring of the warp's own shared memory (cp.async) while knot j is
+//      walked.  A CTA carries `walks` problems, a warp each, with nothing
+//      shared between them (no __syncthreads).
 //   It writes the stacks Cinv, bhat, Qinv, Rinv, phi, theta and gamma.  A
 //   clamped zero pivot (in a block whose diagonal is not all zero) in Q_j,
 //   R_{j-1} or Dhat_j adds +inf to bhat_j: the problem's lambda, dz and eta
@@ -39,186 +50,306 @@
 //
 // What bounds it on an H100: the walks are chains of dependent small steps
 // (per knot of the forward: two s x s products and an s-pivot Gauss-Jordan,
-// each barrier-separated), so one problem's time is latency; many blocks
-// share an SM (224 threads forward, 32 reverse at IIWA) and a batch is
-// bound by how many walks run at once.  The stacks (~172 KB a problem at
-// IIWA) go through global memory once each way.
+// here on one warp with shuffles), so one problem's time is the latency
+// of that chain, K steps long; the condensation is knot-parallel and runs
+// on the whole card.  A batch is bound by how many walks run at once (a
+// warp each).  The stacks (~172 KB a problem at IIWA) go through global
+// memory once each way.
+//
+// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
+// builds that way; the default build does not): stamp 0 is the first
+// condensation CTA's start, stamp 1 the last one's end, stamp 2 + j the end
+// of knot j of problem 0's walk (the first kThomasStamps - 2 knots).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "condense.cuh"
+#include "condense_tile.cuh"
 
 namespace gato {
 
-// Floats of global scratch one problem needs in the forward pass: B Rinv
-// (K-1, s, c) and the per-knot zero-pivot flags of Q and R (2K ints).
-inline long long thomas_scratch_floats(int K, int s, int c) {
-  return (K - 1LL) * s * c + 2LL * K;
+// Knots a walk keeps in its ring: the one walked and three in flight.
+constexpr int kWalkRing = 4;
+// Walks (warps) a forward CTA carries, at most.
+constexpr int kMaxWalks = 8;
+
+// The walk's padded width: 14 compiles IIWA's width in; 16 and 32 take
+// any s up to them, the blocks padded (phi with zeros, theta with the
+// identity) so that no loop of the walk depends on s.
+inline __host__ __device__ int walk_width(int s) { return s == 14 ? 14 : (s <= 16 ? 16 : 32); }
+
+// Floats of one ring slot: phi_j, theta_j (kN x kN each), gamma_j (kN) and
+// knot j's flag.
+inline __host__ __device__ int walk_slot_floats(int s) {
+  const int w = walk_width(s);
+  return (int)(2 * round4((long long)w * w) + round4(w) + 4);
 }
 
-// Threads of a forward block: one per entry of an s x s product.
-inline int thomas_fwd_threads(int s) { return threads_for(s * s); }
+// Dynamic shared memory of a walk CTA of `walks` warps, in bytes.
+inline long long walk_smem_bytes(int s, int walks) {
+  return 4LL * walks * kWalkRing * walk_slot_floats(s);
+}
 
-// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
-// builds that way; the default build does not), block 0 of the forward
-// kernel reads %globaltimer at its start, after the condensation and after
-// each knot of the walk (the first kThomasStamps - 2 knots).
 constexpr int kThomasStamps = 66;
 #ifdef GATO_STAGE_STAMPS
 static __device__ unsigned long long thomas_stamps[kThomasStamps];
 static __device__ int thomas_stamp_count;
-__device__ __forceinline__ void thomas_stamp(int i) {
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__global__ void thomas_stamp_reset() {
+  thomas_stamps[0] = ~0ULL;
+  thomas_stamps[1] = 0;
+  thomas_stamp_count = 2;
+}
+// Stamp 0 (i = 0) or 1 (i = 1) of a condensation CTA: the earliest start,
+// the latest end.
+__device__ __forceinline__ void condense_stamp(int i) {
   __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x == 0 && i < kThomasStamps) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    thomas_stamps[i] = t;
-    thomas_stamp_count = i + 1;
+  if (threadIdx.x == 0) {
+    if (i == 0)
+      atomicMin(&thomas_stamps[0], global_ns());
+    else
+      atomicMax(&thomas_stamps[1], global_ns());
+  }
+}
+__device__ __forceinline__ void walk_stamp(size_t b, int j) {
+  if (b == 0 && (threadIdx.x & 31) == 0 && 2 + j < kThomasStamps) {
+    thomas_stamps[2 + j] = global_ns();
+    thomas_stamp_count = 3 + j;
   }
 }
 #else
-__device__ __forceinline__ void thomas_stamp(int) {}
+__device__ __forceinline__ void condense_stamp(int) {}
+__device__ __forceinline__ void walk_stamp(size_t, int) {}
 #endif
 
-// The walk's one inversion a knot, for n <= 16, in the registers of one
-// warp: lane l holds column l of [M | I] (2n <= 32 columns), the pivot
-// column reaches every lane by shuffles, and no barrier is needed.  The
-// same Gauss-Jordan as gj_invert (no pivoting, explicit division of the
-// pivot row, a zero pivot divided by 1); returns 1 where gj_invert would
-// set *bad.  src (n x n, row-major) is read, dst written, by warp 0 only.
-constexpr int kWarpGjMax = 16;
-
-__device__ int warp_gj_invert(const float* src, float* dst, int n) {
-  const int lane = threadIdx.x & 31;
-  float col[kWarpGjMax];
-#pragma unroll
-  for (int r = 0; r < kWarpGjMax; ++r)
-    if (r < n) col[r] = lane < n ? src[r * n + lane] : (lane - n == r ? 1.f : 0.f);
-  float d = 0.f;
-#pragma unroll
-  for (int r = 0; r < kWarpGjMax; ++r)
-    if (r == lane && r < n) d = fabsf(col[r]);
-  const float dabs = __shfl_sync(0xffffffffu, warp_sum(d), 0);
-  int zero = 0;
-#pragma unroll
-  for (int i = 0; i < kWarpGjMax; ++i) {
-    if (i < n) {
-      const float piv = __shfl_sync(0xffffffffu, col[i], i);
-      zero |= piv == 0.f;
-      const float rv = col[i] / (piv != 0.f ? piv : 1.f);
-#pragma unroll
-      for (int r = 0; r < kWarpGjMax; ++r) {
-        if (r < n && r != i) {
-          const float f = __shfl_sync(0xffffffffu, col[r], i);
-          col[r] = col[r] - f * rv;
-        }
-      }
-      col[i] = rv;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kWarpGjMax; ++r)
-    if (r < n && lane >= n && lane < 2 * n) dst[r * n + lane - n] = col[r];
-  return zero && dabs > 0.f;
+// Row 5, launch 1: one CTA a (problem, tile), condense_tile's Thomas
+// instantiation.
+template <int kS, int kC>
+__global__ void __launch_bounds__(kGridThreads)
+thomas_condense_kernel(KktArrays in, OpArrays out, TilePlan L, int ntiles) {
+  extern __shared__ float4 smem4[];
+  condense_stamp(0);
+  condense_tile<kS, kC, true>(in, out, L, blockIdx.x / ntiles, blockIdx.x % ntiles,
+                              reinterpret_cast<float*>(smem4));
+  condense_stamp(1);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-thomas_fwd_kernel(const float* Qg, const float* Rg, const float* Ag,
-                  const float* Bg, const float* qg, const float* rg,
-                  const float* cg, float* scratch, float* Cinv_out,
-                  float* bhat_out, float* Qinv_out, float* Rinv_out,
-                  float* phi_out, float* theta_out, float* gam_out, int K,
-                  int s, int c, float rho, int arena_floats,
-                  long long scratch_floats) {
-  extern __shared__ float smem[];
-  __shared__ int dbad;     // this knot's Dhat flag
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t b = blockIdx.x;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const int n = K * s;
-  const size_t nu = (size_t)(K - 1) * c;
-  const float* Q = Qg + b * K * ss;
-  const float* R = Rg + b * (K - 1) * cc2;
-  const float* A = Ag + b * (K - 1) * ss;
-  const float* Bm = Bg + b * (K - 1) * sc;
-  const float* q = qg + b * n;
-  const float* r = rg + b * nu;
-  const float* cv = cg + b * n;
-  float* Cinv = Cinv_out + b * K * ss;
-  float* bhat = bhat_out + b * n;
-  float* Qinv = Qinv_out + b * K * ss;
-  float* Rinv = Rinv_out + b * (K - 1) * cc2;
-  float* phi = phi_out + b * K * ss;
-  float* theta = theta_out + b * K * ss;
-  float* gam = gam_out + b * n;
-  float* BR = scratch + b * scratch_floats;               // (K-1, s, c)
-  int* qflag = reinterpret_cast<int*>(BR + (K - 1) * sc);  // (K,)
-  int* rflag = qflag + K;                                  // (K-1,)
-  float* arena = smem;
-  float* Cp = smem + arena_floats;   // Cinv_{j-1}, then Cinv_j
-  float* M = Cp + ss;
-  float* Dh = M + ss;
-  float* bp = Dh + ss;               // bhat_{j-1}
-  float* bc = bp + s;                // bhat_j before the flag
+// What the walk reads (the condensation's stacks, (B, K, ...)) and writes.
+struct WalkArrays {
+  const float* phi;
+  const float* theta;
+  const float* gamma;
+  const int* knot_bad;
+  float* Cinv;
+  float* bhat;
+  int B, K, s, walks;
+};
 
-  thomas_stamp(0);
-  // 1. Every knot's inverses and condensed blocks.
-  gj_invert(Q, ss, Qinv, ss, K, s, rho, arena, arena_floats, nullptr, qflag);
-  gj_invert(R, cc2, Rinv, cc2, K - 1, c, rho, arena, arena_floats, nullptr,
-            rflag);
-  condense_products<false>(A, Bm, Qinv, Rinv, phi, theta, nullptr, ss, BR, K,
-                           s, c);
-  for (int i = tid; i < n; i += nt)
-    gam[i] = gamma_row(Qinv, phi, ss, BR, q, r, cv, s, c, i);
-  __syncthreads();
-  thomas_stamp(1);
+// n floats from global src into the warp's shared dst with cp.async: 16
+// bytes a copy where both ends are 16-byte aligned and n a multiple of 4,
+// else 4.
+__device__ __forceinline__ void warp_async_copy(float* dst, const float* src, int n) {
+  const int lane = threadIdx.x & 31;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+      (n & 3) == 0) {
+    for (int i = lane; i < n / 4; i += 32) __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+  } else {
+    for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
+  }
+}
 
-  // 2. The elimination walk.
-  for (int j = 0; j < K; ++j) {
-    const float* ph = phi + j * ss;
-    const float* th = theta + j * ss;
-    if (j == 0) {
-      for (int e = tid; e < (int)ss; e += nt) Dh[e] = th[e];
-      for (int a = tid; a < s; a += nt) bc[a] = gam[a];
+// Knot j of problem b into a ring slot (nothing past the horizon), one
+// commit group either way; an n x n block goes to the top left of the
+// slot's kN x kN one, whose padding walk_init wrote.
+template <int kN>
+__device__ __forceinline__ void walk_load(const WalkArrays& a, size_t b, int j, float* slot) {
+  if (j < a.K) {
+    const int n = kN == 14 ? 14 : a.s, nn = kN * kN, ss4 = (int)round4(nn);
+    const size_t kn = b * a.K + j;
+    const float* ph = a.phi + kn * n * n;
+    const float* th = a.theta + kn * n * n;
+    if (n == kN) {
+      warp_async_copy(slot, ph, nn);
+      warp_async_copy(slot + ss4, th, nn);
     } else {
-      for (int e = tid; e < (int)ss; e += nt) {
-        const int a = e / s, col = e % s;
-        float acc = 0.f;
-        for (int e2 = 0; e2 < s; ++e2) acc = fmaf(ph[a * s + e2], Cp[e2 * s + col], acc);
-        M[e] = acc;
-      }
-      __syncthreads();
-      for (int e = tid; e < (int)ss; e += nt) {
-        const int a = e / s, col = e % s;
-        float acc = 0.f;
-        for (int e2 = 0; e2 < s; ++e2) acc = fmaf(M[a * s + e2], ph[col * s + e2], acc);
-        Dh[e] = th[e] - acc;
-      }
-      for (int a = tid; a < s; a += nt) {
-        float acc = 0.f;
-        for (int e2 = 0; e2 < s; ++e2) acc = fmaf(M[a * s + e2], bp[e2], acc);
-        bc[a] = gam[j * s + a] - acc;
+      for (int e = threadIdx.x & 31; e < n * n; e += 32) {
+        const int r = e / n, c = e - r * n;
+        __pipeline_memcpy_async(slot + r * kN + c, ph + e, 4);
+        __pipeline_memcpy_async(slot + ss4 + r * kN + c, th + e, 4);
       }
     }
-    if (tid == 0) dbad = 0;
-    __syncthreads();
-    if (s <= kWarpGjMax) {
-      if (tid < 32) {
-        const int hit = warp_gj_invert(Dh, Cp, s);
-        if (tid == 0) dbad = hit;
+    warp_async_copy(slot + 2 * ss4, a.gamma + kn * n, n);
+    if ((threadIdx.x & 31) == 0)
+      __pipeline_memcpy_async(slot + 2 * ss4 + round4(kN), a.knot_bad + kn, 4);
+  }
+  __pipeline_commit();
+}
+
+// The padding of every ring slot: phi and gamma zero, theta the identity
+// past n (written once; the copies never touch it).
+template <int kN>
+__device__ __forceinline__ void walk_init(float* ring, int n) {
+  const int slot_floats = (int)(2 * round4(kN * kN) + round4(kN) + 4);
+  const int ss4 = (int)round4(kN * kN);
+  for (int e = threadIdx.x & 31; e < kWalkRing * slot_floats; e += 32) {
+    const int o = e % slot_floats, r = (o - ss4) / kN, c = (o - ss4) % kN;
+    ring[e] = o >= ss4 && o < ss4 + kN * kN && r == c && r >= n ? 1.f : 0.f;
+  }
+  __syncwarp();
+}
+
+// One knot of the walk on one warp.  Column J of [Dhat_j | I] (kN x kN
+// each) is held by lane J % 32 in slot J / 32: Dhat_j's columns at J = kP
+// + c, the identity's (Cinv_j after the Gauss-Jordan) at J = kQ + c.  On
+// entry the kP columns hold Cinv_{j-1} (j > 0) and every lane holds
+// bhat_{j-1} in bh; on exit the kQ columns hold Cinv_j and bh holds bhat_j
+// (poisoned).  The pivot row is scaled by the correctly rounded reciprocal
+// of the pivot (longk_direct.cu's warp_gj_pad, which has the numbers).
+template <int kN, int kP>
+__device__ __forceinline__ void walk_step(const WalkArrays& a, size_t b, int j,
+                                          const float* slot,
+                                          float (&col)[(2 * kN + 31) / 32][kN],
+                                          float (&bh)[kN]) {
+  constexpr int kC = (2 * kN + 31) / 32;
+  constexpr int kQ = (kP + kN) % (2 * kN);
+  constexpr int kSP = kP / 32, kSQ = kQ / 32, kLP = kP % 32, kLQ = kQ % 32;
+  constexpr int kSS4 = (kN * kN + 3) / 4 * 4;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, n = kN == 14 ? 14 : a.s;
+  const int cP = lane - kLP, cQ = lane - kLQ;
+  const bool ownP = cP >= 0 && cP < kN, ownQ = cQ >= 0 && cQ < kN;
+  const int cc = ownP ? cP : 0;  // a valid column for the other lanes' reads
+  const float* ph = slot;
+  const float* th = slot + kSS4;
+  const float* gm = slot + 2 * kSS4;
+  const int knot_bad = reinterpret_cast<const int*>(gm + (kN + 3) / 4 * 4)[0];
+  float bc[kN];
+  if (j == 0) {
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      col[kSP][r] = th[r * kN + cc];
+      bc[r] = gm[r];
+    }
+  } else {
+    // Column cP of M_j = phi_j Cinv_{j-1}.
+    float m[kN];
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      float acc = 0.f;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) acc = fmaf(ph[r * kN + e], col[kSP][e], acc);
+      m[r] = acc;
+    }
+    // Dhat_j = theta_j - M_j phi_j^T into the kP columns, bhat_j = gamma_j -
+    // M_j bhat_{j-1} in every lane: M's column e from lane kLP + e.
+    float bacc[kN];
+#pragma unroll
+    for (int r = 0; r < kN; ++r) col[kSP][r] = bacc[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const float pe = ph[cc * kN + e];
+#pragma unroll
+      for (int r = 0; r < kN; ++r) {
+        const float me = __shfl_sync(kAll, m[r], kLP + e);
+        col[kSP][r] = fmaf(me, pe, col[kSP][r]);
+        bacc[r] = fmaf(me, bh[e], bacc[r]);
       }
-      __syncthreads();
-    } else {
-      gj_invert(Dh, 0, Cp, 0, 1, s, 0.f, arena, arena_floats, &dbad);
     }
-    const bool poison = qflag[j] != 0 || (j > 0 && rflag[j - 1] != 0) || dbad != 0;
-    for (int e = tid; e < (int)ss; e += nt) Cinv[j * ss + e] = Cp[e];
-    for (int a = tid; a < s; a += nt) {
-      const float v = bc[a] + (poison ? __int_as_float(0x7f800000) : 0.f);
-      bhat[j * s + a] = v;
-      bp[a] = v;
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      col[kSP][r] = th[r * kN + cc] - col[kSP][r];
+      bc[r] = gm[r] - bacc[r];
     }
-    __syncthreads();
-    thomas_stamp(2 + j);
+  }
+  // [Dhat_j | I]: the identity's columns, zero elsewhere.
+#pragma unroll
+  for (int k = 0; k < kC; ++k) {
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      if (k == kSQ && ownQ)
+        col[k][r] = cQ == r ? 1.f : 0.f;
+      else if (!(k == kSP && ownP))
+        col[k][r] = 0.f;
+    }
+  }
+  float d = 0.f;
+#pragma unroll
+  for (int r = 0; r < kN; ++r)
+    if (r == cP && r < n) d = col[kSP][r];
+  const bool live = __any_sync(kAll, d != 0.f);
+  int zero = 0;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const float piv = __shfl_sync(kAll, col[kSP][i], kLP + i);
+    zero |= piv == 0.f;
+    const float inv = __frcp_rn(piv != 0.f ? piv : 1.f);
+    float rv[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) rv[k] = col[k][i] * inv;
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      if (r != i) {
+        const float f = __shfl_sync(kAll, col[kSP][r], kLP + i);
+#pragma unroll
+        for (int k = 0; k < kC; ++k) col[k][r] = fmaf(-f, rv[k], col[k][r]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kC; ++k) col[k][i] = rv[k];
+  }
+  const bool poison = knot_bad != 0 || (zero && live);
+  const float add = poison ? __int_as_float(0x7f800000) : 0.f;
+  const size_t kn = b * a.K + j;
+  float* bj = a.bhat + kn * n;
+#pragma unroll
+  for (int r = 0; r < kN; ++r) {
+    bh[r] = r < n ? bc[r] + add : 0.f;
+    if (r < n && r == lane) bj[r] = bh[r];
+  }
+  if (ownQ && cQ < n) {
+    float* Cj = a.Cinv + kn * n * n + cQ;
+#pragma unroll
+    for (int r = 0; r < kN; ++r)
+      if (r < n) Cj[r * n] = col[kSQ][r];
+  }
+}
+
+// Knot j: wait for its slot, walk it, refill the slot with knot j + ring.
+template <int kN, int kP>
+__device__ __forceinline__ void walk_knot(const WalkArrays& a, size_t b, int j, float* ring,
+                                          int slot_floats,
+                                          float (&col)[(2 * kN + 31) / 32][kN],
+                                          float (&bh)[kN]) {
+  float* slot = ring + (j % kWalkRing) * slot_floats;
+  __pipeline_wait_prior(kWalkRing - 1);
+  __syncwarp();
+  walk_step<kN, kP>(a, b, j, slot, col, bh);
+  walk_stamp(b, j);
+  __syncwarp();
+  walk_load<kN>(a, b, j + kWalkRing, slot);
+}
+
+// Row 5, launch 2: warp w of block x walks problem x walks + w.
+template <int kN>
+__global__ void __launch_bounds__(32 * kMaxWalks) thomas_walk_kernel(WalkArrays a) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * a.walks + warp;
+  if (b >= (size_t)a.B) return;
+  const int slot_floats = walk_slot_floats(a.s);
+  float* ring = reinterpret_cast<float*>(smem4) + (size_t)warp * kWalkRing * slot_floats;
+  if (kN != 14) walk_init<kN>(ring, a.s);
+  for (int i = 0; i < kWalkRing; ++i) walk_load<kN>(a, b, i, ring + i * slot_floats);
+  float col[(2 * kN + 31) / 32][kN];
+  float bh[kN];
+  for (int j = 0; j < a.K; j += 2) {
+    walk_knot<kN, 0>(a, b, j, ring, slot_floats, col, bh);
+    if (j + 1 < a.K) walk_knot<kN, kN>(a, b, j + 1, ring, slot_floats, col, bh);
   }
 }
 
@@ -335,9 +466,9 @@ thomas_rev_kernel(const float* Cinv_g, const float* bhat_g, const float* Qinv_g,
 
 extern "C" {
 
-// The forward kernel's stamps of the last launch (block 0; %globaltimer,
-// ns) into out[kThomasStamps]; returns how many were written, or 0 in a
-// build without GATO_STAGE_STAMPS.
+// The forward pass's stamps of the last launch (%globaltimer, ns; the
+// source's note) into out[kThomasStamps]; returns how many were written,
+// or 0 in a build without GATO_STAGE_STAMPS.
 int gato_thomas_stamps(unsigned long long* out) {
 #ifdef GATO_STAGE_STAMPS
   int n = 0;
@@ -352,37 +483,60 @@ int gato_thomas_stamps(unsigned long long* out) {
 #endif
 }
 
-long long gato_thomas_scratch_floats(int K, int s, int c) {
-  return gato::thomas_scratch_floats(K, s, c);
+// Dynamic shared memory of a walk CTA of `walks` warps, in bytes.
+long long gato_thomas_walk_smem_bytes(int s, int walks) {
+  return gato::walk_smem_bytes(s, walks);
 }
 
-// Dynamic shared memory of one forward block, in bytes: the Gauss-Jordan
-// work area, three s x s blocks and two s-vectors.
-long long gato_thomas_smem_bytes(int K, int s, int c) {
-  return (gato::gj_arena_floats(K, s, c) + 3LL * s * s + 2LL * s) *
-         (long long)sizeof(float);
-}
-
-// Launches row 5 on `stream` for B problems.  `scratch` holds
-// B * gato_thomas_scratch_floats(K, s, c) floats; the seven outputs are the
-// (B, K, ...) factor stacks (Rinv (B, K-1, c, c)).  Returns the CUDA error
-// code of the launch (0 on success); nothing is synchronised.
+// Launches row 5 on `stream` for B problems: the condensation in tiles of
+// `tile_knots` own knots (kernels/longk.py's tile_knots), then the walks,
+// `walks` a CTA (kernels/thomas_batch.py's walks_per_cta).  The seven
+// outputs are the (B, K, ...) factor stacks (Rinv (B, K-1, c, c)),
+// knot_bad (B, K) ints scratch.  Returns the CUDA error code of the
+// launches (0 on success); nothing is synchronised.
 int gato_thomas_fwd(const float* Q, const float* R, const float* A,
                     const float* Bm, const float* q, const float* r,
-                    const float* c, float* scratch, float* Cinv, float* bhat,
-                    float* Qinv, float* Rinv, float* phi, float* theta,
-                    float* gam, int B, int K, int s, int cdim, float rho,
-                    void* stream) {
-  const size_t smem = (size_t)gato_thomas_smem_bytes(K, s, cdim);
-  cudaError_t err = cudaFuncSetAttribute(
-      gato::thomas_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                    const float* c, float* Cinv, float* bhat, float* Qinv,
+                    float* Rinv, float* phi, float* theta, float* gam,
+                    int* knot_bad, int B, int K, int s, int cdim, float rho,
+                    int tile_knots, int walks, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const gato::TilePlan L = gato::tile_plan(tile_knots, s, cdim);
+  const size_t tile_smem = (size_t)L.total * sizeof(float);
+  const bool iiwa = s == 14 && cdim == 7;
+  const void* condense = iiwa ? (const void*)gato::thomas_condense_kernel<14, 7>
+                              : (const void*)gato::thomas_condense_kernel<0, 0>;
+  const size_t walk_smem = (size_t)gato::walk_smem_bytes(s, walks);
+  const int kw = gato::walk_width(s);
+  const void* walk = kw == 14   ? (const void*)gato::thomas_walk_kernel<14>
+                     : kw == 16 ? (const void*)gato::thomas_walk_kernel<16>
+                                : (const void*)gato::thomas_walk_kernel<32>;
+  cudaError_t err = gato::opt_in_smem(condense, tile_smem);
+  if (err == cudaSuccess) err = gato::opt_in_smem(walk, walk_smem);
   if (err != cudaSuccess) return (int)err;
-  gato::thomas_fwd_kernel<<<B, gato::thomas_fwd_threads(s), smem,
-                            (cudaStream_t)stream>>>(
-      Q, R, A, Bm, q, r, c, scratch, Cinv, bhat, Qinv, Rinv, phi, theta, gam, K,
-      s, cdim, rho, (int)gato::gj_arena_floats(K, s, cdim),
-      gato::thomas_scratch_floats(K, s, cdim));
+#ifdef GATO_STAGE_STAMPS
+  gato::thomas_stamp_reset<<<1, 1, 0, st>>>();
+#endif
+  const int ntiles = (K + L.nk - 1) / L.nk;
+  const int threads = gato::tile_threads(tile_knots, s, cdim);
+  gato::KktArrays in{Q, R, A, Bm, q, r, c, K, s, cdim, rho, gato::kLkJacobi};
+  gato::OpArrays out{nullptr, nullptr, gam, Qinv, Rinv, nullptr, phi, theta, knot_bad};
+  if (iiwa)
+    gato::thomas_condense_kernel<14, 7><<<(unsigned)B * ntiles, threads, tile_smem, st>>>(
+        in, out, L, ntiles);
+  else
+    gato::thomas_condense_kernel<0, 0><<<(unsigned)B * ntiles, threads, tile_smem, st>>>(
+        in, out, L, ntiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gato::WalkArrays wa{phi, theta, gam, knot_bad, Cinv, bhat, B, K, s, walks};
+  const unsigned blocks = (unsigned)((B + walks - 1) / walks);
+  if (kw == 14)
+    gato::thomas_walk_kernel<14><<<blocks, 32 * walks, walk_smem, st>>>(wa);
+  else if (kw == 16)
+    gato::thomas_walk_kernel<16><<<blocks, 32 * walks, walk_smem, st>>>(wa);
+  else
+    gato::thomas_walk_kernel<32><<<blocks, 32 * walks, walk_smem, st>>>(wa);
   return (int)cudaGetLastError();
 }
 

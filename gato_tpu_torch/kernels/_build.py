@@ -28,7 +28,7 @@ SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
            "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
            "probes.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh",
-           "gauss_jordan.cuh")
+           "gauss_jordan.cuh", "condense_tile.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -64,11 +64,10 @@ _SIGNATURES = {
     "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _P]),
     "gato_direct_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
-    "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _P]),
+    "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P]),
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
-    "gato_thomas_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_thomas_stamps": (_I, [_P]),
-    "gato_thomas_smem_bytes": (_LL, [_I, _I, _I]),
+    "gato_thomas_walk_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_tile_smem_bytes": (_LL, [_I] * 3),
     "gato_longk_tile_threads": (_I, [_I] * 3),
     "gato_longk_pcg_smem_bytes": (_LL, [_I] * 5),
@@ -77,10 +76,11 @@ _SIGNATURES = {
     "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
     "gato_longk_fused": (_I, [_P] * 21 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P]),
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
-    "gato_longk_cr_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_grid": (_I, [_I]),
     "gato_longk_cr_stamps": (_I, [_P]),
-    "gato_longk_cr": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "gato_longk_cr_grid_smem_bytes": (_LL, [_I]),
+    "gato_longk_cr_tail_smem_bytes": (_LL, [_I, _I]),
+    "gato_longk_cr": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),

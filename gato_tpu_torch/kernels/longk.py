@@ -13,18 +13,19 @@ that recompute their neighbour knots instead of carrying them, on kernel
 B's Gauss-Jordan; a cooperative PCG launch whose CTAs each hold a knot
 range with a one-knot halo and meet twice an iteration, per-CTA partial
 sums added in one fixed order; knot-parallel recovery) and
-``csrc/longk_direct.cu`` (rows 11 and 12: block cyclic reduction with one
-warp a block row, the whole reduction in one cooperative launch, a
-compacting level in two launches, and the back-substitution of a
-compacted level); their notes give the designs.  Rows 8 and 10 compute one
-function, PCG on condensed operators, which the TPU split by whether the
-operators fit VMEM; on the card the launch plan (:func:`pcg_rounds`) puts
-each CTA's blocks of S and Pinv in its shared memory where they fit and
-streams them where they do not, so one kernel, :func:`pcg_longk_cuda`,
-replaces both.  The TPU layout (knots on 128 lanes, ``plan_longk``
-chunking, VMEM budgets, the lane shift of the stair's slot 2, the peel's
-lane padding and chunk schedule) has no counterpart: the port works in the
-public (B, K, ...) layout.
+``csrc/longk_direct.cu`` (row 11: block cyclic reduction, its first
+levels on a cooperative grid, each problem's last rows
+(:func:`cr_tail_stride`) on one CTA in shared memory, then the grid's
+back-substitution; row 12: a compacting level in two launches, a warp a
+block row, and the back-substitution of a compacted level); their notes
+give the designs.  Rows 8 and 10 compute one function, PCG on condensed
+operators, which the TPU split by whether the operators fit VMEM; on the
+card the launch plan (:func:`pcg_rounds`) puts each CTA's blocks of S and
+Pinv in its shared memory where they fit and streams them where they do
+not, so one kernel, :func:`pcg_longk_cuda`, replaces both.  The TPU layout
+(knots on 128 lanes, ``plan_longk`` chunking, VMEM budgets, the lane shift
+of the stair's slot 2, the peel's lane padding and chunk schedule) has no
+counterpart: the port works in the public (B, K, ...) layout.
 
 Each wrapper takes tensors on a CUDA device to its kernel and raises if the
 kernel cannot take them; CPU tensors go to its plain version:
@@ -402,6 +403,53 @@ def pcg_rounds(B: int, K: int, s: int, n_sms: int, limit: int,
     return tuple(rounds)
 
 
+# Row 11's plan (mirrors of longk_direct.cu's; the card tests compare
+# them with the library's gato_longk_cr_* functions): the rows k = 0 mod
+# ht of a problem go to one CTA's shared memory (the tail), the levels
+# below ht run on the cooperative grid.
+
+TAIL_THREADS = 512
+CR_WARPS = 8
+
+
+def cr_tail_row_floats(s: int) -> int:
+    """A tail row's floats: [L D U | b | x]."""
+    return _round4(3 * s * s + 2 * s)
+
+
+def cr_tail_floats(rows: int, s: int) -> int:
+    """The tail's shared memory, in floats: its rows, then A and B of a
+    level's ceil(rows / 2) even rows."""
+    return rows * cr_tail_row_floats(s) + (rows + 1) // 2 * 2 * s * s
+
+
+def cr_grid_floats(s: int) -> int:
+    """A grid CTA's shared memory, in floats: CR_WARPS groups' D^{-1} of
+    both neighbours, A and B."""
+    return CR_WARPS * _round4(4 * s * s)
+
+
+def cr_tail_stride(K: int, s: int, limit: int) -> int:
+    """ht, the power of two from which a problem's rows (k = 0 mod ht,
+    ceil(K / ht) of them) fit the tail's ``limit`` bytes of shared memory:
+    at IIWA widths on an H100 up to 71 rows (ht = 16 at K = 1024, 128 at K
+    = 8192; K <= 71 runs in the tail alone)."""
+    ht = 1
+    while cr_tail_floats((K - 1) // ht + 1, s) * 4 > limit:
+        ht *= 2
+    return ht
+
+
+def cr_group_warps(tasks: int, warps: int) -> int:
+    """Warps of a group at a grid level of ``tasks`` even rows on ``warps``
+    resident warps: CR_WARPS (a CTA) down to 1, the most that still gives
+    every task a group (longk_direct.cu's group_warps)."""
+    g = CR_WARPS
+    while g > 1 and tasks * g > warps:
+        g //= 2
+    return g
+
+
 def grid_barriers(poly_degree: int) -> int:
     """Barriers a PCG iteration meets: one after each dot product, and two
     for each Horner term past the first."""
@@ -511,16 +559,18 @@ def _stream(dev) -> ctypes.c_void_p:
 @functools.cache
 def _resident_ctas(device_index: int, s: int) -> int:
     """Row 11's occupancy query (gato_longk_cr_grid), once per device and
-    width (the caller has made ``device_index`` current)."""
-    return _build.library().gato_longk_cr_grid(s)
+    width."""
+    with torch.cuda.device(device_index):
+        return _build.library().gato_longk_cr_grid(s)
 
 
-def _grid(lib, name: str, s: int) -> int:
-    """Resident CTAs of row 11's cooperative kernel on the current device;
-    raises with the numbers when none fits."""
-    grid = _resident_ctas(torch.cuda.current_device(), s)
+def _grid(name: str, s: int, dev) -> int:
+    """Resident CTAs of row 11's cooperative kernels on ``dev``; raises with
+    the numbers when none fits."""
+    grid = _resident_ctas(dev.index, s)
     if grid < 1:
-        smem = lib.gato_longk_cr_smem_bytes(s)
+        lib = _build.library()
+        smem = lib.gato_longk_cr_grid_smem_bytes(s)
         why = (f"CUDA error {-grid} ({lib.gato_error_string(-grid).decode()})"
                if grid < 0 else "0 resident blocks")
         raise RuntimeError(
@@ -792,26 +842,39 @@ def _system(name: str, S, b, min_rows: int):
 
 def cr_longk_cuda(S, gamma):
     """Row 11: S lam = gamma (S (B, K, 3, s, s), gamma (B, K, s)) by block
-    cyclic reduction in one cooperative launch, on a working copy of S.
-    Returns (lam, bad (B,)): ``bad`` where a used inversion clamped a zero
-    pivot in a block whose diagonal is not all zero; lam is not poisoned."""
+    cyclic reduction: the levels below :func:`cr_tail_stride` on the
+    cooperative grid (one meeting a level), the rest of each problem on one
+    CTA in shared memory, then the grid's back-substitution; up to three
+    launches, one call.  Returns (lam, bad (B,)): ``bad`` where a used
+    inversion clamped a zero pivot in a block whose diagonal is not all
+    zero; lam is not poisoned."""
     _check_args(CR_NAME, gamma)
     if gamma.device.type == "cpu":
         return cr_longk_plain(S, gamma)
-    Bn, K, s, S, gamma = _system(CR_NAME, S, gamma, 1)
+    if S.ndim != 5 or gamma.ndim != 3:
+        raise ValueError(f"{CR_NAME}: S must be (B, K, 3, s, s) and gamma (B, K, s), "
+                         f"got {tuple(S.shape)} and {tuple(gamma.shape)}")
+    Bn, K, s = gamma.shape
     dev = gamma.device
+    S = _build.checked(CR_NAME, "S", S, (Bn, K, 3, s, s), dev)
+    gamma = _build.checked(CR_NAME, "gamma", gamma, (Bn, K, s), dev)
+    if s > _build.MAX_BLOCK:
+        raise ValueError(f"{CR_NAME}: needs s <= {_build.MAX_BLOCK}; got s={s}")
     lam = torch.empty_like(gamma)
     bad = torch.zeros(Bn, dtype=torch.int32, device=dev)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            grid = _grid(lib, CR_NAME, s)
+        ht = cr_tail_stride(K, s, _limits(dev)[1])
+        W = bv = Dinv = None
+        grid = 0
+        if ht > 1:
+            grid = _grid(CR_NAME, s, dev)
             W = torch.empty_like(S)
             bv = torch.empty_like(gamma)
-            code = lib.gato_longk_cr(*map(_build.ptr, (S, gamma, W, bv, lam, bad)),
-                                     Bn, K, s, grid, _stream(dev))
-        _build.check_launch(code, f"{CR_NAME} (cooperative, up to {grid} "
-                                  "resident CTAs)")
+            Dinv = torch.empty(Bn, K, s, s, dtype=torch.float32, device=dev)
+        _build.launch(f"{CR_NAME} (tail stride {ht}, up to {grid} resident CTAs)",
+                      "gato_longk_cr", dev, S.data_ptr(), gamma.data_ptr(), _ptr(W),
+                      _ptr(bv), _ptr(Dinv), lam.data_ptr(), bad.data_ptr(), Bn, K, s,
+                      ht, grid)
         global CR_LAUNCHES
         CR_LAUNCHES += 1
     return lam, bad != 0

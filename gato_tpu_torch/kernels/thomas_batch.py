@@ -4,14 +4,16 @@ forward and a reverse hand-written CUDA kernel.
 Replace ``gato_tpu/kernels/thomas_batch.py::_fwd_kernel`` (row 5) and
 ``::_rev_kernel`` (row 6), entry point ``solve_direct_thomas_batched``.
 The CUDA source is ``gato_tpu_torch/csrc/thomas_batch.cu``; its note gives
-the design.  The forward kernel condenses every knot at once through the
-device functions shared with kernel B (``condense.cuh``), then walks the
-knots j = 0..K-1 in a loop of its own:
+the design.  The forward pass condenses every knot in row 7's tiles
+(``csrc/condense_tile.cuh``) across the card, then walks the knots j =
+0..K-1 of each problem on one warp, in registers:
 
     M_j = phi_j Cinv_{j-1};  Dhat_j = theta_j - M_j phi_j^T
     bhat_j = gamma_j - M_j bhat_{j-1};  Cinv_j = Dhat_j^{-1}
 
-and writes the factor stacks (:class:`ThomasFactors`).  The reverse kernel
+and writes the factor stacks (:class:`ThomasFactors`); its plan is
+:func:`fwd_plan` (the tile's knots from ``longk.tile_knots``, the walks a
+CTA from :func:`walks_per_cta`).  The reverse kernel
 walks j = K-1..0, x_j = Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}), fused with
 the dz recovery and the squared true residual, and reports iters = 0, eta
 and converged = direct.residual_converged(eta, ||gamma||^2).
@@ -33,7 +35,6 @@ width from which ``method='direct'`` takes this pair instead of row 4.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -43,8 +44,8 @@ from ..blocktri import block_inv_flag
 from ..direct import residual_converged
 from ..pcg import PCGResult
 from . import _build
-from .direct_fused import check_limits
-from .fused_solve import block_shapes, check_tensors
+from .fused_solve import block_shapes
+from .longk import _check_widths, _limits, _round4, tile_knots
 
 FWD_NAME = "thomas_fwd_cuda"
 REV_NAME = "thomas_rev_cuda"
@@ -81,8 +82,49 @@ class ThomasFactors(NamedTuple):
     gamma: torch.Tensor
 
 
+# Knots a walk keeps in its ring of shared memory (thomas_batch.cu's
+# kWalkRing) and walks a forward CTA carries at most (kMaxWalks).
+WALK_RING = 4
+MAX_WALKS = 8
+
+
+def walk_width(s: int) -> int:
+    """The walk's padded block width: 14 (IIWA's, compiled in), else 16 or
+    32 (phi padded with zeros, theta with the identity)."""
+    return 14 if s == 14 else (16 if s <= 16 else 32)
+
+
+def walk_slot_floats(s: int) -> int:
+    """Floats of one ring slot: phi_j, theta_j (padded), gamma_j and knot
+    j's flag."""
+    w = walk_width(s)
+    return 2 * _round4(w * w) + _round4(w) + 4
+
+
+def walk_smem_bytes(s: int, walks: int) -> int:
+    """Dynamic shared memory of a walk CTA of ``walks`` warps."""
+    return 4 * walks * WALK_RING * walk_slot_floats(s)
+
+
+def walks_per_cta(B: int, s: int, n_sms: int, limit: int) -> int:
+    """Walks (a warp each) of a forward CTA: ceil(B / n_sms), so that the
+    SMs share the walks before a CTA takes two, at most ``MAX_WALKS`` and
+    what ``limit`` bytes of shared memory hold."""
+    walks = min(max(-(-B // n_sms), 1), MAX_WALKS)
+    while walks > 1 and walk_smem_bytes(s, walks) > limit:
+        walks -= 1
+    return walks
+
+
+def fwd_plan(B: int, K: int, s: int, c: int, n_sms: int, limit: int) -> tuple:
+    """(tile knots, walks a CTA) of row 5's two launches."""
+    return tile_knots(B, K, s, c, n_sms, limit), walks_per_cta(B, s, n_sms, limit)
+
+
 def factor_bytes(B: int, K: int, s: int, c: int) -> int:
-    """Bytes of the factor stacks and the forward scratch of B problems."""
+    """Bytes of the factor stacks and a forward scratch of B problems (the
+    scratch counted as the first forward kernel's, (K-1) s c + 2 K floats,
+    so that the routing stays where it was)."""
     per = 4 * K * s * s + (K - 1) * c * c + 2 * K * s + (K - 1) * s * c + 2 * K
     return 4 * B * per
 
@@ -190,31 +232,25 @@ def thomas_fwd_cuda(Q, R, A, B, q, r, c, *, rho: float = 0.0) -> ThomasFactors:
         raise ValueError(f"{FWD_NAME}: Q must be (B, K, s, s), got {tuple(Q.shape)}")
     Bn, K, s, _ = Q.shape
     cdim = R.shape[-1]
-    expect = block_shapes((Bn,), K, s, cdim)
-    tensors = dict(zip(expect, (Q, R, A, B, q, r, c)))
-    check_tensors(FWD_NAME, expect, tensors, q.device)
     dev = q.device
-    lib = _build.library()
-    scratch_floats = lib.gato_thomas_scratch_floats(K, s, cdim)
-    check_limits(FWD_NAME, K, s, cdim, scratch_floats,
-                 lib.gato_thomas_smem_bytes(K, s, cdim), Bn, dev)
+    tensors = [_build.checked(FWD_NAME, key, x, shape, dev) for (key, shape), x in
+               zip(block_shapes((Bn,), K, s, cdim).items(), (Q, R, A, B, q, r, c))]
+    _check_widths(FWD_NAME, K, s, cdim)
     if factor_bytes(Bn, K, s, cdim) > FACTOR_BUDGET_BYTES:
         raise ValueError(f"{FWD_NAME}: the factor stacks of {Bn} problems at "
                          f"(K, s, c) = ({K}, {s}, {cdim}) exceed "
                          f"{FACTOR_BUDGET_BYTES} B; split the batch or use row 4")
-    Q, R, A, B, q, r, c = (t.contiguous() for t in tensors.values())
-    scratch = torch.empty(Bn, scratch_floats, dtype=torch.float32, device=dev)
+    Q, R, q = tensors[0], tensors[1], tensors[4]
     f = ThomasFactors(Cinv=torch.empty_like(Q), bhat=torch.empty_like(q),
                       Qinv=torch.empty_like(Q), Rinv=torch.empty_like(R),
                       phi=torch.empty_like(Q), theta=torch.empty_like(Q),
                       gamma=torch.empty_like(q))
     if Bn > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.gato_thomas_fwd(
-                *map(_build.ptr, (Q, R, A, B, q, r, c, scratch, *f)),
-                Bn, K, s, cdim, float(rho), ctypes.c_void_p(stream))
-        _build.check_launch(code, FWD_NAME)
+        nk, walks = fwd_plan(Bn, K, s, cdim, *_limits(dev))
+        knot_bad = torch.empty(Bn, K, dtype=torch.int32, device=dev)
+        _build.launch(FWD_NAME, "gato_thomas_fwd", dev,
+                      *(t.data_ptr() for t in (*tensors, *f, knot_bad)),
+                      Bn, K, s, cdim, float(rho), nk, walks)
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1
     return f
@@ -235,26 +271,19 @@ def thomas_rev_cuda(f: ThomasFactors, q, A, B, r):
                   Rinv=shapes["R"], phi=shapes["Q"], theta=shapes["Q"],
                   gamma=shapes["q"], q=shapes["q"], A=shapes["A"],
                   B=shapes["B"], r=shapes["r"])
-    tensors = dict(zip(expect, (*f, q, A, B, r)))
-    check_tensors(REV_NAME, expect, tensors, q.device)
-    if K < 2 or max(s, cdim) > _build.MAX_BLOCK:
-        raise ValueError(f"{REV_NAME}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; "
-                         f"got K={K}, s={s}, c={cdim}")
     dev = q.device
-    lib = _build.library()
-    args = [t.contiguous() for t in tensors.values()]
-    lam = torch.empty_like(q)
-    dz_x = torch.empty_like(q)
-    dz_u = torch.empty_like(r)
+    args = [_build.checked(REV_NAME, key, x, shape, dev)
+            for (key, shape), x in zip(expect.items(), (*f, q, A, B, r))]
+    _check_widths(REV_NAME, K, s, cdim)
+    lam = torch.empty_like(args[7])
+    dz_x = torch.empty_like(lam)
+    dz_u = torch.empty_like(args[10])
     conv = torch.empty(Bn, dtype=torch.int32, device=dev)
     eta = torch.empty(Bn, dtype=torch.float32, device=dev)
     if Bn > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = lib.gato_thomas_rev(
-                *map(_build.ptr, (*args, lam, dz_x, dz_u, conv, eta)),
-                Bn, K, s, cdim, ctypes.c_void_p(stream))
-        _build.check_launch(code, REV_NAME)
+        _build.launch(REV_NAME, "gato_thomas_rev", dev,
+                      *(t.data_ptr() for t in (*args, lam, dz_x, dz_u, conv, eta)),
+                      Bn, K, s, cdim)
         global REV_LAUNCHES
         REV_LAUNCHES += 1
     res = PCGResult(lam=lam, iters=torch.zeros(Bn, dtype=torch.int32, device=dev),

@@ -18,7 +18,10 @@ grid_common.cuh's next_round gave (parent_ctas), forced through the
 wrapper's private ``_rounds=`` plan where the checkout has one: at that
 split the two-barrier kernel keeps the older kernel's sums.  It saves every output
 (a sha256 digest for those of over a million elements) with ptxas's
-register and spill report of the build.  ``compare`` prints, group by
+register and spill report of the build.  ``dump`` also runs the exact
+kernels that share a source or a header with rows 5 and 11 (function
+``dump_exact``): row 4, row 6 on the plain forward's stacks, rows 12 and the
+unpeel, and row 13.  ``compare`` prints, group by
 group, which outputs are bit-identical, and both builds' ptxas reports; it
 exits 1 unless every output of the two dumps is.  It needs one CUDA card;
 the inputs come from testing's seeded generators.
@@ -121,11 +124,64 @@ def dump(root: str, out: str) -> None:
             *blocks, torch.zeros_like(blocks.q[0]), rhos, exit_tol=1e-6,
             max_iters=100))
     dump_longk(dev, outputs)
+    dump_exact(dev, outputs)
     torch.cuda.synchronize()
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line or "Compiling entry" in line]
     torch.save({"outputs": outputs, "ptxas": ptxas}, out)
     print(f"dumped {len(outputs)} outputs of {gt.__file__} to {out}")
+
+
+def dump_exact(dev, outputs: dict) -> None:
+    """The exact kernels that share a source or a header with rows 5 and 11
+    (groups "row4", "row6", "row12", "unpeel", "row13"): row 4
+    (direct_fused_cuda) at IIWA B = 1 and 15 and a singular mix, row 6
+    (thomas_rev_cuda) on the plain forward's stacks at B = 16 and 256, rows
+    12 and the unpeel (peel_longk_cuda, unpeel_longk_cuda) and row 13
+    (recover_longk_cuda) on the plain condensation at K = 1024, B = 1 and
+    15."""
+    import torch
+
+    import gato_tpu_torch as gt
+    from gato_tpu_torch import testing as tt
+    from gato_tpu_torch.kernels import direct_fused as kd
+    from gato_tpu_torch.kernels import longk as kl
+    from gato_tpu_torch.kernels import thomas_batch as kt
+
+    def keep(tag, fields, values):
+        for name, t in zip(fields, values):
+            outputs[f"{tag} {name}"] = _kept(t)
+
+    res_fields = ("lam", "iters", "converged", "eta", "dz_x", "dz_u")
+    full = gt.blocks_to_torch(tt.random_batch(tt.IIWA, 256, seed0=900), dev)
+    for n in (1, 15):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        res, dx, du = kd.direct_fused_cuda(*blocks, rho=1e-3)
+        keep(f"row4 B={n}", res_fields, (*res, dx, du))
+    mix = gt.blocks_to_torch(tt.stack_blocks(
+        [tt.random_blocks(tt.IIWA, seed=40), tt.singular_blocks(tt.IIWA, seed=3, knot=2),
+         tt.random_blocks(tt.IIWA, seed=41)]), dev)
+    res, dx, du = kd.direct_fused_cuda(*mix, rho=0.0)
+    keep("row4 singular", res_fields, (*res, dx, du))
+    for n in (16, 256):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        f = kt.thomas_fwd_plain(*blocks, rho=1e-3)
+        res, dx, du = kt.thomas_rev_cuda(f, blocks.q, blocks.A, blocks.B, blocks.r)
+        keep(f"row6 B={n}", res_fields, (*res, dx, du))
+    longk = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, 1024), 15,
+                                               seed0=910), dev)
+    for n in (1, 15):
+        blocks = gt.KKTBlocks(*(a[:n] for a in longk))
+        ops = kl.condense_longk_plain(*blocks, rho=1e-3, preconditioner="jacobi")
+        Sh, bh, level = kl.peel_longk_cuda(ops.S, ops.gamma)
+        keep(f"row12 K=1024 B={n}", ("S'", "b'", "Doinv", "bad"),
+             (Sh, bh, level.Doinv, level.bad))
+        plain_level = kl.peel_longk_plain(ops.S, ops.gamma)[2]
+        xh = kl.cr_longk_plain(*kl.peel_longk_plain(ops.S, ops.gamma)[:2])[0]
+        keep(f"unpeel K=1024 B={n}", ("x",), (kl.unpeel_longk_cuda(xh, plain_level),))
+        keep(f"row13 K=1024 B={n}", ("dz_x", "dz_u"),
+             kl.recover_longk_cuda(ops.Qinv, ops.Rinv, blocks.A, blocks.B, blocks.q,
+                                   blocks.r, ops.gamma))
 
 
 def dump_longk(dev, outputs: dict) -> None:

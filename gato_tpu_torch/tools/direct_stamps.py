@@ -2,6 +2,7 @@
 checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
+        [--two-meetings]
 
 Imports gato_tpu_torch from the checkout at ROOT (default: this one),
 building its kernels there, so that one call can set a parent's kernels
@@ -21,9 +22,17 @@ limit:
   ``%globaltimer`` at fixed points; the medians over ``runs`` launches, in
   us.  Row 5: ``stage1`` (the condensation, from its start to its end),
   ``walk`` (from there to the last knot), the median ``knot`` of the walk
-  and the first and last knots.  Row 11: ``phases``, the time between
-  consecutive stamps in the order the kernel takes them, and
-  ``labels`` naming each (see each source's note on its stamps).
+  and the first and last knots.  ``cluster``: the alternative design for
+  row 5's condensation, kernel B's (``cluster_body.cuh`` stages 1-3: the
+  Gauss-Jordan of Q and R and the products, on one thread-block cluster a
+  problem) at the same inputs, B = 1 and 16, from its own stamps.  Row 11:
+  ``phases``, the time between consecutive stamps in the order the kernel
+  takes them, and ``labels`` naming each (see each source's note on its
+  stamps).
+
+``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
+every grid level of row 11 takes two meetings, a warp a row, where the
+shipped build takes one meeting at a level of few rows.
 """
 
 from __future__ import annotations
@@ -104,17 +113,20 @@ def inputs(gt, dev):
     return out
 
 
-def measure(root: str, runs: int) -> dict:
+def measure(root: str, runs: int, defines: tuple = ()) -> dict:
     gt = _import(root)
     import torch
 
+    from gato_tpu_torch.kernels import _build
     from gato_tpu_torch.kernels import longk as kl
     from gato_tpu_torch.kernels import thomas_batch as kt
 
+    _build.DEFINES = defines
+
     dev = torch.device("cuda", 0)
     data = inputs(gt, dev)
-    out = {"what": "times", "root": root, "card": card(), "row5": {}, "pair": {},
-           "row11": {}}
+    out = {"what": "times", "root": root, "defines": list(defines), "card": card(),
+           "row5": {}, "pair": {}, "row11": {}}
     for n in THOMAS_B:
         b = data[("thomas", n)]
         for key, fn in (("row5", lambda: kt.thomas_fwd_cuda(*b, rho=RHO)),
@@ -128,30 +140,50 @@ def measure(root: str, runs: int) -> dict:
     return out
 
 
-def cr_labels(n: int, K: int) -> list:
-    """Names of row 11's stamped phases, from the count of stamps: the old
-    layout (3 L + 2 stamps: each level's inversion and reduction, the root,
-    the back-substitution levels) or the new one (the kernel's note)."""
-    L = max((K - 1).bit_length(), 0)
-    if n == 3 * L + 2:
+def cr_labels(kl, n: int, K: int, s: int, limit: int) -> list:
+    """Names of row 11's stamped phases (the times between its ``n``
+    stamps): before the tail design, each level's inversion and reduction,
+    the root and the back-substitution levels; with it, the grid levels,
+    the tail's load, levels, root and back-substitution, and the grid's
+    back-substitution levels."""
+    if not hasattr(kl, "cr_tail_stride"):
+        L = max((K - 1).bit_length(), 0)
         hs = [1 << i for i in range(L)]
         return ([f"{k} h={h}" for h in hs for k in ("invert", "reduce")] + ["root"]
                 + [f"back h={h}" for h in reversed(hs)])
-    return [f"phase {i}" for i in range(n - 1)]
+    ht = kl.cr_tail_stride(K, s, limit)
+    grid = [1 << i for i in range(max(ht.bit_length() - 1, 0))]
+    rows = (K - 1) // ht + 1
+    tail = [f"tail level {1 << i}" for i in range(max((rows - 1).bit_length(), 0))]
+    labels = [f"grid level h={h}" for h in grid]
+    labels += ["launch gap to the tail" if grid else "tail start", "tail load",
+               *tail, "tail root", "tail back-substitution"]
+    if grid:
+        labels += [f"tail store, launch and grid back h={grid[-1]}"]
+        labels += [f"grid back h={h}" for h in reversed(grid[:-1])]
+    return labels[:n - 1] if len(labels) >= n - 1 else labels + [
+        f"phase {i}" for i in range(len(labels), n - 1)]
 
 
-def stamps(root: str, runs: int) -> dict:
+def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dict:
     """The ``stamps`` line (run in a child process: the stamped build must
-    be chosen before the first CUDA call)."""
+    be chosen before the first CUDA call).  ``wait``: build, print
+    ``built``, then read a line from stdin before touching the card (a
+    caller that shares the card and the host says when both are idle)."""
     gt = _import(root)
     import numpy as np
     import torch
 
     from gato_tpu_torch.kernels import _build
+    from gato_tpu_torch.kernels import fused_solve as kb
     from gato_tpu_torch.kernels import longk as kl
     from gato_tpu_torch.kernels import thomas_batch as kt
 
-    _build.DEFINES = ("-DGATO_STAGE_STAMPS",)
+    _build.DEFINES = ("-DGATO_STAGE_STAMPS", *defines)
+    _build.build()
+    if wait:
+        print("built", flush=True)
+        sys.stdin.readline()
     dev = torch.device("cuda", 0)
     data = inputs(gt, dev)
     buf = (ctypes.c_ulonglong * 256)()
@@ -168,7 +200,8 @@ def stamps(root: str, runs: int) -> dict:
                 rows.append(np.diff(np.array(list(buf)[:n], dtype=np.float64)) / 1e3)
         return np.median(np.array(rows), axis=0)
 
-    line = {"what": "stamps", "root": root, "card": card(), "row5": {}, "row11": {}}
+    line = {"what": "stamps", "root": root, "defines": list(defines), "card": card(),
+            "row5": {}, "cluster": {}, "row11": {}}
     read5 = _build.function("gato_thomas_stamps")
     for n in THOMAS_B:
         b = data[("thomas", n)]
@@ -179,11 +212,21 @@ def stamps(root: str, runs: int) -> dict:
                                   "first_knot": float(knots[0]),
                                   "last_knot": float(knots[-1]),
                                   "knots_stamped": int(knots.size)}
+    # Kernel B's stamps: the start, then after the Gauss-Jordan of Q, of R,
+    # and the products (its condensation), then five more stages.
+    readb = _build.function("gato_fused_stage_stamps")
+    for n in THOMAS_B[:2]:
+        b = data[("thomas", n)]
+        d = runs_of(lambda: kb.fused_solve_cuda(*b, rho=RHO, exit_tol=1e-6,
+                                                max_iters=100), readb)
+        line["cluster"][f"B={n}"] = {"condensation": float(d[:3].sum()),
+                                     "cluster_ctas": kb.LAST_CLUSTER}
     read11 = _build.function("gato_longk_cr_stamps")
+    limit = _build.max_shared_bytes(dev) - _build.RESERVED_SHARED_BYTES
     for K, n in CR_SHAPES:
         S, g = data[("cr", K, n)]
         d = runs_of(lambda: kl.cr_longk_cuda(S, g), read11)
-        labels = cr_labels(d.size + 1, K)
+        labels = cr_labels(kl, d.size + 1, K, 14, limit)
         line["row11"][f"K={K} B={n}"] = {"total": float(d.sum()),
                                          "phases": [round(float(x), 3) for x in d],
                                          "labels": labels}
@@ -195,16 +238,21 @@ def main() -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=25)
     ap.add_argument("--stamps-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--two-meetings", action="store_true",
+                    help="build row 11 with every grid level in two meetings")
+    ap.add_argument("--wait", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    defines = ("-DGATO_CR_TWO_MEETINGS",) if args.two_meetings else ()
     if args.stamps_child:
-        print(json.dumps(stamps(args.root, args.runs)))
+        print(json.dumps(stamps(args.root, args.runs, args.wait, defines)))
         return
-    print(json.dumps(measure(args.root, args.runs)), flush=True)
+    print(json.dumps(measure(args.root, args.runs, defines)), flush=True)
     from gato_tpu_torch.kernels import _build
 
     if hasattr(_build.library(), "gato_thomas_stamps"):
         child = subprocess.run([sys.executable, __file__, "--root", args.root,
-                                "--runs", str(args.runs), "--stamps-child"],
+                                "--runs", str(args.runs), "--stamps-child",
+                                *(["--two-meetings"] if args.two_meetings else [])],
                                capture_output=True, text=True, timeout=1200)
         if child.returncode != 0:
             raise RuntimeError(f"stamps child failed:\n{child.stderr}")

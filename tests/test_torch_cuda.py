@@ -408,6 +408,59 @@ def test_thomas_kernels_match_plain(dev, sizes, B):
     _close(again.lam, ref.lam)
 
 
+# Row 5's plan at its edges: K = 2, odd K, the horizons the exact routes
+# take it to (741, 1024, 8192), B around the walks' CTA count, and the
+# wide walk (s = 20, 32).
+THOMAS_EDGES = [((14, 7, 2), 1), ((14, 7, 3), 15), ((14, 7, 51), 16), ((14, 7, 50), 256),
+                ((14, 7, 741), 16), ((14, 7, 1024), 16), ((14, 7, 1024), 256),
+                ((14, 7, 8192), 1), ((20, 9, 37), 16), ((20, 9, 2), 15),
+                ((32, 32, 6), 16), ((32, 32, 3), 256), ((16, 5, 9), 133), ((5, 7, 5), 16)]
+
+
+@pytest.mark.parametrize("sizes,B", THOMAS_EDGES)
+def test_thomas_forward_matches_plain_at_the_plan_edges(dev, sizes, B):
+    """Row 5's two launches (condensation tiles, one warp a walk) against
+    thomas_fwd_plain: every factor stack, and the pair's outcome."""
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, B, seed0=23), dev)
+    before = kt.FWD_LAUNCHES
+    fk = kt.thomas_fwd_cuda(*b, rho=1e-3)
+    torch.cuda.synchronize()
+    assert kt.FWD_LAUNCHES == before + 1
+    fp = kt.thomas_fwd_plain(*b, rho=1e-3)
+    for name, x, y in zip(kt.ThomasFactors._fields, fk, fp):
+        _close(x, y)
+    got, gx, gu = kt.thomas_rev_cuda(fk, b.q, b.A, b.B, b.r)
+    ref, rx, ru = kt.thomas_rev_plain(fp, b.q, b.A, b.B, b.r)
+    _direct_outcome(got, ref, fp.gamma)
+    assert bool(got.converged.all())
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+def test_thomas_forward_poisons_each_knot_as_plain(dev):
+    """A zero row and column in Q[2] at rho = 0, and a zero R[4]: bhat is
+    non-finite from the first clamped knot on, exactly where the plain
+    version's is, in that problem alone."""
+    spec = gt.ProblemSpec(4, 2, 8)
+    good = [tt.random_blocks(spec, seed=s) for s in (1, 2)]
+    bad = tt.singular_blocks(spec, seed=3, knot=2)
+    bad_r = tt.random_blocks(spec, seed=4)
+    bad_r.R[4] = 0.0
+    bad_r.R[4][1, 1] = 1.0
+    b = gt.blocks_to_torch(tt.stack_blocks([good[0], bad, good[1], bad_r]), dev)
+    fk = kt.thomas_fwd_cuda(*b, rho=0.0)
+    fp = kt.thomas_fwd_plain(*b, rho=0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(fk.bhat).cpu(), torch.isfinite(fp.bhat).cpu())
+    assert not bool(torch.isfinite(fk.bhat[1, 2:]).any())
+    assert bool(torch.isfinite(fk.bhat[1, :2]).all())
+    assert not bool(torch.isfinite(fk.bhat[3, 5:]).all())
+    for i in (0, 2):
+        for x, y in zip(fk, fp):
+            _close(x[i], y[i])
+
+
 def test_direct_kernels_singular_contracts(dev):
     """One exactly singular problem among healthy ones: row 4 reports it
     finite with eta = 1e30, rows 5-6 non-finite; the others are untouched
@@ -746,6 +799,51 @@ def test_longk_direct_tiers_match_plain(dev, sizes, monkeypatch):
         assert bool(got.converged.all())
         for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
             _close(x, y)
+
+
+# Row 11's plan at its edges (IIWA: the tail takes K <= 71 alone, ht = 2
+# from K = 72, 16 at 741-1024, 128 at 8192), the wide widths, and batches.
+CR_EDGES = [((14, 7, 2), 1), ((14, 7, 3), 15), ((14, 7, 71), 1), ((14, 7, 72), 15),
+            ((14, 7, 73), 16), ((14, 7, 741), 16), ((14, 7, 1024), 1), ((14, 7, 1024), 15),
+            ((14, 7, 1025), 256), ((14, 7, 8192), 1), ((14, 7, 8192), 15),
+            ((20, 9, 37), 15), ((20, 9, 300), 16), ((32, 32, 13), 1), ((32, 32, 14), 15),
+            ((32, 32, 200), 16), ((3, 2, 1), 4)]
+
+
+@pytest.mark.parametrize("sizes,B", CR_EDGES)
+def test_cr_longk_matches_plain_at_the_plan_edges(dev, sizes, B):
+    """Row 11 (grid levels, tail, grid back-substitution) against
+    cr_longk_plain on row 7's condensation, one count a call."""
+    K = sizes[2]
+    if K >= 2:
+        b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(*sizes), B, seed0=150), dev)
+        ops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner="jacobi")
+        S, gamma = ops.S, ops.gamma
+    else:
+        g = torch.Generator().manual_seed(0)
+        D = torch.randn(B, 1, sizes[0], sizes[0], generator=g)
+        S = torch.zeros(B, 1, 3, sizes[0], sizes[0])
+        S[:, :, 1] = D @ D.transpose(-1, -2) + sizes[0] * torch.eye(sizes[0])
+        S, gamma = S.to(dev), torch.randn(B, 1, sizes[0], generator=g).to(dev)
+    before = kl.CR_LAUNCHES
+    x, bad = kl.cr_longk_cuda(S, gamma)
+    torch.cuda.synchronize()
+    assert kl.CR_LAUNCHES == before + 1
+    xp, badp = kl.cr_longk_plain(S, gamma)
+    assert bad.tolist() == badp.tolist() == [False] * B
+    _close(x, xp)
+
+
+def test_direct_plan_mirrors_match_the_library(dev):
+    """Rows 5 and 11's plan functions agree with their launchers'."""
+    from gato_tpu_torch.kernels import _build
+    lib = _build.library()
+    for s in (2, 5, 14, 16, 20, 32):
+        for walks in range(1, kt.MAX_WALKS + 1):
+            assert kt.walk_smem_bytes(s, walks) == lib.gato_thomas_walk_smem_bytes(s, walks)
+        assert kl.cr_grid_floats(s) * 4 == lib.gato_longk_cr_grid_smem_bytes(s)
+        for rows in (1, 2, 13, 64, 71):
+            assert kl.cr_tail_floats(rows, s) * 4 == lib.gato_longk_cr_tail_smem_bytes(rows, s)
 
 
 def test_longk_direct_singular_contract(dev):
@@ -1144,6 +1242,55 @@ def test_trace_records_the_cuda_kernels(dev, tmp_path):
         gt.linsys_solve(*args, verbose=False)
     assert any("fused_solve_kernel" in e.key for e in prof.key_averages())
     assert len(list(tmp_path.iterdir())) == 1
+
+
+_FIRST_SESSION = """
+import json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+import gato_tpu_torch as gt
+from gato_tpu_torch import debug, testing as tt
+from gato_tpu_torch.kernels import longk as kl
+dev = torch.device("cuda", 0)
+b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, 1024), 2, seed0=1), dev)
+kl.solve_longk_batched(*b, rho=1e-3)
+kl.solve_direct_longk_batched(*b, rho=1e-3)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kl.solve_direct_longk_batched(*b, rho=1e-3)
+    torch.cuda.synchronize()
+raw = any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+traced = []
+for _ in range(3):
+    with tempfile.TemporaryDirectory() as tmp:
+        with debug.trace(tmp) as prof:
+            kl.solve_direct_longk_batched(*b, rho=1e-3)
+        traced.append(any("cr_tail_kernel" in e.key for e in prof.key_averages()))
+print(json.dumps({"raw_first_session_records_cuda": raw, "traced": traced}))
+"""
+
+
+def test_trace_sessions_of_a_fresh_process_after_the_long_k_kernels(dev):
+    """The profiler sessions that recorded no device activity on the card
+    were a process's first (after the long-K phases, and in a fresh child):
+    in fresh processes that run the long-K tiers, a plain first
+    torch.profiler session, then three debug.trace sessions, each of which
+    must name row 11's kernel.  How often the plain first session recorded
+    nothing is reported as a warning."""
+    import json
+    import subprocess
+    import sys
+    import warnings
+    raw = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _FIRST_SESSION], capture_output=True,
+                             text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        assert line["traced"] == [True] * 3, (line, out.stderr[-2000:])
+        raw.append(line["raw_first_session_records_cuda"])
+    warnings.warn(f"a fresh process's first plain profiler session recorded CUDA "
+                  f"activity: {raw}")
 
 
 @pytest.mark.parametrize("backend,method,B", [("fused", "pcg", 1), ("pcg_kernel", "pcg", 1),

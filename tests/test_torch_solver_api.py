@@ -264,6 +264,7 @@ def test_import_pulls_in_no_jax():
         "gato_tpu_torch.debug", "gato_tpu_torch.kernels.probes",
         "gato_tpu_torch.tools.probe_dispatch", "gato_tpu_torch.tools.probe_iter_floor",
         "gato_tpu_torch.tools.probe_throughput", "gato_tpu_torch.tools.stage_split",
+        "gato_tpu_torch.tools.direct_stamps",
     ]
     files = {".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
              for p in (REPO / "gato_tpu_torch").rglob("*.py")}
