@@ -38,11 +38,34 @@
 // steps, on one SM per problem.  At B = 1 that chain of dependent steps
 // sets the time; at large B, 2 blocks share an SM (704 threads each at
 // IIWA) and the operations of the Gauss-Jordan and products do.
+//
+// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
+// builds that way; the default build does not), block 0 stamps
+// %globaltimer at its start, after the condensation, after each level,
+// the root and each back-substitution level, after the residual and at
+// its end.
 #include <cuda_runtime.h>
 
 #include "condense.cuh"
 
 namespace gato {
+
+constexpr int kDirectStamps = 64;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long direct_stamps[kDirectStamps];
+static __device__ int direct_stamp_count;
+__global__ void direct_stamp_reset() { direct_stamp_count = 0; }
+__device__ __forceinline__ void direct_stamp() {
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0 && direct_stamp_count < kDirectStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    direct_stamps[direct_stamp_count++] = t;
+  }
+}
+#else
+__device__ __forceinline__ void direct_stamp() {}
+#endif
 
 // Floats of global scratch one problem needs: S and its working copy W
 // (K, 3, s, s), Qinv (K, s, s), Rinv (K-1, c, c), B Rinv (K-1, s, c) and two
@@ -91,6 +114,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
   float* tmp = x + len;
   if (tid == 0) bad = 0;
   __syncthreads();
+  direct_stamp();
 
   // 1. Condensation.
   gj_invert(Q, ss, Qinv, ss, K, s, rho, arena, arena_floats, &bad);
@@ -104,6 +128,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
   }
   for (size_t e = tid; e < K * slot3; e += nt) W[e] = Sg[e];
   __syncthreads();
+  direct_stamp();
 
   // 2. Block cyclic reduction.  Row k's L, D, U are W[k][0..2].
   int h = 1;
@@ -176,6 +201,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
       bv[i * s + a] = (bv[i * s + a] - ab) - bb;
     }
     __syncthreads();
+    direct_stamp();
   }
 
   // The root: row 0 alone.
@@ -187,6 +213,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
     x[a] = acc;
   }
   __syncthreads();
+  direct_stamp();
 
   // Back-substitution, level by level: x_k = D_k^{-1} (b_k - L_k x_{k-h}
   // - U_k x_{k+h}) for the odd rows of each level, x_{k+h} zero past the end.
@@ -216,6 +243,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
       x[k * s + a] = acc;
     }
     __syncthreads();
+    direct_stamp();
   }
 
   // 3. The true residual against the original S, and ||gamma||^2.
@@ -228,6 +256,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
   float eta = block_sum(part, red);
   const float gnorm = block_sum(gpart, red);
   if (bad != 0) eta += kFrozenEta;
+  direct_stamp();
 
   // 4. Recovery (bv is free again: it holds the control temporary).
   recover_dz(Qinv, Rinv, A, Bm, q, r, x, tmp, bv, dzx_out + b * n,
@@ -237,6 +266,7 @@ direct_fused_kernel(const float* Qg, const float* Rg, const float* Ag,
     eta_out[b] = eta;
     conv_out[b] = eta <= kDirectRtolSq * (1.f + gnorm) ? 1 : 0;
   }
+  direct_stamp();
 }
 
 }  // namespace gato
@@ -267,12 +297,32 @@ int gato_direct_fused(const float* Q, const float* R, const float* A,
       gato::direct_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
+#ifdef GATO_STAGE_STAMPS
+  gato::direct_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>();
+#endif
   const int threads = gato::threads_for(gato::vec_len(K, s, cdim));
   gato::direct_fused_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       Q, R, A, Bm, q, r, c, scratch, lam, dzx, dzu, conv, eta, K, s, cdim, rho,
       (int)gato::gj_arena_floats(K, s, cdim),
       gato::direct_scratch_floats(K, s, cdim));
   return (int)cudaGetLastError();
+}
+
+// The stamps of the last launch (block 0; %globaltimer, ns) into
+// out[0..kDirectStamps); returns their count, 0 in a build without
+// GATO_STAGE_STAMPS.
+int gato_direct_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::direct_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::direct_stamps, sizeof(gato::direct_stamps)) !=
+          cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
 }
 
 }  // extern "C"

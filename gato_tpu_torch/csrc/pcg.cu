@@ -25,11 +25,33 @@
 // Shapes are runtime values: s <= 32 (the wrapper's MAX_BLOCK) and 6*K*s
 // floats of shared memory within the device's per-block opt-in limit; the
 // wrapper checks both before launching.
+//
+// With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
+// builds that way; the default build does not), block 0 stamps
+// %globaltimer at its start, after loading lambda_0 and gamma, after the
+// PCG (set-up and loop) and at its end.
 #include <cuda_runtime.h>
 
 #include "pcg_common.cuh"
 
 namespace gato {
+
+constexpr int kPcgStamps = 8;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long pcg_stamps[kPcgStamps];
+static __device__ int pcg_stamp_count;
+__global__ void pcg_stamp_reset() { pcg_stamp_count = 0; }
+__device__ __forceinline__ void pcg_stamp() {
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0 && pcg_stamp_count < kPcgStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    pcg_stamps[pcg_stamp_count++] = t;
+  }
+}
+#else
+__device__ __forceinline__ void pcg_stamp() {}
+#endif
 
 __global__ void __launch_bounds__(kMaxThreads)
 pcg_batched_kernel(const float* S, const float* P, const float* gamma,
@@ -47,19 +69,23 @@ pcg_batched_kernel(const float* S, const float* P, const float* gamma,
   lam0 += b * n;
 
   const PcgVectors v = carve_vectors(smem, n, red);
+  pcg_stamp();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     v.lam[i] = lam0[i];
     v.r[i] = gamma[i];
   }
   __syncthreads();
+  pcg_stamp();
   const PcgOutcome res = pcg_block(S, P, K, s, v, exit_tol, max_iters,
                                    poly_degree, false);
+  pcg_stamp();
   for (int i = threadIdx.x; i < n; i += blockDim.x) lam_out[b * n + i] = v.lam[i];
   if (threadIdx.x == 0) {
     iters_out[b] = res.iters;
     conv_out[b] = res.converged;
     eta_out[b] = res.eta;
   }
+  pcg_stamp();
 }
 
 }  // namespace gato
@@ -84,10 +110,29 @@ int gato_pcg_batched(const float* S, const float* P, const float* gamma,
       gato::pcg_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
+#ifdef GATO_STAGE_STAMPS
+  gato::pcg_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>();
+#endif
   gato::pcg_batched_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       S, P, gamma, lam0, lam, iters, conv, eta, K, s, exit_tol, max_iters,
       poly_degree);
   return (int)cudaGetLastError();
+}
+
+// The stamps of the last launch (block 0; %globaltimer, ns) into
+// out[0..kPcgStamps); returns their count, 0 in a build without
+// GATO_STAGE_STAMPS.
+int gato_pcg_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::pcg_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::pcg_stamps, sizeof(gato::pcg_stamps)) != cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
 }
 
 const char* gato_error_string(int code) {

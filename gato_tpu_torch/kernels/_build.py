@@ -52,6 +52,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "gato_pcg_batched": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P]),
     "gato_pcg_smem_bytes": (_LL, [_I, _I]),
+    "gato_pcg_stamps": (_I, [_P]),
     "gato_fused_solve": (_I, [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P]),
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_fused_max_clusters": (_I, [_I] * 5),
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _P]),
     "gato_direct_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
+    "gato_direct_stamps": (_I, [_P]),
     "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P]),
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
     "gato_thomas_stamps": (_I, [_P]),

@@ -1,5 +1,5 @@
-"""Rows 5 and 11 by stage, and their times, for the gato_tpu_torch of any
-checkout, on one CUDA card.
+"""Kernel A and rows 4, 5 and 11 by stage, and their times, for the
+gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
         [--two-meetings]
@@ -15,7 +15,11 @@ limit:
   problems at K = 1024 and 8192, B = 1 and 15: CUDA events (the median of
   ``runs`` calls after three, with the wrapper's host work) and the
   device's time of one launch (20 calls captured in a CUDA graph, the
-  replay's median over 20).
+  replay's median over 20).  Kernel A (``pcg_batched_cuda``) on
+  ``assemble.condense``'s operators at IIWA K = 50, B = 1 and 256, and K =
+  688 (the edge before the long-K tier), B = 1; row 4
+  (``direct_fused_cuda``) at K = 50, B = 1, 15 and 256, and K = 740 (its
+  edge), B = 1.
 * ``stamps`` (a checkout whose library exports ``gato_thomas_stamps``):
   in a child process, the kernels built again with ``-DGATO_STAGE_STAMPS``
   (a separate library; the shipped build is untouched), which read
@@ -28,7 +32,9 @@ limit:
   problem) at the same inputs, B = 1 and 16, from its own stamps.  Row 11:
   ``phases``, the time between consecutive stamps in the order the kernel
   takes them, and ``labels`` naming each (see each source's note on its
-  stamps).
+  stamps).  Kernel A and row 4 (a checkout whose library exports
+  ``gato_pcg_stamps`` and ``gato_direct_stamps``) the same way, at the
+  shapes of their times.
 
 ``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
 every grid level of row 11 takes two meetings, a warp a row, where the
@@ -46,6 +52,8 @@ from pathlib import Path
 
 THOMAS_B = (1, 16, 256)
 CR_SHAPES = ((1024, 1), (1024, 15), (8192, 1), (8192, 15))
+PCG_SHAPES = ((50, 1), (50, 256), (688, 1))
+ROW4_SHAPES = ((50, 1), (50, 15), (50, 256), (740, 1))
 RHO = 1e-3
 
 
@@ -110,7 +118,37 @@ def inputs(gt, dev):
         b = gt.blocks_to_torch(tt.random_batch(spec, n, seed0=100 + K), dev)
         ops = kl.condense_longk_cuda(*b, rho=RHO, preconditioner="jacobi")
         out[("cr", K, n)] = (ops.S, ops.gamma)
+    for K, n in sorted(set(PCG_SHAPES) | set(ROW4_SHAPES)):
+        b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, K), n,
+                                               seed0=200 + K), dev)
+        out[("kkt", K, n)] = b
+        if (K, n) in PCG_SHAPES:
+            out[("pcg", K, n)] = gt.assemble.condense(*b, RHO)
     return out
+
+
+def pcg_call(ka, sys_):
+    return lambda: ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma,
+                                       exit_tol=1e-6, max_iters=100)
+
+
+def row4_labels(n: int, K: int) -> list:
+    """Names of row 4's stamped phases: the condensation, each level, the
+    root, each back-substitution level, the residual, the recovery."""
+    hs = [1 << i for i in range(max((K - 1).bit_length(), 0))]
+    labels = (["condensation"] + [f"level h={h}" for h in hs] + ["root"]
+              + [f"back h={h}" for h in reversed(hs)] + ["residual", "recovery"])
+    return labels[:n - 1] if len(labels) >= n - 1 else labels + [
+        f"phase {i}" for i in range(len(labels), n - 1)]
+
+
+def pcg_labels(n: int) -> list:
+    """Names of kernel A's stamped phases: the one-block kernel's load, PCG
+    and store, or the cluster kernel's operator copy, PCG set-up, loop and
+    store."""
+    if n - 1 == 3:
+        return ["load", "PCG (set-up and loop)", "store"]
+    return ["copy", "set-up", "loop", "store"][:n - 1]
 
 
 def measure(root: str, runs: int, defines: tuple = ()) -> dict:
@@ -118,7 +156,9 @@ def measure(root: str, runs: int, defines: tuple = ()) -> dict:
     import torch
 
     from gato_tpu_torch.kernels import _build
+    from gato_tpu_torch.kernels import direct_fused as kd
     from gato_tpu_torch.kernels import longk as kl
+    from gato_tpu_torch.kernels import pcg_kernel as ka
     from gato_tpu_torch.kernels import thomas_batch as kt
 
     _build.DEFINES = defines
@@ -126,7 +166,14 @@ def measure(root: str, runs: int, defines: tuple = ()) -> dict:
     dev = torch.device("cuda", 0)
     data = inputs(gt, dev)
     out = {"what": "times", "root": root, "defines": list(defines), "card": card(),
-           "row5": {}, "pair": {}, "row11": {}}
+           "rowA": {}, "row4": {}, "row5": {}, "pair": {}, "row11": {}}
+    for K, n in PCG_SHAPES:
+        fn = pcg_call(ka, data[("pcg", K, n)])
+        out["rowA"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
+    for K, n in ROW4_SHAPES:
+        b = data[("kkt", K, n)]
+        fn = lambda: kd.direct_fused_cuda(*b, rho=RHO)  # noqa: E731
+        out["row4"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
     for n in THOMAS_B:
         b = data[("thomas", n)]
         for key, fn in (("row5", lambda: kt.thomas_fwd_cuda(*b, rho=RHO)),
@@ -175,8 +222,10 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
     import torch
 
     from gato_tpu_torch.kernels import _build
+    from gato_tpu_torch.kernels import direct_fused as kd
     from gato_tpu_torch.kernels import fused_solve as kb
     from gato_tpu_torch.kernels import longk as kl
+    from gato_tpu_torch.kernels import pcg_kernel as ka
     from gato_tpu_torch.kernels import thomas_batch as kt
 
     _build.DEFINES = ("-DGATO_STAGE_STAMPS", *defines)
@@ -201,7 +250,21 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
         return np.median(np.array(rows), axis=0)
 
     line = {"what": "stamps", "root": root, "defines": list(defines), "card": card(),
-            "row5": {}, "cluster": {}, "row11": {}}
+            "rowA": {}, "row4": {}, "row5": {}, "cluster": {}, "row11": {}}
+    if hasattr(_build.library(), "gato_pcg_stamps"):
+        readA = _build.function("gato_pcg_stamps")
+        for K, n in PCG_SHAPES:
+            d = runs_of(pcg_call(ka, data[("pcg", K, n)]), readA)
+            line["rowA"][f"K={K} B={n}"] = {
+                "total": float(d.sum()), "phases": [round(float(x), 3) for x in d],
+                "labels": pcg_labels(d.size + 1)}
+        read4 = _build.function("gato_direct_stamps")
+        for K, n in ROW4_SHAPES:
+            b = data[("kkt", K, n)]
+            d = runs_of(lambda: kd.direct_fused_cuda(*b, rho=RHO), read4)
+            line["row4"][f"K={K} B={n}"] = {
+                "total": float(d.sum()), "phases": [round(float(x), 3) for x in d],
+                "labels": row4_labels(d.size + 1, K)}
     read5 = _build.function("gato_thomas_stamps")
     for n in THOMAS_B:
         b = data[("thomas", n)]
