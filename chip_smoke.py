@@ -9,7 +9,10 @@ Phases, each of which raises on failure (exit code not 0):
 2. build the CUDA kernels from gato_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at IIWA
    (state 14, control 7, K=50; data from testing.random_blocks), B=1 and
-   B=256: the PCG kernel (A) against pcg.pcg, the fused solve (B) against
+   B=256: the PCG kernel (A) against pcg.pcg at the cluster size its rule
+   picks and at every one forced, and at its plan's edges (K = 2 and 688,
+   s = 2, 20 and 32, every C that fits, poly degree 1 and 2), the fused
+   solve (B) against
    condense -> pcg -> recover_dz for all three preconditioners and
    precond_poly_degree 1 and 2, at the cluster size its rule picks and at
    every one forced (C = 1, 2, 4, 8, 16), and one exactly singular input
@@ -29,13 +32,16 @@ Phases, each of which raises on failure (exit code not 0):
    update_vectors -> solve_packed with the lam_packed carry, with their
    launch counts;
 3c. the exact-solve kernels against their plain versions at IIWA,
-   rho=1e-3: the cyclic-reduction kernel (row 4) at B=1 and B=15, the
+   rho=1e-3: the cyclic-reduction kernel (row 4) at B=1, 15 and 256 and at
+   its plan's edges (K = 2, 3, 51 and 740 at B = 1 and 15, s = 2, 20 and
+   32), at the rule's cluster size and every one forced, the
    block-Thomas pair (rows 5 and 6) at B=16 and B=256 (the forward
    kernel's factor stacks against the plain forward's, the reverse kernel
    on the plain stacks against the plain reverse), rows 5 and 6 at row 5's
    plan edges (K = 2, 51 and 1024 at IIWA, s = 20 and 32), and one exactly
    singular problem in each tier with each tier's contract (row 4: finite,
-   eta = 1e30; rows 5-6: non-finite, the other problems untouched);
+   eta = 1e30, at every cluster size; rows 5-6: non-finite, the other
+   problems untouched);
 4c. the exact main path (method='direct') through solve (row 4),
    solve_batched at B=8 (row 4) and B=256 (rows 5+6), against the float64
    dense KKT solve on the card and the 'torch' backend;
@@ -47,10 +53,12 @@ Phases, each of which raises on failure (exit code not 0):
    slow plain versions and library calls), beside each kernel's bound and
    the time of one PyTorch library call computing the same function;
    kernel B at B=1, 4, 16, 64, 256 at the rule's cluster size (with its
-   device time from a CUDA graph) and at every C forced; the farm kernel
-   (5b) at every C, with the C each launch used;
-5c. the same for the exact-solve kernels at B=1 and B=256, the forward and
-   reverse kernels' own times and device times (a CUDA graph), the
+   device time from a CUDA graph) and at every C forced; kernel A the same
+   at K=50, B=1 and 256 and K=688, B=1, and by stage (the stamps child
+   below); the farm kernel (5b) at every C, with the C each launch used;
+5c. the same for the exact-solve kernels at B=1 and B=256, their device
+   times (a CUDA graph), row 4 at every C at K=50, B=1, 15, 256 and K=740,
+   B=1, and by stage, the
    per-solve time of row 4 and of the Thomas pair at B=1, 4, 16, 64, 256
    (their crossover on this card), the pair at K=1024, B=16 beside the
    long-K exact routes, and row 5 by stage beside kernel B's cluster
@@ -182,6 +190,7 @@ from gato_tpu_torch.tools import probe_throughput  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 IIWA = testing.IIWA
+IIWA_SIZES = (IIWA.state_size, IIWA.control_size, IIWA.knot_points)
 RHO = 1e-3
 EXIT_TOL = 1e-6
 MAX_ITERS = 100
@@ -359,6 +368,18 @@ def phase_parity():
         if int(kr.iters.max()) > 1:
             raise AssertionError(f"{ka.NAME} B={n}: warm start took "
                                  f"{int(kr.iters.max())} iterations")
+        # Kernel A at its rule's cluster size (above) and at every one forced.
+        for poly in (1, 2):
+            kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS, poly_degree=poly)
+            pr = ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, lam0, **kw)
+            for C in kb.CLUSTER_SIZES:
+                kr = ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, lam0, cluster=C, **kw)
+                torch.cuda.synchronize()
+                what = f"{ka.NAME} B={n} C={C} poly={poly}"
+                check_iters(what, kr, pr, EXIT_TOL)
+                MAX_ERR[ka.NAME] = max(MAX_ERR[ka.NAME], check_close(what + " lam", kr.lam, pr.lam))
+            print(f"  {ka.NAME} B={n} poly={poly}: every C of {kb.CLUSTER_SIZES} forced "
+                  "agrees with the plain version")
         for prec in ("symmetric_stair", "block_jacobi", "jacobi"):
             for poly in (1, 2):
                 # Scalar Jacobi is compared over a capped run.  At IIWA its
@@ -391,6 +412,28 @@ def phase_parity():
                     it = kres.iters.cpu().numpy()
                     print(f"  {what}: iters {it.min()}..{it.max()} equal "
                           f"({ties} ties), max|d| {err:.3e}")
+
+    # Kernel A at its plan's edges: K = 2, the horizon before the long-K
+    # tier (688), the pendulum's and wide widths; every C that fits.
+    _, limit = kb.device_limits(0)
+    for sizes, n in (((14, 7, 2), 4), ((14, 7, 688), 2), ((2, 1, 50), 4),
+                     ((20, 9, 37), 4), ((32, 32, 6), 4)):
+        spec = gt.ProblemSpec(*sizes)
+        K, s = sizes[2], sizes[0]
+        blocks = gt.blocks_to_torch(testing.random_batch(spec, n, seed0=70), DEV)
+        sys_ = assemble.condense(*blocks, RHO)
+        sizes_run = [C for C in kb.CLUSTER_SIZES if ka.cluster_fits(K, s, C, limit)]
+        for poly in (1, 2):
+            kw = dict(exit_tol=EXIT_TOL, max_iters=MAX_ITERS, poly_degree=poly)
+            pr = ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, **kw)
+            for C in (None, *sizes_run):
+                kr = ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, cluster=C, **kw)
+                torch.cuda.synchronize()
+                what = f"{ka.NAME} {sizes} B={n} C={ka.LAST_CLUSTER} poly={poly}"
+                check_iters(what, kr, pr, EXIT_TOL)
+                MAX_ERR[ka.NAME] = max(MAX_ERR[ka.NAME], check_close(what + " lam", kr.lam, pr.lam))
+        print(f"  {ka.NAME} {sizes} B={n}: the rule's C and C = {sizes_run} forced, poly 1 "
+              "and 2, agree with the plain version")
 
     # One exactly singular problem (zero row/column in Q[2], rho=0) among
     # healthy ones: only it is frozen, unconverged, at max_iters, eta 1e30.
@@ -797,22 +840,38 @@ def phase_direct_parity():
     print(f"== phase 3c: the exact-solve kernels against their plain versions "
           f"at IIWA (14, 7, 50), rho={RHO}")
     full, _ = staged_batch(BATCH)
-    for n in (1, 15):
-        blocks = gt.KKTBlocks(*(a[:n] for a in full))
-        kres, kdx, kdu = kd.direct_fused_cuda(*blocks, rho=RHO)
-        pres, pdx, pdu = kd.direct_fused_plain(*blocks, rho=RHO)
-        torch.cuda.synchronize()
-        what = f"{kd.NAME} B={n}"
-        deta = check_direct(what, kres, pres,
-                            assemble.condense(*blocks, RHO, None).gamma)
-        if not bool(kres.converged.all()):
-            raise AssertionError(f"{what}: a problem did not converge")
-        err = max(check_close(what + " lam", kres.lam, pres.lam),
-                  check_close(what + " dz_x", kdx, pdx),
-                  check_close(what + " dz_u", kdu, pdu))
-        MAX_ERR[kd.NAME] = max(MAX_ERR[kd.NAME], err)
-        print(f"  {what}: all converged, max|d| {err:.3e}, max|d eta| "
-              f"{deta:.3e} (eta up to {float(kres.eta.max()):.3e})")
+    _, limit = kb.device_limits(0)
+    # Row 4 at its rule's cluster size and every one forced, at IIWA K = 50
+    # and its plan's edges: K = 2, 3, an odd K, the last horizon it serves
+    # (740: records in the global slice), the pendulum's and wide widths.
+    iiwa = ((14, 7, 50), (1, 15, BATCH))
+    edges = [(sizes, (1, 15)) for sizes in ((14, 7, 2), (14, 7, 3), (14, 7, 51),
+                                            (14, 7, 740))]
+    edges += [(sizes, (15,)) for sizes in ((2, 1, 5), (20, 9, 37), (32, 32, 6))]
+    for sizes, ns in (iiwa, *edges):
+        spec = gt.ProblemSpec(*sizes)
+        s, c, K = sizes
+        sizes_run = [C for C in kb.CLUSTER_SIZES if kd.cluster_fits(K, s, c, C, limit)]
+        for n in ns:
+            blocks = (gt.KKTBlocks(*(a[:n] for a in full)) if sizes == IIWA_SIZES else
+                      gt.blocks_to_torch(testing.random_batch(spec, n, seed0=80), DEV))
+            pres, pdx, pdu = kd.direct_fused_plain(*blocks, rho=RHO)
+            gamma = assemble.condense(*blocks, RHO, None).gamma
+            err = deta = 0.0
+            for C in (None, *sizes_run):
+                kres, kdx, kdu = kd.direct_fused_cuda(*blocks, rho=RHO, cluster=C)
+                torch.cuda.synchronize()
+                what = f"{kd.NAME} {sizes} B={n} C={kd.LAST_CLUSTER}"
+                deta = max(deta, check_direct(what, kres, pres, gamma))
+                if not bool(kres.converged.all()):
+                    raise AssertionError(f"{what}: a problem did not converge")
+                err = max(err, check_close(what + " lam", kres.lam, pres.lam),
+                          check_close(what + " dz_x", kdx, pdx),
+                          check_close(what + " dz_u", kdu, pdu))
+            MAX_ERR[kd.NAME] = max(MAX_ERR[kd.NAME], err)
+            print(f"  {kd.NAME} {sizes} B={n}: the rule's C and C = {sizes_run} forced: all "
+                  f"converged, max|d| {err:.3e}, max|d eta| {deta:.3e} (eta up to "
+                  f"{float(kres.eta.max()):.3e})")
     fields = kt.ThomasFactors._fields
     for n in (16, BATCH):
         blocks = gt.KKTBlocks(*(a[:n] for a in full))
@@ -874,25 +933,28 @@ def phase_direct_parity():
               f"against the plain pair: all converged, max|d| {perr:.3e}, max|d eta| "
               f"{deta:.3e}")
 
-    # Row 4's singular contract: finite outputs, eta >= 1e30, only it False.
+    # Row 4's singular contract at every C: finite outputs, eta >= 1e30,
+    # only it False.
     mix = singular_mix(2, seed0=40)
-    kres, kdx, kdu = kd.direct_fused_cuda(*mix, rho=0.0)
     pres, pdx, pdu = kd.direct_fused_plain(*mix, rho=0.0)
-    torch.cuda.synchronize()
-    for res, who in ((kres, "kernel"), (pres, "plain")):
-        if res.converged.cpu().tolist() != [True, False, True] \
-                or not float(res.eta[1]) >= 1e30:
-            raise AssertionError(f"{kd.NAME} singular ({who}): converged "
-                                 f"{res.converged.tolist()}, eta {res.eta.tolist()}")
-    for t in (kres.lam, kdx, kdu):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{kd.NAME} singular: an output is not finite")
-    healthy = [0, 2]
-    for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
-                       ("dz_u", kdu, pdu)):
-        check_close(f"{kd.NAME} singular mix {name}", k[healthy], p[healthy])
-    print(f"  {kd.NAME} singular input: converged {kres.converged.tolist()}, "
-          f"eta[1] = {float(kres.eta[1]):g}, every output finite; plain agrees")
+    for C in (None, *kb.CLUSTER_SIZES):
+        kres, kdx, kdu = kd.direct_fused_cuda(*mix, rho=0.0, cluster=C)
+        torch.cuda.synchronize()
+        for res, who in ((kres, f"kernel C={kd.LAST_CLUSTER}"), (pres, "plain")):
+            if res.converged.cpu().tolist() != [True, False, True] \
+                    or not float(res.eta[1]) >= 1e30:
+                raise AssertionError(f"{kd.NAME} singular ({who}): converged "
+                                     f"{res.converged.tolist()}, eta {res.eta.tolist()}")
+        for t in (kres.lam, kdx, kdu):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{kd.NAME} singular C={C}: an output is not finite")
+        healthy = [0, 2]
+        for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
+                           ("dz_u", kdu, pdu)):
+            check_close(f"{kd.NAME} singular mix C={C} {name}", k[healthy], p[healthy])
+    print(f"  {kd.NAME} singular input at the rule's C and C = {kb.CLUSTER_SIZES}: "
+          f"converged {kres.converged.tolist()}, eta[1] = {float(kres.eta[1]):g}, every "
+          "output finite; plain agrees")
 
     # Rows 5-6: that problem non-finite, the others as if it were absent.
     mix = singular_mix(16, seed0=60)
@@ -1150,9 +1212,8 @@ def phase_direct_times(card: str):
             k2 = cuda_median_ms(kern)
             p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
             bound_ms, bound_by = bounds[name]
-            # Rows 5 and 6 (and the pair): one call's device time, from a
-            # CUDA graph of 20 calls.
-            dev_ms = graph_ms_per_call(kern, calls=20) if name != kd.NAME else None
+            # One call's device time, from a CUDA graph of 20 calls.
+            dev_ms = graph_ms_per_call(kern, calls=20)
             times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                     library_ms=lib_ms if has_lib else None,
                                     bound_ms=bound_ms, bound_by=bound_by,
@@ -1166,6 +1227,31 @@ def phase_direct_times(card: str):
         del M, rhs, lib
         torch.cuda.empty_cache()
 
+    # Row 4 by cluster size (events; the rule's device time from a CUDA
+    # graph) at K = 50, B = 1, 15 and 256, and at K = 740, its last horizon.
+    _, limit = kb.device_limits(0)
+    for Kr, n in ((50, 1), (50, 15), (50, BATCH), (740, 1)):
+        blocks = (gt.KKTBlocks(*(a[:n] for a in full)) if Kr == K else
+                  gt.blocks_to_torch(testing.random_batch(gt.ProblemSpec(14, 7, Kr), n,
+                                                          seed0=95), DEV))
+
+        def kern(C=None, blocks=blocks):
+            return kd.direct_fused_cuda(*blocks, rho=RHO, cluster=C)
+        by_c = {C: cuda_median_ms(lambda C=C: kern(C)) for C in kb.CLUSTER_SIZES
+                if kd.cluster_fits(Kr, s, c, C, limit)}
+        ms = cuda_median_ms(kern)
+        dev_ms = graph_ms_per_call(kern, calls=20)
+        C = kd.LAST_CLUSTER
+        times[("row4_rule", Kr, n)] = dict(ms=ms, device_ms=dev_ms, cluster=C,
+                                           by_cluster={str(k): v for k, v in by_c.items()})
+        print(f"  {kd.NAME} K={Kr} B={n}: rule C={C} {ms:.4f} ms (device {dev_ms:.4f} ms); "
+              "by C " + ", ".join(f"{k}: {v:.4f}" for k, v in by_c.items()) + f"  [{card}]")
+    stamps = STAMPS.result()
+    print("  row 4 by stage (tools/direct_stamps.py, the stamped build's %globaltimer, "
+          f"median of {stamps['runs']} launches, us): " + "; ".join(
+              f"{key}: " + ", ".join(f"{lab} {ph:.1f}" for lab, ph in
+                                     zip(r["labels"], r["phases"]))
+              for key, r in stamps["row4"].items()) + f"  [{card}]")
     print(f"  per-solve time, row 4 against the Thomas pair [{card}]:")
     crossover = None
     for n in CROSSOVER_B:
@@ -1407,10 +1493,14 @@ def phase_times(card: str):
             p2 = cuda_median_ms(plain)
             lib_ms = cuda_median_ms(lib, runs=SLOW_RUNS, warmup=1)
             bound_ms, bound_by = bounds[name]
+            # Kernel A's device time: one call from a CUDA graph of 20
+            # (kernel B's comes with its rule's table below).
+            dev_ms = graph_ms_per_call(kern, calls=20) if name == ka.NAME else None
             times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
-            print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                                    bound_by=bound_by, device_ms=dev_ms)
+            dev_text = "" if dev_ms is None else f", device {dev_ms:.4f} ms"
+            print(f"  {name} B={n}: kernel {k1:.4f} / {k2:.4f} ms{dev_text}, plain "
                   f"{p1:.4f} / {p2:.4f} ms, library {lib_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
         del S_dense, M, rhs, lib_a, lib_b
@@ -1436,6 +1526,33 @@ def phase_times(card: str):
         print(f"  {kb.NAME} B={n}: rule C={C} {ms:.4f} ms (device {dev_ms:.4f} ms); by C "
               + ", ".join(f"{k}: {v:.4f}" for k, v in by_c.items())
               + f"; fastest C={best}  [{card}]")
+    # Kernel A the same way at B = 1 and 256, and at K = 688, the last
+    # horizon before the long-K tier.
+    _, limit = kb.device_limits(0)
+    for K, n in ((50, 1), (50, BATCH), (688, 1)):
+        blocks = (gt.KKTBlocks(*(a[:n] for a in full)) if K == IIWA.knot_points else
+                  gt.blocks_to_torch(testing.random_batch(gt.ProblemSpec(14, 7, K), n,
+                                                          seed0=90), DEV))
+        sys_ = assemble.condense(*blocks, RHO)
+
+        def kern(C=None, sys_=sys_):
+            return ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, exit_tol=EXIT_TOL,
+                                       max_iters=MAX_ITERS, cluster=C)
+        by_c = {C: cuda_median_ms(lambda C=C: kern(C)) for C in kb.CLUSTER_SIZES
+                if ka.cluster_fits(K, 14, C, limit)}
+        ms = cuda_median_ms(kern)
+        dev_ms = graph_ms_per_call(kern, calls=20)
+        C = ka.LAST_CLUSTER
+        times[("A_rule", K, n)] = dict(ms=ms, device_ms=dev_ms, cluster=C,
+                                       by_cluster={str(k): v for k, v in by_c.items()})
+        print(f"  {ka.NAME} K={K} B={n}: rule C={C} {ms:.4f} ms (device {dev_ms:.4f} ms); "
+              "by C " + ", ".join(f"{k}: {v:.4f}" for k, v in by_c.items()) + f"  [{card}]")
+    line = STAMPS.result()
+    print("  kernel A by stage (tools/direct_stamps.py, the stamped build's %globaltimer, "
+          f"median of {line['runs']} launches, us): " + "; ".join(
+              f"{key}: " + ", ".join(f"{lab} {ph:.1f}" for lab, ph in
+                                     zip(r["labels"], r["phases"]))
+              for key, r in line["rowA"].items()) + f"  [{card}]")
     return times
 
 
@@ -3178,19 +3295,44 @@ def phase_probe_parity():
               f"(scale {float(got.abs().max()):.2e})")
 
 
+# A torch.profiler session on the card has, rarely, recorded no CUDA
+# activity at all, though the same call recorded its kernels in every other
+# session (ROADMAP queue 3: a process's first session, and once 4g's
+# third): debug.trace raises then.  Such a session is taken again,
+# PROFILE_TRIES times in all at most, for that error alone, each retry
+# printed; any other failure, or the last, stops the run.
+PROFILE_TRIES = 3
+
+
+def profiled(session):
+    """session(), taken again where its trace recorded no CUDA activity."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            return session()
+        except RuntimeError as err:
+            if "recorded no CUDA activity" not in str(err) or attempt == PROFILE_TRIES:
+                raise
+            print(f"  note: a torch.profiler session recorded no CUDA activity; taking "
+                  f"it again ({attempt + 1} of {PROFILE_TRIES})")
+
+
 def traced_events(fn, label: str):
     """Run fn() once under debug.trace inside a record_function span named
     ``label``; returns the Chrome trace's events and the span's start and
     end (us)."""
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with gdebug.trace(tmp):
-            with torch.profiler.record_function(label):
-                fn()
-        (path,) = Path(tmp).glob("*.json")
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+
+    def session():
+        with tempfile.TemporaryDirectory() as tmp:
+            with gdebug.trace(tmp):
+                with torch.profiler.record_function(label):
+                    fn()
+            (path,) = Path(tmp).glob("*.json")
+            with open(path) as f:
+                return json.load(f)["traceEvents"]
+
+    events = profiled(session)
     span = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == label]
     if len(span) != 1:
         raise AssertionError(f"trace: {len(span)} spans named {label!r}, not 1")
@@ -3343,8 +3485,12 @@ def phase_measurement_path():
     Path("build").mkdir(exist_ok=True)
     tdir = tempfile.mkdtemp(prefix="trace_", dir="build")
     gt.linsys_solve(*args, verbose=False)
-    with gdebug.trace(tdir, with_stack=True) as prof:
-        gt.linsys_solve(*args, verbose=False)
+
+    def session():
+        with gdebug.trace(tdir, with_stack=True) as prof:
+            gt.linsys_solve(*args, verbose=False)
+        return prof
+    prof = profiled(session)
     if not any("fused_solve_kernel" in e.key for e in prof.key_averages()):
         raise AssertionError("trace of linsys_solve names no fused_solve_kernel")
     print(f"  trace of one IIWA linsys_solve (with Python stacks) names kernel B's "
@@ -3540,6 +3686,12 @@ def main():
             for n in CROSSOVER_B:
                 row.update({f"{key}_rule_b{n}": value
                             for key, value in times[("rule", n)].items()})
+        for tag, table in (("A_rule", times), ("row4_rule", direct_times)):
+            if name == (ka.NAME if tag == "A_rule" else kd.NAME):
+                for key3, value3 in table.items():
+                    if key3[0] == tag:
+                        row.update({f"{key}_rule_k{key3[1]}_b{key3[2]}": value
+                                    for key, value in value3.items()})
         kernels.append(row)
     # The long-K kernels: K=1024 at B=16 (and _b1), with K=8192 beside.
     for name, replaces in ((kl.CONDENSE_NAME, kl.CONDENSE_REPLACES),

@@ -152,14 +152,13 @@ inline __host__ __device__ int cluster_size(int B, int K, int s, int c,
   return pick > floor ? pick : floor;
 }
 
-// The launch configuration of `kernel` (kernel B or the farm kernel) for
-// `clusters` clusters of C CTAs at (K, s, c): the plan's threads and
-// shared memory, the cluster dimension (C = 16 is non-portable).
+// The launch configuration of `kernel` for `clusters` clusters of C CTAs
+// of `threads` threads and `smem` bytes of dynamic shared memory (C = 16 is
+// non-portable).
 template <class Kernel>
-cudaError_t launch_config(Kernel kernel, int clusters, int K, int s, int c,
-                          int C, int ops_in_smem, cudaStream_t stream,
-                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t smem = (size_t)cluster_smem_floats(K, s, c, C, ops_in_smem) * 4;
+cudaError_t launch_config_sized(Kernel kernel, int clusters, int C, int threads,
+                                size_t smem, cudaStream_t stream,
+                                cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   // The attributes are set once a kernel and device (and again for a
   // larger size): a launch of a shape seen before pays no attribute call.
   int device = 0;
@@ -185,7 +184,7 @@ cudaError_t launch_config(Kernel kernel, int clusters, int K, int s, int c,
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)clusters * (unsigned)C);
-  cfg->blockDim = dim3((unsigned)cluster_threads(K, s, c, C));
+  cfg->blockDim = dim3((unsigned)threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -197,17 +196,36 @@ cudaError_t launch_config(Kernel kernel, int clusters, int K, int s, int c,
   return cudaSuccess;
 }
 
-// Clusters of `kernel` the card holds at once (cudaOccupancyMaxActiveClusters);
-// 0 means such a cluster cannot run, a negative value is a negated CUDA error.
+// The launch configuration of `kernel` (kernel B or the farm kernel) for
+// `clusters` clusters of C CTAs at (K, s, c): the plan's threads and
+// shared memory.
 template <class Kernel>
-int max_active_clusters(Kernel kernel, int K, int s, int c, int C, int ops_in_smem) {
+cudaError_t launch_config(Kernel kernel, int clusters, int K, int s, int c,
+                          int C, int ops_in_smem, cudaStream_t stream,
+                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  return launch_config_sized(kernel, clusters, C, cluster_threads(K, s, c, C),
+                             (size_t)cluster_smem_floats(K, s, c, C, ops_in_smem) * 4,
+                             stream, cfg, attr);
+}
+
+// Clusters of `kernel` the card holds at once (cudaOccupancyMaxActiveClusters)
+// for a launch configured as launch_config_sized does; 0 means such a
+// cluster cannot run, a negative value is a negated CUDA error.
+template <class Kernel>
+int max_active_clusters_sized(Kernel kernel, int C, int threads, size_t smem) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = launch_config(kernel, 1, K, s, c, C, ops_in_smem, nullptr,
-                                  &cfg, &attr);
+  cudaError_t err = launch_config_sized(kernel, 1, C, threads, smem, nullptr, &cfg, &attr);
   int n = 0;
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+// The same for kernel B or the farm kernel at (K, s, c).
+template <class Kernel>
+int max_active_clusters(Kernel kernel, int K, int s, int c, int C, int ops_in_smem) {
+  return max_active_clusters_sized(kernel, C, cluster_threads(K, s, c, C),
+                                   (size_t)cluster_smem_floats(K, s, c, C, ops_in_smem) * 4);
 }
 
 // ---- Device helpers ----
@@ -318,16 +336,23 @@ __device__ __forceinline__ float dot(const float* p, const float* q, int n) {
   return acc;
 }
 
-// Row a of knot kl (knot k = k0 + kl) of M x for the block-tridiagonal M
-// whose blocks start at offset `blk` of each record: L_k x_{k-1} + D_k x_k
-// + U_k x_{k+1}, the neighbours' rows from the halo of vector v.
+// One knot-indexed block-tridiagonal operator of a CTA: own knot kl's three
+// s x s blocks (L, D, U) at base + kl stride (in the records, or a global
+// tensor).
+struct Blocks {
+  const float* base;
+  int stride;
+};
+
+// Row a of knot kl (knot k = k0 + kl) of M x: L_k x_{k-1} + D_k x_k +
+// U_k x_{k+1}, the neighbours' rows from the halo of vector v.
 template <int kS>
-__device__ __forceinline__ float btd_row(const Ctx& x, int blk, int v, int kl,
+__device__ __forceinline__ float btd_row(const Ctx& x, Blocks M, int v, int kl,
                                          int a) {
   const int s = kS > 0 ? kS : x.s;
   const int ss = s * s, k = x.k0 + kl;
   const float* X = vec(x, v);
-  const float* row = x.rec + (long long)kl * x.recsz + blk + a * s;
+  const float* row = M.base + (long long)kl * M.stride + a * s;
   float left = 0.f, right = 0.f;
   if (k > 0) left = dot<kS>(row, kl == 0 ? hleft(x, v) : X + (kl - 1) * s, s);
   const float mid = dot<kS>(row + ss, X + kl * s, s);
@@ -373,10 +398,13 @@ struct Problem {
   float* eta;
 };
 
-// The Ctx of this CTA; `scratch` is the problem's global record slice or
-// null when the records are in shared memory.
-__device__ __forceinline__ Ctx make_ctx(float* smem, float* scratch, int K,
-                                        int s, int c, int C) {
+// The Ctx of this CTA for records of `recsz` floats a knot: in shared
+// memory (`scratch` null) or in the problem's global slice `scratch`, then
+// lambda's rows, the halo rows, `hb_floats` floats of halo blocks and the
+// union area.
+__device__ __forceinline__ Ctx make_ctx_layout(float* smem, float* scratch, int K,
+                                               int s, int c, int C, int recsz,
+                                               int hb_floats) {
   Ctx x;
   x.K = K;
   x.s = s;
@@ -388,7 +416,7 @@ __device__ __forceinline__ Ctx make_ctx(float* smem, float* scratch, int K,
   x.kn = x.k1 - x.k0;
   x.tid = threadIdx.x;
   x.nt = blockDim.x;
-  x.recsz = (int)record_floats(s, c);
+  x.recsz = recsz;
   const int kmax = cluster_knots(K, C);
   x.fixed = smem;
   float* p = smem + kFixedFloats;
@@ -403,26 +431,34 @@ __device__ __forceinline__ Ctx make_ctx(float* smem, float* scratch, int K,
   x.halo = p;
   p += 2 * kNumVec * s;
   x.hb = p;
-  p += 3 * s * s;
+  p += hb_floats;
   x.uni = p;
   x.par = 0;
   return x;
+}
+
+// The Ctx of kernel B's and the farm's CTA; `scratch` is the problem's
+// global record slice or null when the records are in shared memory.
+__device__ __forceinline__ Ctx make_ctx(float* smem, float* scratch, int K,
+                                        int s, int c, int C) {
+  return make_ctx_layout(smem, scratch, K, s, c, C, (int)record_floats(s, c), 3 * s * s);
 }
 
 // Preconditioned residual of vector `rv` into y: y = P r, then Horner
 // y += P (r - S y) for poly_degree - 1 rounds; y's (and tmp's) boundary
 // rows go to the neighbours.  Returns this thread's partial r . y.
 template <int kS>
-__device__ __forceinline__ float precond_pass(Ctx& x, int rv, int poly) {
+__device__ __forceinline__ float precond_pass(Ctx& x, Blocks Sm, Blocks Pm, int rv,
+                                              int poly) {
   const int s = kS > 0 ? kS : x.s;
-  const int ss = s * s, rows = x.kn * s;
+  const int rows = x.kn * s;
   const float* r = vec(x, rv);
   float* y = vec(x, kY);
   float* tmp = vec(x, kTmp);
   float part = 0.f;
   for (int t = x.tid; t < rows; t += x.nt) {
     const int kl = t / s, a = t - kl * s;
-    const float v = btd_row<kS>(x, 3 * ss, rv, kl, a);
+    const float v = btd_row<kS>(x, Pm, rv, kl, a);
     y[t] = v;
     push_row(x, kY, kl, a, v);
     if (poly == 1) part = fmaf(r[t], v, part);
@@ -431,14 +467,14 @@ __device__ __forceinline__ float precond_pass(Ctx& x, int rv, int poly) {
     csync(x);
     for (int t = x.tid; t < rows; t += x.nt) {
       const int kl = t / s, a = t - kl * s;
-      const float v = r[t] - btd_row<kS>(x, 0, kY, kl, a);
+      const float v = r[t] - btd_row<kS>(x, Sm, kY, kl, a);
       tmp[t] = v;
       push_row(x, kTmp, kl, a, v);
     }
     csync(x);
     for (int t = x.tid; t < rows; t += x.nt) {
       const int kl = t / s, a = t - kl * s;
-      const float v = y[t] + btd_row<kS>(x, 3 * ss, kTmp, kl, a);
+      const float v = y[t] + btd_row<kS>(x, Pm, kTmp, kl, a);
       y[t] = v;
       push_row(x, kY, kl, a, v);
       if (d == poly - 1) part = fmaf(r[t], v, part);
@@ -447,46 +483,51 @@ __device__ __forceinline__ float precond_pass(Ctx& x, int rv, int poly) {
   return part;
 }
 
-// One problem's whole solve on this CTA's knots.  `smem` is the dynamic
-// shared memory of cluster_smem_floats(K, s, c, C, scratch == null) floats;
-// `scratch` the problem's K records in global memory, or null.  A farm
-// runs it again on the same smem with pb.lam0 null: lambda_0 is then the
-// previous run's lambda, in place.
-template <int kS, int kC>
-__device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
-                             int K, int s_rt, int c_rt, int C, float rho,
-                             float exit_tol, int max_iters, int poly, int precond) {
-  constexpr int kCapS = kS > 0 ? kS : kMaxWidth;
-  constexpr int kCapC = kC > 0 ? kC : kMaxWidth;
-  const int s = kS > 0 ? kS : s_rt, c = kC > 0 ? kC : c_rt;
-  const int ss = s * s, sc = s * c, cc2 = c * c;
-  Ctx x = make_ctx(smem, scratch, K, s, c, C);
-  const int kn = x.kn, k0 = x.k0, rows = kn * s;
-  // Record offsets: S 0, Pinv 3ss, Qinv 6ss, Rinv 7ss, B Rinv 7ss + cc.
-  const int oP = 3 * ss, oQi = 6 * ss, oRi = 7 * ss, oBR = 7 * ss + cc2;
-  int* bad = reinterpret_cast<int*>(x.fixed + kBad);
-  if (x.tid == 0) *bad = 0;
-  __syncthreads();
-  stamp(0);
+// The stages of one problem's solve on this CTA's knots, each ending
+// synchronised (the CTA; the cluster where it says so).  Kernel B and the
+// farm kernel run them all (cluster_body); kernel A (pcg.cu) the PCG
+// stage on given operators; row 4 (direct_fused.cu) stages 1, 2, 4 and 6
+// around its cyclic reduction.  Record offsets: S 0, Pinv 3ss (row 4: the
+// working copy W of S), Qinv 6ss, Rinv 7ss, B Rinv 7ss + cc.
 
-  // 1. (Q_k + rho I)^{-1} for own knots and Q_{k0-1}; (R_{k-1} + rho I)^{-1}
-  // for own intervals.
+// 1. (Q_k + rho I)^{-1} for own knots and Q_{k0-1}; (R_{k-1} + rho I)^{-1}
+// for own intervals.  kStamp: kernel B's stamps 1 and 2.
+template <int kS, int kC, bool kStamp>
+__device__ __forceinline__ void invert_qr(const Ctx& x, const Problem& pb, float rho,
+                                          int* bad) {
+  const int s = kS > 0 ? kS : x.s, c = kC > 0 ? kC : x.c;
+  const int ss = s * s, cc2 = c * c, k0 = x.k0;
+  const int oQi = 6 * ss, oRi = 7 * ss;
   const int kq0 = k0 > 0 ? k0 - 1 : 0;
   gj_invert<kS>(x, pb.Q + (long long)kq0 * ss, ss,
                 x.rec + oQi - (kq0 < k0 ? x.recsz : 0), x.recsz,
                 kq0 < k0 ? x.hb + 2 * ss : nullptr, x.k1 - kq0, s, rho, bad);
-  stamp(1);
+  if (kStamp) stamp(1);
   const int ki0 = k0 > 0 ? k0 : 1;  // first own knot with an interval
   gj_invert<kC>(x, pb.R + (long long)(ki0 - 1) * cc2, cc2,
                 x.rec + (long long)(ki0 - k0) * x.recsz + oRi, x.recsz, nullptr,
                 x.k1 - ki0, c, rho, bad);
-  stamp(2);
+  if (kStamp) stamp(2);
+}
 
-  // 2. S: phi_k, B_{k-1} Rinv_{k-1} and theta_k from row a of each, phi_{k+1}^T;
-  // scalar Jacobi's Pinv, and block Jacobi's zero off-diagonal blocks.
-  // A thread reads everything its row needs before it writes any of it, so
-  // that its loads overlap (a store through a generic pointer may alias
-  // them).
+// Row 4's code for condense_rows: S's blocks also into the Pinv slot (the
+// working copy W), no preconditioner.
+constexpr int kCopyW = -1;
+
+// 2. S: phi_k, B_{k-1} Rinv_{k-1} and theta_k from row a of each, phi_{k+1}^T;
+// scalar Jacobi's Pinv, and block Jacobi's zero off-diagonal blocks (kCopyW:
+// W = S instead).  A thread reads everything its row needs before it
+// writes any of it, so that its loads overlap (a store through a generic
+// pointer may alias them).
+template <int kS, int kC>
+__device__ __forceinline__ void condense_rows(const Ctx& x, const Problem& pb,
+                                              int precond) {
+  constexpr int kCapS = kS > 0 ? kS : kMaxWidth;
+  constexpr int kCapC = kC > 0 ? kC : kMaxWidth;
+  const int s = kS > 0 ? kS : x.s, c = kC > 0 ? kC : x.c;
+  const int ss = s * s, sc = s * c, cc2 = c * c;
+  const int K = x.K, k0 = x.k0, rows = x.kn * s;
+  const int oP = 3 * ss, oQi = 6 * ss, oRi = 7 * ss, oBR = 7 * ss + cc2;
   for (int t = x.tid; t < rows; t += x.nt) {
     const int kl = t / s, a = t - kl * s, k = k0 + kl;
     float* Rk = x.rec + (long long)kl * x.recsz;
@@ -547,7 +588,14 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
 #pragma unroll
       for (int j = 0; j < c; ++j) Rk[oBR + a * c + j] = br[j];
     }
-    if (precond != kStair) {
+    if (precond == kCopyW) {
+#pragma unroll
+      for (int j = 0; j < s; ++j) {
+        Rk[oP + a * s + j] = ph[j];
+        Rk[oP + ss + a * s + j] = th[j];
+        Rk[oP + 2 * ss + a * s + j] = ut[j];
+      }
+    } else if (precond != kStair) {
 #pragma unroll
       for (int j = 0; j < s; ++j) {
         Rk[oP + a * s + j] = 0.f;
@@ -560,6 +608,197 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
     }
   }
   __syncthreads();
+}
+
+// 4. gamma of own rows into g: Qinv_k q_k + phi_k q_{k-1} + B_{k-1}
+// Rinv_{k-1} r_{k-1} - c_k.  Does not end synchronised.
+template <int kS, int kC>
+__device__ __forceinline__ void gamma_rows(const Ctx& x, const Problem& pb, float* g) {
+  const int s = kS > 0 ? kS : x.s, c = kC > 0 ? kC : x.c;
+  const int ss = s * s, cc2 = c * c, rows = x.kn * s;
+  const int oQi = 6 * ss, oBR = 7 * ss + cc2;
+  for (int t = x.tid; t < rows; t += x.nt) {
+    const int kl = t / s, a = t - kl * s, k = x.k0 + kl;
+    const float* Rk = x.rec + (long long)kl * x.recsz;
+    const float* qk = pb.q + (long long)k * s;
+    float v = dot<kS>(Rk + oQi + a * s, qk, s);
+    if (k > 0) {
+      const float t1 = dot<kS>(Rk + a * s, qk - s, s);
+      const float t2 = dot<kC>(Rk + oBR + a * c, pb.r + (long long)(k - 1) * c, c);
+      v = (t1 + t2) + v;
+    }
+    g[t] = v - pb.cv[(long long)k * s + a];
+  }
+}
+
+// 5a. PCG set-up on S lambda = gamma (gamma in r = vector kR0, lambda_0 in
+// lambda with its halo rows): r = gamma - S lambda_0, y = M r, p = y.
+// Returns eta = r . y, summed over the cluster; with `bad`, ORs *bad over
+// the cluster into it.  Ends synchronised.
+template <int kS>
+__device__ __forceinline__ float pcg_setup(Ctx& x, Blocks Sm, Blocks Pm, int poly,
+                                           int* bad) {
+  const int s = kS > 0 ? kS : x.s;
+  const int rows = x.kn * s;
+  {
+    float* r0 = vec(x, kR0);
+    for (int t = x.tid; t < rows; t += x.nt) {
+      const int kl = t / s, a = t - kl * s;
+      const float v = r0[t] - btd_row<kS>(x, Sm, kLam, kl, a);
+      r0[t] = v;
+      push_row(x, kR0, kl, a, v);
+    }
+  }
+  csync(x);
+  float part = precond_pass<kS>(x, Sm, Pm, kR0, poly);
+  {
+    float* p0 = vec(x, kP0);
+    const float* y = vec(x, kY);
+    for (int t = x.tid; t < rows; t += x.nt) p0[t] = y[t];
+  }
+  const float eta = cluster_sum(x, part, bad);
+  for (int t = x.tid; t < 2 * s; t += x.nt) hleft(x, kP0)[t] = hleft(x, kY)[t];
+  __syncthreads();
+  return eta;
+}
+
+// 5b. The PCG loop from pcg_setup's state: lambda in place, *iters the
+// exit index (max_iters when the test never fires), *conv; returns |eta|.
+template <int kS>
+__device__ __forceinline__ float pcg_loop(Ctx& x, Blocks Sm, Blocks Pm, float eta,
+                                          float exit_tol, int max_iters, int poly,
+                                          int* iters, int* conv) {
+  const int s = kS > 0 ? kS : x.s;
+  const int rows = x.kn * s;
+  float* lam = x.lam;
+  *iters = max_iters;
+  *conv = 0;
+  int cur = 0;
+  float* ups = vec(x, kUps);
+  const float* y = vec(x, kY);
+  for (int it = 0; it < max_iters; ++it) {
+    const int pc = kP0 + cur, pn = kP0 + (cur ^ 1);
+    const int rc = kR0 + cur, rn = kR0 + (cur ^ 1);
+    float* P = vec(x, pc);
+    float part = 0.f;
+    for (int t = x.tid; t < rows; t += x.nt) {
+      const int kl = t / s, a = t - kl * s;
+      const float u = btd_row<kS>(x, Sm, pc, kl, a);
+      ups[t] = u;
+      push_row(x, kUps, kl, a, u);
+      part = fmaf(P[t], u, part);
+    }
+    const float nu = cluster_sum(x, part);
+    const float alpha = nu != 0.f ? eta / nu : 0.f;
+    {
+      const float* Rc = vec(x, rc);
+      float* Rn = vec(x, rn);
+      for (int t = x.tid; t < rows; t += x.nt) {
+        lam[t] = fmaf(alpha, P[t], lam[t]);
+        Rn[t] = fmaf(-alpha, ups[t], Rc[t]);
+      }
+      for (int t = x.tid; t < 2 * s; t += x.nt)
+        hleft(x, rn)[t] = fmaf(-alpha, hleft(x, kUps)[t], hleft(x, rc)[t]);
+    }
+    __syncthreads();
+    part = precond_pass<kS>(x, Sm, Pm, rn, poly);
+    const float eta_new = cluster_sum(x, part);
+    const float beta = eta != 0.f ? eta_new / eta : 0.f;
+    {
+      float* Pn = vec(x, pn);
+      for (int t = x.tid; t < rows; t += x.nt) Pn[t] = fmaf(beta, P[t], y[t]);
+      for (int t = x.tid; t < 2 * s; t += x.nt)
+        hleft(x, pn)[t] = fmaf(beta, hleft(x, pc)[t], hleft(x, kY)[t]);
+    }
+    __syncthreads();
+    cur ^= 1;
+    eta = eta_new;
+    if (fabsf(eta_new) < exit_tol) {
+      *iters = it;
+      *conv = 1;
+      break;
+    }
+  }
+  return fabsf(eta);
+}
+
+// 6a. Lambda's boundary rows into the neighbours' halo rows (also the
+// farm's next lambda_0 halo); a cluster barrier must follow.
+__device__ __forceinline__ void push_lam(const Ctx& x) {
+  for (int t = x.tid; t < x.kn * x.s; t += x.nt) {
+    const int kl = t / x.s, a = t - kl * x.s;
+    push_row(x, kLam, kl, a, x.lam[t]);
+  }
+}
+
+// 6b. Recovery of own rows after push_lam and a cluster barrier: dz_x =
+// Qinv (q - lam - A^T lam_next), dz_u = Rinv (r - B^T lam_next), with
+// lam_out.  Uses vector kR0 and the union area past the seven vectors.
+template <int kS, int kC>
+__device__ __forceinline__ void recover_rows(const Ctx& x, const Problem& pb) {
+  const int s = kS > 0 ? kS : x.s, c = kC > 0 ? kC : x.c;
+  const int ss = s * s, sc = s * c;
+  const int K = x.K, k0 = x.k0, kn = x.kn, rows = kn * s;
+  const int oQi = 6 * ss, oRi = 7 * ss;
+  const float* lam = x.lam;
+  float* rx = vec(x, kR0);
+  float* ru = x.uni + 7LL * kn * s;
+  const int ki0 = k0 > 0 ? k0 : 1;
+  const int nint = x.k1 - ki0;
+  for (int t = x.tid; t < rows; t += x.nt) {
+    const int kl = t / s, a = t - kl * s, k = k0 + kl;
+    float at = 0.f;
+    if (k < K - 1) {
+      const float* Ak = pb.A + (long long)k * ss + a;
+      const float* ln = kl == kn - 1 ? hright(x, kLam) : lam + (kl + 1) * s;
+      for (int e = 0; e < s; ++e) at = fmaf(Ak[e * s], ln[e], at);
+    }
+    rx[t] = (pb.q[(long long)k * s + a] - lam[t]) - at;
+  }
+  for (int t = x.tid; t < nint * c; t += x.nt) {
+    const int u = t / c, a = t - u * c, j = ki0 - 1 + u;  // interval j
+    const float* Bk = pb.Bm + (long long)j * sc + a;
+    const float* ln = lam + (j + 1 - k0) * s;
+    float bt = 0.f;
+    for (int e = 0; e < s; ++e) bt = fmaf(Bk[e * c], ln[e], bt);
+    ru[t] = pb.r[(long long)j * c + a] - bt;
+  }
+  __syncthreads();
+  for (int t = x.tid; t < rows; t += x.nt) {
+    const int kl = t / s, a = t - kl * s;
+    const float* Rk = x.rec + (long long)kl * x.recsz;
+    pb.dzx[(long long)k0 * s + t] = dot<kS>(Rk + oQi + a * s, rx + kl * s, s);
+    pb.lam_out[(long long)k0 * s + t] = lam[t];
+  }
+  for (int t = x.tid; t < nint * c; t += x.nt) {
+    const int u = t / c, a = t - u * c, j = ki0 - 1 + u;
+    const float* Rk = x.rec + (long long)(j + 1 - k0) * x.recsz;
+    pb.dzu[(long long)j * c + a] = dot<kC>(Rk + oRi + a * c, ru + u * c, c);
+  }
+}
+
+// One problem's whole solve on this CTA's knots.  `smem` is the dynamic
+// shared memory of cluster_smem_floats(K, s, c, C, scratch == null) floats;
+// `scratch` the problem's K records in global memory, or null.  A farm
+// runs it again on the same smem with pb.lam0 null: lambda_0 is then the
+// previous run's lambda, in place.
+template <int kS, int kC>
+__device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
+                             int K, int s_rt, int c_rt, int C, float rho,
+                             float exit_tol, int max_iters, int poly, int precond) {
+  constexpr int kCapS = kS > 0 ? kS : kMaxWidth;
+  const int s = kS > 0 ? kS : s_rt, c = kC > 0 ? kC : c_rt;
+  const int ss = s * s;
+  Ctx x = make_ctx(smem, scratch, K, s, c, C);
+  const int kn = x.kn, k0 = x.k0, rows = kn * s;
+  const int oP = 3 * ss;
+  int* bad = reinterpret_cast<int*>(x.fixed + kBad);
+  if (x.tid == 0) *bad = 0;
+  __syncthreads();
+  stamp(0);
+
+  invert_qr<kS, kC, true>(x, pb, rho, bad);
+  condense_rows<kS, kC>(x, pb, precond);
   stamp(3);
 
   // 3. theta_k^{-1} into Pinv[k][1]; the stair's off-diagonal blocks
@@ -616,21 +855,9 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
 
   // 4. gamma into r; lambda_0 (kernel B: from global, with its halo rows;
   // the farm's carry: in place).
-  float* lam = x.lam;
-  for (int t = x.tid; t < rows; t += x.nt) {
-    const int kl = t / s, a = t - kl * s, k = k0 + kl;
-    const float* Rk = x.rec + (long long)kl * x.recsz;
-    const float* qk = pb.q + (long long)k * s;
-    float g = dot<kS>(Rk + oQi + a * s, qk, s);
-    if (k > 0) {
-      const float t1 = dot<kS>(Rk + a * s, qk - s, s);
-      const float t2 = dot<kC>(Rk + oBR + a * c, pb.r + (long long)(k - 1) * c, c);
-      g = (t1 + t2) + g;
-    }
-    vec(x, kR0)[t] = g - pb.cv[(long long)k * s + a];
-    if (pb.lam0 != nullptr) lam[t] = pb.lam0[(long long)k0 * s + t];
-  }
+  gamma_rows<kS, kC>(x, pb, vec(x, kR0));
   if (pb.lam0 != nullptr) {
+    for (int t = x.tid; t < rows; t += x.nt) x.lam[t] = pb.lam0[(long long)k0 * s + t];
     for (int t = x.tid; t < s; t += x.nt) {
       if (k0 > 0) hleft(x, kLam)[t] = pb.lam0[(long long)(k0 - 1) * s + t];
       if (x.k1 < K) hright(x, kLam)[t] = pb.lam0[(long long)x.k1 * s + t];
@@ -638,124 +865,22 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
   }
   __syncthreads();
 
-  // 5. PCG.  r = gamma - S lambda_0, y = M r, p = y, eta = r . y.
-  {
-    float* r0 = vec(x, kR0);
-    for (int t = x.tid; t < rows; t += x.nt) {
-      const int kl = t / s, a = t - kl * s;
-      const float v = r0[t] - btd_row<kS>(x, 0, kLam, kl, a);
-      r0[t] = v;
-      push_row(x, kR0, kl, a, v);
-    }
-  }
-  csync(x);
-  float part = precond_pass<kS>(x, kR0, poly);
-  {
-    float* p0 = vec(x, kP0);
-    const float* y = vec(x, kY);
-    for (int t = x.tid; t < rows; t += x.nt) p0[t] = y[t];
-  }
-  float eta = cluster_sum(x, part, bad);
+  // 5. PCG.
+  const Blocks Sm{x.rec, x.recsz}, Pm{x.rec + oP, x.recsz};
+  float eta = pcg_setup<kS>(x, Sm, Pm, poly, bad);
   const bool frozen = *bad != 0;
-  for (int t = x.tid; t < 2 * s; t += x.nt) hleft(x, kP0)[t] = hleft(x, kY)[t];
-  __syncthreads();
   stamp(6);
-
   int iters = max_iters, conv = 0;
-  if (frozen) {
+  if (frozen)
     eta = kFrozenEta;
-  } else {
-    int cur = 0;
-    float* ups = vec(x, kUps);
-    const float* y = vec(x, kY);
-    for (int it = 0; it < max_iters; ++it) {
-      const int pc = kP0 + cur, pn = kP0 + (cur ^ 1);
-      const int rc = kR0 + cur, rn = kR0 + (cur ^ 1);
-      float* P = vec(x, pc);
-      part = 0.f;
-      for (int t = x.tid; t < rows; t += x.nt) {
-        const int kl = t / s, a = t - kl * s;
-        const float u = btd_row<kS>(x, 0, pc, kl, a);
-        ups[t] = u;
-        push_row(x, kUps, kl, a, u);
-        part = fmaf(P[t], u, part);
-      }
-      const float nu = cluster_sum(x, part);
-      const float alpha = nu != 0.f ? eta / nu : 0.f;
-      {
-        const float* Rc = vec(x, rc);
-        float* Rn = vec(x, rn);
-        for (int t = x.tid; t < rows; t += x.nt) {
-          lam[t] = fmaf(alpha, P[t], lam[t]);
-          Rn[t] = fmaf(-alpha, ups[t], Rc[t]);
-        }
-        for (int t = x.tid; t < 2 * s; t += x.nt)
-          hleft(x, rn)[t] = fmaf(-alpha, hleft(x, kUps)[t], hleft(x, rc)[t]);
-      }
-      __syncthreads();
-      part = precond_pass<kS>(x, rn, poly);
-      const float eta_new = cluster_sum(x, part);
-      const float beta = eta != 0.f ? eta_new / eta : 0.f;
-      {
-        float* Pn = vec(x, pn);
-        for (int t = x.tid; t < rows; t += x.nt) Pn[t] = fmaf(beta, P[t], y[t]);
-        for (int t = x.tid; t < 2 * s; t += x.nt)
-          hleft(x, pn)[t] = fmaf(beta, hleft(x, pc)[t], hleft(x, kY)[t]);
-      }
-      __syncthreads();
-      cur ^= 1;
-      eta = eta_new;
-      if (fabsf(eta_new) < exit_tol) {
-        iters = it;
-        conv = 1;
-        break;
-      }
-    }
-    eta = fabsf(eta);
-  }
+  else
+    eta = pcg_loop<kS>(x, Sm, Pm, eta, exit_tol, max_iters, poly, &iters, &conv);
   stamp(7);
 
-  // 6. Recovery: dz_x = Qinv (q - lam - A^T lam_next), dz_u = Rinv (r -
-  // B^T lam_next), with lam_out; lambda's boundary rows to the neighbours
-  // first (also the farm's next lambda_0 halo).
-  for (int t = x.tid; t < rows; t += x.nt) {
-    const int kl = t / s, a = t - kl * s;
-    push_row(x, kLam, kl, a, lam[t]);
-  }
+  // 6. Recovery.
+  push_lam(x);
   csync(x);
-  float* rx = vec(x, kR0);
-  float* ru = x.uni + 7LL * kn * s;
-  const int nint = x.k1 - ki0;
-  for (int t = x.tid; t < rows; t += x.nt) {
-    const int kl = t / s, a = t - kl * s, k = k0 + kl;
-    float at = 0.f;
-    if (k < K - 1) {
-      const float* Ak = pb.A + (long long)k * ss + a;
-      const float* ln = kl == kn - 1 ? hright(x, kLam) : lam + (kl + 1) * s;
-      for (int e = 0; e < s; ++e) at = fmaf(Ak[e * s], ln[e], at);
-    }
-    rx[t] = (pb.q[(long long)k * s + a] - lam[t]) - at;
-  }
-  for (int t = x.tid; t < nint * c; t += x.nt) {
-    const int u = t / c, a = t - u * c, j = ki0 - 1 + u;  // interval j
-    const float* Bk = pb.Bm + (long long)j * sc + a;
-    const float* ln = lam + (j + 1 - k0) * s;
-    float bt = 0.f;
-    for (int e = 0; e < s; ++e) bt = fmaf(Bk[e * c], ln[e], bt);
-    ru[t] = pb.r[(long long)j * c + a] - bt;
-  }
-  __syncthreads();
-  for (int t = x.tid; t < rows; t += x.nt) {
-    const int kl = t / s, a = t - kl * s;
-    const float* Rk = x.rec + (long long)kl * x.recsz;
-    pb.dzx[(long long)k0 * s + t] = dot<kS>(Rk + oQi + a * s, rx + kl * s, s);
-    pb.lam_out[(long long)k0 * s + t] = lam[t];
-  }
-  for (int t = x.tid; t < nint * c; t += x.nt) {
-    const int u = t / c, a = t - u * c, j = ki0 - 1 + u;
-    const float* Rk = x.rec + (long long)(j + 1 - k0) * x.recsz;
-    pb.dzu[(long long)j * c + a] = dot<kC>(Rk + oRi + a * c, ru + u * c, c);
-  }
+  recover_rows<kS, kC>(x, pb);
   if (x.tid == 0 && x.rank == 0) {
     *pb.iters = iters;
     *pb.conv = conv != 0;

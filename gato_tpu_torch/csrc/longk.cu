@@ -447,7 +447,7 @@ __device__ __forceinline__ float precond_rows(cg::grid_group& grid, const PcgCta
 }
 
 // The PCG loop of problem rd.first + blockIdx.x / per on the own knots of
-// CTA blockIdx.x % per: pcg_common.cuh's pcg_block (the same updates, exit
+// CTA blockIdx.x % per: cluster_body.cuh's pcg_loop (the same updates, exit
 // test on |r . M r| < exit_tol, 0-based exit index, alpha = 0 when p.Sp =
 // 0, beta = 0 when eta = 0, Horner form) with two barriers an iteration.
 // A frozen problem runs no iteration, keeps lambda_0, and reports

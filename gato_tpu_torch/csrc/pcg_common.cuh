@@ -1,21 +1,12 @@
-// Shared device code of kernel A (pcg.cu): block-wide sums, the
-// block-tridiagonal matvec and the PCG loop; the sums, btd_row and
-// kFrozenEta also serve the exact kernels (condense.cuh's users), the
-// long-K tier (longk.cu, longk_direct.cu, grid_common.cuh) and the probes
-// (probes.cu).
+// Shared device code of one-block kernels: block-wide sums and the
+// block-tridiagonal matvec btd_row, with kFrozenEta; they serve the exact
+// kernels (condense.cuh's users), the long-K tier (longk.cu,
+// longk_direct.cu, grid_common.cuh) and the probes (probes.cu).  Kernel A
+// (pcg.cu) runs kernel B's cluster PCG stage (cluster_body.cuh) instead.
 //
-// One thread block solves one problem.  Threads stride over the K*s
-// (knot, row) pairs of the problem's vectors; the vectors live in shared
-// memory, the operators S and Pinv (K, 3, s, s) in global memory.  The loop
-// is the PCG of gato_tpu/kernels/pcg_pallas.py::pcg_loop and
-// gato_tpu/pcg.py::pcg: the same update order, the exit test on
-// |r . M r| < exit_tol, the 0-based exit index as the iteration count
-// (max_iters when the test never fires), alpha = 0 when p.Sp == 0,
-// beta = 0 when eta == 0, and M in Horner form for poly_degree > 1.
-//
-// Pointers to operators are plain `const float*`, never `__restrict__`: the
-// fused kernel writes S and Pinv earlier in the same launch, and a
-// read-only-cache load could then see stale data.
+// Pointers to operators are plain `const float*`, never `__restrict__`: a
+// kernel may write S earlier in the same launch, and a read-only-cache
+// load could then see stale data.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,118 +74,6 @@ __device__ __forceinline__ float btd_row(const float* M, const float* x,
     for (int b = 0; b < s; ++b) right = fmaf(rp[b], xp[b], right);
   }
   return (left + right) + mid;
-}
-
-// y = M r, with M = Pinv (poly_degree 1) or its Horner polynomial
-// y = P r;  y += P (r - S y)  (poly_degree - 1 times).  Uses tmp.
-// Ends synchronised.
-__device__ inline void apply_precond(const float* S, const float* P,
-                                     const float* r, float* y, float* tmp,
-                                     int K, int s, int poly_degree) {
-  const int n = K * s;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    y[i] = btd_row(P, r, K, s, i / s, i % s);
-  __syncthreads();
-  for (int d = 1; d < poly_degree; ++d) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      tmp[i] = r[i] - btd_row(S, y, K, s, i / s, i % s);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      y[i] += btd_row(P, tmp, K, s, i / s, i % s);
-    __syncthreads();
-  }
-}
-
-// Shared-memory vectors of one problem, K*s floats each, and the reduction
-// scratch.
-struct PcgVectors {
-  float* lam;
-  float* r;
-  float* p;
-  float* y;
-  float* ups;
-  float* tmp;
-  float* red;
-};
-
-struct PcgOutcome {
-  int iters;
-  int converged;
-  float eta;
-};
-
-// The PCG loop for one problem.  On entry v.lam holds lambda_0 and v.r holds
-// gamma; on exit v.lam holds the solution.  A `frozen` problem (a zero
-// pivot clamped during condensation) performs no update, never converges,
-// and reports max_iters and eta = 1e30, as pcg_loop's `bad` mask does.
-__device__ inline PcgOutcome pcg_block(const float* S, const float* P, int K,
-                                       int s, const PcgVectors& v,
-                                       float exit_tol, int max_iters,
-                                       int poly_degree, bool frozen) {
-  const int n = K * s;
-  // r = gamma - S lambda_0
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    v.r[i] = v.r[i] - btd_row(S, v.lam, K, s, i / s, i % s);
-  __syncthreads();
-  apply_precond(S, P, v.r, v.y, v.tmp, K, s, poly_degree);
-  float part = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    v.p[i] = v.y[i];
-    part = fmaf(v.r[i], v.y[i], part);
-  }
-  float eta = block_sum(part, v.red);
-
-  PcgOutcome out{max_iters, 0, 0.f};
-  if (frozen) {
-    out.eta = kFrozenEta;
-    return out;
-  }
-  for (int it = 0; it < max_iters; ++it) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      v.ups[i] = btd_row(S, v.p, K, s, i / s, i % s);
-    __syncthreads();
-    part = 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      part = fmaf(v.p[i], v.ups[i], part);
-    const float nu = block_sum(part, v.red);
-    const float alpha = nu != 0.f ? eta / nu : 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      v.lam[i] = fmaf(alpha, v.p[i], v.lam[i]);
-      v.r[i] = fmaf(-alpha, v.ups[i], v.r[i]);
-    }
-    __syncthreads();
-    apply_precond(S, P, v.r, v.y, v.tmp, K, s, poly_degree);
-    part = 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      part = fmaf(v.r[i], v.y[i], part);
-    const float eta_new = block_sum(part, v.red);
-    const float beta = eta != 0.f ? eta_new / eta : 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      v.p[i] = fmaf(beta, v.p[i], v.y[i]);
-    __syncthreads();
-    eta = eta_new;
-    if (fabsf(eta_new) < exit_tol) {
-      out.iters = it;
-      out.converged = 1;
-      break;
-    }
-  }
-  out.eta = fabsf(eta);
-  return out;
-}
-
-// Lays the PcgVectors out at the start of `smem`, each `len` floats long.
-__device__ __forceinline__ PcgVectors carve_vectors(float* smem, int len,
-                                                    float* red) {
-  PcgVectors v;
-  v.lam = smem;
-  v.r = smem + len;
-  v.p = smem + 2 * len;
-  v.y = smem + 3 * len;
-  v.ups = smem + 4 * len;
-  v.tmp = smem + 5 * len;
-  v.red = red;
-  return v;
 }
 
 }  // namespace gato

@@ -28,7 +28,7 @@ SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
            "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
            "probes.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh",
-           "gauss_jordan.cuh", "condense_tile.cuh")
+           "gauss_jordan.cuh", "condense_tile.cuh", "warp_gj.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
@@ -50,8 +50,11 @@ _LL = ctypes.c_longlong
 
 # name -> (restype, argtypes) of every exported function.
 _SIGNATURES = {
-    "gato_pcg_batched": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P]),
+    "gato_pcg_batched": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "gato_pcg_smem_bytes": (_LL, [_I, _I]),
+    "gato_pcg_cluster_smem_bytes": (_LL, [_I] * 4),
+    "gato_pcg_cluster_threads": (_I, [_I] * 3),
+    "gato_pcg_max_clusters": (_I, [_I] * 4),
     "gato_pcg_stamps": (_I, [_P]),
     "gato_fused_solve": (_I, [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P]),
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
@@ -62,7 +65,9 @@ _SIGNATURES = {
     "gato_cluster_size": (_I, [_I] * 5 + [_LL]),
     "gato_fused_sequence": (_I, [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
     "gato_sequence_max_clusters": (_I, [_I] * 5),
-    "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _P]),
+    "gato_direct_fused": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P]),
+    "gato_direct_cluster_smem_bytes": (_LL, [_I] * 5),
+    "gato_direct_max_clusters": (_I, [_I] * 5),
     "gato_direct_scratch_floats": (_LL, [_I, _I, _I]),
     "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
     "gato_direct_stamps": (_I, [_P]),

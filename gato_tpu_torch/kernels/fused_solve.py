@@ -190,17 +190,35 @@ def cluster_size(B: int, K: int, s: int, cdim: int, n_sms: int,
     cudaOccupancyMaxActiveClusters and raises otherwise).  The chip's
     numbers for each C at B = 1, 4, 16, 64 and 256 are in PERF.md §6
     (chip_smoke.py phase 5)."""
-    floor = pick = 0
     fitting = [C for C in CLUSTER_SIZES if cluster_fits(K, s, cdim, C, smem_limit)]
     if not fitting:
         raise ValueError(f"no cluster size takes (K, s, c) = ({K}, {s}, {cdim}) "
                          f"under {smem_limit} B of shared memory")
-    floor = next((C for C in fitting if ops_in_smem(K, s, cdim, C, smem_limit)),
-                 fitting[0])
-    for C in fitting:
-        if B * C <= n_sms:
-            pick = C
+    return rule(B, n_sms, fitting, lambda C: ops_in_smem(K, s, cdim, C, smem_limit))
+
+
+def rule(B: int, n_sms: int, fitting: list, in_smem) -> int:
+    """:func:`cluster_size`'s rule over the cluster sizes that fit
+    (``fitting``, ascending) and whether a size holds its records in shared
+    memory (``in_smem(C)``); kernel A and row 4 take it with their own
+    plans (kernels/pcg_kernel.py, kernels/direct_fused.py)."""
+    floor = next((C for C in fitting if in_smem(C)), fitting[0])
+    pick = max((C for C in fitting if B * C <= n_sms), default=0)
     return max(pick, floor)
+
+
+def require_resident(name: str, occupancy: str, index: int, args: tuple, C: int,
+                     smem: int, shape: str) -> None:
+    """Raise unless the card holds one cluster of C CTAs of a kernel
+    (``occupancy``, the library's cudaOccupancyMaxActiveClusters query,
+    called with ``args``) on CUDA device ``index``."""
+    with torch.cuda.device(index):
+        held = _build.function(occupancy)(*args)
+    if held < 0:
+        _build.check_launch(-held, name)
+    if held == 0:
+        raise RuntimeError(f"{name}: the card holds no cluster of {C} CTAs of "
+                           f"{smem} B at {shape}")
 
 
 @functools.cache
@@ -242,14 +260,8 @@ def _plan(name: str, B: int, K: int, s: int, cdim: int, index: int, cluster,
     else:
         C = cluster
     in_smem = ops_in_smem(K, s, cdim, C, limit)
-    with torch.cuda.device(index):
-        held = _build.function(occupancy)(K, s, cdim, C, int(in_smem))
-    if held < 0:
-        _build.check_launch(-held, name)
-    if held == 0:
-        raise RuntimeError(f"{name}: the card holds no cluster of {C} CTAs of "
-                           f"{cta_smem_bytes(K, s, cdim, C, in_smem)} B at (K, s, c) "
-                           f"= ({K}, {s}, {cdim})")
+    require_resident(name, occupancy, index, (K, s, cdim, C, int(in_smem)), C,
+                     cta_smem_bytes(K, s, cdim, C, in_smem), f"(K, s, c) = ({K}, {s}, {cdim})")
     return C, in_smem
 
 

@@ -803,23 +803,17 @@ def recover_longk_cuda(Qinv, Rinv, A, B, q, r, lam):
         raise ValueError(f"{RECOVER_NAME}: q must be (B, K, s), got {tuple(q.shape)}")
     Bn, K, s = q.shape
     cdim = r.shape[-1]
-    shapes = block_shapes((Bn,), K, s, cdim)
-    expect = dict(Qinv=shapes["Q"], Rinv=shapes["R"], A=shapes["A"],
-                  B=shapes["B"], q=shapes["q"], r=shapes["r"], lam=shapes["q"])
-    tensors = dict(zip(expect, (Qinv, Rinv, A, B, q, r, lam)))
-    check_tensors(RECOVER_NAME, expect, tensors, q.device)
     _check_widths(RECOVER_NAME, K, s, cdim)
+    shapes = block_shapes((Bn,), K, s, cdim)
     dev = q.device
+    t = [_build.checked(RECOVER_NAME, key, x, torch.Size(shapes[ref]), dev)
+         for key, ref, x in (("Qinv", "Q", Qinv), ("Rinv", "R", Rinv), ("A", "A", A),
+                             ("B", "B", B), ("q", "q", q), ("r", "r", r), ("lam", "q", lam))]
     dz_x = torch.empty_like(q)
     dz_u = torch.empty_like(r)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            code = lib.gato_longk_recover(
-                *map(_build.ptr, (*(x.contiguous() for x in tensors.values()),
-                                  dz_x, dz_u)),
-                Bn, K, s, cdim, _stream(dev))
-        _build.check_launch(code, RECOVER_NAME)
+        _build.launch(RECOVER_NAME, "gato_longk_recover", dev,
+                      *(x.data_ptr() for x in (*t, dz_x, dz_u)), Bn, K, s, cdim)
         global RECOVER_LAUNCHES
         RECOVER_LAUNCHES += 1
     return dz_x, dz_u

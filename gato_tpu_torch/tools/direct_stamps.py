@@ -2,7 +2,7 @@
 gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
-        [--two-meetings]
+        [--two-meetings] [--only GROUP,...]
 
 Imports gato_tpu_torch from the checkout at ROOT (default: this one),
 building its kernels there, so that one call can set a parent's kernels
@@ -38,7 +38,9 @@ limit:
 
 ``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
 every grid level of row 11 takes two meetings, a warp a row, where the
-shipped build takes one meeting at a level of few rows.
+shipped build takes one meeting at a level of few rows.  ``--only`` keeps
+some of the groups rowA, row4, row5 (with the pair and kernel B's
+condensation) and row11.
 """
 
 from __future__ import annotations
@@ -106,19 +108,25 @@ def device_ms(fn, calls: int = 20) -> float:
     return median_ms(graph.replay, 11) / calls
 
 
-def inputs(gt, dev):
-    """{("thomas", B): blocks} and {("cr", K, B): (S, gamma)} at IIWA widths."""
+GROUPS = ("rowA", "row4", "row5", "row11")
+
+
+def inputs(gt, dev, only=GROUPS):
+    """{("thomas", B): blocks}, {("cr", K, B): (S, gamma)}, {("kkt", K, B):
+    blocks} and {("pcg", K, B): condensed system} at IIWA widths, for the
+    groups in ``only``."""
     from gato_tpu_torch import testing as tt
     from gato_tpu_torch.kernels import longk as kl
 
     full = gt.blocks_to_torch(tt.random_batch(tt.IIWA, max(THOMAS_B), seed0=0), dev)
     out = {("thomas", n): gt.KKTBlocks(*(a[:n] for a in full)) for n in THOMAS_B}
-    for K, n in CR_SHAPES:
+    for K, n in CR_SHAPES if "row11" in only else ():
         spec = gt.ProblemSpec(14, 7, K)
         b = gt.blocks_to_torch(tt.random_batch(spec, n, seed0=100 + K), dev)
         ops = kl.condense_longk_cuda(*b, rho=RHO, preconditioner="jacobi")
         out[("cr", K, n)] = (ops.S, ops.gamma)
-    for K, n in sorted(set(PCG_SHAPES) | set(ROW4_SHAPES)):
+    for K, n in sorted(set(PCG_SHAPES if "rowA" in only else ())
+                       | set(ROW4_SHAPES if "row4" in only else ())):
         b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, K), n,
                                                seed0=200 + K), dev)
         out[("kkt", K, n)] = b
@@ -151,7 +159,7 @@ def pcg_labels(n: int) -> list:
     return ["copy", "set-up", "loop", "store"][:n - 1]
 
 
-def measure(root: str, runs: int, defines: tuple = ()) -> dict:
+def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
     gt = _import(root)
     import torch
 
@@ -164,22 +172,22 @@ def measure(root: str, runs: int, defines: tuple = ()) -> dict:
     _build.DEFINES = defines
 
     dev = torch.device("cuda", 0)
-    data = inputs(gt, dev)
+    data = inputs(gt, dev, only)
     out = {"what": "times", "root": root, "defines": list(defines), "card": card(),
            "rowA": {}, "row4": {}, "row5": {}, "pair": {}, "row11": {}}
-    for K, n in PCG_SHAPES:
+    for K, n in PCG_SHAPES if "rowA" in only else ():
         fn = pcg_call(ka, data[("pcg", K, n)])
         out["rowA"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
-    for K, n in ROW4_SHAPES:
+    for K, n in ROW4_SHAPES if "row4" in only else ():
         b = data[("kkt", K, n)]
         fn = lambda: kd.direct_fused_cuda(*b, rho=RHO)  # noqa: E731
         out["row4"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
-    for n in THOMAS_B:
+    for n in THOMAS_B if "row5" in only else ():
         b = data[("thomas", n)]
         for key, fn in (("row5", lambda: kt.thomas_fwd_cuda(*b, rho=RHO)),
                         ("pair", lambda: kt.solve_direct_thomas_cuda(*b, rho=RHO))):
             out[key][f"B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
-    for K, n in CR_SHAPES:
+    for K, n in CR_SHAPES if "row11" in only else ():
         S, g = data[("cr", K, n)]
         fn = lambda: kl.cr_longk_cuda(S, g)  # noqa: E731
         out["row11"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs),
@@ -212,7 +220,8 @@ def cr_labels(kl, n: int, K: int, s: int, limit: int) -> list:
         f"phase {i}" for i in range(len(labels), n - 1)]
 
 
-def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dict:
+def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
+           only=GROUPS) -> dict:
     """The ``stamps`` line (run in a child process: the stamped build must
     be chosen before the first CUDA call).  ``wait``: build, print
     ``built``, then read a line from stdin before touching the card (a
@@ -234,7 +243,7 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
         print("built", flush=True)
         sys.stdin.readline()
     dev = torch.device("cuda", 0)
-    data = inputs(gt, dev)
+    data = inputs(gt, dev, only)
     buf = (ctypes.c_ulonglong * 256)()
 
     def runs_of(fn, read) -> np.ndarray:
@@ -253,20 +262,20 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
             "rowA": {}, "row4": {}, "row5": {}, "cluster": {}, "row11": {}}
     if hasattr(_build.library(), "gato_pcg_stamps"):
         readA = _build.function("gato_pcg_stamps")
-        for K, n in PCG_SHAPES:
+        for K, n in PCG_SHAPES if "rowA" in only else ():
             d = runs_of(pcg_call(ka, data[("pcg", K, n)]), readA)
             line["rowA"][f"K={K} B={n}"] = {
                 "total": float(d.sum()), "phases": [round(float(x), 3) for x in d],
                 "labels": pcg_labels(d.size + 1)}
         read4 = _build.function("gato_direct_stamps")
-        for K, n in ROW4_SHAPES:
+        for K, n in ROW4_SHAPES if "row4" in only else ():
             b = data[("kkt", K, n)]
             d = runs_of(lambda: kd.direct_fused_cuda(*b, rho=RHO), read4)
             line["row4"][f"K={K} B={n}"] = {
                 "total": float(d.sum()), "phases": [round(float(x), 3) for x in d],
                 "labels": row4_labels(d.size + 1, K)}
     read5 = _build.function("gato_thomas_stamps")
-    for n in THOMAS_B:
+    for n in THOMAS_B if "row5" in only else ():
         b = data[("thomas", n)]
         d = runs_of(lambda: kt.thomas_fwd_cuda(*b, rho=RHO), read5)
         knots = d[1:]
@@ -278,7 +287,7 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
     # Kernel B's stamps: the start, then after the Gauss-Jordan of Q, of R,
     # and the products (its condensation), then five more stages.
     readb = _build.function("gato_fused_stage_stamps")
-    for n in THOMAS_B[:2]:
+    for n in THOMAS_B[:2] if "row5" in only else ():
         b = data[("thomas", n)]
         d = runs_of(lambda: kb.fused_solve_cuda(*b, rho=RHO, exit_tol=1e-6,
                                                 max_iters=100), readb)
@@ -286,7 +295,7 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = ()) -> dic
                                      "cluster_ctas": kb.LAST_CLUSTER}
     read11 = _build.function("gato_longk_cr_stamps")
     limit = _build.max_shared_bytes(dev) - _build.RESERVED_SHARED_BYTES
-    for K, n in CR_SHAPES:
+    for K, n in CR_SHAPES if "row11" in only else ():
         S, g = data[("cr", K, n)]
         d = runs_of(lambda: kl.cr_longk_cuda(S, g), read11)
         labels = cr_labels(kl, d.size + 1, K, 14, limit)
@@ -304,17 +313,23 @@ def main() -> None:
     ap.add_argument("--two-meetings", action="store_true",
                     help="build row 11 with every grid level in two meetings")
     ap.add_argument("--wait", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups of " + ", ".join(GROUPS))
     args = ap.parse_args()
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(GROUPS):
+        raise SystemExit(f"--only takes groups of {GROUPS}, got {only}")
     defines = ("-DGATO_CR_TWO_MEETINGS",) if args.two_meetings else ()
     if args.stamps_child:
-        print(json.dumps(stamps(args.root, args.runs, args.wait, defines)))
+        print(json.dumps(stamps(args.root, args.runs, args.wait, defines, only)))
         return
-    print(json.dumps(measure(args.root, args.runs, defines)), flush=True)
+    print(json.dumps(measure(args.root, args.runs, defines, only)), flush=True)
     from gato_tpu_torch.kernels import _build
 
     if hasattr(_build.library(), "gato_thomas_stamps"):
         child = subprocess.run([sys.executable, __file__, "--root", args.root,
                                 "--runs", str(args.runs), "--stamps-child",
+                                "--only", args.only,
                                 *(["--two-meetings"] if args.two_meetings else [])],
                                capture_output=True, text=True, timeout=1200)
         if child.returncode != 0:

@@ -9,6 +9,11 @@ imports neither jax nor gato_tpu, so it runs on a machine without JAX:
 1e-4 of each array's scale; iteration counts equal.
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -60,6 +65,39 @@ def test_pcg_kernel_matches_plain(dev, sizes, poly):
     ref = ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, **kw)
     assert got.iters.tolist() == ref.iters.tolist()
     assert got.converged.tolist() == ref.converged.tolist()
+    _close(got.lam, ref.lam)
+
+
+def _limits(dev):
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+# Kernel A at every cluster size and at its plan's edges: K = 2, 50 and 688
+# (the last horizon before the long-K tier), s = 2, 14, 20 and 32.
+PCG_EDGES = [(14, 7, 50), (14, 7, 2), (14, 7, 688), (2, 1, 50), (20, 9, 37), (32, 32, 6)]
+
+
+@pytest.mark.parametrize("sizes", PCG_EDGES)
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("poly", [1, 2])
+def test_pcg_kernel_matches_plain_at_every_cluster_size(dev, sizes, cluster, poly):
+    s, _, K = sizes
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(*sizes), 3, seed0=11), dev)
+    sys_ = assemble.condense(*b, 1e-3)
+    n_sms, limit = _limits(dev)
+    kw = dict(exit_tol=1e-6, max_iters=100, poly_degree=poly)
+    if cluster is not None and not ka.cluster_fits(K, s, cluster, limit):
+        with pytest.raises(ValueError, match="cluster="):
+            ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, cluster=cluster, **kw)
+        return
+    before = ka.LAUNCHES
+    got = ka.pcg_batched_cuda(sys_.S, sys_.Pinv, sys_.gamma, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES == before + 1
+    assert ka.LAST_CLUSTER == (cluster or ka.cluster_size(3, K, s, n_sms, limit))
+    ref = ka.pcg_batched_plain(sys_.S, sys_.Pinv, sys_.gamma, **kw)
+    _iters_agree(got, ref, 1e-6)
     _close(got.lam, ref.lam)
 
 
@@ -383,6 +421,69 @@ def test_direct_fused_kernel_matches_plain(dev, sizes, B):
     assert bool(got.converged.all())
     for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
         _close(x, y)
+
+
+# Row 4 at every cluster size and at its plan's edges: K = 2, 3, 50, an odd
+# K and 740 (the last horizon it serves, records in the global slice), the
+# pendulum's and wide widths.
+ROW4_EDGES = [(14, 7, 50), (14, 7, 2), (14, 7, 3), (14, 7, 51), (14, 7, 740),
+              (2, 1, 5), (20, 9, 37), (32, 32, 6)]
+
+
+@pytest.mark.parametrize("sizes", ROW4_EDGES)
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B", [1, 15])
+def test_direct_fused_kernel_matches_plain_at_every_cluster_size(dev, sizes, cluster, B):
+    s, c, K = sizes
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(*sizes), B, seed0=23), dev)
+    n_sms, limit = _limits(dev)
+    if cluster is not None and not kd.cluster_fits(K, s, c, cluster, limit):
+        with pytest.raises(ValueError, match="cluster="):
+            kd.direct_fused_cuda(*b, rho=1e-3, cluster=cluster)
+        return
+    before = kd.LAUNCHES
+    got, gx, gu = kd.direct_fused_cuda(*b, rho=1e-3, cluster=cluster)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == before + 1
+    assert kd.LAST_CLUSTER == (cluster or kd.cluster_size(B, K, s, c, n_sms, limit))
+    ref, rx, ru = kd.direct_fused_plain(*b, rho=1e-3)
+    _direct_outcome(got, ref, assemble.condense(*b, 1e-3, None).gamma)
+    assert bool(got.converged.all())
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+def test_direct_fused_kernel_matches_plain_at_a_wide_batch(dev):
+    """IIWA K = 50, B = 256: the rule's floor (C = 2, records in shared
+    memory), B C CTAs in waves."""
+    b = gt.blocks_to_torch(tt.random_batch(tt.IIWA, 256, seed0=24), dev)
+    got, gx, gu = kd.direct_fused_cuda(*b, rho=1e-3)
+    torch.cuda.synchronize()
+    assert kd.LAST_CLUSTER == 2
+    ref, rx, ru = kd.direct_fused_plain(*b, rho=1e-3)
+    _direct_outcome(got, ref, assemble.condense(*b, 1e-3, None).gamma)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+def test_direct_fused_singular_contract_at_every_cluster_size(dev, cluster):
+    """One exactly singular IIWA problem between two healthy ones: finite
+    outputs, eta >= 1e30 and converged False for it alone, the others as
+    their plain versions."""
+    mix = tt.stack_blocks([tt.random_blocks(tt.IIWA, seed=40),
+                           tt.singular_blocks(tt.IIWA, seed=3, knot=2),
+                           tt.random_blocks(tt.IIWA, seed=41)])
+    b = gt.blocks_to_torch(mix, dev)
+    got, gx, gu = kd.direct_fused_cuda(*b, rho=0.0, cluster=cluster)
+    torch.cuda.synchronize()
+    assert got.converged.tolist() == [True, False, True]
+    assert float(got.eta[1]) >= 1e30
+    for x in (got.lam, gx, gu):
+        assert bool(torch.isfinite(x).all())
+    ref, rx, ru = kd.direct_fused_plain(*b, rho=0.0)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x[[0, 2]], y[[0, 2]])
 
 
 @pytest.mark.parametrize("sizes", DIRECT_SHAPES)
@@ -734,6 +835,14 @@ def test_shared_memory_mirrors_match_the_library(dev):
                                           limit - 1024)
         assert ka.smem_bytes(K, s) == lib.gato_pcg_smem_bytes(K, s)
         assert kd.smem_bytes(K, s, c) == lib.gato_direct_smem_bytes(K, s, c)
+        # Kernel A's and row 4's cluster plans.
+        for C in kb.CLUSTER_SIZES:
+            assert ka.cta_threads(K, s, C) == lib.gato_pcg_cluster_threads(K, s, C)
+            for ops in (0, 1):
+                assert ka.cta_smem_bytes(K, s, C, ops) == lib.gato_pcg_cluster_smem_bytes(
+                    K, s, C, ops)
+                assert kd.cta_smem_bytes(K, s, c, C, ops) == \
+                    lib.gato_direct_cluster_smem_bytes(K, s, c, C, ops)
     # The long-K plans' layouts (rows 7, 8/10 and 9; which plan to take is
     # kernels/longk.py's alone).
     lim = limit - 1024
@@ -832,6 +941,28 @@ def test_cr_longk_matches_plain_at_the_plan_edges(dev, sizes, B):
     xp, badp = kl.cr_longk_plain(S, gamma)
     assert bad.tolist() == badp.tolist() == [False] * B
     _close(x, xp)
+
+
+def test_direct_stamps_tool_stamps_kernel_a_and_row_4(dev):
+    """tools/direct_stamps.py's stamps child (a build with
+    -DGATO_STAGE_STAMPS) splits kernel A into its copy, set-up, loop and
+    store, and row 4 into its condensation, levels, root, back-substitution
+    levels, residual and recovery."""
+    tool = Path(__file__).resolve().parents[1] / "gato_tpu_torch" / "tools" / "direct_stamps.py"
+    out = subprocess.run([sys.executable, str(tool), "--runs", "1", "--stamps-child",
+                          "--only", "rowA,row4"], capture_output=True, text=True, timeout=1200)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(line["rowA"]) == {"K=50 B=1", "K=50 B=256", "K=688 B=1"}
+    assert set(line["row4"]) == {"K=50 B=1", "K=50 B=15", "K=50 B=256", "K=740 B=1"}
+    for r in line["rowA"].values():
+        assert r["labels"] == ["copy", "set-up", "loop", "store"]
+        assert all(p >= 0 for p in r["phases"]) and r["phases"][2] > 0
+    for key, r in line["row4"].items():
+        levels = (int(key.split()[0][2:]) - 1).bit_length()
+        assert len(r["phases"]) == len(r["labels"]) == 2 * levels + 4
+        assert r["labels"][0] == "condensation" and r["labels"][-1] == "recovery"
+        assert all(p >= 0 for p in r["phases"])
 
 
 def test_direct_plan_mirrors_match_the_library(dev):
