@@ -105,6 +105,31 @@ __device__ __forceinline__ void cr_stamp() {
 __device__ __forceinline__ void cr_stamp() {}
 #endif
 
+// Row 12's and the unpeel's stamps (gato_peel_stamps, under the same
+// define): 0 and 1 the first CTA's start and the last CTA's end of the
+// peel's first launch, 2 and 3 those of its second (unset, 2 after 3, where
+// the peel is one launch), 4 and 5 the unpeel's.
+constexpr int kPeelStamps = 6;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long peel_stamps[kPeelStamps];
+__global__ void peel_stamp_reset(int first, int n) {
+  for (int i = first; i < first + n; ++i) peel_stamps[i] = i & 1 ? 0ULL : ~0ULL;
+}
+__device__ __forceinline__ void peel_stamp(int i) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (i & 1)
+      atomicMax(&peel_stamps[i], t);
+    else
+      atomicMin(&peel_stamps[i], t);
+  }
+}
+#else
+__device__ __forceinline__ void peel_stamp(int) {}
+#endif
+
 // Shared memory of one warp, in floats: A, B and four staged blocks.
 inline __host__ __device__ int warp_floats(int s) { return 6 * s * s; }
 
@@ -749,11 +774,14 @@ peel_invert_kernel(const float* S, float* Doinv, int* flags, int B, int W,
   const size_t ss = (size_t)s * s;
   const int wo = W / 2;
   const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (t >= B * wo) return;
-  const size_t b = t / wo, j = t % wo;
-  const float* in = S + ((b * W + 2 * j + 1) * 3 + 1) * ss;
-  const int hit = warp_gj<kN>(in, Doinv + (size_t)t * ss, s);
-  if ((threadIdx.x & 31) == 0) flags[t] = hit;
+  peel_stamp(0);
+  if (t < B * wo) {
+    const size_t b = t / wo, j = t % wo;
+    const float* in = S + ((b * W + 2 * j + 1) * 3 + 1) * ss;
+    const int hit = warp_gj<kN>(in, Doinv + (size_t)t * ss, s);
+    if ((threadIdx.x & 31) == 0) flags[t] = hit;
+  }
+  peel_stamp(1);
 }
 
 // Row 12, phase 2: the reduced system of even row 2j into row j of Sh
@@ -765,25 +793,28 @@ peel_reduce_kernel(const float* S, const float* bvec, const float* Doinv,
   const size_t ss = (size_t)s * s, slot3 = 3 * ss;
   const int wo = W / 2, we = (W + 1) / 2;
   const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (t >= B * we) return;
-  float* ws = smem + (threadIdx.x >> 5) * warp_floats(s);
-  const size_t b = t / we;
-  const int j = t % we;
-  const size_t row = b * W + 2 * j;
-  const float* in = S + row * slot3;
-  OddRow l{nullptr, nullptr, nullptr, nullptr};
-  OddRow r{nullptr, nullptr, nullptr, nullptr};
-  if (j >= 1) {
-    const float* o = in - slot3;
-    l = OddRow{Doinv + (b * wo + j - 1) * ss, o, o + 2 * ss, bvec + (row - 1) * s};
+  peel_stamp(2);
+  if (t < B * we) {
+    float* ws = smem + (threadIdx.x >> 5) * warp_floats(s);
+    const size_t b = t / we;
+    const int j = t % we;
+    const size_t row = b * W + 2 * j;
+    const float* in = S + row * slot3;
+    OddRow l{nullptr, nullptr, nullptr, nullptr};
+    OddRow r{nullptr, nullptr, nullptr, nullptr};
+    if (j >= 1) {
+      const float* o = in - slot3;
+      l = OddRow{Doinv + (b * wo + j - 1) * ss, o, o + 2 * ss, bvec + (row - 1) * s};
+    }
+    if (j < wo) {
+      const float* o = in + slot3;
+      r = OddRow{Doinv + (b * wo + j) * ss, o, o + 2 * ss, bvec + (row + 1) * s};
+    }
+    float* out = Sh + (size_t)t * slot3;
+    warp_reduce_row(in, in + ss, in + 2 * ss, bvec + row * s, l, r, out, out + ss,
+                    out + 2 * ss, bh + (size_t)t * s, s, ws);
   }
-  if (j < wo) {
-    const float* o = in + slot3;
-    r = OddRow{Doinv + (b * wo + j) * ss, o, o + 2 * ss, bvec + (row + 1) * s};
-  }
-  float* out = Sh + (size_t)t * slot3;
-  warp_reduce_row(in, in + ss, in + 2 * ss, bvec + row * s, l, r, out, out + ss,
-                  out + 2 * ss, bh + (size_t)t * s, s, ws);
+  peel_stamp(3);
 }
 
 // The back-substitution of a peeled level: x (B, W, s) from the reduced
@@ -797,19 +828,22 @@ unpeel_kernel(const float* S, const float* bvec, const float* Doinv,
   const size_t ss = (size_t)s * s, slot3 = 3 * ss;
   const int wo = W / 2, we = (W + 1) / 2;
   const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (t >= B * we) return;
-  const int lane = threadIdx.x & 31;
-  float* ws = smem + (threadIdx.x >> 5) * s;
-  const size_t b = t / we;
-  const int j = t % we;
-  const size_t row = b * W + 2 * j;
-  if (lane < s) x[row * s + lane] = xh[(size_t)t * s + lane];
-  if (j < wo) {
-    const float* o = S + (row + 1) * slot3;
-    const float* xr = j + 1 < we ? xh + ((size_t)t + 1) * s : nullptr;
-    warp_back_row(o, Doinv + (b * wo + j) * ss, o + 2 * ss, bvec + (row + 1) * s,
-                  xh + (size_t)t * s, xr, x + (row + 1) * s, s, ws);
+  peel_stamp(4);
+  if (t < B * we) {
+    const int lane = threadIdx.x & 31;
+    float* ws = smem + (threadIdx.x >> 5) * s;
+    const size_t b = t / we;
+    const int j = t % we;
+    const size_t row = b * W + 2 * j;
+    if (lane < s) x[row * s + lane] = xh[(size_t)t * s + lane];
+    if (j < wo) {
+      const float* o = S + (row + 1) * slot3;
+      const float* xr = j + 1 < we ? xh + ((size_t)t + 1) * s : nullptr;
+      warp_back_row(o, Doinv + (b * wo + j) * ss, o + 2 * ss, bvec + (row + 1) * s,
+                    xh + (size_t)t * s, xr, x + (row + 1) * s, s, ws);
+    }
   }
+  peel_stamp(5);
 }
 
 // Resident CTAs of a cooperative kernel of kCrThreads threads and
@@ -900,6 +934,20 @@ int gato_longk_cr_stamps(unsigned long long* out) {
 #endif
 }
 
+// Row 12's and the unpeel's stamps of their last launches (the note at
+// kPeelStamps; %globaltimer, ns) into out[kPeelStamps]; returns
+// kPeelStamps, or 0 in a build without GATO_STAGE_STAMPS.
+int gato_peel_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  if (cudaMemcpyFromSymbol(out, gato::peel_stamps, sizeof(gato::peel_stamps)) != cudaSuccess)
+    return 0;
+  return gato::kPeelStamps;
+#else
+  (void)out;
+  return 0;
+#endif
+}
+
 // Row 11's plan mirrors (kernels/longk.py): a grid CTA's dynamic shared
 // memory and the tail's, in bytes.
 long long gato_longk_cr_grid_smem_bytes(int s) { return gato::cr_grid_smem_bytes(s); }
@@ -939,6 +987,9 @@ int gato_longk_peel(const float* S, const float* b, float* Sh, float* bh,
                     float* Doinv, int* flags, int B, int W, int s,
                     void* stream) {
   const long long odd = (long long)B * (W / 2), even = (long long)B * ((W + 1) / 2);
+#ifdef GATO_STAGE_STAMPS
+  gato::peel_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>(0, 4);
+#endif
   if (s <= 16)
     gato::peel_invert_kernel<16><<<gato::warp_blocks(odd), gato::kCrThreads, 0,
                                    (cudaStream_t)stream>>>(S, Doinv, flags, B, W, s);
@@ -963,6 +1014,9 @@ int gato_longk_unpeel(const float* S, const float* b, const float* Doinv,
                       const float* xh, float* x, int B, int W, int s,
                       void* stream) {
   const long long even = (long long)B * ((W + 1) / 2);
+#ifdef GATO_STAGE_STAMPS
+  gato::peel_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>(4, 2);
+#endif
   gato::unpeel_kernel<<<gato::warp_blocks(even), gato::kCrThreads,
                         (size_t)gato::kCrWarps * s * sizeof(float),
                         (cudaStream_t)stream>>>(S, b, Doinv, xh, x, B, W, s);

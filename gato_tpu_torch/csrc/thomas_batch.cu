@@ -59,7 +59,11 @@
 // With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
 // builds that way; the default build does not): stamp 0 is the first
 // condensation CTA's start, stamp 1 the last one's end, stamp 2 + j the end
-// of knot j of problem 0's walk (the first kThomasStamps - 2 knots).
+// of knot j of problem 0's walk (the first kThomasStamps - 2 knots).  Row
+// 6's own stamps (gato_thomas_rev_stamps): 0 its walk's start and 1 its end
+// in problem 0, 2 and 3 its epilogue's start and end (the walk's end where
+// the recovery and residual are fused into the walk), 4 + i the end of
+// step i (knot K - 1 - i) of problem 0's walk (the first kRevStamps - 4).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,9 +126,26 @@ __device__ __forceinline__ void walk_stamp(size_t b, int j) {
     thomas_stamp_count = 3 + j;
   }
 }
+constexpr int kRevStamps = 68;
+static __device__ unsigned long long rev_stamps[kRevStamps];
+static __device__ int rev_stamp_count;
+__global__ void rev_stamp_reset() { rev_stamp_count = 4; }
+// Stamp i (< 4) of problem 0's walk, by its lane 0.
+__device__ __forceinline__ void rev_stamp(size_t b, int i) {
+  if (b == 0 && (threadIdx.x & 31) == 0) rev_stamps[i] = global_ns();
+}
+// The end of step i of problem 0's walk.
+__device__ __forceinline__ void rev_knot_stamp(size_t b, int i) {
+  if (b == 0 && (threadIdx.x & 31) == 0 && 4 + i < kRevStamps) {
+    rev_stamps[4 + i] = global_ns();
+    rev_stamp_count = 5 + i;
+  }
+}
 #else
 __device__ __forceinline__ void condense_stamp(int) {}
 __device__ __forceinline__ void walk_stamp(size_t, int) {}
+__device__ __forceinline__ void rev_stamp(size_t, int) {}
+__device__ __forceinline__ void rev_knot_stamp(size_t, int) {}
 #endif
 
 // Row 5, launch 1: one CTA a (problem, tile), condense_tile's Thomas
@@ -385,6 +406,7 @@ thomas_rev_kernel(const float* Cinv_g, const float* bhat_g, const float* Qinv_g,
   float atl = 0.f;      // (A_j^T x_{j+1})[a]
   float eta = 0.f, gnorm = 0.f;
   if (row) xn[a] = 0.f;
+  rev_stamp(b, 0);
   __syncwarp();
   for (int j = K - 1; j >= 0; --j) {
     const bool last = j == K - 1;
@@ -454,8 +476,10 @@ thomas_rev_kernel(const float* Cinv_g, const float* bhat_g, const float* Qinv_g,
       dzu[(j - 1) * c + a] = acc;
     }
     if (row) xn[a] = xa;
+    rev_knot_stamp(b, K - 1 - j);
     __syncwarp();
   }
+  for (int i = 1; i < 4; ++i) rev_stamp(b, i);
   if (a == 0) {
     eta_out[b] = eta;
     conv_out[b] = eta <= kDirectRtolSq * (1.f + gnorm) ? 1 : 0;
@@ -475,6 +499,22 @@ int gato_thomas_stamps(unsigned long long* out) {
   if (cudaMemcpyFromSymbol(&n, gato::thomas_stamp_count, sizeof(int)) != cudaSuccess ||
       cudaMemcpyFromSymbol(out, gato::thomas_stamps, sizeof(gato::thomas_stamps)) !=
           cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
+}
+
+// Row 6's stamps of the last launch (the source's note) into
+// out[kRevStamps]; returns how many were written, or 0 in a build without
+// GATO_STAGE_STAMPS.
+int gato_thomas_rev_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::rev_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::rev_stamps, sizeof(gato::rev_stamps)) != cudaSuccess)
     return 0;
   return n;
 #else
@@ -548,6 +588,9 @@ int gato_thomas_rev(const float* Cinv, const float* bhat, const float* Qinv,
                     const float* Bm, const float* r, float* lam, float* dzx,
                     float* dzu, int* conv, float* eta, int B, int K, int s,
                     int cdim, void* stream) {
+#ifdef GATO_STAGE_STAMPS
+  gato::rev_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>();
+#endif
   gato::thomas_rev_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
       Cinv, bhat, Qinv, Rinv, phi, theta, gam, q, A, Bm, r, lam, dzx, dzu,
       conv, eta, K, s, cdim);

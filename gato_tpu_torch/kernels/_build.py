@@ -74,6 +74,7 @@ _SIGNATURES = {
     "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P]),
     "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
     "gato_thomas_stamps": (_I, [_P]),
+    "gato_thomas_rev_stamps": (_I, [_P]),
     "gato_thomas_walk_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_tile_smem_bytes": (_LL, [_I] * 3),
     "gato_longk_tile_threads": (_I, [_I] * 3),
@@ -85,6 +86,7 @@ _SIGNATURES = {
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "gato_longk_cr_grid": (_I, [_I]),
     "gato_longk_cr_stamps": (_I, [_P]),
+    "gato_peel_stamps": (_I, [_P]),
     "gato_longk_cr_grid_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_tail_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_cr": (_I, [_P] * 7 + [_I] * 5 + [_P]),

@@ -1,4 +1,4 @@
-"""Kernel A and rows 4, 5 and 11 by stage, and their times, for the
+"""Kernel A and rows 4, 5, 6, 11 and 12 by stage, and their times, for the
 gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
@@ -19,7 +19,11 @@ limit:
   ``assemble.condense``'s operators at IIWA K = 50, B = 1 and 256, and K =
   688 (the edge before the long-K tier), B = 1; row 4
   (``direct_fused_cuda``) at K = 50, B = 1, 15 and 256, and K = 740 (its
-  edge), B = 1.
+  edge), B = 1.  Row 6 (``thomas_rev_cuda``) on row 5's stacks at IIWA K =
+  50, B = 1, 16 and 256, and K = 1024, B = 16.  Row 12 (``peel_longk_cuda``)
+  and the unpeel (``unpeel_longk_cuda``, on the peel's level and row 11's
+  solution of the reduced system) on row 11's inputs, with both exact
+  routes ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
 * ``stamps`` (a checkout whose library exports ``gato_thomas_stamps``):
   in a child process, the kernels built again with ``-DGATO_STAGE_STAMPS``
   (a separate library; the shipped build is untouched), which read
@@ -34,13 +38,20 @@ limit:
   takes them, and ``labels`` naming each (see each source's note on its
   stamps).  Kernel A and row 4 (a checkout whose library exports
   ``gato_pcg_stamps`` and ``gato_direct_stamps``) the same way, at the
-  shapes of their times.
+  shapes of their times.  Row 6 (a checkout whose library exports
+  ``gato_thomas_rev_stamps``): its ``walk`` (problem 0's, from its start to
+  its last knot), the median ``knot``, the first and last knots, the
+  ``gap`` to the epilogue and the ``epilogue`` (0 where the recovery and
+  residual run inside the walk).  Row 12 (``gato_peel_stamps``): the peel's
+  ``first`` and ``second`` launches (from the first CTA's start to the last
+  one's end; ``second`` null for a one-launch peel), the ``gap`` between
+  them, and the ``unpeel``.
 
 ``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
 every grid level of row 11 takes two meetings, a warp a row, where the
 shipped build takes one meeting at a level of few rows.  ``--only`` keeps
 some of the groups rowA, row4, row5 (with the pair and kernel B's
-condensation) and row11.
+condensation), row6, row11 and row12.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ THOMAS_B = (1, 16, 256)
 CR_SHAPES = ((1024, 1), (1024, 15), (8192, 1), (8192, 15))
 PCG_SHAPES = ((50, 1), (50, 256), (688, 1))
 ROW4_SHAPES = ((50, 1), (50, 15), (50, 256), (740, 1))
+ROW6_SHAPES = ((50, 1), (50, 16), (50, 256), (1024, 16))
 RHO = 1e-3
 
 
@@ -108,23 +120,30 @@ def device_ms(fn, calls: int = 20) -> float:
     return median_ms(graph.replay, 11) / calls
 
 
-GROUPS = ("rowA", "row4", "row5", "row11")
+GROUPS = ("rowA", "row4", "row5", "row6", "row11", "row12")
 
 
 def inputs(gt, dev, only=GROUPS):
-    """{("thomas", B): blocks}, {("cr", K, B): (S, gamma)}, {("kkt", K, B):
-    blocks} and {("pcg", K, B): condensed system} at IIWA widths, for the
+    """{("thomas", B): blocks}, {("cr", K, B): (S, gamma)}, {("crkkt", K,
+    B): blocks}, {("kkt", K, B): blocks}, {("pcg", K, B): condensed system}
+    and {("rev", K, B): (row 5's stacks, blocks)} at IIWA widths, for the
     groups in ``only``."""
     from gato_tpu_torch import testing as tt
     from gato_tpu_torch.kernels import longk as kl
+    from gato_tpu_torch.kernels import thomas_batch as kt
 
     full = gt.blocks_to_torch(tt.random_batch(tt.IIWA, max(THOMAS_B), seed0=0), dev)
     out = {("thomas", n): gt.KKTBlocks(*(a[:n] for a in full)) for n in THOMAS_B}
-    for K, n in CR_SHAPES if "row11" in only else ():
+    for K, n in CR_SHAPES if {"row11", "row12"} & set(only) else ():
         spec = gt.ProblemSpec(14, 7, K)
         b = gt.blocks_to_torch(tt.random_batch(spec, n, seed0=100 + K), dev)
         ops = kl.condense_longk_cuda(*b, rho=RHO, preconditioner="jacobi")
         out[("cr", K, n)] = (ops.S, ops.gamma)
+        out[("crkkt", K, n)] = b
+    for K, n in ROW6_SHAPES if "row6" in only else ():
+        b = (out[("thomas", n)] if K == 50 else gt.blocks_to_torch(
+            tt.random_batch(gt.ProblemSpec(14, 7, K), n, seed0=300 + K), dev))
+        out[("rev", K, n)] = (kt.thomas_fwd_cuda(*b, rho=RHO), b)
     for K, n in sorted(set(PCG_SHAPES if "rowA" in only else ())
                        | set(ROW4_SHAPES if "row4" in only else ())):
         b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, K), n,
@@ -133,6 +152,18 @@ def inputs(gt, dev, only=GROUPS):
         if (K, n) in PCG_SHAPES:
             out[("pcg", K, n)] = gt.assemble.condense(*b, RHO)
     return out
+
+
+def rev_call(kt, f, b):
+    return lambda: kt.thomas_rev_cuda(f, b.q, b.A, b.B, b.r)
+
+
+def peel_calls(kl, S, g):
+    """(peel, unpeel) of row 12 on (S, g): the unpeel on the peel's level
+    and row 11's solution of the reduced system."""
+    Sh, bh, level = kl.peel_longk_cuda(S, g)
+    xh = kl.cr_longk_cuda(Sh, bh)[0]
+    return lambda: kl.peel_longk_cuda(S, g), lambda: kl.unpeel_longk_cuda(xh, level)
 
 
 def pcg_call(ka, sys_):
@@ -174,7 +205,8 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
     dev = torch.device("cuda", 0)
     data = inputs(gt, dev, only)
     out = {"what": "times", "root": root, "defines": list(defines), "card": card(),
-           "rowA": {}, "row4": {}, "row5": {}, "pair": {}, "row11": {}}
+           "rowA": {}, "row4": {}, "row5": {}, "pair": {}, "row6": {}, "row11": {},
+           "row12": {}, "unpeel": {}, "routes": {}}
     for K, n in PCG_SHAPES if "rowA" in only else ():
         fn = pcg_call(ka, data[("pcg", K, n)])
         out["rowA"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
@@ -192,6 +224,20 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
         fn = lambda: kl.cr_longk_cuda(S, g)  # noqa: E731
         out["row11"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs),
                                         "device_ms": device_ms(fn)}
+    for K, n in ROW6_SHAPES if "row6" in only else ():
+        fn = rev_call(kt, *data[("rev", K, n)])
+        out["row6"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
+    for K, n in CR_SHAPES if "row12" in only else ():
+        S, g = data[("cr", K, n)]
+        b = data[("crkkt", K, n)]
+        key = f"K={K} B={n}"
+        for name, fn in zip(("row12", "unpeel"), peel_calls(kl, S, g)):
+            out[name][key] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
+        for tier in ("xl", "hybrid"):
+            fn = lambda tier=tier: kl.solve_direct_longk_batched(  # noqa: E731
+                *b, rho=RHO, force_tier=tier)
+            out["routes"][f"{tier} {key}"] = {"ms": median_ms(fn, runs),
+                                              "device_ms": device_ms(fn)}
     return out
 
 
@@ -258,8 +304,24 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
                 rows.append(np.diff(np.array(list(buf)[:n], dtype=np.float64)) / 1e3)
         return np.median(np.array(rows), axis=0)
 
+    def raw(fns, read) -> np.ndarray:
+        """The stamps of ``runs`` rounds of ``fns`` (after three), read
+        after each round: (runs, n), in ns."""
+        rows = []
+        for i in range(runs + 3):
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+            n = read(ctypes.cast(buf, ctypes.c_void_p))
+            if n < 1:
+                raise RuntimeError("the stamped build returned no stamps")
+            if i >= 3:
+                rows.append(np.array(list(buf)[:n], dtype=np.float64))
+        return np.array(rows)
+
     line = {"what": "stamps", "root": root, "defines": list(defines), "card": card(),
-            "rowA": {}, "row4": {}, "row5": {}, "cluster": {}, "row11": {}}
+            "rowA": {}, "row4": {}, "row5": {}, "cluster": {}, "row6": {}, "row11": {},
+            "row12": {}}
     if hasattr(_build.library(), "gato_pcg_stamps"):
         readA = _build.function("gato_pcg_stamps")
         for K, n in PCG_SHAPES if "rowA" in only else ():
@@ -302,6 +364,30 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
         line["row11"][f"K={K} B={n}"] = {"total": float(d.sum()),
                                          "phases": [round(float(x), 3) for x in d],
                                          "labels": labels}
+    lib = _build.library()
+    if "row6" in only and hasattr(lib, "gato_thomas_rev_stamps"):
+        read6 = _build.function("gato_thomas_rev_stamps")
+        for K, n in ROW6_SHAPES:
+            st = raw([rev_call(kt, *data[("rev", K, n)])], read6) / 1e3
+            knots = np.diff(np.concatenate([st[:, :1], st[:, 4:]], axis=1), axis=1)
+            line["row6"][f"K={K} B={n}"] = {
+                "walk": float(np.median(st[:, 1] - st[:, 0])),
+                "knot": float(np.median(knots)),
+                "first_knot": float(np.median(knots[:, 0])),
+                "last_knot": float(np.median(knots[:, -1])),
+                "knots_stamped": int(knots.shape[1]),
+                "gap": float(np.median(st[:, 2] - st[:, 1])),
+                "epilogue": float(np.median(st[:, 3] - st[:, 2]))}
+    if "row12" in only and hasattr(lib, "gato_peel_stamps"):
+        read12 = _build.function("gato_peel_stamps")
+        for K, n in CR_SHAPES:
+            st = raw(list(peel_calls(kl, *data[("cr", K, n)])), read12) / 1e3
+            two = bool(np.all(st[:, 2] <= st[:, 3]))
+            line["row12"][f"K={K} B={n}"] = {
+                "first": float(np.median(st[:, 1] - st[:, 0])),
+                "gap": float(np.median(st[:, 2] - st[:, 1])) if two else None,
+                "second": float(np.median(st[:, 3] - st[:, 2])) if two else None,
+                "unpeel": float(np.median(st[:, 5] - st[:, 4]))}
     return line
 
 
