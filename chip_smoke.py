@@ -37,8 +37,9 @@ Phases, each of which raises on failure (exit code not 0):
    32), at the rule's cluster size and every one forced, the
    block-Thomas pair (rows 5 and 6) at B=16 and B=256 (the forward
    kernel's factor stacks against the plain forward's, the reverse kernel
-   on the plain stacks against the plain reverse), rows 5 and 6 at row 5's
-   plan edges (K = 2, 51 and 1024 at IIWA, s = 20 and 32), and one exactly
+   on the plain stacks against the plain reverse, its epilogue's dz
+   against the knot-parallel plain epilogue on the walk's lambda), rows 5
+   and 6 at row 5's plan edges (K = 2, 51 and 1024 at IIWA, s = 20 and 32), and one exactly
    singular problem in each tier with each tier's contract (row 4: finite,
    eta = 1e30, at every cluster size; rows 5-6: non-finite, the other
    problems untouched);
@@ -60,10 +61,12 @@ Phases, each of which raises on failure (exit code not 0):
    times (a CUDA graph), row 4 at every C at K=50, B=1, 15, 256 and K=740,
    B=1, and by stage, the
    per-solve time of row 4 and of the Thomas pair at B=1, 4, 16, 64, 256
-   (their crossover on this card), the pair at K=1024, B=16 beside the
-   long-K exact routes, and row 5 by stage beside kernel B's cluster
-   condensation (tools/direct_stamps.py's stamped build, built in a child
-   beside phase 2's build, measured there while this process waits);
+   (their crossover on this card), the pair and row 6 at K=1024, B=16
+   beside the long-K exact routes, row 5 by stage beside kernel B's
+   cluster condensation, and row 6 by stage, its walk a knot and its
+   epilogue (tools/direct_stamps.py's stamped build, built in a child
+   beside phase 2's build, measured there while this process waits; the
+   epilogue's line in the kernels table takes its time from there);
 3d. the long-horizon PCG kernels (rows 7, 8/10, 9 and 13) against their
    plain versions at IIWA widths: K=1024 at B=1 and B=16 with every
    preconditioner (scalar Jacobi over 10 iterations) and poly degree 2,
@@ -99,9 +102,10 @@ Phases, each of which raises on failure (exit code not 0):
    dense KKT solve where K <= 1024, with each path's launch counts;
 5e. the exact kernels' and both exact routes' times at K=1024-8192, B=1
    and 15, beside their bounds, their plain versions, the dense Schur
-   solve (K=1024) and the Thomas pair (B=15), row 11's device time and its
-   split by stage (the stamps child); the long-K PCG kernel, its plain
-   version and its route at row 14's shape, K=16384.
+   solve (K=1024) and the Thomas pair (B=15), rows 11 and 12's and the
+   unpeel's device times and their split by stage (the stamps child); the
+   long-K PCG kernel, its plain version and its route at row 14's shape,
+   K=16384.
 
 3f. row 15 (the knot shard's halo matvec) against its plain version at
    IIWA s = 14, Kl = 256, 2048 and 65, s = 4, 3 and 32: a first shard (no
@@ -212,7 +216,8 @@ F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
-           kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kl.CONDENSE_NAME: 0.0,
+           kt.FWD_NAME: 0.0, kt.REV_NAME: 0.0, kt.EPILOGUE_NAME: 0.0,
+           kl.CONDENSE_NAME: 0.0,
            kl.PCG_NAME: 0.0, kl.FUSED_NAME: 0.0, kl.RECOVER_NAME: 0.0,
            kl.CR_NAME: 0.0, kl.PEEL_NAME: 0.0, kl.UNPEEL_NAME: 0.0, hm.NAME: 0.0,
            kp.COPY_NAME: 0.0, kp.CHAIN_BLOCK_NAME: 0.0, kp.CHAIN_GRID_NAME: 0.0,
@@ -892,6 +897,7 @@ def phase_direct_parity():
                    check_close(what + " dz_x", kdx, pdx),
                    check_close(what + " dz_u", kdu, pdu))
         MAX_ERR[kt.REV_NAME] = max(MAX_ERR[kt.REV_NAME], rerr)
+        eerr = check_epilogue(what, pf, rest, kres, kdx, kdu)
         # The pair end to end against the plain composite.
         sres, sdx, sdu = kt.solve_direct_thomas_cuda(*blocks, rho=RHO)
         torch.cuda.synchronize()
@@ -903,8 +909,9 @@ def phase_direct_parity():
                    check_close(f"thomas pair B={n} dz_u", sdu, pdu))
         print(f"  {kt.FWD_NAME} B={n}: the 7 factor stacks within tolerance, "
               f"max|d| {ferr:.3e}; {kt.REV_NAME} on the plain stacks max|d| "
-              f"{rerr:.3e}, max|d eta| {deta:.3e}; the pair end to end: all "
-              f"converged, max|d| {perr:.3e}")
+              f"{rerr:.3e}, max|d eta| {deta:.3e} (its epilogue on its own lambda "
+              f"max|d| {eerr:.3e}); the pair end to end: all converged, max|d| "
+              f"{perr:.3e}")
 
     # Rows 5 and 6 at row 5's plan edges: K = 2, an odd K, the horizon the
     # exact routes reach (K = 1024), and the wide walk (s = 20, 32).
@@ -929,6 +936,7 @@ def phase_direct_parity():
                    for name, k, p in (("lam", kres.lam, pres.lam), ("dz_x", kdx, pdx),
                                       ("dz_u", kdu, pdu)))
         MAX_ERR[kt.REV_NAME] = max(MAX_ERR[kt.REV_NAME], perr)
+        check_epilogue(f"{kt.REV_NAME} {sizes} B={n}", kf, rest, kres, kdx, kdu)
         print(f"  {what}: the 7 factor stacks max|d| {ferr:.3e}; the pair on them "
               f"against the plain pair: all converged, max|d| {perr:.3e}, max|d eta| "
               f"{deta:.3e}")
@@ -986,6 +994,18 @@ def phase_direct_parity():
           "without it; plain agrees")
 
 
+def check_epilogue(what: str, f, rest, res, dz_x, dz_u) -> float:
+    """Row 6's epilogue against its knot-parallel plain version on the
+    walk's own lambda: dz within TOL, eta within ETA_REL, converged equal.
+    Returns max |d dz| (MAX_ERR's epilogue entry)."""
+    pres, pdx, pdu = kt.thomas_epilogue_plain(f, *rest, res.lam)
+    check_direct(f"{what} epilogue", res, pres, f.gamma)
+    err = max(check_close(f"{what} epilogue dz_x", dz_x, pdx),
+              check_close(f"{what} epilogue dz_u", dz_u, pdu))
+    MAX_ERR[kt.EPILOGUE_NAME] = max(MAX_ERR[kt.EPILOGUE_NAME], err)
+    return err
+
+
 def split_dz(dz: torch.Tensor, K: int, s: int, c: int):
     """(B, nz) interleaved [x_0, u_0, ..., x_{K-1}] -> (dz_x, dz_u)."""
     Bn = dz.shape[0]
@@ -1027,15 +1047,15 @@ def check_oracle(what: str, res, blocks, rho: float) -> float:
 
 def direct_counts() -> dict:
     return {kd.NAME: kd.LAUNCHES, kt.FWD_NAME: kt.FWD_LAUNCHES,
-            kt.REV_NAME: kt.REV_LAUNCHES}
+            kt.REV_NAME: kt.REV_LAUNCHES, kt.EPILOGUE_NAME: kt.EPILOGUE_LAUNCHES}
 
 
 def zero_direct_counts() -> None:
-    kd.LAUNCHES = kt.FWD_LAUNCHES = kt.REV_LAUNCHES = 0
+    kd.LAUNCHES = kt.FWD_LAUNCHES = kt.REV_LAUNCHES = kt.EPILOGUE_LAUNCHES = 0
 
 
 def expect_counts(what: str, got: dict, row4: int, pair: int) -> None:
-    want = {kd.NAME: row4, kt.FWD_NAME: pair, kt.REV_NAME: pair}
+    want = {kd.NAME: row4, kt.FWD_NAME: pair, kt.REV_NAME: pair, kt.EPILOGUE_NAME: pair}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -1159,6 +1179,12 @@ def thomas_rev_flops(K: int, s: int, c: int) -> float:
     return K * 2 * 2 * s * s + (K - 1) * 2 * 2 * s * s + recover_flops(K, s, c)
 
 
+def epilogue_flops(K: int, s: int, c: int) -> float:
+    """Row 6's epilogue per problem: theta x, phi x and phi^T x of the
+    residual (the walk's phi^T x is not reused), the recovery."""
+    return (K + 2 * (K - 1)) * 2 * s * s + recover_flops(K, s, c)
+
+
 def phase_direct_times(card: str):
     print(f"== phase 5c: the exact-solve kernels' times (CUDA events, median "
           f"of {TIMING_RUNS} runs after warm-up; {SLOW_RUNS} for library calls) "
@@ -1214,6 +1240,8 @@ def phase_direct_times(card: str):
             bound_ms, bound_by = bounds[name]
             # One call's device time, from a CUDA graph of 20 calls.
             dev_ms = graph_ms_per_call(kern, calls=20)
+            if name == kt.REV_NAME:
+                epilogue_times(times, n, f, rest, tres, tdx, tdu, card)
             times[(name, n)] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                     library_ms=lib_ms if has_lib else None,
                                     bound_ms=bound_ms, bound_by=bound_by,
@@ -1276,9 +1304,13 @@ def phase_direct_times(card: str):
                                                                 force_tier="xl"))
     thy = cuda_median_ms(lambda: kl.solve_direct_longk_batched(*blocks, rho=RHO,
                                                                 force_tier="hybrid"))
-    times[("long", K, 16)] = dict(pair=tp, xl=txl, hybrid=thy)
-    print(f"  K={K} B=16: the Thomas pair {tp:.4f} ms, 'xl' (rows 7 + 11 + 13) "
-          f"{txl:.4f} ms, 'hybrid' {thy:.4f} ms (auto: the pair)  [{card}]")
+    f = kt.thomas_fwd_cuda(*blocks, rho=RHO)
+    rest = (blocks.q, blocks.A, blocks.B, blocks.r)
+    trev = graph_ms_per_call(lambda: kt.thomas_rev_cuda(f, *rest), calls=20)
+    times[("long", K, 16)] = dict(pair=tp, xl=txl, hybrid=thy, rev_device=trev)
+    print(f"  K={K} B=16: the Thomas pair {tp:.4f} ms (row 6 device {trev:.4f} ms), 'xl' "
+          f"(rows 7 + 11 + 13) {txl:.4f} ms, 'hybrid' {thy:.4f} ms (auto: the pair)  "
+          f"[{card}]")
     line = STAMPS.result()
     print("  row 5 by stage (tools/direct_stamps.py, the stamped build's "
           f"%globaltimer, median of {line['runs']} launches, us; the condensation "
@@ -1287,6 +1319,11 @@ def phase_direct_times(card: str):
               f"({r['knots_stamped']} knots, {r['knot']:.2f} a knot; the first with the "
               f"launch gap {r['first_knot']:.2f})" for key, r in line["row5"].items())
           + f"  [{card}]")
+    print("  row 6 by stage (the stamped build, problem 0's walk and the epilogue "
+          "launch, us): " + "; ".join(
+              f"{key}: walk {r['walk']:.1f} ({r['knots_stamped']} knots stamped, "
+              f"{r['knot']:.3f} a knot), gap {r['gap']:.1f}, epilogue {r['epilogue']:.1f}"
+              for key, r in line["row6"].items()) + f"  [{card}]")
     print("  the alternative condensation, kernel B's on one thread-block cluster a "
           "problem (cluster_body.cuh stages 1-3, its stamps in the same build and "
           "inputs, us): " + "; ".join(
@@ -1294,6 +1331,27 @@ def phase_direct_times(card: str):
               f"{line['row5'][key]['stage1']:.1f})" for key, r in line["cluster"].items())
           + f"  [{card}]")
     return times
+
+
+def epilogue_times(times: dict, n: int, f, rest, res, dz_x, dz_u, card: str) -> None:
+    """Row 6's epilogue at IIWA K = 50, B = n: its device time from the
+    stamps child (the launch's first CTA's start to its last CTA's end),
+    the knot-parallel plain version's time, its bound; into times."""
+    K, s, c = IIWA.knot_points, IIWA.state_size, IIWA.control_size
+    stamps = STAMPS.result()["row6"][f"K=50 B={n}"]
+    plain = lambda: kt.thomas_epilogue_plain(f, *rest, res.lam)  # noqa: E731
+    p1 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+    p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+    read = (f.Qinv, f.Rinv, f.phi, f.theta, f.gamma, *rest, res.lam)
+    bound_ms, bound_by = bound(nbytes(*read, dz_x, dz_u) + 2 * 4 * n,
+                               n * epilogue_flops(K, s, c))
+    ms = stamps["epilogue"] / 1e3
+    times[(kt.EPILOGUE_NAME, n)] = dict(ms=ms, plain_ms=(p1 + p2) / 2, library_ms=None,
+                                        bound_ms=bound_ms, bound_by=bound_by,
+                                        device_ms=ms)
+    print(f"  {kt.EPILOGUE_NAME} B={n}: device {ms:.4f} ms (the stamps child's "
+          f"launch), plain {p1:.4f} / {p2:.4f} ms, no library call, bound "
+          f"{bound_ms:.5f} ms ({bound_by}; {100 * bound_ms / ms:.2f} % of it)  [{card}]")
 
 
 class StampsChild:
@@ -2598,13 +2656,15 @@ def phase_direct_longk_times(card: str):
                     ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                     library_ms=lib_ms if has_lib else None, bound_ms=bound_ms,
                     bound_by=bound_by)
-                if name == kl.CR_NAME:
-                    # One call's device time, from a CUDA graph of 20 calls.
-                    times[(name, K, n)]["device_ms"] = graph_ms_per_call(kern, calls=20)
-                    print(f"  {name} K={K} B={n}: device {times[(name, K, n)]['device_ms']:.4f}"
-                          f" ms (tail stride {kl.cr_tail_stride(K, s, _longk_limits()[1])},"
-                          f" bound {100 * bound_ms / times[(name, K, n)]['device_ms']:.2f} % "
-                          f"of it)  [{card}]")
+                # One call's device time, from a CUDA graph of 20 calls.
+                dev_ms = graph_ms_per_call(kern, calls=20)
+                times[(name, K, n)]["device_ms"] = dev_ms
+                plan = (f"tail stride {kl.cr_tail_stride(K, s, _longk_limits()[1])}"
+                        if name == kl.CR_NAME else
+                        f"{'one launch' if kl.PEEL_ONE_LAUNCH else 'two launches'}"
+                        if name == kl.PEEL_NAME else "a warp an even row")
+                print(f"  {name} K={K} B={n}: device {dev_ms:.4f} ms ({plan}, bound "
+                      f"{100 * bound_ms / dev_ms:.2f} % of it)  [{card}]")
                 lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
                             else "no library call")
                 plain_text = (f"plain {p1:.4f} ms (once)" if once
@@ -2675,6 +2735,12 @@ def phase_direct_longk_times(card: str):
               "all): " + ", ".join(f"{lab} {v:.2f}" for lab, v in zip(r["labels"],
                                                                     r["phases"]))
               + f"  [{card}]")
+    for key, r in line["row12"].items():
+        second = ("" if r["second"] is None
+                  else f", gap {r['gap']:.1f}, second launch {r['second']:.1f}")
+        print(f"  row 12 {key} by launch (the stamped build, first CTA's start to last "
+              f"CTA's end, us): first launch {r['first']:.1f}{second}; unpeel "
+              f"{r['unpeel']:.1f}  [{card}]")
     print("  the faster exact route per shape:")
     for (K, n), r in ((key, r) for key, r in routes.items() if key != "row14"):
         best = min(("xl", "hybrid"), key=lambda t: r[t])
@@ -3676,7 +3742,10 @@ def main():
              direct_times[(kt.FWD_NAME, 1)], pair),
             (kt.REV_NAME, kt.SOURCE, kt.REV_REPLACES,
              direct_launches[kt.REV_NAME], direct_times[(kt.REV_NAME, BATCH)],
-             direct_times[(kt.REV_NAME, 1)], pair)):
+             direct_times[(kt.REV_NAME, 1)], pair),
+            (kt.EPILOGUE_NAME, kt.SOURCE, kt.REV_REPLACES,
+             direct_launches[kt.EPILOGUE_NAME], direct_times[(kt.EPILOGUE_NAME, BATCH)],
+             direct_times[(kt.EPILOGUE_NAME, 1)], {})):
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": count,
                "max_abs_err": MAX_ERR[name], **at_b, "batch": BATCH, **extra}

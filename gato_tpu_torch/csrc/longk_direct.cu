@@ -35,18 +35,20 @@
 //   a warp an odd row, a grid barrier a level.
 // warp_gj_pad (warp_gj.cuh) inverts one block on a warp with no predicate
 // on the width (padded to kN; IIWA's 14 compiled in) and the pivot row
-// scaled by the correctly rounded reciprocal of the pivot; warp_gj (row 12)
-// divides.
-// Row 12 keeps one warp a block row: warp_reduce_row eliminates an even
-// row's two odd neighbours (the algebra of direct.cr_level), staging the
-// blocks it multiplies in the warp's slice of shared memory, warp_back_row
+// scaled by the correctly rounded reciprocal of the pivot; warp_back_row
 // back-substitutes one odd row (direct.cr_back_level).
-// * The peel (row 12) is one level that compacts: peel_invert_kernel
-//   inverts every odd row of a batch into D_o^{-1}; peel_reduce_kernel
-//   writes the ceil(W/2) reduced even rows into half-width buffers (no lane
-//   padding: a level of W rows writes all of them, where the TPU kernel's
-//   chunk schedule leaves tail lanes unwritten).  The odd rows' L, U and b
-//   stay in the level's input, which the caller keeps for unpeel_kernel.
+// * The peel (row 12) is one level that compacts, on row 11's level-0
+//   bodies: peel_invert_kernel inverts every odd row of a batch into
+//   D_o^{-1} (warp_gj_pad); peel_reduce_kernel copies each even row, its
+//   neighbours' L, U, b and D^{-1} into its warp's shared memory at once
+//   (cp.async) and reduces it there (warp_reduce_rows), writing the
+//   ceil(W/2) reduced even rows into half-width buffers (no lane padding:
+//   a level of W rows writes all of them, where the TPU kernel's chunk
+//   schedule leaves tail lanes unwritten).  peel_one_kernel is the same
+//   level in one launch, row 11's one-meeting schedule: a pair of warps an
+//   even row inverts both neighbours.  The odd rows' L, U and b stay in
+//   the level's input, which the caller keeps for unpeel_kernel (a warp an
+//   even row and the odd row after it, its blocks in flight at once).
 //
 // A clamped zero pivot raises the problem's flag (bad, or the peel's per
 // odd row flags): the caller adds gato_tpu's +1e30 to that problem's lambda
@@ -129,159 +131,6 @@ __device__ __forceinline__ void peel_stamp(int i) {
 #else
 __device__ __forceinline__ void peel_stamp(int) {}
 #endif
-
-// Shared memory of one warp, in floats: A, B and four staged blocks.
-inline __host__ __device__ int warp_floats(int s) { return 6 * s * s; }
-
-inline long long cr_smem_bytes(int s) {
-  return (long long)kCrWarps * warp_floats(s) * (long long)sizeof(float);
-}
-
-// src (n x n) inverted into dst by the warp; src may equal dst (everything
-// is read before anything is written).  Returns 1 on every lane where a
-// zero pivot was clamped in a block whose diagonal is not all zero.
-template <int kN>
-__device__ int warp_gj(const float* src, float* dst, int n) {
-  constexpr int kC = kN / 16;  // columns of [M | I] a lane holds
-  const int lane = threadIdx.x & 31;
-  float col[kC][kN];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int j = c * 32 + lane;
-#pragma unroll
-    for (int r = 0; r < kN; ++r)
-      if (r < n) col[c][r] = j < n ? src[r * n + j] : (j - n == r ? 1.f : 0.f);
-  }
-  float d = 0.f;
-#pragma unroll
-  for (int r = 0; r < kN; ++r)
-    if (r == lane && r < n) d = fabsf(col[0][r]);
-  const float dabs = __shfl_sync(0xffffffffu, warp_sum(d), 0);
-  int zero = 0;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    if (i < n) {
-      // Column i (i < n <= 32) lives in slot 0 of lane i.
-      const float piv = __shfl_sync(0xffffffffu, col[0][i], i);
-      zero |= piv == 0.f;
-      const float div = piv != 0.f ? piv : 1.f;
-      float rv[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) rv[c] = col[c][i] / div;
-#pragma unroll
-      for (int r = 0; r < kN; ++r) {
-        if (r < n && r != i) {
-          const float f = __shfl_sync(0xffffffffu, col[0][r], i);
-#pragma unroll
-          for (int c = 0; c < kC; ++c) col[c][r] = col[c][r] - f * rv[c];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kC; ++c) col[c][i] = rv[c];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int j = c * 32 + lane;
-#pragma unroll
-    for (int r = 0; r < kN; ++r)
-      if (r < n && j >= n && j < 2 * n) dst[r * n + j - n] = col[c][r];
-  }
-  return zero && dabs > 0.f;
-}
-
-// n floats from src to the warp's shared dst, then a warp barrier.
-__device__ __forceinline__ void warp_stage(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x & 31; e < n; e += 32) dst[e] = src[e];
-  __syncwarp();
-}
-
-// (a, j) entry of the s x s product X Y, both row-major in shared memory.
-__device__ __forceinline__ float mm_entry(const float* X, const float* Y,
-                                          int s, int a, int j) {
-  float acc = 0.f;
-  for (int e2 = 0; e2 < s; ++e2) acc = fmaf(X[a * s + e2], Y[e2 * s + j], acc);
-  return acc;
-}
-
-// One odd neighbour of an even row: its D^{-1}, L, U and b (null where the
-// row has no such neighbour).
-struct OddRow {
-  const float* Dinv;
-  const float* L;
-  const float* U;
-  const float* b;
-};
-
-// The even row (Li, Di, Ui, bi) with its left and right odd neighbours
-// eliminated (direct.cr_level's algebra): L' = -A L_l, U' = -B U_r,
-// D' = (D - A U_l) - B L_r, b' = (b - A b_l) - B b_r, A = L D_l^{-1},
-// B = U D_r^{-1}, an absent neighbour contributing zero.  The outputs may
-// alias the inputs (the cyclic reduction updates in place).  ws: the warp's
-// warp_floats(s) floats of shared memory.
-__device__ void warp_reduce_row(const float* Li, const float* Di,
-                                const float* Ui, const float* bi, OddRow l,
-                                OddRow r, float* Lo, float* Do, float* Uo,
-                                float* bo, int s, float* ws) {
-  const int lane = threadIdx.x & 31;
-  const int ss = s * s;
-  float* A = ws;
-  float* Bm = A + ss;
-  float* T0 = Bm + ss;
-  float* T1 = T0 + ss;
-  float* T2 = T1 + ss;
-  float* T3 = T2 + ss;
-  const bool hl = l.Dinv != nullptr, hr = r.Dinv != nullptr;
-  if (hl) {
-    warp_stage(T0, Li, ss);
-    warp_stage(T1, l.Dinv, ss);
-  }
-  if (hr) {
-    warp_stage(T2, Ui, ss);
-    warp_stage(T3, r.Dinv, ss);
-  }
-  for (int e = lane; e < ss; e += 32) {
-    const int a = e / s, j = e % s;
-    A[e] = hl ? mm_entry(T0, T1, s, a, j) : 0.f;
-    Bm[e] = hr ? mm_entry(T2, T3, s, a, j) : 0.f;
-  }
-  __syncwarp();
-  if (hl) {
-    warp_stage(T0, l.L, ss);
-    warp_stage(T1, l.U, ss);
-  }
-  if (hr) {
-    warp_stage(T2, r.L, ss);
-    warp_stage(T3, r.U, ss);
-  }
-  for (int e = lane; e < ss; e += 32) {
-    const int a = e / s, j = e % s;
-    float lv = 0.f, au = 0.f, u = 0.f, bl = 0.f;
-    if (hl) {
-      lv = mm_entry(A, T0, s, a, j);
-      au = mm_entry(A, T1, s, a, j);
-    }
-    if (hr) {
-      bl = mm_entry(Bm, T2, s, a, j);
-      u = mm_entry(Bm, T3, s, a, j);
-    }
-    const float d = Di[e];
-    Lo[e] = -lv;
-    Do[e] = (d - au) - bl;
-    Uo[e] = -u;
-  }
-  if (lane < s) {
-    float ab = 0.f, bb = 0.f;
-    if (hl)
-      for (int e2 = 0; e2 < s; ++e2) ab = fmaf(A[lane * s + e2], l.b[e2], ab);
-    if (hr)
-      for (int e2 = 0; e2 < s; ++e2) bb = fmaf(Bm[lane * s + e2], r.b[e2], bb);
-    const float v = bi[lane];
-    bo[lane] = (v - ab) - bb;
-  }
-  __syncwarp();
-}
 
 // x_k = D_k^{-1} ((b_k - L_k x_l) - U_k x_r) of one odd row, x_r null past
 // the end (direct.cr_back_level).  ws: the warp's shared memory.
@@ -765,82 +614,188 @@ __global__ void __launch_bounds__(kTailThreads) cr_tail_kernel(CrArrays a) {
   if (lane == 0 && bad) a.bad[b] = 1;
 }
 
-// Row 12, phase 1: D_o^{-1} of every odd row 2j+1 of a level of W rows into
-// Doinv (B, W/2, s, s), and its clamp flag into flags (B, W/2).
+// Row 12's plan (mirrors in kernels/longk.py).  A peel task's staged rows,
+// in floats: the even row's [L D U] and its neighbours' L and U (in the
+// same places; their D is not copied), both neighbours' D^{-1}, A and B,
+// then the three rows' b; every offset a multiple of 4 where s s is.
+inline __host__ __device__ int peel_floats(int s) { return 4 * ((13 * s * s + 3 * s + 3) / 4); }
+
+// Threads of a peel CTA: kPeelThreads / 32 tasks of the reduction (two
+// launches) or kPeelThreads / 64 even rows of the one-launch peel.
+constexpr int kPeelThreads = 128;
+
+inline long long peel_smem_bytes(int s, int tasks) {
+  return (long long)tasks * peel_floats(s) * (long long)sizeof(float);
+}
+
+// The unpeel's staged odd row, in floats: L_o, U_o, D_o^{-1}, b_o, x_half
+// of both neighbours and the bracket (b_o - L_o xl) - U_o xr.
+inline __host__ __device__ int unpeel_floats(int s) { return 4 * ((3 * s * s + 4 * s + 3) / 4); }
+
+// Even row 2j of a peeled level (global row `row` = b W + 2j) and its
+// neighbours' L, U and b into a task's staged rows `w` by cp.async, one
+// commit group; the caller waits.
+__device__ __forceinline__ void peel_stage(const float* S, const float* bvec, size_t row,
+                                           bool hl, bool hr, int s, float* w) {
+  const size_t ss = (size_t)s * s, slot3 = 3 * ss;
+  float* wb = w + 13 * ss;
+  warp_async_copy(w, S + row * slot3, (int)slot3);
+  warp_async_copy(wb, bvec + row * s, s);
+  if (hl) {
+    const float* o = S + (row - 1) * slot3;
+    warp_async_copy(w + 3 * ss, o, (int)ss);
+    warp_async_copy(w + 5 * ss, o + 2 * ss, (int)ss);
+    warp_async_copy(wb + s, bvec + (row - 1) * s, s);
+  }
+  if (hr) {
+    const float* o = S + (row + 1) * slot3;
+    warp_async_copy(w + 6 * ss, o, (int)ss);
+    warp_async_copy(w + 8 * ss, o + 2 * ss, (int)ss);
+    warp_async_copy(wb + 2 * s, bvec + (row + 1) * s, s);
+  }
+  __pipeline_commit();
+}
+
+// Row 12, the peel of a level of W rows (two launches, the first of
+// them): D_o^{-1} of every odd row 2j+1 into Doinv (B, W/2, s, s) and its
+// clamp flag into flags (B, W/2), a warp a row on warp_gj_pad.
 template <int kN>
 __global__ void __launch_bounds__(kCrThreads)
-peel_invert_kernel(const float* S, float* Doinv, int* flags, int B, int W,
-                   int s) {
+peel_invert_kernel(const float* S, float* Doinv, int* flags, int B, int W, int s_rt) {
+  const int s = width<kN>(s_rt), wo = W / 2;
   const size_t ss = (size_t)s * s;
-  const int wo = W / 2;
-  const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   peel_stamp(0);
-  if (t < B * wo) {
+  if (t < (long long)B * wo) {
     const size_t b = t / wo, j = t % wo;
-    const float* in = S + ((b * W + 2 * j + 1) * 3 + 1) * ss;
-    const int hit = warp_gj<kN>(in, Doinv + (size_t)t * ss, s);
+    const int hit = warp_gj_pad<kN>(S + ((b * W + 2 * j + 1) * 3 + 1) * ss, Doinv + t * ss, s);
     if ((threadIdx.x & 31) == 0) flags[t] = hit;
   }
   peel_stamp(1);
 }
 
-// Row 12, phase 2: the reduced system of even row 2j into row j of Sh
+// Row 12, the second of the two launches: a warp an even row 2j, its rows,
+// its neighbours' L, U, b and D^{-1} (from the first launch) copied into
+// its shared memory at once, then reduced by warp_reduce_rows (a lane a
+// product row and kJ columns; row 11's level-0 body) into row j of Sh
 // (B, ceil(W/2), 3, s, s) and bh (B, ceil(W/2), s).
-__global__ void __launch_bounds__(kCrThreads)
-peel_reduce_kernel(const float* S, const float* bvec, const float* Doinv,
-                   float* Sh, float* bh, int B, int W, int s) {
-  extern __shared__ float smem[];
-  const size_t ss = (size_t)s * s, slot3 = 3 * ss;
-  const int wo = W / 2, we = (W + 1) / 2;
-  const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+template <int kN>
+__global__ void __launch_bounds__(kPeelThreads)
+peel_reduce_kernel(const float* S, const float* bvec, const float* Doinv, float* Sh,
+                   float* bh, int B, int W, int s_rt) {
+  extern __shared__ float4 smem4[];
+  const int s = width<kN>(s_rt), wo = W / 2, we = (W + 1) / 2;
+  const size_t ss = (size_t)s * s;
+  const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   peel_stamp(2);
-  if (t < B * we) {
-    float* ws = smem + (threadIdx.x >> 5) * warp_floats(s);
+  if (t < (long long)B * we) {
+    float* w = reinterpret_cast<float*>(smem4) + (threadIdx.x >> 5) * peel_floats(s);
     const size_t b = t / we;
-    const int j = t % we;
-    const size_t row = b * W + 2 * j;
-    const float* in = S + row * slot3;
-    OddRow l{nullptr, nullptr, nullptr, nullptr};
-    OddRow r{nullptr, nullptr, nullptr, nullptr};
-    if (j >= 1) {
-      const float* o = in - slot3;
-      l = OddRow{Doinv + (b * wo + j - 1) * ss, o, o + 2 * ss, bvec + (row - 1) * s};
-    }
-    if (j < wo) {
-      const float* o = in + slot3;
-      r = OddRow{Doinv + (b * wo + j) * ss, o, o + 2 * ss, bvec + (row + 1) * s};
-    }
-    float* out = Sh + (size_t)t * slot3;
-    warp_reduce_row(in, in + ss, in + 2 * ss, bvec + row * s, l, r, out, out + ss,
-                    out + 2 * ss, bh + (size_t)t * s, s, ws);
+    const int j = (int)(t % we);
+    const bool hl = j >= 1, hr = j < wo;
+    peel_stage(S, bvec, b * W + 2 * j, hl, hr, s, w);
+    if (hl) warp_async_copy(w + 9 * ss, Doinv + (b * wo + j - 1) * ss, (int)ss);
+    if (hr) warp_async_copy(w + 10 * ss, Doinv + (b * wo + j) * ss, (int)ss);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    float* wb = w + 13 * ss;
+    warp_reduce_rows<kN>(Row{w, wb}, Row{w + 3 * ss, wb + s}, hl ? w + 9 * ss : nullptr,
+                         Row{w + 6 * ss, wb + 2 * s}, hr ? w + 10 * ss : nullptr, w + 11 * ss,
+                         w + 12 * ss, Sh + t * 3 * ss, bh + t * s, s);
   }
   peel_stamp(3);
 }
 
+// Row 12 in one launch (row 11's one-meeting level): a pair of warps an
+// even row 2j; warp 0 copies the rows in (cp.async) and inverts the left
+// neighbour's D, warp 1 the right one's (an odd row is inverted twice, by
+// identical arithmetic) and owns it: its D^{-1} and flag go to Doinv and
+// flags.  The pair then reduces the row an entry a thread (group_reduce,
+// the same sums as warp_reduce_rows).
+template <int kN>
+__global__ void __launch_bounds__(kPeelThreads)
+peel_one_kernel(const float* S, const float* bvec, float* Sh, float* bh, float* Doinv,
+                int* flags, int B, int W, int s_rt) {
+  extern __shared__ float4 smem4[];
+  const int s = width<kN>(s_rt), wo = W / 2, we = (W + 1) / 2;
+  const size_t ss = (size_t)s * s;
+  const int pair = threadIdx.x >> 6, wig = (threadIdx.x >> 5) & 1, ptid = threadIdx.x & 63;
+  const long long t = (long long)blockIdx.x * (kPeelThreads / 64) + pair;
+  peel_stamp(0);
+  if (t < (long long)B * we) {
+    float* w = reinterpret_cast<float*>(smem4) + pair * peel_floats(s);
+    const size_t b = t / we;
+    const int j = (int)(t % we);
+    const size_t row = b * W + 2 * j;
+    const bool hl = j >= 1, hr = j < wo;
+    const auto sync = [&]() {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + pair), "r"(64) : "memory");
+    };
+    if (wig == 0) {
+      peel_stage(S, bvec, row, hl, hr, s, w);
+      if (hl) warp_gj_pad<kN>(S + ((row - 1) * 3 + 1) * ss, w + 9 * ss, s);
+      __pipeline_wait_prior(0);
+    } else if (hr) {
+      const int hit = warp_gj_pad<kN>(S + ((row + 1) * 3 + 1) * ss, w + 10 * ss, s);
+      if ((threadIdx.x & 31) == 0) flags[b * wo + j] = hit;
+    }
+    sync();
+    if (hr)
+      for (int e = ptid; e < (int)ss; e += 64) Doinv[(b * wo + j) * ss + e] = w[10 * ss + e];
+    float* wb = w + 13 * ss;
+    group_reduce<kN>(Row{w, wb}, Row{w + 3 * ss, wb + s}, hl ? w + 9 * ss : nullptr,
+                     Row{w + 6 * ss, wb + 2 * s}, hr ? w + 10 * ss : nullptr, w + 11 * ss,
+                     w + 12 * ss, Sh + t * 3 * ss, bh + t * s, s, ptid, 64, sync);
+  }
+  peel_stamp(1);
+}
+
 // The back-substitution of a peeled level: x (B, W, s) from the reduced
 // system's solution xh (B, ceil(W/2), s), the level's input S, b and the
-// peel's Doinv: x_{2j} = xh_j, x_{2j+1} = D_o^{-1} ((b_o - L_o xh_j) - U_o
-// xh_{j+1}).
+// peel's Doinv, a warp an even row j: x_{2j} = xh_j and, for the odd row
+// after it, L_o, U_o, D_o^{-1}, b_o, xh_j and xh_{j+1} in flight into the
+// warp's shared memory at once, then a lane a row:
+// x_{2j+1} = D_o^{-1} ((b_o - L_o xh_j) - U_o xh_{j+1}) (warp_back_row's
+// sums).
+template <int kN>
 __global__ void __launch_bounds__(kCrThreads)
-unpeel_kernel(const float* S, const float* bvec, const float* Doinv,
-              const float* xh, float* x, int B, int W, int s) {
-  extern __shared__ float smem[];
-  const size_t ss = (size_t)s * s, slot3 = 3 * ss;
-  const int wo = W / 2, we = (W + 1) / 2;
-  const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+unpeel_kernel(const float* S, const float* bvec, const float* Doinv, const float* xh,
+              float* x, int B, int W, int s_rt) {
+  extern __shared__ float4 smem4[];
+  const int s = width<kN>(s_rt), wo = W / 2, we = (W + 1) / 2;
+  const size_t ss = (size_t)s * s;
+  const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   peel_stamp(4);
-  if (t < B * we) {
+  if (t < (long long)B * we) {
     const int lane = threadIdx.x & 31;
-    float* ws = smem + (threadIdx.x >> 5) * s;
+    float* w = reinterpret_cast<float*>(smem4) + (threadIdx.x >> 5) * unpeel_floats(s);
     const size_t b = t / we;
-    const int j = t % we;
+    const int j = (int)(t % we);
     const size_t row = b * W + 2 * j;
-    if (lane < s) x[row * s + lane] = xh[(size_t)t * s + lane];
-    if (j < wo) {
-      const float* o = S + (row + 1) * slot3;
-      const float* xr = j + 1 < we ? xh + ((size_t)t + 1) * s : nullptr;
-      warp_back_row(o, Doinv + (b * wo + j) * ss, o + 2 * ss, bvec + (row + 1) * s,
-                    xh + (size_t)t * s, xr, x + (row + 1) * s, s, ws);
+    const bool odd = j < wo, hr = j + 1 < we;
+    float* wv = w + 3 * ss;  // b_o, xl, xr, the bracket
+    if (odd) {
+      const float* o = S + (row + 1) * 3 * ss;
+      warp_async_copy(w, o, (int)ss);
+      warp_async_copy(w + ss, o + 2 * ss, (int)ss);
+      warp_async_copy(w + 2 * ss, Doinv + (b * wo + j) * ss, (int)ss);
+      warp_async_copy(wv, bvec + (row + 1) * s, s);
+      warp_async_copy(wv + s, xh + t * s, s);
+      if (hr) warp_async_copy(wv + 2 * s, xh + (t + 1) * s, s);
+      __pipeline_commit();
+    }
+    if (lane < s) x[row * s + lane] = xh[t * s + lane];
+    if (odd) {
+      __pipeline_wait_prior(0);
+      __syncwarp();
+      if (lane < s) {
+        const float lx = mv_at<kN>(w, wv + s, s, lane);
+        const float ux = hr ? mv_at<kN>(w + ss, wv + 2 * s, s, lane) : 0.f;
+        wv[3 * s + lane] = (wv[lane] - lx) - ux;
+      }
+      __syncwarp();
+      if (lane < s) x[(row + 1) * s + lane] = mv_at<kN>(w + 2 * ss, wv + 3 * s, s, lane);
     }
   }
   peel_stamp(5);
@@ -980,46 +935,101 @@ int gato_longk_cr(const float* S, const float* gamma, float* W, float* bv, float
   return (int)err;
 }
 
-// Launches row 12 on `stream` (both phases) for a level of W >= 2 rows of B
-// problems: Sh (B, ceil(W/2), 3, s, s), bh (B, ceil(W/2), s), Doinv
-// (B, W/2, s, s) and flags (B, W/2).  Returns the CUDA error code.
-int gato_longk_peel(const float* S, const float* b, float* Sh, float* bh,
-                    float* Doinv, int* flags, int B, int W, int s,
-                    void* stream) {
+// Row 12's and the unpeel's plan mirrors (kernels/longk.py): the dynamic
+// shared memory of a CTA of the peel's reduction (two launches), of the
+// one-launch peel and of the unpeel, in bytes.
+long long gato_longk_peel_smem_bytes(int s, int one) {
+  return gato::peel_smem_bytes(s, one ? gato::kPeelThreads / 64 : gato::kPeelThreads / 32);
+}
+long long gato_longk_unpeel_smem_bytes(int s) {
+  return (long long)gato::kCrWarps * gato::unpeel_floats(s) * (long long)sizeof(float);
+}
+
+// Launches row 12 on `stream` for a level of W >= 2 rows of B problems:
+// Sh (B, ceil(W/2), 3, s, s), bh (B, ceil(W/2), s), Doinv (B, W/2, s, s)
+// and flags (B, W/2), every entry written; in two launches (the odd rows'
+// inverses, then the even rows' reductions) or, with `one`, in one.
+// Returns the CUDA error code (0 on success).
+int gato_longk_peel(const float* S, const float* b, float* Sh, float* bh, float* Doinv,
+                    int* flags, int B, int W, int s, int one, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int kw = s == 14 ? 14 : (s <= 16 ? 16 : 32);
   const long long odd = (long long)B * (W / 2), even = (long long)B * ((W + 1) / 2);
 #ifdef GATO_STAGE_STAMPS
-  gato::peel_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>(0, 4);
+  gato::peel_stamp_reset<<<1, 1, 0, st>>>(0, 4);
 #endif
-  if (s <= 16)
-    gato::peel_invert_kernel<16><<<gato::warp_blocks(odd), gato::kCrThreads, 0,
-                                   (cudaStream_t)stream>>>(S, Doinv, flags, B, W, s);
+  if (one) {
+    const int per = gato::kPeelThreads / 64;
+    const size_t smem = (size_t)gato::peel_smem_bytes(s, per);
+    const unsigned blocks = (unsigned)((even + per - 1) / per);
+    const void* k = kw == 14   ? (const void*)gato::peel_one_kernel<14>
+                    : kw == 16 ? (const void*)gato::peel_one_kernel<16>
+                               : (const void*)gato::peel_one_kernel<32>;
+    cudaError_t err = gato::opt_in_smem(k, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (kw == 14)
+      gato::peel_one_kernel<14><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
+                                                                          flags, B, W, s);
+    else if (kw == 16)
+      gato::peel_one_kernel<16><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
+                                                                          flags, B, W, s);
+    else
+      gato::peel_one_kernel<32><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
+                                                                          flags, B, W, s);
+    return (int)cudaGetLastError();
+  }
+  const unsigned iblocks = gato::warp_blocks(odd);
+  if (kw == 14)
+    gato::peel_invert_kernel<14><<<iblocks, gato::kCrThreads, 0, st>>>(S, Doinv, flags, B, W, s);
+  else if (kw == 16)
+    gato::peel_invert_kernel<16><<<iblocks, gato::kCrThreads, 0, st>>>(S, Doinv, flags, B, W, s);
   else
-    gato::peel_invert_kernel<32><<<gato::warp_blocks(odd), gato::kCrThreads, 0,
-                                   (cudaStream_t)stream>>>(S, Doinv, flags, B, W, s);
+    gato::peel_invert_kernel<32><<<iblocks, gato::kCrThreads, 0, st>>>(S, Doinv, flags, B, W, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)gato::cr_smem_bytes(s);
-  err = cudaFuncSetAttribute(gato::peel_reduce_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int per = gato::kPeelThreads / 32;
+  const size_t smem = (size_t)gato::peel_smem_bytes(s, per);
+  const unsigned rblocks = (unsigned)((even + per - 1) / per);
+  const void* k = kw == 14   ? (const void*)gato::peel_reduce_kernel<14>
+                  : kw == 16 ? (const void*)gato::peel_reduce_kernel<16>
+                             : (const void*)gato::peel_reduce_kernel<32>;
+  err = gato::opt_in_smem(k, smem);
   if (err != cudaSuccess) return (int)err;
-  gato::peel_reduce_kernel<<<gato::warp_blocks(even), gato::kCrThreads, smem,
-                             (cudaStream_t)stream>>>(S, b, Doinv, Sh, bh, B, W, s);
+  if (kw == 14)
+    gato::peel_reduce_kernel<14><<<rblocks, gato::kPeelThreads, smem, st>>>(S, b, Doinv, Sh, bh,
+                                                                            B, W, s);
+  else if (kw == 16)
+    gato::peel_reduce_kernel<16><<<rblocks, gato::kPeelThreads, smem, st>>>(S, b, Doinv, Sh, bh,
+                                                                            B, W, s);
+  else
+    gato::peel_reduce_kernel<32><<<rblocks, gato::kPeelThreads, smem, st>>>(S, b, Doinv, Sh, bh,
+                                                                            B, W, s);
   return (int)cudaGetLastError();
 }
 
 // Launches the back-substitution of a peeled level on `stream`: x (B, W, s)
 // from xh (B, ceil(W/2), s) and the level's S, b and Doinv.  Returns the
 // CUDA error code.
-int gato_longk_unpeel(const float* S, const float* b, const float* Doinv,
-                      const float* xh, float* x, int B, int W, int s,
-                      void* stream) {
-  const long long even = (long long)B * ((W + 1) / 2);
+int gato_longk_unpeel(const float* S, const float* b, const float* Doinv, const float* xh,
+                      float* x, int B, int W, int s, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int kw = s == 14 ? 14 : (s <= 16 ? 16 : 32);
+  const unsigned blocks = gato::warp_blocks((long long)B * ((W + 1) / 2));
+  const size_t smem = (size_t)gato_longk_unpeel_smem_bytes(s);
+  const void* k = kw == 14   ? (const void*)gato::unpeel_kernel<14>
+                  : kw == 16 ? (const void*)gato::unpeel_kernel<16>
+                             : (const void*)gato::unpeel_kernel<32>;
+  const cudaError_t err = gato::opt_in_smem(k, smem);
+  if (err != cudaSuccess) return (int)err;
 #ifdef GATO_STAGE_STAMPS
-  gato::peel_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>(4, 2);
+  gato::peel_stamp_reset<<<1, 1, 0, st>>>(4, 2);
 #endif
-  gato::unpeel_kernel<<<gato::warp_blocks(even), gato::kCrThreads,
-                        (size_t)gato::kCrWarps * s * sizeof(float),
-                        (cudaStream_t)stream>>>(S, b, Doinv, xh, x, B, W, s);
+  if (kw == 14)
+    gato::unpeel_kernel<14><<<blocks, gato::kCrThreads, smem, st>>>(S, b, Doinv, xh, x, B, W, s);
+  else if (kw == 16)
+    gato::unpeel_kernel<16><<<blocks, gato::kCrThreads, smem, st>>>(S, b, Doinv, xh, x, B, W, s);
+  else
+    gato::unpeel_kernel<32><<<blocks, gato::kCrThreads, smem, st>>>(S, b, Doinv, xh, x, B, W, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,18 @@
-// Shared device code of one-block kernels: block-wide sums and the
-// block-tridiagonal matvec btd_row, with kFrozenEta; they serve the exact
-// kernels (condense.cuh's users), the long-K tier (longk.cu,
-// longk_direct.cu, grid_common.cuh) and the probes (probes.cu).  Kernel A
-// (pcg.cu) runs kernel B's cluster PCG stage (cluster_body.cuh) instead.
+// Shared device code of one-block kernels: block-wide sums, the
+// block-tridiagonal matvec btd_row, with kFrozenEta, and a warp's cp.async
+// copy (rows 5, 6, 12 and the unpeel); they serve the exact kernels
+// (condense.cuh's users), the long-K tier (longk.cu, longk_direct.cu,
+// grid_common.cuh) and the probes (probes.cu).  Kernel A (pcg.cu) runs
+// kernel B's cluster PCG stage (cluster_body.cuh) instead.
 //
 // Pointers to operators are plain `const float*`, never `__restrict__`: a
 // kernel may write S earlier in the same launch, and a read-only-cache
 // load could then see stale data.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace gato {
 
@@ -23,6 +26,19 @@ inline int threads_for(int n) {
   if (t < 64) t = 64;
   if (t > kMaxThreads) t = kMaxThreads;
   return t;
+}
+
+// n floats from global src into the warp's shared dst with cp.async: 16
+// bytes a copy where both ends are 16-byte aligned and n a multiple of 4,
+// else 4.  The caller commits and waits.
+__device__ __forceinline__ void warp_async_copy(float* dst, const float* src, int n) {
+  const int lane = threadIdx.x & 31;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+      (n & 3) == 0) {
+    for (int i = lane; i < n / 4; i += 32) __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+  } else {
+    for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -37,12 +37,20 @@
 //   turn non-finite and its converged False, and no other problem changes
 //   (the TPU's contract, which differs from row 4's finite 1e30).
 //
-// Reverse (thomas_rev_kernel), one warp per problem, thread a on row a,
-// walks j = K-1..0:
-//   x_j = Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}),
-// fused with the dz recovery (dz_u_{j-1} completes at step j) and the
-// squared true residual of the original system (row j+1 completes at step
-// j, from the partial carried from step j+1), and ||gamma||^2.
+// Reverse (row 6), two launches:
+//   1. thomas_rev_walk_kernel: only the chain
+//        x_j = Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}),  j = K-1..0,
+//      on one warp a problem, lane a on row a: x_{j+1} stays in registers
+//      and reaches the lanes by shuffles, Cinv_j, phi_{j+1} and bhat_j of
+//      the next seven knots are in flight into a ring of the warp's shared
+//      memory (cp.async; row 5's pattern, reversed), so no global load sits
+//      in the chain; the width is compiled in (14, or 16 and 32 padded
+//      with zeros).  `walks` problems a CTA.
+//   2. thomas_rev_epilogue_kernel: knot-parallel across the card, a warp a
+//      knot: dz_x and dz_u from lambda (recover_dz's algebra), residual
+//      row j of the original system and ||gamma_j||^2; each problem's eta,
+//      ||gamma||^2 and converged summed in a fixed order (per CTA, then
+//      the problem's last CTA over its tiles), with no float atomics.
 //
 // Not carried over from the TPU: the batch-in-lanes packing (plan_packing,
 // _lane_budget), the shifted interval arrays and the group relabelling of
@@ -50,10 +58,11 @@
 //
 // What bounds it on an H100: the walks are chains of dependent small steps
 // (per knot of the forward: two s x s products and an s-pivot Gauss-Jordan,
-// here on one warp with shuffles), so one problem's time is the latency
-// of that chain, K steps long; the condensation is knot-parallel and runs
-// on the whole card.  A batch is bound by how many walks run at once (a
-// warp each).  The stacks (~172 KB a problem at IIWA) go through global
+// here on one warp with shuffles; of the reverse two s x s matrix-vector
+// products), so one problem's time is the latency of that chain, K steps
+// long; the condensation and the reverse epilogue are knot-parallel and
+// run on the whole card.  A batch is bound by how many walks run at once
+// (a warp each).  The stacks (~172 KB a problem at IIWA) go through global
 // memory once each way.
 //
 // With GATO_STAGE_STAMPS defined (gato_tpu_torch/tools/direct_stamps.py
@@ -75,8 +84,13 @@ namespace gato {
 
 // Knots a walk keeps in its ring: the one walked and three in flight.
 constexpr int kWalkRing = 4;
-// Walks (warps) a forward CTA carries, at most.
+// Walks (warps) a forward or reverse CTA carries, at most.
 constexpr int kMaxWalks = 8;
+// Knots the reverse walk keeps in its ring: the one walked and seven in
+// flight (a knot of it is a few hundred cycles, a copy's latency ~1 us).
+constexpr int kRevRing = 8;
+// Knots of an epilogue CTA, a warp each.
+constexpr int kEpiKnots = 4;
 
 // The walk's padded width: 14 compiles IIWA's width in; 16 and 32 take
 // any s up to them, the blocks padded (phi with zeros, theta with the
@@ -129,7 +143,11 @@ __device__ __forceinline__ void walk_stamp(size_t b, int j) {
 constexpr int kRevStamps = 68;
 static __device__ unsigned long long rev_stamps[kRevStamps];
 static __device__ int rev_stamp_count;
-__global__ void rev_stamp_reset() { rev_stamp_count = 4; }
+__global__ void rev_stamp_reset() {
+  rev_stamps[2] = ~0ULL;
+  rev_stamps[3] = 0ULL;
+  rev_stamp_count = 4;
+}
 // Stamp i (< 4) of problem 0's walk, by its lane 0.
 __device__ __forceinline__ void rev_stamp(size_t b, int i) {
   if (b == 0 && (threadIdx.x & 31) == 0) rev_stamps[i] = global_ns();
@@ -141,7 +159,18 @@ __device__ __forceinline__ void rev_knot_stamp(size_t b, int i) {
     rev_stamp_count = 5 + i;
   }
 }
+// Stamp 2 (the epilogue's first CTA's start) or 3 (its last CTA's end).
+__device__ __forceinline__ void epi_stamp(int i) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (i == 2)
+      atomicMin(&rev_stamps[2], global_ns());
+    else
+      atomicMax(&rev_stamps[3], global_ns());
+  }
+}
 #else
+__device__ __forceinline__ void epi_stamp(int) {}
 __device__ __forceinline__ void condense_stamp(int) {}
 __device__ __forceinline__ void walk_stamp(size_t, int) {}
 __device__ __forceinline__ void rev_stamp(size_t, int) {}
@@ -170,19 +199,6 @@ struct WalkArrays {
   float* bhat;
   int B, K, s, walks;
 };
-
-// n floats from global src into the warp's shared dst with cp.async: 16
-// bytes a copy where both ends are 16-byte aligned and n a multiple of 4,
-// else 4.
-__device__ __forceinline__ void warp_async_copy(float* dst, const float* src, int n) {
-  const int lane = threadIdx.x & 31;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
-      (n & 3) == 0) {
-    for (int i = lane; i < n / 4; i += 32) __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
-  } else {
-    for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
-  }
-}
 
 // Knot j of problem b into a ring slot (nothing past the horizon), one
 // commit group either way; an n x n block goes to the top left of the
@@ -355,6 +371,115 @@ __device__ __forceinline__ void walk_knot(const WalkArrays& a, size_t b, int j, 
   walk_load<kN>(a, b, j + kWalkRing, slot);
 }
 
+// Row 6's plan.  The reverse walk's ring row stride: 14 (IIWA's width,
+// compiled in; lane a reading row a of Cinv_j at stride 14 meets no bank
+// conflict), else kN + 1 (odd, so that no two lanes of a column read share
+// a bank).
+inline __host__ __device__ int rev_ld(int s) {
+  const int w = walk_width(s);
+  return w == 14 ? 14 : w + 1;
+}
+
+// Floats of one reverse ring slot: Cinv_j and phi_{j+1} (kN rows of
+// rev_ld each, the padding zero) and bhat_j.
+inline __host__ __device__ int rev_slot_floats(int s) {
+  const int w = walk_width(s);
+  return (int)(2 * round4((long long)w * rev_ld(s)) + round4(w));
+}
+
+// Dynamic shared memory of a reverse walk CTA of `walks` warps, in bytes.
+inline long long rev_smem_bytes(int s, int walks) {
+  return 4LL * walks * kRevRing * rev_slot_floats(s);
+}
+
+// An epilogue warp's shared memory, in floats (offsets rounded to 4, so
+// that 16-byte copies land aligned): theta_j, Qinv_j, phi_j, phi_{j+1} and
+// A_j (n x n), B_j (n x c), Rinv_j (c x c), x_{j-1}, x_j, x_{j+1}, gamma_j,
+// q_j and the recovery's right side (n), r_j and its right side (c).
+struct EpiLayout {
+  int th, qi, p0, p1, at, bt, ri, xm, x0, xp, g, qv, rx, rv, ru, total;
+};
+inline __host__ __device__ EpiLayout epi_layout(int n, int c) {
+  EpiLayout L;
+  const int ss = (int)round4((long long)n * n), v = (int)round4(n), u = (int)round4(c);
+  L.th = 0;
+  L.qi = L.th + ss;
+  L.p0 = L.qi + ss;
+  L.p1 = L.p0 + ss;
+  L.at = L.p1 + ss;
+  L.bt = L.at + ss;
+  L.ri = L.bt + (int)round4((long long)n * c);
+  L.xm = L.ri + (int)round4((long long)c * c);
+  L.x0 = L.xm + v;
+  L.xp = L.x0 + v;
+  L.g = L.xp + v;
+  L.qv = L.g + v;
+  L.rx = L.qv + v;
+  L.rv = L.rx + v;
+  L.ru = L.rv + u;
+  L.total = L.ru + u;
+  return L;
+}
+
+// Dynamic shared memory of an epilogue CTA (kEpiKnots warps), in bytes.
+inline long long epi_smem_bytes(int s, int c) {
+  return 4LL * kEpiKnots * epi_layout(s, c).total;
+}
+
+// What row 6 reads and writes: the factor stacks and the KKT vectors
+// (B, K, ...), lambda, dz_x, dz_u, converged and eta; part (B, tiles, 2)
+// and ticket (B) scratch.
+struct RevArrays {
+  const float* Cinv;
+  const float* bhat;
+  const float* Qinv;
+  const float* Rinv;
+  const float* phi;
+  const float* theta;
+  const float* gamma;
+  const float* q;
+  const float* A;
+  const float* Bm;
+  const float* r;
+  float* lam;
+  float* dzx;
+  float* dzu;
+  int* conv;
+  float* eta;
+  float* part;
+  unsigned* ticket;
+  int B, K, s, c, walks, tiles;
+};
+
+// Knot j of problem b into a reverse ring slot (nothing below 0): Cinv_j,
+// phi_{j+1} (not past the horizon) and bhat_j, one commit group either way;
+// an n x n block goes to the top left of the slot's kN rows of kLd, whose
+// padding the walk zeroed.
+template <int kN>
+__device__ __forceinline__ void rev_load(const RevArrays& a, size_t b, int j, float* slot) {
+  if (j >= 0) {
+    constexpr int kLd = kN == 14 ? 14 : kN + 1;
+    constexpr int kSS4 = (kN * kLd + 3) / 4 * 4;
+    const int n = kN == 14 ? 14 : a.s;
+    const size_t kn = b * a.K + j;
+    const float* ci = a.Cinv + kn * n * n;
+    const float* ph = a.phi + (kn + 1) * n * n;
+    const bool next = j + 1 < a.K;
+    if (kN == 14) {
+      warp_async_copy(slot, ci, 196);
+      if (next) warp_async_copy(slot + kSS4, ph, 196);
+    } else {
+      for (int e = threadIdx.x & 31; e < n * n; e += 32) {
+        const int r = e / n, col = e - r * n;
+        __pipeline_memcpy_async(slot + r * kLd + col, ci + e, 4);
+        if (next) __pipeline_memcpy_async(slot + kSS4 + r * kLd + col, ph + e, 4);
+      }
+    }
+    warp_async_copy(slot + 2 * kSS4, a.bhat + kn * n, n);
+  }
+  __pipeline_commit();
+}
+
 // Row 5, launch 2: warp w of block x walks problem x walks + w.
 template <int kN>
 __global__ void __launch_bounds__(32 * kMaxWalks) thomas_walk_kernel(WalkArrays a) {
@@ -374,116 +499,186 @@ __global__ void __launch_bounds__(32 * kMaxWalks) thomas_walk_kernel(WalkArrays 
   }
 }
 
-__global__ void __launch_bounds__(32)
-thomas_rev_kernel(const float* Cinv_g, const float* bhat_g, const float* Qinv_g,
-                  const float* Rinv_g, const float* phi_g, const float* theta_g,
-                  const float* gam_g, const float* qg, const float* Ag,
-                  const float* Bg, const float* rg, float* lam_out,
-                  float* dzx_out, float* dzu_out, int* conv_out,
-                  float* eta_out, int K, int s, int c) {
-  __shared__ float x[32], xn[32], ut[32], rhs[32], ru[32];
-  const int a = threadIdx.x;
-  const size_t b = blockIdx.x;
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const int n = K * s;
-  const size_t nu = (size_t)(K - 1) * c;
-  const float* Cinv = Cinv_g + b * K * ss;
-  const float* bhat = bhat_g + b * n;
-  const float* Qinv = Qinv_g + b * K * ss;
-  const float* Rinv = Rinv_g + b * (K - 1) * cc2;
-  const float* phi = phi_g + b * K * ss;
-  const float* theta = theta_g + b * K * ss;
-  const float* gam = gam_g + b * n;
-  const float* q = qg + b * n;
-  const float* A = Ag + b * (K - 1) * ss;
-  const float* Bm = Bg + b * (K - 1) * sc;
-  const float* r = rg + b * nu;
-  float* lam = lam_out + b * n;
-  float* dzx = dzx_out + b * n;
-  float* dzu = dzu_out + b * nu;
-  const bool row = a < s;
-  float part = 0.f;     // row a of step j+1's partial residual
-  float atl = 0.f;      // (A_j^T x_{j+1})[a]
-  float eta = 0.f, gnorm = 0.f;
-  if (row) xn[a] = 0.f;
+// Row 6, launch 1: warp w of block x walks problem x walks + w back,
+//   x_j = Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}),  j = K-1..0,
+// and writes lambda.  Lane a holds x_{j+1}[a] (lanes past kN repeat rows
+// kN apart and store nothing); both products take their other factor's
+// entries from the lanes by shuffles and their blocks from the ring slot,
+// whose Cinv_j, phi_{j+1} and bhat_j were copied in kRevRing - 1 knots
+// earlier.  Lane 0 zeroes the problem's ticket for the epilogue.
+template <int kN>
+__global__ void __launch_bounds__(32 * kMaxWalks) thomas_rev_walk_kernel(RevArrays a) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLd = kN == 14 ? 14 : kN + 1;
+  constexpr int kSS4 = (kN * kLd + 3) / 4 * 4;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t b = (size_t)blockIdx.x * a.walks + warp;
+  if (b >= (size_t)a.B) return;
+  const int K = a.K, n = kN == 14 ? 14 : a.s, row = lane % kN;
+  const int slot_floats = rev_slot_floats(a.s);
+  float* ring = reinterpret_cast<float*>(smem4) + (size_t)warp * kRevRing * slot_floats;
+  if (lane == 0) a.ticket[b] = 0u;
+  if (kN != 14) {
+    for (int e = lane; e < kRevRing * slot_floats; e += 32) ring[e] = 0.f;
+    __syncwarp();
+  }
   rev_stamp(b, 0);
-  __syncwarp();
-  for (int j = K - 1; j >= 0; --j) {
-    const bool last = j == K - 1;
-    const float* phn = phi + (j + 1) * ss;   // phi_{j+1}, read when j < K-1
-    // u = phi_{j+1}^T x_{j+1}; rhs = bhat_j - u.
-    float u = 0.f;
-    if (row && !last)
-      for (int e2 = 0; e2 < s; ++e2) u = fmaf(phn[e2 * s + a], xn[e2], u);
-    if (row) {
-      ut[a] = u;
-      rhs[a] = bhat[j * s + a] - u;
-    }
+  for (int i = 0; i < kRevRing; ++i) rev_load<kN>(a, b, K - 1 - i, ring + i * slot_floats);
+  float* lam = a.lam + b * K * n;
+  float x = 0.f;
+  for (int i = 0; i < K; ++i) {
+    const int j = K - 1 - i;
+    float* slot = ring + (i % kRevRing) * slot_floats;
+    __pipeline_wait_prior(kRevRing - 1);
     __syncwarp();
-    float xa = 0.f;
-    if (row) {
-      const float* ci = Cinv + j * ss + a * s;
-      for (int e2 = 0; e2 < s; ++e2) xa = fmaf(ci[e2], rhs[e2], xa);
-      x[a] = xa;
-      lam[j * s + a] = xa;
+    const float* ci = slot;
+    const float* ph = slot + kSS4;
+    float rhs = slot[2 * kSS4 + row];
+    if (i > 0) {
+      float u = 0.f;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) u = fmaf(ph[e * kLd + row], __shfl_sync(kAll, x, e), u);
+      rhs -= u;
     }
+    float xj = 0.f;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) xj = fmaf(ci[row * kLd + e], __shfl_sync(kAll, rhs, e), xj);
+    x = xj;
+    if (lane < n) lam[(size_t)j * n + lane] = x;
+    rev_knot_stamp(b, i);
     __syncwarp();
-    // The true residual: row j+1 completes with phi_{j+1} x_j; row j's
-    // partial is gamma_j - theta_j x_j - u.
-    float res = 0.f, pj = 0.f, g = 0.f;
-    if (row) {
-      if (!last) {
-        const float* pr = phn + a * s;
-        float acc = 0.f;
-        for (int e2 = 0; e2 < s; ++e2) acc = fmaf(pr[e2], x[e2], acc);
-        res = part - acc;
+    rev_load<kN>(a, b, j - kRevRing, slot);
+  }
+  rev_stamp(b, 1);
+}
+
+// Row 6, launch 2: a warp a knot j of problem b, kEpiKnots knots a CTA
+// (tile t = j / kEpiKnots), every block the knot needs copied into the
+// warp's shared memory at once; lane a takes row a:
+//   dz_x_j = Qinv_j ((q_j - x_j) - A_j^T x_{j+1})
+//   dz_u_j = Rinv_j (r_j - B_j^T x_{j+1})              (j < K-1)
+//   res_j  = ((gamma_j - theta_j x_j) - phi_{j+1}^T x_{j+1}) - phi_j x_{j-1}
+// (condense.cuh's recover_dz and thomas_rev_plain's residual; an absent
+// term is 0).  ||res_j||^2 and ||gamma_j||^2 are warp sums; thread 0 sums
+// its CTA's knots in order into part[b][t], and the CTA that finishes a
+// problem's last tile (an integer ticket) sums its tiles in a fixed order
+// (lane l tiles l, l + 32, ..., then a warp sum) into eta and converged.
+// No float atomics: a problem's bits do not depend on the schedule.
+template <int kN>
+__global__ void __launch_bounds__(32 * kEpiKnots) thomas_rev_epilogue_kernel(RevArrays a) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[kEpiKnots][2];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int K = a.K, n = kN == 14 ? 14 : a.s, c = a.c;
+  const size_t b = blockIdx.x / a.tiles;
+  const int tile = blockIdx.x % a.tiles, j = tile * kEpiKnots + warp;
+  epi_stamp(2);
+  float rsq = 0.f, gsq = 0.f;
+  if (j < K) {
+    const EpiLayout L = epi_layout(n, c);
+    float* w = reinterpret_cast<float*>(smem4) + (size_t)warp * L.total;
+    const size_t ss = (size_t)n * n, kn = b * K + j, ku = b * (K - 1) + j;
+    const bool left = j > 0, right = j + 1 < K;
+    warp_async_copy(w + L.th, a.theta + kn * ss, n * n);
+    warp_async_copy(w + L.qi, a.Qinv + kn * ss, n * n);
+    warp_async_copy(w + L.x0, a.lam + kn * n, n);
+    warp_async_copy(w + L.g, a.gamma + kn * n, n);
+    warp_async_copy(w + L.qv, a.q + kn * n, n);
+    if (left) {
+      warp_async_copy(w + L.p0, a.phi + kn * ss, n * n);
+      warp_async_copy(w + L.xm, a.lam + (kn - 1) * n, n);
+    }
+    if (right) {
+      warp_async_copy(w + L.p1, a.phi + (kn + 1) * ss, n * n);
+      warp_async_copy(w + L.at, a.A + ku * ss, n * n);
+      warp_async_copy(w + L.bt, a.Bm + ku * n * c, n * c);
+      warp_async_copy(w + L.ri, a.Rinv + ku * c * c, c * c);
+      warp_async_copy(w + L.xp, a.lam + (kn + 1) * n, n);
+      warp_async_copy(w + L.rv, a.r + ku * c, c);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    float res = 0.f, gv = 0.f;
+    if (lane < n) {
+      const float* x0 = w + L.x0;
+      const float* xm = w + L.xm;
+      const float* xp = w + L.xp;
+      float tx = 0.f, px = 0.f, u = 0.f, at = 0.f;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        if (e < n) {
+          tx = fmaf(w[L.th + lane * n + e], x0[e], tx);
+          if (left) px = fmaf(w[L.p0 + lane * n + e], xm[e], px);
+          if (right) {
+            u = fmaf(w[L.p1 + e * n + lane], xp[e], u);
+            at = fmaf(w[L.at + e * n + lane], xp[e], at);
+          }
+        }
       }
-      const float* tr = theta + j * ss + a * s;
-      float acc = 0.f;
-      for (int e2 = 0; e2 < s; ++e2) acc = fmaf(tr[e2], x[e2], acc);
-      g = gam[j * s + a];
-      pj = (g - acc) - ut[a];
+      gv = w[L.g + lane];
+      res = ((gv - tx) - u) - px;
+      w[L.rx + lane] = (w[L.qv + lane] - x0[lane]) - at;
     }
-    eta += warp_sum(res * res);
-    if (j == 0) eta += warp_sum(pj * pj);
-    gnorm += warp_sum(g * g);
-    part = pj;
-    // Recovery: dz_x_j = Qinv_j (q_j - x_j - A_j^T x_{j+1});
-    // dz_u_{j-1} = Rinv_{j-1} (r_{j-1} - B_{j-1}^T x_j).
-    if (row) rhs[a] = (q[j * s + a] - xa) - atl;
-    if (j > 0 && a < c) {
-      const float* Bk = Bm + (j - 1) * sc + a;
+    if (right && lane < c) {
       float bt = 0.f;
-      for (int e2 = 0; e2 < s; ++e2) bt = fmaf(Bk[e2 * c], x[e2], bt);
-      ru[a] = r[(j - 1) * c + a] - bt;
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (e < n) bt = fmaf(w[L.bt + e * c + lane], w[L.xp + e], bt);
+      w[L.ru + lane] = w[L.rv + lane] - bt;
     }
     __syncwarp();
-    if (row) {
-      const float* qi = Qinv + j * ss + a * s;
+    if (lane < n) {
       float acc = 0.f;
-      for (int e2 = 0; e2 < s; ++e2) acc = fmaf(qi[e2], rhs[e2], acc);
-      dzx[j * s + a] = acc;
-      atl = 0.f;
-      if (j > 0) {
-        const float* Ak = A + (j - 1) * ss + a;
-        for (int e2 = 0; e2 < s; ++e2) atl = fmaf(Ak[e2 * s], x[e2], atl);
-      }
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (e < n) acc = fmaf(w[L.qi + lane * n + e], w[L.rx + e], acc);
+      a.dzx[kn * n + lane] = acc;
     }
-    if (j > 0 && a < c) {
-      const float* ri = Rinv + (j - 1) * cc2 + a * c;
+    if (right && lane < c) {
       float acc = 0.f;
-      for (int e2 = 0; e2 < c; ++e2) acc = fmaf(ri[e2], ru[e2], acc);
-      dzu[(j - 1) * c + a] = acc;
+      for (int e = 0; e < c; ++e) acc = fmaf(w[L.ri + lane * c + e], w[L.ru + e], acc);
+      a.dzu[ku * c + lane] = acc;
     }
-    if (row) xn[a] = xa;
-    rev_knot_stamp(b, K - 1 - j);
-    __syncwarp();
+    rsq = warp_sum(res * res);
+    gsq = warp_sum(gv * gv);
   }
-  for (int i = 1; i < 4; ++i) rev_stamp(b, i);
-  if (a == 0) {
-    eta_out[b] = eta;
-    conv_out[b] = eta <= kDirectRtolSq * (1.f + gnorm) ? 1 : 0;
+  if (lane == 0) {
+    red[warp][0] = rsq;
+    red[warp][1] = gsq;
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float e = 0.f, g = 0.f;
+    for (int k = 0; k < kEpiKnots; ++k) {
+      e += red[k][0];
+      g += red[k][1];
+    }
+    float* p = a.part + 2 * (b * a.tiles + tile);
+    p[0] = e;
+    p[1] = g;
+    __threadfence();
+    last = atomicAdd(&a.ticket[b], 1u) == (unsigned)a.tiles - 1u;
+  }
+  __syncthreads();
+  if (last && warp == 0) {
+    __threadfence();
+    const volatile float* p = a.part + 2 * b * a.tiles;
+    float e = 0.f, g = 0.f;
+    for (int k = lane; k < a.tiles; k += 32) {
+      e += p[2 * k];
+      g += p[2 * k + 1];
+    }
+    e = warp_sum(e);
+    g = warp_sum(g);
+    if (lane == 0) {
+      a.eta[b] = e;
+      a.conv[b] = e <= kDirectRtolSq * (1.f + g) ? 1 : 0;
+    }
+  }
+  epi_stamp(3);
 }
 
 }  // namespace gato
@@ -580,20 +775,60 @@ int gato_thomas_fwd(const float* Q, const float* R, const float* A,
   return (int)cudaGetLastError();
 }
 
+// Row 6's plan mirrors (kernels/thomas_batch.py): a reverse walk CTA's
+// and an epilogue CTA's dynamic shared memory, in bytes.
+long long gato_thomas_rev_smem_bytes(int s, int walks) { return gato::rev_smem_bytes(s, walks); }
+long long gato_thomas_epi_smem_bytes(int s, int c) { return gato::epi_smem_bytes(s, c); }
+
 // Launches row 6 on `stream` for B problems, on the stacks of
-// gato_thomas_fwd.  Returns the CUDA error code of the launch.
+// gato_thomas_fwd: the walks, `walks` a CTA (kernels/thomas_batch.py's
+// rev_walks_per_cta), then the epilogue, B ceil(K / kEpiKnots) CTAs;
+// scratch holds 2 B ceil(K / kEpiKnots) + B floats.  Returns the CUDA
+// error code of the launches (0 on success); nothing is synchronised.
 int gato_thomas_rev(const float* Cinv, const float* bhat, const float* Qinv,
                     const float* Rinv, const float* phi, const float* theta,
                     const float* gam, const float* q, const float* A,
                     const float* Bm, const float* r, float* lam, float* dzx,
-                    float* dzu, int* conv, float* eta, int B, int K, int s,
-                    int cdim, void* stream) {
+                    float* dzu, int* conv, float* eta, float* scratch, int B, int K,
+                    int s, int cdim, int walks, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (K + gato::kEpiKnots - 1) / gato::kEpiKnots;
+  float* part = scratch;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 2LL * B * tiles);
+  gato::RevArrays a{Cinv, bhat, Qinv, Rinv, phi, theta, gam, q, A, Bm, r, lam, dzx, dzu,
+                    conv, eta, part, ticket, B, K, s, cdim, walks, tiles};
+  const int kw = gato::walk_width(s);
+  const void* walk = kw == 14   ? (const void*)gato::thomas_rev_walk_kernel<14>
+                     : kw == 16 ? (const void*)gato::thomas_rev_walk_kernel<16>
+                                : (const void*)gato::thomas_rev_walk_kernel<32>;
+  const void* epi = kw == 14   ? (const void*)gato::thomas_rev_epilogue_kernel<14>
+                    : kw == 16 ? (const void*)gato::thomas_rev_epilogue_kernel<16>
+                               : (const void*)gato::thomas_rev_epilogue_kernel<32>;
+  const size_t wsmem = (size_t)gato::rev_smem_bytes(s, walks);
+  const size_t esmem = (size_t)gato::epi_smem_bytes(s, cdim);
+  cudaError_t err = gato::opt_in_smem(walk, wsmem);
+  if (err == cudaSuccess) err = gato::opt_in_smem(epi, esmem);
+  if (err != cudaSuccess) return (int)err;
 #ifdef GATO_STAGE_STAMPS
-  gato::rev_stamp_reset<<<1, 1, 0, (cudaStream_t)stream>>>();
+  gato::rev_stamp_reset<<<1, 1, 0, st>>>();
 #endif
-  gato::thomas_rev_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
-      Cinv, bhat, Qinv, Rinv, phi, theta, gam, q, A, Bm, r, lam, dzx, dzu,
-      conv, eta, K, s, cdim);
+  const unsigned blocks = (unsigned)((B + walks - 1) / walks);
+  if (kw == 14)
+    gato::thomas_rev_walk_kernel<14><<<blocks, 32 * walks, wsmem, st>>>(a);
+  else if (kw == 16)
+    gato::thomas_rev_walk_kernel<16><<<blocks, 32 * walks, wsmem, st>>>(a);
+  else
+    gato::thomas_rev_walk_kernel<32><<<blocks, 32 * walks, wsmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned eblocks = (unsigned)((long long)B * tiles);
+  const unsigned ethreads = 32 * gato::kEpiKnots;
+  if (kw == 14)
+    gato::thomas_rev_epilogue_kernel<14><<<eblocks, ethreads, esmem, st>>>(a);
+  else if (kw == 16)
+    gato::thomas_rev_epilogue_kernel<16><<<eblocks, ethreads, esmem, st>>>(a);
+  else
+    gato::thomas_rev_epilogue_kernel<32><<<eblocks, ethreads, esmem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

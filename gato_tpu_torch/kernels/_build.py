@@ -72,7 +72,9 @@ _SIGNATURES = {
     "gato_direct_smem_bytes": (_LL, [_I, _I, _I]),
     "gato_direct_stamps": (_I, [_P]),
     "gato_thomas_fwd": (_I, [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P]),
-    "gato_thomas_rev": (_I, [_P] * 16 + [_I] * 4 + [_P]),
+    "gato_thomas_rev": (_I, [_P] * 17 + [_I] * 5 + [_P]),
+    "gato_thomas_rev_smem_bytes": (_LL, [_I, _I]),
+    "gato_thomas_epi_smem_bytes": (_LL, [_I, _I]),
     "gato_thomas_stamps": (_I, [_P]),
     "gato_thomas_rev_stamps": (_I, [_P]),
     "gato_thomas_walk_smem_bytes": (_LL, [_I, _I]),
@@ -90,7 +92,9 @@ _SIGNATURES = {
     "gato_longk_cr_grid_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_tail_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_cr": (_I, [_P] * 7 + [_I] * 5 + [_P]),
-    "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "gato_longk_peel": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "gato_longk_peel_smem_bytes": (_LL, [_I, _I]),
+    "gato_longk_unpeel_smem_bytes": (_LL, [_I]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),
     "gato_null_copy": (_I, [_P, _P, _I, _I, _P]),

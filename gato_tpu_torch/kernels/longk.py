@@ -50,7 +50,6 @@ and ``method='direct'`` here.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -63,7 +62,7 @@ from ..pcg import PCGResult, pcg
 from ..problem import Preconditioner
 from ..recover import recover_dz
 from . import _build, direct_fused, pcg_kernel
-from .fused_solve import PRECOND_CODES, block_shapes, check_tensors, device_limits
+from .fused_solve import PRECOND_CODES, block_shapes, device_limits
 
 SOURCE = "gato_tpu_torch/csrc/longk.cu"
 DIRECT_SOURCE = "gato_tpu_torch/csrc/longk_direct.cu"
@@ -450,6 +449,48 @@ def cr_group_warps(tasks: int, warps: int) -> int:
     return g
 
 
+# Row 12's and the unpeel's plan (mirrors of longk_direct.cu's; the card
+# tests compare them with gato_longk_peel_smem_bytes and
+# gato_longk_unpeel_smem_bytes): a peel CTA of PEEL_THREADS threads takes
+# PEEL_THREADS / 32 even rows of the reduction (two launches) or
+# PEEL_THREADS / 64 of the one-launch peel; the inversions and the unpeel a
+# row a warp, CR_WARPS warps a CTA.
+PEEL_THREADS = 128
+# The peel's schedule: two launches (the odd rows' inverses, then the
+# reductions), or one (a pair of warps an even row inverts both
+# neighbours), which was slower on an H100 at every shape measured but K =
+# 1024, B = 1 (PERF.md §6, PR 14; tools/direct_stamps.py times both).
+PEEL_ONE_LAUNCH = False
+
+
+def peel_floats(s: int) -> int:
+    """A peel task's staged rows, in floats: the even row's [L D U], its
+    neighbours' L and U in the same places, both D^{-1}, A and B (13 s^2),
+    then the three rows' b."""
+    return _round4(13 * s * s + 3 * s)
+
+
+def peel_smem_bytes(s: int, one: bool) -> int:
+    """Dynamic shared memory of a CTA of the peel's reduction, or of the
+    one-launch peel."""
+    return 4 * (PEEL_THREADS // (64 if one else 32)) * peel_floats(s)
+
+
+def peel_grid(B: int, W: int, one: bool) -> tuple:
+    """CTAs of each launch of a peel of W rows of B problems: (the one
+    launch's,) or (the inversions', the reductions')."""
+    we, wo = (W + 1) // 2, W // 2
+    if one:
+        return (-(-B * we // (PEEL_THREADS // 64)),)
+    return -(-B * wo // CR_WARPS), -(-B * we // (PEEL_THREADS // 32))
+
+
+def unpeel_smem_bytes(s: int) -> int:
+    """Dynamic shared memory of an unpeel CTA: each warp's L_o, U_o,
+    D_o^{-1}, b_o, both x_half rows and the bracket."""
+    return 4 * CR_WARPS * _round4(3 * s * s + 4 * s)
+
+
 def grid_barriers(poly_degree: int) -> int:
     """Barriers a PCG iteration meets: one after each dot product, and two
     for each Horner term past the first."""
@@ -550,10 +591,6 @@ def _check_widths(name: str, K: int, s: int, c: int) -> None:
     if K < 2 or max(s, c) > _build.MAX_BLOCK:
         raise ValueError(f"{name}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; "
                          f"got K={K}, s={s}, c={c}")
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 @functools.cache
@@ -819,19 +856,20 @@ def recover_longk_cuda(Qinv, Rinv, A, B, q, r, lam):
     return dz_x, dz_u
 
 
-def _system(name: str, S, b, min_rows: int):
-    """Checked, contiguous (S (B, W, 3, s, s), b (B, W, s)) on one CUDA
-    device; returns (B, W, s, S, b)."""
+def _system(name: str, S, b):
+    """(S (B, W, 3, s, s), b (B, W, s)) checked by ``_build.checked`` on b's
+    device, W >= 2 and s <= MAX_BLOCK; returns (B, W, s, S, b)."""
     if S.ndim != 5 or b.ndim != 3:
         raise ValueError(f"{name}: S must be (B, W, 3, s, s) and b (B, W, s), got "
                          f"{tuple(S.shape)} and {tuple(b.shape)}")
     Bn, W, s = b.shape
-    check_tensors(name, {"S": (Bn, W, 3, s, s), "b": (Bn, W, s)}, {"S": S, "b": b},
-                  b.device)
-    if W < min_rows or s > _build.MAX_BLOCK:
-        raise ValueError(f"{name}: needs at least {min_rows} rows and s <= "
-                         f"{_build.MAX_BLOCK}; got W={W}, s={s}")
-    return Bn, W, s, S.contiguous(), b.contiguous()
+    dev = b.device
+    S = _build.checked(name, "S", S, (Bn, W, 3, s, s), dev)
+    b = _build.checked(name, "b", b, (Bn, W, s), dev)
+    if W < 2 or s > _build.MAX_BLOCK:
+        raise ValueError(f"{name}: needs at least 2 rows and s <= {_build.MAX_BLOCK}; "
+                         f"got W={W}, s={s}")
+    return Bn, W, s, S, b
 
 
 def cr_longk_cuda(S, gamma):
@@ -874,26 +912,27 @@ def cr_longk_cuda(S, gamma):
     return lam, bad != 0
 
 
-def peel_longk_cuda(S, b):
+def peel_longk_cuda(S, b, *, _one: bool = PEEL_ONE_LAUNCH):
     """Row 12: one compacting cyclic-reduction level of the W >= 2 rows of
-    S (B, W, 3, s, s) and b (B, W, s), both of its phases.  Returns (S'
-    (B, ceil(W/2), 3, s, s), b' (B, ceil(W/2), s), PeelLevel)."""
+    S (B, W, 3, s, s) and b (B, W, s).  Returns (S' (B, ceil(W/2), 3, s, s),
+    b' (B, ceil(W/2), s), PeelLevel).  ``_one``, for measurements and
+    checks on CUDA tensors, picks the schedule: one launch, or the odd rows'
+    inverses and then the even rows' reductions (the same sums either
+    way)."""
     _check_args(PEEL_NAME, b)
     if b.device.type == "cpu":
         return peel_longk_plain(S, b)
-    Bn, W, s, S, b = _system(PEEL_NAME, S, b, 2)
+    Bn, W, s, S, b = _system(PEEL_NAME, S, b)
     dev = b.device
     we, wo = (W + 1) // 2, W // 2
     Sh = torch.empty(Bn, we, 3, s, s, dtype=torch.float32, device=dev)
     bh = torch.empty(Bn, we, s, dtype=torch.float32, device=dev)
     Doinv = torch.empty(Bn, wo, s, s, dtype=torch.float32, device=dev)
-    flags = torch.zeros(Bn, wo, dtype=torch.int32, device=dev)
+    flags = torch.empty(Bn, wo, dtype=torch.int32, device=dev)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            code = lib.gato_longk_peel(*map(_build.ptr, (S, b, Sh, bh, Doinv, flags)),
-                                       Bn, W, s, _stream(dev))
-        _build.check_launch(code, PEEL_NAME)
+        _build.launch(PEEL_NAME, "gato_longk_peel", dev,
+                      *(t.data_ptr() for t in (S, b, Sh, bh, Doinv, flags)), Bn, W, s,
+                      int(bool(_one)))
         global PEEL_LAUNCHES
         PEEL_LAUNCHES += 1
     return Sh, bh, PeelLevel(S, b, Doinv, flags != 0)
@@ -905,19 +944,14 @@ def unpeel_longk_cuda(x_half, level: PeelLevel):
     _check_args(UNPEEL_NAME, x_half)
     if x_half.device.type == "cpu":
         return unpeel_longk_plain(x_half, level)
-    Bn, W, s, S, b = _system(UNPEEL_NAME, level.S, level.b, 2)
-    expect = {"x_half": (Bn, (W + 1) // 2, s), "Doinv": (Bn, W // 2, s, s)}
-    check_tensors(UNPEEL_NAME, expect, {"x_half": x_half, "Doinv": level.Doinv},
-                  b.device)
-    x_half, Doinv = x_half.contiguous(), level.Doinv.contiguous()
+    Bn, W, s, S, b = _system(UNPEEL_NAME, level.S, level.b)
     dev = b.device
+    x_half = _build.checked(UNPEEL_NAME, "x_half", x_half, (Bn, (W + 1) // 2, s), dev)
+    Doinv = _build.checked(UNPEEL_NAME, "Doinv", level.Doinv, (Bn, W // 2, s, s), dev)
     x = torch.empty_like(b)
     if Bn > 0:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            code = lib.gato_longk_unpeel(*map(_build.ptr, (S, b, Doinv, x_half, x)),
-                                         Bn, W, s, _stream(dev))
-        _build.check_launch(code, UNPEEL_NAME)
+        _build.launch(UNPEEL_NAME, "gato_longk_unpeel", dev,
+                      *(t.data_ptr() for t in (S, b, Doinv, x_half, x)), Bn, W, s)
         global UNPEEL_LAUNCHES
         UNPEEL_LAUNCHES += 1
     return x

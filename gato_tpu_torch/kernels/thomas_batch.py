@@ -13,10 +13,13 @@ the design.  The forward pass condenses every knot in row 7's tiles
 
 and writes the factor stacks (:class:`ThomasFactors`); its plan is
 :func:`fwd_plan` (the tile's knots from ``longk.tile_knots``, the walks a
-CTA from :func:`walks_per_cta`).  The reverse kernel
-walks j = K-1..0, x_j = Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}), fused with
-the dz recovery and the squared true residual, and reports iters = 0, eta
-and converged = direct.residual_converged(eta, ||gamma||^2).
+CTA from :func:`walks_per_cta`).  The reverse pass walks j = K-1..0, x_j =
+Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}), on one warp a problem with the next
+knots' blocks in flight into a ring (:func:`rev_walks_per_cta` walks a
+CTA), then an epilogue, a warp a knot across the card (:func:`epi_tiles`
+CTAs a problem), recovers dz from lambda and the squared true residual
+(:func:`thomas_epilogue_plain` is its plain version), and reports iters =
+0, eta and converged = direct.residual_converged(eta, ||gamma||^2).
 
 A zero pivot clamped in Q_j, R_{j-1} or Dhat_j (in a block whose diagonal
 is not all zero) adds +inf to bhat_j: that problem's lambda, dz and eta
@@ -29,7 +32,8 @@ go to the plain versions :func:`thomas_fwd_plain` and
 :func:`thomas_rev_plain`, PyTorch loops over j on the same stacks.
 :func:`solve_direct_thomas_cuda` launches both (its plain composite is
 :func:`solve_direct_thomas_plain`).  ``FWD_LAUNCHES`` and ``REV_LAUNCHES``
-count the two kernels' launches.  :func:`should_dispatch` is the batch
+count the two wrappers' calls that launch, ``EPILOGUE_LAUNCHES`` the reverse
+epilogue's launches (one a ``thomas_rev_cuda`` call).  :func:`should_dispatch` is the batch
 width from which ``method='direct'`` takes this pair instead of row 4.
 """
 
@@ -43,18 +47,21 @@ from ..assemble import condense_knots
 from ..blocktri import block_inv_flag
 from ..direct import residual_converged
 from ..pcg import PCGResult
+from ..recover import recover_dz
 from . import _build
 from .fused_solve import block_shapes
 from .longk import _check_widths, _limits, _round4, tile_knots
 
 FWD_NAME = "thomas_fwd_cuda"
 REV_NAME = "thomas_rev_cuda"
+EPILOGUE_NAME = "thomas_rev_epilogue"
 SOURCE = "gato_tpu_torch/csrc/thomas_batch.cu"
 FWD_REPLACES = "gato_tpu/kernels/thomas_batch.py:306"
 REV_REPLACES = "gato_tpu/kernels/thomas_batch.py:429"
 
 FWD_LAUNCHES = 0
 REV_LAUNCHES = 0
+EPILOGUE_LAUNCHES = 0
 
 # gato_tpu's crossover (thomas_batch._MIN_BATCH, measured there on a TPU):
 # kept so that the port routes as gato_tpu does.  The H100's own crossover
@@ -106,12 +113,13 @@ def walk_smem_bytes(s: int, walks: int) -> int:
     return 4 * walks * WALK_RING * walk_slot_floats(s)
 
 
-def walks_per_cta(B: int, s: int, n_sms: int, limit: int) -> int:
-    """Walks (a warp each) of a forward CTA: ceil(B / n_sms), so that the
-    SMs share the walks before a CTA takes two, at most ``MAX_WALKS`` and
-    what ``limit`` bytes of shared memory hold."""
+def walks_per_cta(B: int, s: int, n_sms: int, limit: int, smem=walk_smem_bytes) -> int:
+    """Walks (a warp each) of a forward CTA (a reverse one with ``smem`` =
+    :func:`rev_smem_bytes`): ceil(B / n_sms), so that the SMs share the
+    walks before a CTA takes two, at most ``MAX_WALKS`` and what ``limit``
+    bytes of shared memory hold."""
     walks = min(max(-(-B // n_sms), 1), MAX_WALKS)
-    while walks > 1 and walk_smem_bytes(s, walks) > limit:
+    while walks > 1 and smem(s, walks) > limit:
         walks -= 1
     return walks
 
@@ -119,6 +127,58 @@ def walks_per_cta(B: int, s: int, n_sms: int, limit: int) -> int:
 def fwd_plan(B: int, K: int, s: int, c: int, n_sms: int, limit: int) -> tuple:
     """(tile knots, walks a CTA) of row 5's two launches."""
     return tile_knots(B, K, s, c, n_sms, limit), walks_per_cta(B, s, n_sms, limit)
+
+
+# Row 6's plan (mirrors of thomas_batch.cu's; the card tests compare them
+# with the library's gato_thomas_rev_smem_bytes / gato_thomas_epi_smem_bytes):
+# knots the reverse walk keeps in its ring (kRevRing) and knots, a warp
+# each, of an epilogue CTA (kEpiKnots).
+REV_RING = 8
+EPI_KNOTS = 4
+
+
+def rev_ld(s: int) -> int:
+    """The reverse ring's row stride: 14 at IIWA's width, else the padded
+    width plus one (odd: a column read by the lanes meets no bank
+    conflict)."""
+    w = walk_width(s)
+    return 14 if w == 14 else w + 1
+
+
+def rev_slot_floats(s: int) -> int:
+    """Floats of one reverse ring slot: Cinv_j, phi_{j+1} (padded rows of
+    :func:`rev_ld`) and bhat_j."""
+    w = walk_width(s)
+    return 2 * _round4(w * rev_ld(s)) + _round4(w)
+
+
+def rev_smem_bytes(s: int, walks: int) -> int:
+    """Dynamic shared memory of a reverse walk CTA of ``walks`` warps."""
+    return 4 * walks * REV_RING * rev_slot_floats(s)
+
+
+def rev_walks_per_cta(B: int, s: int, n_sms: int, limit: int) -> int:
+    """Walks of a reverse CTA: :func:`walks_per_cta` on the reverse ring."""
+    return walks_per_cta(B, s, n_sms, limit, rev_smem_bytes)
+
+
+def epi_tiles(K: int) -> int:
+    """Epilogue CTAs a problem: ceil(K / EPI_KNOTS), a warp a knot."""
+    return -(-K // EPI_KNOTS)
+
+
+def epi_smem_bytes(s: int, c: int) -> int:
+    """Dynamic shared memory of an epilogue CTA: each warp's theta_j,
+    Qinv_j, phi_j, phi_{j+1}, A_j (s x s), B_j (s x c), Rinv_j (c x c), six
+    s-vectors and two c-vectors, each rounded to 4 floats."""
+    warp = (5 * _round4(s * s) + _round4(s * c) + _round4(c * c) + 6 * _round4(s)
+            + 2 * _round4(c))
+    return 4 * EPI_KNOTS * warp
+
+
+def rev_plan(B: int, K: int, s: int, n_sms: int, limit: int) -> tuple:
+    """(walks a CTA, epilogue CTAs a problem) of row 6's two launches."""
+    return rev_walks_per_cta(B, s, n_sms, limit), epi_tiles(K)
 
 
 def factor_bytes(B: int, K: int, s: int, c: int) -> int:
@@ -210,6 +270,28 @@ def thomas_rev_plain(f: ThomasFactors, q, A, B, r):
     return res, torch.stack(dz_x, dim=-2), torch.stack(dz_u, dim=-2)
 
 
+def thomas_epilogue_plain(f: ThomasFactors, q, A, B, r, lam):
+    """Row 6's epilogue in knot-parallel PyTorch ops: dz from lambda
+    (``recover.recover_dz``) and the squared true residual, row j
+    ((gamma_j - theta_j x_j) - phi_{j+1}^T x_{j+1}) - phi_j x_{j-1}.
+    Returns (PCGResult, dz_x, dz_u) as :func:`thomas_rev_plain`."""
+    def mv(M, x):
+        return (M @ x.unsqueeze(-1)).squeeze(-1)
+
+    zero = torch.zeros_like(lam[..., :1, :])
+    x_next = torch.cat([lam[..., 1:, :], zero], dim=-2)
+    x_prev = torch.cat([zero, lam[..., :-1, :]], dim=-2)
+    phi_next = torch.cat([f.phi[..., 1:, :, :], torch.zeros_like(f.phi[..., :1, :, :])],
+                         dim=-3)
+    res = ((f.gamma - mv(f.theta, lam)) - mv(phi_next.transpose(-1, -2), x_next)) \
+        - mv(f.phi, x_prev)
+    eta = (res * res).sum((-2, -1))
+    dz_x, dz_u = recover_dz(f.Qinv, f.Rinv, A, B, q, r, lam)
+    out = PCGResult(lam=lam, iters=torch.zeros(eta.shape, dtype=torch.int32, device=eta.device),
+                    converged=residual_converged(eta, (f.gamma ** 2).sum((-2, -1))), eta=eta)
+    return out, dz_x, dz_u
+
+
 def solve_direct_thomas_plain(Q, R, A, B, q, r, c, *, rho=0.0):
     """The plain composite of the pair: forward, then reverse."""
     return thomas_rev_plain(thomas_fwd_plain(Q, R, A, B, q, r, c, rho=rho),
@@ -257,8 +339,9 @@ def thomas_fwd_cuda(Q, R, A, B, q, r, c, *, rho: float = 0.0) -> ThomasFactors:
 
 
 def thomas_rev_cuda(f: ThomasFactors, q, A, B, r):
-    """Row 6: back-substitution, dz recovery and the true residual on the
-    forward pass's stacks.  Returns (PCGResult, dz_x, dz_u)."""
+    """Row 6: back-substitution (the walk), then dz recovery and the true
+    residual (the epilogue) on the forward pass's stacks, two launches.
+    Returns (PCGResult, dz_x, dz_u)."""
     if q.device.type == "cpu":
         return thomas_rev_plain(f, q, A, B, r)
     _check_cuda(REV_NAME, q)
@@ -281,11 +364,14 @@ def thomas_rev_cuda(f: ThomasFactors, q, A, B, r):
     conv = torch.empty(Bn, dtype=torch.int32, device=dev)
     eta = torch.empty(Bn, dtype=torch.float32, device=dev)
     if Bn > 0:
+        walks, tiles = rev_plan(Bn, K, s, *_limits(dev))
+        scratch = torch.empty(Bn * (2 * tiles + 1), dtype=torch.float32, device=dev)
         _build.launch(REV_NAME, "gato_thomas_rev", dev,
-                      *(t.data_ptr() for t in (*args, lam, dz_x, dz_u, conv, eta)),
-                      Bn, K, s, cdim)
-        global REV_LAUNCHES
+                      *(t.data_ptr() for t in (*args, lam, dz_x, dz_u, conv, eta, scratch)),
+                      Bn, K, s, cdim, walks)
+        global REV_LAUNCHES, EPILOGUE_LAUNCHES
         REV_LAUNCHES += 1
+        EPILOGUE_LAUNCHES += 1
     res = PCGResult(lam=lam, iters=torch.zeros(Bn, dtype=torch.int32, device=dev),
                     converged=conv != 0, eta=eta)
     return res, dz_x, dz_u

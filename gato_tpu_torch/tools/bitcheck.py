@@ -43,7 +43,12 @@ differ from the one-CTA kernel's, within the plain version's tolerance.
 csrc/condense.cuh and csrc/pcg_common.cuh, shared by kernel A, rows 4, 5,
 7, 8/10 and 13 and the probes, are no longer compiled into kernel B or the
 farm; a change to them is checked by those kernels' card tests and by this
-tool extended to them.
+tool extended to them.  Row 6 as a walk and a knot-parallel epilogue (its
+residual summed by knot, then by tile) and row 12 on warp_gj_pad (the pivot
+row scaled by a reciprocal where warp_gj divided) differ from a checkout
+with the older bodies by design, within their plain versions' tolerance:
+name "row6,row12,unpeel" against such a checkout.  The Thomas pair and the
+'hybrid' route, which run them, are held by the card tests.
 """
 
 from __future__ import annotations

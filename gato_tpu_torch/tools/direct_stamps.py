@@ -22,8 +22,9 @@ limit:
   edge), B = 1.  Row 6 (``thomas_rev_cuda``) on row 5's stacks at IIWA K =
   50, B = 1, 16 and 256, and K = 1024, B = 16.  Row 12 (``peel_longk_cuda``)
   and the unpeel (``unpeel_longk_cuda``, on the peel's level and row 11's
-  solution of the reduced system) on row 11's inputs, with both exact
-  routes ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
+  solution of the reduced system) on row 11's inputs, with the peel's
+  other schedule (``_one``, keys ending ``one=...``) and both exact routes
+  ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
 * ``stamps`` (a checkout whose library exports ``gato_thomas_stamps``):
   in a child process, the kernels built again with ``-DGATO_STAGE_STAMPS``
   (a separate library; the shipped build is untouched), which read
@@ -58,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 import sys
@@ -233,6 +235,12 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
         key = f"K={K} B={n}"
         for name, fn in zip(("row12", "unpeel"), peel_calls(kl, S, g)):
             out[name][key] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
+        if "_one" in inspect.signature(kl.peel_longk_cuda).parameters:
+            # The schedule the checkout does not take by default.
+            one = not kl.PEEL_ONE_LAUNCH
+            fn = lambda: kl.peel_longk_cuda(S, g, _one=one)  # noqa: E731
+            out["row12"][f"{key} one={one}"] = {"ms": median_ms(fn, runs),
+                                                "device_ms": device_ms(fn)}
         for tier in ("xl", "hybrid"):
             fn = lambda tier=tier: kl.solve_direct_longk_batched(  # noqa: E731
                 *b, rho=RHO, force_tier=tier)

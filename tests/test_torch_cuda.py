@@ -562,6 +562,59 @@ def test_thomas_forward_poisons_each_knot_as_plain(dev):
             _close(x[i], y[i])
 
 
+# Row 6's walk and epilogue at their plan's edges: IIWA K = 2, 3, 50 and
+# 1024 at B = 1, 16 and 256 (one or two walks a CTA; epilogue tiles of one
+# knot, a partial tile, many tiles), and the padded widths s = 5, 16, 20.
+REV_EDGES = ([((14, 7, K), B) for K in (2, 3, 50, 1024) for B in (1, 16, 256)]
+             + [((5, 3, 9), 1), ((5, 3, 9), 16), ((16, 5, 9), 16), ((20, 9, 37), 16)])
+
+
+@pytest.mark.parametrize("sizes,B", REV_EDGES)
+def test_thomas_reverse_matches_plain_at_the_plan_edges(dev, sizes, B):
+    """Row 6 on the plain forward's stacks: its walk's lambda against
+    thomas_rev_plain, its epilogue's dz, eta and converged against both
+    thomas_rev_plain and the knot-parallel thomas_epilogue_plain on the
+    kernel's own lambda; one count a call for each launch."""
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(*sizes), B, seed0=26), dev)
+    f = kt.thomas_fwd_plain(*b, rho=1e-3)
+    before = (kt.REV_LAUNCHES, kt.EPILOGUE_LAUNCHES)
+    got, gx, gu = kt.thomas_rev_cuda(f, b.q, b.A, b.B, b.r)
+    torch.cuda.synchronize()
+    assert (kt.REV_LAUNCHES, kt.EPILOGUE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref, rx, ru = kt.thomas_rev_plain(f, b.q, b.A, b.B, b.r)
+    _direct_outcome(got, ref, f.gamma)
+    assert bool(got.converged.all())
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+    epi, ex, eu = kt.thomas_epilogue_plain(f, b.q, b.A, b.B, b.r, got.lam)
+    _direct_outcome(got, epi, f.gamma)
+    _close(gx, ex)
+    _close(gu, eu)
+
+
+@pytest.mark.parametrize("sizes", [(14, 7, 50), (5, 3, 9)])
+def test_thomas_reverse_singular_mix(dev, sizes):
+    """An exactly singular problem among 16 healthy ones through rows 5
+    and 6: its lambda, dz and eta non-finite and converged False; the
+    others bit for bit as a run without it, and as the plain pair."""
+    spec = gt.ProblemSpec(*sizes)
+    good = [tt.random_blocks(spec, seed=s) for s in range(60, 76)]
+    b = gt.blocks_to_torch(tt.stack_blocks(
+        good[:1] + [tt.singular_blocks(spec, seed=3, knot=2)] + good[1:]), dev)
+    got, gx, gu = kt.solve_direct_thomas_cuda(*b, rho=0.0)
+    keep = [0] + list(range(2, 17))
+    alone, ax, au = kt.solve_direct_thomas_cuda(*(a[keep] for a in b), rho=0.0)
+    torch.cuda.synchronize()
+    assert got.converged.tolist() == [True, False] + [True] * 15
+    for x in (got.lam, gx, gu, got.eta):
+        assert not bool(torch.isfinite(x[1]).any())
+    for x, y in ((got.lam, alone.lam), (gx, ax), (gu, au), (got.eta, alone.eta)):
+        assert torch.equal(x[keep], y)
+    ref, rx, ru = kt.solve_direct_thomas_plain(*b, rho=0.0)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x[keep], y[keep])
+
+
 def test_direct_kernels_singular_contracts(dev):
     """One exactly singular problem among healthy ones: row 4 reports it
     finite with eta = 1e30, rows 5-6 non-finite; the others are untouched
@@ -890,6 +943,83 @@ def test_longk_direct_kernels_match_plain(dev, K, B):
         _close(k, p)
 
 
+# Row 12 and the unpeel at a level of W = 2, 3, 1025 and 8192 rows (an odd
+# W leaves the last even row without a right neighbour), B = 1 and 15, on
+# both of the peel's schedules.
+PEEL_CASES = [(W, B, one) for W in (2, 3, 1025, 8192) for B in (1, 15)
+              for one in (False, True)]
+
+
+@pytest.mark.parametrize("W,B,one", PEEL_CASES)
+def test_peel_and_unpeel_match_plain(dev, W, B, one):
+    """Row 12 against peel_longk_plain (S', b', D_o^{-1} of every odd row,
+    the flags per odd row: at B = 15 problem 7's odd row 1 has a zero pivot
+    on a live block) and the unpeel against unpeel_longk_plain on the plain
+    level; values compared for the healthy problems."""
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, W), B, seed0=140), dev)
+    ops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner="jacobi")
+    S, g = ops.S.clone(), ops.gamma
+    healthy = list(range(B))
+    if B > 1:
+        S[7, 1, 1, 0, :] = 0.0
+        S[7, 1, 1, :, 0] = 0.0
+        healthy.remove(7)
+    before = (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES)
+    Sh, bh, level = kl.peel_longk_cuda(S, g, _one=one)
+    torch.cuda.synchronize()
+    Shp, bhp, levelp = kl.peel_longk_plain(S, g)
+    xh = kl.cr_longk_plain(Shp, bhp)[0]
+    xu = kl.unpeel_longk_cuda(xh, levelp)
+    torch.cuda.synchronize()
+    assert (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert Sh.shape == Shp.shape and level.Doinv.shape == levelp.Doinv.shape
+    assert torch.equal(level.bad.cpu(), levelp.bad.cpu())
+    assert level.bad.nonzero().tolist() == ([[7, 0]] if B > 1 else [])
+    for k, p in ((Sh, Shp), (bh, bhp), (level.Doinv, levelp.Doinv),
+                 (xu, kl.unpeel_longk_plain(xh, levelp))):
+        _close(k[healthy], p[healthy])
+    _close(xu[healthy], kl.cr_longk_plain(S, g)[0][healthy])
+
+
+def test_peel_schedules_agree_bit_for_bit(dev):
+    """The one-launch peel and the two-launch one compute the same sums."""
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, 1025), 3, seed0=141), dev)
+    ops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner="jacobi")
+    one = kl.peel_longk_cuda(ops.S, ops.gamma, _one=True)
+    two = kl.peel_longk_cuda(ops.S, ops.gamma, _one=False)
+    for x, y in zip((*one[:2], *one[2][2:]), (*two[:2], *two[2][2:])):
+        assert torch.equal(x, y)
+
+
+def test_rows_6_and_12_refuse_what_they_do_not_take(dev):
+    """The short call path's checks (_build.checked) of rows 6 and 12 and
+    the unpeel: shape, type, device, and a level of one row."""
+    S = torch.randn(2, 4, 3, 5, 5, device=dev)
+    g = torch.randn(2, 4, 5, device=dev)
+    with pytest.raises(ValueError, match=r"peel_longk_cuda: S shape"):
+        kl.peel_longk_cuda(S, g[:, :3])
+    with pytest.raises(ValueError, match=r"peel_longk_cuda: S must be"):
+        kl.peel_longk_cuda(S[0], g)
+    with pytest.raises(ValueError, match="float32"):
+        kl.peel_longk_cuda(S.double(), g)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kl.peel_longk_cuda(S.cpu(), g)
+    with pytest.raises(ValueError, match="at least 2 rows"):
+        kl.peel_longk_cuda(S[:, :1], g[:, :1])
+    _, _, level = kl.peel_longk_cuda(S, g)
+    with pytest.raises(ValueError, match=r"unpeel_longk_cuda: x_half shape"):
+        kl.unpeel_longk_cuda(torch.zeros(2, 3, 5, device=dev), level)
+    with pytest.raises(ValueError, match=r"unpeel_longk_cuda: Doinv"):
+        kl.unpeel_longk_cuda(torch.zeros(2, 2, 5, device=dev),
+                             level._replace(Doinv=level.Doinv.double()))
+    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(5, 3, 9), 2, seed0=1), dev)
+    f = kt.thomas_fwd_cuda(*b, rho=1e-3)
+    with pytest.raises(ValueError, match=r"thomas_rev_cuda: Cinv shape"):
+        kt.thomas_rev_cuda(f._replace(Cinv=f.Cinv[:, 1:]), b.q, b.A, b.B, b.r)
+    with pytest.raises(ValueError, match="float32"):
+        kt.thomas_rev_cuda(f._replace(theta=f.theta.double()), b.q, b.A, b.B, b.r)
+
+
 @pytest.mark.parametrize("sizes", [(3, 2, 2), (2, 1, 5), (3, 2, 10), (14, 7, 741),
                                    (20, 9, 37), (32, 32, 6)])
 def test_longk_direct_tiers_match_plain(dev, sizes, monkeypatch):
@@ -965,13 +1095,38 @@ def test_direct_stamps_tool_stamps_kernel_a_and_row_4(dev):
         assert all(p >= 0 for p in r["phases"])
 
 
+def test_direct_stamps_tool_stamps_rows_6_and_12(dev):
+    """tools/direct_stamps.py's stamps child splits row 6 into its walk (by
+    knot) and its epilogue, and row 12 into its launches and the unpeel."""
+    tool = Path(__file__).resolve().parents[1] / "gato_tpu_torch" / "tools" / "direct_stamps.py"
+    out = subprocess.run([sys.executable, str(tool), "--runs", "1", "--stamps-child",
+                          "--only", "row6,row12"], capture_output=True, text=True, timeout=1200)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(line["row6"]) == {"K=50 B=1", "K=50 B=16", "K=50 B=256", "K=1024 B=16"}
+    for key, r in line["row6"].items():
+        assert r["knots_stamped"] == min(int(key.split()[0][2:]), 64)
+        assert r["walk"] > 0 and r["epilogue"] > 0 and r["knot"] > 0
+    assert set(line["row12"]) == {"K=1024 B=1", "K=1024 B=15", "K=8192 B=1", "K=8192 B=15"}
+    for r in line["row12"].values():
+        assert r["first"] > 0 and r["unpeel"] > 0
+        assert (r["second"] is None) == kl.PEEL_ONE_LAUNCH
+
+
 def test_direct_plan_mirrors_match_the_library(dev):
-    """Rows 5 and 11's plan functions agree with their launchers'."""
+    """Rows 5, 6, 11 and 12's and the unpeel's plan functions agree with
+    their launchers'."""
     from gato_tpu_torch.kernels import _build
     lib = _build.library()
     for s in (2, 5, 14, 16, 20, 32):
         for walks in range(1, kt.MAX_WALKS + 1):
             assert kt.walk_smem_bytes(s, walks) == lib.gato_thomas_walk_smem_bytes(s, walks)
+            assert kt.rev_smem_bytes(s, walks) == lib.gato_thomas_rev_smem_bytes(s, walks)
+        for c in (1, 3, 7, 9, 32):
+            assert kt.epi_smem_bytes(s, c) == lib.gato_thomas_epi_smem_bytes(s, c)
+        for one in (0, 1):
+            assert kl.peel_smem_bytes(s, bool(one)) == lib.gato_longk_peel_smem_bytes(s, one)
+        assert kl.unpeel_smem_bytes(s) == lib.gato_longk_unpeel_smem_bytes(s)
         assert kl.cr_grid_floats(s) * 4 == lib.gato_longk_cr_grid_smem_bytes(s)
         for rows in (1, 2, 13, 64, 71):
             assert kl.cr_tail_floats(rows, s) * 4 == lib.gato_longk_cr_tail_smem_bytes(rows, s)
