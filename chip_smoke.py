@@ -2661,8 +2661,7 @@ def phase_direct_longk_times(card: str):
                 times[(name, K, n)]["device_ms"] = dev_ms
                 plan = (f"tail stride {kl.cr_tail_stride(K, s, _longk_limits()[1])}"
                         if name == kl.CR_NAME else
-                        f"{'one launch' if kl.PEEL_ONE_LAUNCH else 'two launches'}"
-                        if name == kl.PEEL_NAME else "a warp an even row")
+                        "two launches" if name == kl.PEEL_NAME else "a warp an even row")
                 print(f"  {name} K={K} B={n}: device {dev_ms:.4f} ms ({plan}, bound "
                       f"{100 * bound_ms / dev_ms:.2f} % of it)  [{card}]")
                 lib_text = (f"library {lib_ms:.4f} ms" if has_lib and lib_ms is not None
@@ -2736,11 +2735,9 @@ def phase_direct_longk_times(card: str):
                                                                     r["phases"]))
               + f"  [{card}]")
     for key, r in line["row12"].items():
-        second = ("" if r["second"] is None
-                  else f", gap {r['gap']:.1f}, second launch {r['second']:.1f}")
         print(f"  row 12 {key} by launch (the stamped build, first CTA's start to last "
-              f"CTA's end, us): first launch {r['first']:.1f}{second}; unpeel "
-              f"{r['unpeel']:.1f}  [{card}]")
+              f"CTA's end, us): inverses {r['first']:.1f}, gap {r['gap']:.1f}, reductions "
+              f"{r['second']:.1f}; unpeel {r['unpeel']:.1f}  [{card}]")
     print("  the faster exact route per shape:")
     for (K, n), r in ((key, r) for key, r in routes.items() if key != "row14"):
         best = min(("xl", "hybrid"), key=lambda t: r[t])

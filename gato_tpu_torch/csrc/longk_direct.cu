@@ -44,11 +44,12 @@
 //   (cp.async) and reduces it there (warp_reduce_rows), writing the
 //   ceil(W/2) reduced even rows into half-width buffers (no lane padding:
 //   a level of W rows writes all of them, where the TPU kernel's chunk
-//   schedule leaves tail lanes unwritten).  peel_one_kernel is the same
-//   level in one launch, row 11's one-meeting schedule: a pair of warps an
-//   even row inverts both neighbours.  The odd rows' L, U and b stay in
-//   the level's input, which the caller keeps for unpeel_kernel (a warp an
-//   even row and the odd row after it, its blocks in flight at once).
+//   schedule leaves tail lanes unwritten).  Row 11's one-meeting schedule
+//   in one launch (a pair of warps an even row inverting both neighbours)
+//   was slower on an H100 at every shape 'hybrid' peels (PERF.md §6, PR
+//   14).  The odd rows' L, U and b stay in the level's input, which the
+//   caller keeps for unpeel_kernel (a warp an even row and the odd row
+//   after it, its blocks in flight at once).
 //
 // A clamped zero pivot raises the problem's flag (bad, or the peel's per
 // odd row flags): the caller adds gato_tpu's +1e30 to that problem's lambda
@@ -109,8 +110,7 @@ __device__ __forceinline__ void cr_stamp() {}
 
 // Row 12's and the unpeel's stamps (gato_peel_stamps, under the same
 // define): 0 and 1 the first CTA's start and the last CTA's end of the
-// peel's first launch, 2 and 3 those of its second (unset, 2 after 3, where
-// the peel is one launch), 4 and 5 the unpeel's.
+// peel's first launch, 2 and 3 those of its second, 4 and 5 the unpeel's.
 constexpr int kPeelStamps = 6;
 #ifdef GATO_STAGE_STAMPS
 static __device__ unsigned long long peel_stamps[kPeelStamps];
@@ -614,18 +614,17 @@ __global__ void __launch_bounds__(kTailThreads) cr_tail_kernel(CrArrays a) {
   if (lane == 0 && bad) a.bad[b] = 1;
 }
 
-// Row 12's plan (mirrors in kernels/longk.py).  A peel task's staged rows,
-// in floats: the even row's [L D U] and its neighbours' L and U (in the
-// same places; their D is not copied), both neighbours' D^{-1}, A and B,
-// then the three rows' b; every offset a multiple of 4 where s s is.
+// Row 12's plan (mirrors in kernels/longk.py).  A reduction warp's staged
+// rows, in floats: the even row's [L D U] and its neighbours' L and U (in
+// the same places; their D is not copied), both neighbours' D^{-1}, A and
+// B, then the three rows' b; every offset a multiple of 4 where s s is.
 inline __host__ __device__ int peel_floats(int s) { return 4 * ((13 * s * s + 3 * s + 3) / 4); }
 
-// Threads of a peel CTA: kPeelThreads / 32 tasks of the reduction (two
-// launches) or kPeelThreads / 64 even rows of the one-launch peel.
+// Threads of a reduction CTA, a warp an even row.
 constexpr int kPeelThreads = 128;
 
-inline long long peel_smem_bytes(int s, int tasks) {
-  return (long long)tasks * peel_floats(s) * (long long)sizeof(float);
+inline long long peel_smem_bytes(int s) {
+  return (long long)(kPeelThreads / 32) * peel_floats(s) * (long long)sizeof(float);
 }
 
 // The unpeel's staged odd row, in floats: L_o, U_o, D_o^{-1}, b_o, x_half
@@ -633,7 +632,7 @@ inline long long peel_smem_bytes(int s, int tasks) {
 inline __host__ __device__ int unpeel_floats(int s) { return 4 * ((3 * s * s + 4 * s + 3) / 4); }
 
 // Even row 2j of a peeled level (global row `row` = b W + 2j) and its
-// neighbours' L, U and b into a task's staged rows `w` by cp.async, one
+// neighbours' L, U and b into a warp's staged rows `w` by cp.async, one
 // commit group; the caller waits.
 __device__ __forceinline__ void peel_stage(const float* S, const float* bvec, size_t row,
                                            bool hl, bool hr, int s, float* w) {
@@ -656,8 +655,7 @@ __device__ __forceinline__ void peel_stage(const float* S, const float* bvec, si
   __pipeline_commit();
 }
 
-// Row 12, the peel of a level of W rows (two launches, the first of
-// them): D_o^{-1} of every odd row 2j+1 into Doinv (B, W/2, s, s) and its
+// Row 12, the peel of a level of W rows, its first launch: D_o^{-1} of every odd row 2j+1 into Doinv (B, W/2, s, s) and its
 // clamp flag into flags (B, W/2), a warp a row on warp_gj_pad.
 template <int kN>
 __global__ void __launch_bounds__(kCrThreads)
@@ -674,7 +672,7 @@ peel_invert_kernel(const float* S, float* Doinv, int* flags, int B, int W, int s
   peel_stamp(1);
 }
 
-// Row 12, the second of the two launches: a warp an even row 2j, its rows,
+// Row 12, its second launch: a warp an even row 2j, its rows,
 // its neighbours' L, U, b and D^{-1} (from the first launch) copied into
 // its shared memory at once, then reduced by warp_reduce_rows (a lane a
 // product row and kJ columns; row 11's level-0 body) into row j of Sh
@@ -705,50 +703,6 @@ peel_reduce_kernel(const float* S, const float* bvec, const float* Doinv, float*
                          w + 12 * ss, Sh + t * 3 * ss, bh + t * s, s);
   }
   peel_stamp(3);
-}
-
-// Row 12 in one launch (row 11's one-meeting level): a pair of warps an
-// even row 2j; warp 0 copies the rows in (cp.async) and inverts the left
-// neighbour's D, warp 1 the right one's (an odd row is inverted twice, by
-// identical arithmetic) and owns it: its D^{-1} and flag go to Doinv and
-// flags.  The pair then reduces the row an entry a thread (group_reduce,
-// the same sums as warp_reduce_rows).
-template <int kN>
-__global__ void __launch_bounds__(kPeelThreads)
-peel_one_kernel(const float* S, const float* bvec, float* Sh, float* bh, float* Doinv,
-                int* flags, int B, int W, int s_rt) {
-  extern __shared__ float4 smem4[];
-  const int s = width<kN>(s_rt), wo = W / 2, we = (W + 1) / 2;
-  const size_t ss = (size_t)s * s;
-  const int pair = threadIdx.x >> 6, wig = (threadIdx.x >> 5) & 1, ptid = threadIdx.x & 63;
-  const long long t = (long long)blockIdx.x * (kPeelThreads / 64) + pair;
-  peel_stamp(0);
-  if (t < (long long)B * we) {
-    float* w = reinterpret_cast<float*>(smem4) + pair * peel_floats(s);
-    const size_t b = t / we;
-    const int j = (int)(t % we);
-    const size_t row = b * W + 2 * j;
-    const bool hl = j >= 1, hr = j < wo;
-    const auto sync = [&]() {
-      asm volatile("bar.sync %0, %1;" ::"r"(1 + pair), "r"(64) : "memory");
-    };
-    if (wig == 0) {
-      peel_stage(S, bvec, row, hl, hr, s, w);
-      if (hl) warp_gj_pad<kN>(S + ((row - 1) * 3 + 1) * ss, w + 9 * ss, s);
-      __pipeline_wait_prior(0);
-    } else if (hr) {
-      const int hit = warp_gj_pad<kN>(S + ((row + 1) * 3 + 1) * ss, w + 10 * ss, s);
-      if ((threadIdx.x & 31) == 0) flags[b * wo + j] = hit;
-    }
-    sync();
-    if (hr)
-      for (int e = ptid; e < (int)ss; e += 64) Doinv[(b * wo + j) * ss + e] = w[10 * ss + e];
-    float* wb = w + 13 * ss;
-    group_reduce<kN>(Row{w, wb}, Row{w + 3 * ss, wb + s}, hl ? w + 9 * ss : nullptr,
-                     Row{w + 6 * ss, wb + 2 * s}, hr ? w + 10 * ss : nullptr, w + 11 * ss,
-                     w + 12 * ss, Sh + t * 3 * ss, bh + t * s, s, ptid, 64, sync);
-  }
-  peel_stamp(1);
 }
 
 // The back-substitution of a peeled level: x (B, W, s) from the reduced
@@ -936,48 +890,26 @@ int gato_longk_cr(const float* S, const float* gamma, float* W, float* bv, float
 }
 
 // Row 12's and the unpeel's plan mirrors (kernels/longk.py): the dynamic
-// shared memory of a CTA of the peel's reduction (two launches), of the
-// one-launch peel and of the unpeel, in bytes.
-long long gato_longk_peel_smem_bytes(int s, int one) {
-  return gato::peel_smem_bytes(s, one ? gato::kPeelThreads / 64 : gato::kPeelThreads / 32);
-}
+// shared memory of a CTA of the peel's reduction and of the unpeel, in
+// bytes.
+long long gato_longk_peel_smem_bytes(int s) { return gato::peel_smem_bytes(s); }
 long long gato_longk_unpeel_smem_bytes(int s) {
   return (long long)gato::kCrWarps * gato::unpeel_floats(s) * (long long)sizeof(float);
 }
 
 // Launches row 12 on `stream` for a level of W >= 2 rows of B problems:
 // Sh (B, ceil(W/2), 3, s, s), bh (B, ceil(W/2), s), Doinv (B, W/2, s, s)
-// and flags (B, W/2), every entry written; in two launches (the odd rows'
-// inverses, then the even rows' reductions) or, with `one`, in one.
-// Returns the CUDA error code (0 on success).
+// and flags (B, W/2), every entry written, in two launches: the odd rows'
+// inverses, then the even rows' reductions.  Returns the CUDA error code
+// (0 on success).
 int gato_longk_peel(const float* S, const float* b, float* Sh, float* bh, float* Doinv,
-                    int* flags, int B, int W, int s, int one, void* stream) {
+                    int* flags, int B, int W, int s, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int kw = s == 14 ? 14 : (s <= 16 ? 16 : 32);
   const long long odd = (long long)B * (W / 2), even = (long long)B * ((W + 1) / 2);
 #ifdef GATO_STAGE_STAMPS
   gato::peel_stamp_reset<<<1, 1, 0, st>>>(0, 4);
 #endif
-  if (one) {
-    const int per = gato::kPeelThreads / 64;
-    const size_t smem = (size_t)gato::peel_smem_bytes(s, per);
-    const unsigned blocks = (unsigned)((even + per - 1) / per);
-    const void* k = kw == 14   ? (const void*)gato::peel_one_kernel<14>
-                    : kw == 16 ? (const void*)gato::peel_one_kernel<16>
-                               : (const void*)gato::peel_one_kernel<32>;
-    cudaError_t err = gato::opt_in_smem(k, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (kw == 14)
-      gato::peel_one_kernel<14><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
-                                                                          flags, B, W, s);
-    else if (kw == 16)
-      gato::peel_one_kernel<16><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
-                                                                          flags, B, W, s);
-    else
-      gato::peel_one_kernel<32><<<blocks, gato::kPeelThreads, smem, st>>>(S, b, Sh, bh, Doinv,
-                                                                          flags, B, W, s);
-    return (int)cudaGetLastError();
-  }
   const unsigned iblocks = gato::warp_blocks(odd);
   if (kw == 14)
     gato::peel_invert_kernel<14><<<iblocks, gato::kCrThreads, 0, st>>>(S, Doinv, flags, B, W, s);
@@ -988,7 +920,7 @@ int gato_longk_peel(const float* S, const float* b, float* Sh, float* bh, float*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int per = gato::kPeelThreads / 32;
-  const size_t smem = (size_t)gato::peel_smem_bytes(s, per);
+  const size_t smem = (size_t)gato::peel_smem_bytes(s);
   const unsigned rblocks = (unsigned)((even + per - 1) / per);
   const void* k = kw == 14   ? (const void*)gato::peel_reduce_kernel<14>
                   : kw == 16 ? (const void*)gato::peel_reduce_kernel<16>

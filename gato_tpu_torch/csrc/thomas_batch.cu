@@ -70,9 +70,9 @@
 // condensation CTA's start, stamp 1 the last one's end, stamp 2 + j the end
 // of knot j of problem 0's walk (the first kThomasStamps - 2 knots).  Row
 // 6's own stamps (gato_thomas_rev_stamps): 0 its walk's start and 1 its end
-// in problem 0, 2 and 3 its epilogue's start and end (the walk's end where
-// the recovery and residual are fused into the walk), 4 + i the end of
-// step i (knot K - 1 - i) of problem 0's walk (the first kRevStamps - 4).
+// in problem 0, 2 and 3 its epilogue launch's first CTA's start and last
+// CTA's end, 4 + i the end of step i (knot K - 1 - i) of problem 0's walk
+// (the first kRevStamps - 4).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -702,7 +702,7 @@ int gato_thomas_stamps(unsigned long long* out) {
 #endif
 }
 
-// Row 6's stamps of the last launch (the source's note) into
+// Row 6's stamps of the last call (the source's note) into
 // out[kRevStamps]; returns how many were written, or 0 in a build without
 // GATO_STAGE_STAMPS.
 int gato_thomas_rev_stamps(unsigned long long* out) {

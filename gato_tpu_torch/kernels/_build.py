@@ -92,8 +92,8 @@ _SIGNATURES = {
     "gato_longk_cr_grid_smem_bytes": (_LL, [_I]),
     "gato_longk_cr_tail_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_cr": (_I, [_P] * 7 + [_I] * 5 + [_P]),
-    "gato_longk_peel": (_I, [_P] * 6 + [_I] * 4 + [_P]),
-    "gato_longk_peel_smem_bytes": (_LL, [_I, _I]),
+    "gato_longk_peel": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "gato_longk_peel_smem_bytes": (_LL, [_I]),
     "gato_longk_unpeel_smem_bytes": (_LL, [_I]),
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),

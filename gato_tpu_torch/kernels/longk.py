@@ -451,38 +451,28 @@ def cr_group_warps(tasks: int, warps: int) -> int:
 
 # Row 12's and the unpeel's plan (mirrors of longk_direct.cu's; the card
 # tests compare them with gato_longk_peel_smem_bytes and
-# gato_longk_unpeel_smem_bytes): a peel CTA of PEEL_THREADS threads takes
-# PEEL_THREADS / 32 even rows of the reduction (two launches) or
-# PEEL_THREADS / 64 of the one-launch peel; the inversions and the unpeel a
-# row a warp, CR_WARPS warps a CTA.
+# gato_longk_unpeel_smem_bytes): the peel's inversions and the unpeel a row
+# a warp, CR_WARPS warps a CTA; its reductions a row a warp, PEEL_THREADS /
+# 32 warps a CTA.
 PEEL_THREADS = 128
-# The peel's schedule: two launches (the odd rows' inverses, then the
-# reductions), or one (a pair of warps an even row inverts both
-# neighbours), which was slower on an H100 at every shape measured but K =
-# 1024, B = 1 (PERF.md §6, PR 14; tools/direct_stamps.py times both).
-PEEL_ONE_LAUNCH = False
 
 
 def peel_floats(s: int) -> int:
-    """A peel task's staged rows, in floats: the even row's [L D U], its
-    neighbours' L and U in the same places, both D^{-1}, A and B (13 s^2),
-    then the three rows' b."""
+    """A reduction warp's staged rows, in floats: the even row's [L D U],
+    its neighbours' L and U in the same places, both D^{-1}, A and B
+    (13 s^2), then the three rows' b."""
     return _round4(13 * s * s + 3 * s)
 
 
-def peel_smem_bytes(s: int, one: bool) -> int:
-    """Dynamic shared memory of a CTA of the peel's reduction, or of the
-    one-launch peel."""
-    return 4 * (PEEL_THREADS // (64 if one else 32)) * peel_floats(s)
+def peel_smem_bytes(s: int) -> int:
+    """Dynamic shared memory of a CTA of the peel's reductions."""
+    return 4 * (PEEL_THREADS // 32) * peel_floats(s)
 
 
-def peel_grid(B: int, W: int, one: bool) -> tuple:
-    """CTAs of each launch of a peel of W rows of B problems: (the one
-    launch's,) or (the inversions', the reductions')."""
-    we, wo = (W + 1) // 2, W // 2
-    if one:
-        return (-(-B * we // (PEEL_THREADS // 64)),)
-    return -(-B * wo // CR_WARPS), -(-B * we // (PEEL_THREADS // 32))
+def peel_grid(B: int, W: int) -> tuple:
+    """CTAs of the peel's two launches (the inversions', the reductions')
+    for a level of W rows of B problems."""
+    return -(-B * (W // 2) // CR_WARPS), -(-B * ((W + 1) // 2) // (PEEL_THREADS // 32))
 
 
 def unpeel_smem_bytes(s: int) -> int:
@@ -912,13 +902,11 @@ def cr_longk_cuda(S, gamma):
     return lam, bad != 0
 
 
-def peel_longk_cuda(S, b, *, _one: bool = PEEL_ONE_LAUNCH):
+def peel_longk_cuda(S, b):
     """Row 12: one compacting cyclic-reduction level of the W >= 2 rows of
-    S (B, W, 3, s, s) and b (B, W, s).  Returns (S' (B, ceil(W/2), 3, s, s),
-    b' (B, ceil(W/2), s), PeelLevel).  ``_one``, for measurements and
-    checks on CUDA tensors, picks the schedule: one launch, or the odd rows'
-    inverses and then the even rows' reductions (the same sums either
-    way)."""
+    S (B, W, 3, s, s) and b (B, W, s), in two launches (the odd rows'
+    inverses, then the even rows' reductions).  Returns (S' (B, ceil(W/2),
+    3, s, s), b' (B, ceil(W/2), s), PeelLevel)."""
     _check_args(PEEL_NAME, b)
     if b.device.type == "cpu":
         return peel_longk_plain(S, b)
@@ -931,8 +919,7 @@ def peel_longk_cuda(S, b, *, _one: bool = PEEL_ONE_LAUNCH):
     flags = torch.empty(Bn, wo, dtype=torch.int32, device=dev)
     if Bn > 0:
         _build.launch(PEEL_NAME, "gato_longk_peel", dev,
-                      *(t.data_ptr() for t in (S, b, Sh, bh, Doinv, flags)), Bn, W, s,
-                      int(bool(_one)))
+                      *(t.data_ptr() for t in (S, b, Sh, bh, Doinv, flags)), Bn, W, s)
         global PEEL_LAUNCHES
         PEEL_LAUNCHES += 1
     return Sh, bh, PeelLevel(S, b, Doinv, flags != 0)

@@ -15,11 +15,11 @@ and writes the factor stacks (:class:`ThomasFactors`); its plan is
 :func:`fwd_plan` (the tile's knots from ``longk.tile_knots``, the walks a
 CTA from :func:`walks_per_cta`).  The reverse pass walks j = K-1..0, x_j =
 Cinv_j (bhat_j - phi_{j+1}^T x_{j+1}), on one warp a problem with the next
-knots' blocks in flight into a ring (:func:`rev_walks_per_cta` walks a
-CTA), then an epilogue, a warp a knot across the card (:func:`epi_tiles`
+knots' blocks in flight into a ring, then an epilogue, a warp a knot across the card (:func:`epi_tiles`
 CTAs a problem), recovers dz from lambda and the squared true residual
-(:func:`thomas_epilogue_plain` is its plain version), and reports iters =
-0, eta and converged = direct.residual_converged(eta, ||gamma||^2).
+(:func:`thomas_epilogue_plain` is its plain version; :func:`rev_plan` the
+two launches' plan), and reports iters = 0, eta and converged =
+direct.residual_converged(eta, ||gamma||^2).
 
 A zero pivot clamped in Q_j, R_{j-1} or Dhat_j (in a block whose diagonal
 is not all zero) adds +inf to bhat_j: that problem's lambda, dz and eta
@@ -32,9 +32,10 @@ go to the plain versions :func:`thomas_fwd_plain` and
 :func:`thomas_rev_plain`, PyTorch loops over j on the same stacks.
 :func:`solve_direct_thomas_cuda` launches both (its plain composite is
 :func:`solve_direct_thomas_plain`).  ``FWD_LAUNCHES`` and ``REV_LAUNCHES``
-count the two wrappers' calls that launch, ``EPILOGUE_LAUNCHES`` the reverse
-epilogue's launches (one a ``thomas_rev_cuda`` call).  :func:`should_dispatch` is the batch
-width from which ``method='direct'`` takes this pair instead of row 4.
+count the two wrappers' calls that launch, ``EPILOGUE_LAUNCHES`` the
+reverse epilogue's launches (one a ``thomas_rev_cuda`` call).
+:func:`should_dispatch` is the batch width from which ``method='direct'``
+takes this pair instead of row 4.
 """
 
 from __future__ import annotations
@@ -157,11 +158,6 @@ def rev_smem_bytes(s: int, walks: int) -> int:
     return 4 * walks * REV_RING * rev_slot_floats(s)
 
 
-def rev_walks_per_cta(B: int, s: int, n_sms: int, limit: int) -> int:
-    """Walks of a reverse CTA: :func:`walks_per_cta` on the reverse ring."""
-    return walks_per_cta(B, s, n_sms, limit, rev_smem_bytes)
-
-
 def epi_tiles(K: int) -> int:
     """Epilogue CTAs a problem: ceil(K / EPI_KNOTS), a warp a knot."""
     return -(-K // EPI_KNOTS)
@@ -177,8 +173,9 @@ def epi_smem_bytes(s: int, c: int) -> int:
 
 
 def rev_plan(B: int, K: int, s: int, n_sms: int, limit: int) -> tuple:
-    """(walks a CTA, epilogue CTAs a problem) of row 6's two launches."""
-    return rev_walks_per_cta(B, s, n_sms, limit), epi_tiles(K)
+    """(walks a CTA, epilogue CTAs a problem) of row 6's two launches: the
+    walks as :func:`walks_per_cta` on the reverse ring."""
+    return walks_per_cta(B, s, n_sms, limit, rev_smem_bytes), epi_tiles(K)
 
 
 def factor_bytes(B: int, K: int, s: int, c: int) -> int:

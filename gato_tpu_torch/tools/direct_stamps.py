@@ -22,9 +22,8 @@ limit:
   edge), B = 1.  Row 6 (``thomas_rev_cuda``) on row 5's stacks at IIWA K =
   50, B = 1, 16 and 256, and K = 1024, B = 16.  Row 12 (``peel_longk_cuda``)
   and the unpeel (``unpeel_longk_cuda``, on the peel's level and row 11's
-  solution of the reduced system) on row 11's inputs, with the peel's
-  other schedule (``_one``, keys ending ``one=...``) and both exact routes
-  ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
+  solution of the reduced system) on row 11's inputs, with both exact
+  routes ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
 * ``stamps`` (a checkout whose library exports ``gato_thomas_stamps``):
   in a child process, the kernels built again with ``-DGATO_STAGE_STAMPS``
   (a separate library; the shipped build is untouched), which read
@@ -44,9 +43,8 @@ limit:
   its last knot), the median ``knot``, the first and last knots, the
   ``gap`` to the epilogue and the ``epilogue`` (0 where the recovery and
   residual run inside the walk).  Row 12 (``gato_peel_stamps``): the peel's
-  ``first`` and ``second`` launches (from the first CTA's start to the last
-  one's end; ``second`` null for a one-launch peel), the ``gap`` between
-  them, and the ``unpeel``.
+  ``first`` and ``second`` launches (each from its first CTA's start to its
+  last one's end), the ``gap`` between them, and the ``unpeel``.
 
 ``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
 every grid level of row 11 takes two meetings, a warp a row, where the
@@ -59,7 +57,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import inspect
 import json
 import subprocess
 import sys
@@ -235,12 +232,6 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
         key = f"K={K} B={n}"
         for name, fn in zip(("row12", "unpeel"), peel_calls(kl, S, g)):
             out[name][key] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
-        if "_one" in inspect.signature(kl.peel_longk_cuda).parameters:
-            # The schedule the checkout does not take by default.
-            one = not kl.PEEL_ONE_LAUNCH
-            fn = lambda: kl.peel_longk_cuda(S, g, _one=one)  # noqa: E731
-            out["row12"][f"{key} one={one}"] = {"ms": median_ms(fn, runs),
-                                                "device_ms": device_ms(fn)}
         for tier in ("xl", "hybrid"):
             fn = lambda tier=tier: kl.solve_direct_longk_batched(  # noqa: E731
                 *b, rho=RHO, force_tier=tier)
@@ -390,11 +381,10 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
         read12 = _build.function("gato_peel_stamps")
         for K, n in CR_SHAPES:
             st = raw(list(peel_calls(kl, *data[("cr", K, n)])), read12) / 1e3
-            two = bool(np.all(st[:, 2] <= st[:, 3]))
             line["row12"][f"K={K} B={n}"] = {
                 "first": float(np.median(st[:, 1] - st[:, 0])),
-                "gap": float(np.median(st[:, 2] - st[:, 1])) if two else None,
-                "second": float(np.median(st[:, 3] - st[:, 2])) if two else None,
+                "gap": float(np.median(st[:, 2] - st[:, 1])),
+                "second": float(np.median(st[:, 3] - st[:, 2])),
                 "unpeel": float(np.median(st[:, 5] - st[:, 4]))}
     return line
 

@@ -944,14 +944,10 @@ def test_longk_direct_kernels_match_plain(dev, K, B):
 
 
 # Row 12 and the unpeel at a level of W = 2, 3, 1025 and 8192 rows (an odd
-# W leaves the last even row without a right neighbour), B = 1 and 15, on
-# both of the peel's schedules.
-PEEL_CASES = [(W, B, one) for W in (2, 3, 1025, 8192) for B in (1, 15)
-              for one in (False, True)]
-
-
-@pytest.mark.parametrize("W,B,one", PEEL_CASES)
-def test_peel_and_unpeel_match_plain(dev, W, B, one):
+# W leaves the last even row without a right neighbour), B = 1 and 15.
+@pytest.mark.parametrize("W", [2, 3, 1025, 8192])
+@pytest.mark.parametrize("B", [1, 15])
+def test_peel_and_unpeel_match_plain(dev, W, B):
     """Row 12 against peel_longk_plain (S', b', D_o^{-1} of every odd row,
     the flags per odd row: at B = 15 problem 7's odd row 1 has a zero pivot
     on a live block) and the unpeel against unpeel_longk_plain on the plain
@@ -965,7 +961,7 @@ def test_peel_and_unpeel_match_plain(dev, W, B, one):
         S[7, 1, 1, :, 0] = 0.0
         healthy.remove(7)
     before = (kl.PEEL_LAUNCHES, kl.UNPEEL_LAUNCHES)
-    Sh, bh, level = kl.peel_longk_cuda(S, g, _one=one)
+    Sh, bh, level = kl.peel_longk_cuda(S, g)
     torch.cuda.synchronize()
     Shp, bhp, levelp = kl.peel_longk_plain(S, g)
     xh = kl.cr_longk_plain(Shp, bhp)[0]
@@ -979,16 +975,6 @@ def test_peel_and_unpeel_match_plain(dev, W, B, one):
                  (xu, kl.unpeel_longk_plain(xh, levelp))):
         _close(k[healthy], p[healthy])
     _close(xu[healthy], kl.cr_longk_plain(S, g)[0][healthy])
-
-
-def test_peel_schedules_agree_bit_for_bit(dev):
-    """The one-launch peel and the two-launch one compute the same sums."""
-    b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, 1025), 3, seed0=141), dev)
-    ops = kl.condense_longk_cuda(*b, rho=1e-3, preconditioner="jacobi")
-    one = kl.peel_longk_cuda(ops.S, ops.gamma, _one=True)
-    two = kl.peel_longk_cuda(ops.S, ops.gamma, _one=False)
-    for x, y in zip((*one[:2], *one[2][2:]), (*two[:2], *two[2][2:])):
-        assert torch.equal(x, y)
 
 
 def test_rows_6_and_12_refuse_what_they_do_not_take(dev):
@@ -1109,8 +1095,7 @@ def test_direct_stamps_tool_stamps_rows_6_and_12(dev):
         assert r["walk"] > 0 and r["epilogue"] > 0 and r["knot"] > 0
     assert set(line["row12"]) == {"K=1024 B=1", "K=1024 B=15", "K=8192 B=1", "K=8192 B=15"}
     for r in line["row12"].values():
-        assert r["first"] > 0 and r["unpeel"] > 0
-        assert (r["second"] is None) == kl.PEEL_ONE_LAUNCH
+        assert r["first"] > 0 and r["second"] > 0 and r["unpeel"] > 0 and r["gap"] >= 0
 
 
 def test_direct_plan_mirrors_match_the_library(dev):
@@ -1124,8 +1109,7 @@ def test_direct_plan_mirrors_match_the_library(dev):
             assert kt.rev_smem_bytes(s, walks) == lib.gato_thomas_rev_smem_bytes(s, walks)
         for c in (1, 3, 7, 9, 32):
             assert kt.epi_smem_bytes(s, c) == lib.gato_thomas_epi_smem_bytes(s, c)
-        for one in (0, 1):
-            assert kl.peel_smem_bytes(s, bool(one)) == lib.gato_longk_peel_smem_bytes(s, one)
+        assert kl.peel_smem_bytes(s) == lib.gato_longk_peel_smem_bytes(s)
         assert kl.unpeel_smem_bytes(s) == lib.gato_longk_unpeel_smem_bytes(s)
         assert kl.cr_grid_floats(s) * 4 == lib.gato_longk_cr_grid_smem_bytes(s)
         for rows in (1, 2, 13, 64, 71):

@@ -15,12 +15,11 @@ solve_direct_thomas_batched (its Pallas kernels in interpret mode) within
 tests/test_torch_direct.py's tolerance (rtol 1e-4, atol 1e-5 of scale),
 converged equal; an exactly singular problem is non-finite alone.
 
-(b) Row 12: the two-launch peel (a warp an odd row's inverse, then a warp
-an even row's reduction from its staged rows) and the one-launch peel (a
-pair of warps an even row, each inverting one neighbour, the right one's
-owner writing it) write every output once, all ceil(W/2) reduced rows
-included; the model of the level's algebra (warp_gj_pad's Gauss-Jordan,
-warp_reduce_rows' products) and of the unpeel must give gato_tpu's XLA
+(b) Row 12: the peel's two launches (a warp an odd row's inverse, then a
+warp an even row's reduction from its staged rows) write every output
+once, all ceil(W/2) reduced rows included; the model of the level's
+algebra (warp_gj_pad's Gauss-Jordan, warp_reduce_rows' products) and of
+the unpeel must give gato_tpu's XLA
 reference peel _cr_peel and its back-substitution _cr_unpeel within 1e-5
 of scale (tests/test_torch_longk_direct.py's peel tolerance) at W = 2, 3,
 400 and 1536 (past gato_tpu's peel kernel's tail fault, so held against
@@ -247,58 +246,35 @@ def reduce_row(row, lft, rgt, DinvL, DinvR):
     return -(A @ Ll), (D - A @ Ul) - Bm @ Lr, -(Bm @ Ur), (b - A @ bl) - Bm @ br
 
 
-def peel_model(S, b, one):
-    """Row 12 on (B, W, 3, s, s), (B, W, s): the schedule's writes, each
+def peel_model(S, b):
+    """Row 12 on (B, W, 3, s, s), (B, W, s), its two launches' writes
     counted; returns (S', b', Doinv, flags, writes)."""
     Bn, W, _, s, _ = S.shape
     kN = 14 if s == 14 else (16 if s <= 16 else 32)
     we, wo = (W + 1) // 2, W // 2
     Sh, bh = np.zeros((Bn, we, 3, s, s)), np.zeros((Bn, we, s))
     Doinv, flags = np.zeros((Bn, wo, s, s)), np.zeros((Bn, wo), bool)
-    writes = {"S'": np.zeros((Bn, we), int), "Doinv": np.zeros((Bn, wo), int),
-              "inverses": np.zeros((Bn, wo), int)}
+    writes = {"S'": np.zeros((Bn, we), int), "Doinv": np.zeros((Bn, wo), int)}
 
     def rows(p, k):
         return (S[p, k, 0], S[p, k, 1], S[p, k, 2]), b[p, k]
 
-    if not one:
-        blocks_inv, blocks_red = kl.peel_grid(Bn, W, False)
-        assert blocks_inv * kl.CR_WARPS >= Bn * wo > (blocks_inv - 1) * kl.CR_WARPS
-        per = kl.PEEL_THREADS // 32
-        assert blocks_red * per >= Bn * we > (blocks_red - 1) * per
-        for t in range(Bn * wo):            # launch 1: a warp an odd row
-            p, j = divmod(t, wo)
-            Doinv[p, j], flags[p, j] = gj_pad(S[p, 2 * j + 1, 1], kN)
-            writes["Doinv"][p, j] += 1
-            writes["inverses"][p, j] += 1
-        for t in range(Bn * we):            # launch 2: a warp an even row
-            p, j = divmod(t, we)
-            hl, hr = j >= 1, j < wo
-            out = reduce_row(rows(p, 2 * j), rows(p, 2 * j - 1) if hl else None,
-                             rows(p, 2 * j + 1) if hr else None,
-                             Doinv[p, j - 1] if hl else None, Doinv[p, j] if hr else None)
-            Sh[p, j], bh[p, j] = np.stack(out[:3]), out[3]
-            writes["S'"][p, j] += 1
-    else:
-        (blocks,) = kl.peel_grid(Bn, W, True)
-        per = kl.PEEL_THREADS // 64
-        assert blocks * per >= Bn * we > (blocks - 1) * per
-        for t in range(Bn * we):            # a pair of warps an even row
-            p, j = divmod(t, we)
-            hl, hr = j >= 1, j < wo
-            dl = dr = None
-            if hl:                          # warp 0
-                dl, _ = gj_pad(S[p, 2 * j - 1, 1], kN)
-                writes["inverses"][p, j - 1] += 1
-            if hr:                          # warp 1, the owner
-                dr, flags[p, j] = gj_pad(S[p, 2 * j + 1, 1], kN)
-                Doinv[p, j] = dr
-                writes["Doinv"][p, j] += 1
-                writes["inverses"][p, j] += 1
-            out = reduce_row(rows(p, 2 * j), rows(p, 2 * j - 1) if hl else None,
-                             rows(p, 2 * j + 1) if hr else None, dl, dr)
-            Sh[p, j], bh[p, j] = np.stack(out[:3]), out[3]
-            writes["S'"][p, j] += 1
+    blocks_inv, blocks_red = kl.peel_grid(Bn, W)
+    assert blocks_inv * kl.CR_WARPS >= Bn * wo > (blocks_inv - 1) * kl.CR_WARPS
+    per = kl.PEEL_THREADS // 32
+    assert blocks_red * per >= Bn * we > (blocks_red - 1) * per
+    for t in range(Bn * wo):                # launch 1: a warp an odd row
+        p, j = divmod(t, wo)
+        Doinv[p, j], flags[p, j] = gj_pad(S[p, 2 * j + 1, 1], kN)
+        writes["Doinv"][p, j] += 1
+    for t in range(Bn * we):                # launch 2: a warp an even row
+        p, j = divmod(t, we)
+        hl, hr = j >= 1, j < wo
+        out = reduce_row(rows(p, 2 * j), rows(p, 2 * j - 1) if hl else None,
+                         rows(p, 2 * j + 1) if hr else None,
+                         Doinv[p, j - 1] if hl else None, Doinv[p, j] if hr else None)
+        Sh[p, j], bh[p, j] = np.stack(out[:3]), out[3]
+        writes["S'"][p, j] += 1
     return Sh, bh, Doinv, flags, writes
 
 
@@ -335,8 +311,7 @@ def _blocks(M, s, n):
 
 
 @pytest.mark.parametrize("W", [2, 3, 400, 1536])
-@pytest.mark.parametrize("one", [False, True])
-def test_peel_model_matches_gato_tpus_reference_peel(W, one):
+def test_peel_model_matches_gato_tpus_reference_peel(W):
     """The peel and unpeel models on the port's condensed operators of
     (3, 2, W), two problems, problem 1's odd row 1 with a zero pivot on a
     live block, against gato_tpu's _cr_peel and _cr_unpeel."""
@@ -348,11 +323,9 @@ def test_peel_model_matches_gato_tpus_reference_peel(W, one):
     S[1, 1, 1, 0, :] = 0.0
     S[1, 1, 1, :, 0] = 0.0
     S, g = S.double().numpy(), g.double().numpy()
-    Sh, bh, Doinv, flags, writes = peel_model(S, g, one)
+    Sh, bh, Doinv, flags, writes = peel_model(S, g)
     we, wo = (W + 1) // 2, W // 2
     assert (writes["S'"] == 1).all() and (writes["Doinv"] == 1).all()
-    assert (writes["inverses"] == (1 if not one else 2 - (np.arange(wo) == wo - 1)
-                                   * (W % 2 == 0))).all()
     assert flags.nonzero()[0].tolist() == [1] and flags.nonzero()[1].tolist() == [0]
     rng = np.random.default_rng(3)
     xh = rng.normal(size=(2, we, s))
@@ -380,14 +353,13 @@ def test_peel_model_matches_the_plain_peel_at_iiwa():
         preconditioner="jacobi")
     S, g = ops.S.double(), ops.gamma.double()
     Sh, bh, level = kl.peel_longk_plain(S, g)
-    for one in (False, True):
-        mSh, mbh, mD, mflags, _ = peel_model(S.numpy(), g.numpy(), one)
-        for x, y in ((mSh, Sh), (mbh, bh), (mD, level.Doinv)):
-            _close(x, y.numpy(), 1e-9, 1e-9)
-        assert mflags.tolist() == level.bad.tolist()
-        xh = torch.randn(2, 5, 14, dtype=torch.float64)
-        _close(unpeel_model(xh.numpy(), S.numpy(), g.numpy(), mD),
-               kl.unpeel_longk_plain(xh, level).numpy(), 1e-9, 1e-9)
+    mSh, mbh, mD, mflags, _ = peel_model(S.numpy(), g.numpy())
+    for x, y in ((mSh, Sh), (mbh, bh), (mD, level.Doinv)):
+        _close(x, y.numpy(), 1e-9, 1e-9)
+    assert mflags.tolist() == level.bad.tolist()
+    xh = torch.randn(2, 5, 14, dtype=torch.float64)
+    _close(unpeel_model(xh.numpy(), S.numpy(), g.numpy(), mD),
+           kl.unpeel_longk_plain(xh, level).numpy(), 1e-9, 1e-9)
 
 
 # ---- (c) the plan mirrors ----
@@ -395,7 +367,7 @@ def test_peel_model_matches_the_plain_peel_at_iiwa():
 @pytest.mark.parametrize("s", [2, 5, 14, 16, 20, 32])
 @pytest.mark.parametrize("B", [1, 15, 16, 132, 133, 256, 1056, 1057, 4096])
 def test_rev_walks_fit_and_cover_the_batch(s, B):
-    walks = kt.rev_walks_per_cta(B, s, H100_SMS, LIMIT)
+    walks = kt.rev_plan(B, 50, s, H100_SMS, LIMIT)[0]
     assert 1 <= walks <= kt.MAX_WALKS and kt.rev_smem_bytes(s, walks) <= LIMIT
     assert walks == min(-(-B // H100_SMS), kt.MAX_WALKS, max(
         w for w in range(1, kt.MAX_WALKS + 1) if kt.rev_smem_bytes(s, w) <= LIMIT))
@@ -425,12 +397,8 @@ def test_epilogue_tiles_cover_the_knots(K):
 @pytest.mark.parametrize("W", [2, 3, 1025, 8192])
 def test_peel_grids_cover_the_rows(B, W):
     we, wo = (W + 1) // 2, W // 2
-    inv, red = kl.peel_grid(B, W, False)
+    inv, red = kl.peel_grid(B, W)
     assert (inv - 1) * kl.CR_WARPS < B * wo <= inv * kl.CR_WARPS
     assert (red - 1) * (kl.PEEL_THREADS // 32) < B * we <= red * (kl.PEEL_THREADS // 32)
-    (one,) = kl.peel_grid(B, W, True)
-    assert (one - 1) * (kl.PEEL_THREADS // 64) < B * we <= one * (kl.PEEL_THREADS // 64)
     for s in (2, 14, 32):
-        for flag in (False, True):
-            assert kl.peel_smem_bytes(s, flag) <= LIMIT
-        assert kl.unpeel_smem_bytes(s) <= LIMIT
+        assert kl.peel_smem_bytes(s) <= LIMIT and kl.unpeel_smem_bytes(s) <= LIMIT
