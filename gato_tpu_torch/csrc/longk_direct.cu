@@ -46,8 +46,8 @@
 //   a level of W rows writes all of them, where the TPU kernel's chunk
 //   schedule leaves tail lanes unwritten).  Row 11's one-meeting schedule
 //   in one launch (a pair of warps an even row inverting both neighbours)
-//   was slower on an H100 at every shape 'hybrid' peels (PERF.md §6, PR
-//   14).  The odd rows' L, U and b stay in the level's input, which the
+//   was slower on an H100 at every shape 'hybrid' peels (PERF.md §6).
+//   The odd rows' L, U and b stay in the level's input, which the
 //   caller keeps for unpeel_kernel (a warp an even row and the odd row
 //   after it, its blocks in flight at once).
 //
