@@ -134,8 +134,10 @@ Phases, each of which raises on failure (exit code not 0):
    versions: row 18 (null_copy) bit for bit at IIWA K = 50, B = 1 and 256,
    at (3, 7, 3) (K s not a multiple of 4) and on q one float off a 16-byte
    boundary;
-   row 16 (null_chain) at block and grid scope, K = 50 over the five
-   (n_mv, n_dot) of the fit and K = 1024 at grid scope, 100 trips; row 17
+   row 16 (null_chain) on kernel B's cluster (the rule's C, and C = 1
+   and 2 forced) and on rows 8/10's rounds (one problem on grid barriers,
+   three on flagged partials), K = 50 over the five (n_mv, n_dot) of the
+   fit, K = 37 and K = 1024, 100 trips; row 17
    (fma_chain) at K = 50, s = 14, B = 1 and 132, 100 trips of depth 2;
    rows 16 and 17 on probes.chain_operator / fma_operator (each knot's own
    step a scaled orthogonal block), checked within every (problem, knot);
@@ -146,7 +148,9 @@ Phases, each of which raises on failure (exit code not 0):
    in its table, the call's split from the trace, and its steps on host
    clocks without the profiler); the probe tools
    (probe_dispatch, probe_iter_floor at both scopes, probe_throughput A and
-   D) with reduced trip counts, with the probes' launch counts from 0;
+   D) with reduced trip counts, with the probes' launch counts from 0, and
+   probe_iter_floor's summary at each scope (C or per, the halo, the fit,
+   kernel / predicted);
 5g. the probes' times beside their bounds and plain versions (row 18 beside
    q * 1.0000001), the dispatch floor, the iteration floor's fit against
    the measured iteration at both scopes, probe A's split at B = 256,
@@ -3334,19 +3338,25 @@ def phase_probe_parity():
                                  "bit q * 1.0000001")
     print(f"  {kp.COPY_NAME} at IIWA K=50, B=1 and {BATCH}, (3, 7, 3), and q one float "
           "off a 16-byte boundary: bit for bit")
-    for scope, K in (("block", 50), ("grid", 50), ("grid", 1024)):
+    # Row 16 on kernel B's cluster (the rule's C, and C = 1 and 2 forced)
+    # and on rows 8/10's rounds (one problem on grid barriers, three on
+    # flagged partials).
+    for scope, B, K, force in (("block", 1, 50, {}), ("block", 1, 50, {"cluster": 1}),
+                               ("block", 1, 50, {"cluster": 2}), ("grid", 1, 50, {}),
+                               ("grid", 3, 37, {}), ("grid", 1, 1024, {})):
         name = kp.CHAIN_BLOCK_NAME if scope == "block" else kp.CHAIN_GRID_NAME
-        cases = probe_iter_floor.GRID if K == 50 else ((2, 2), (4, 1))
+        cases = probe_iter_floor.GRID if K == 50 and not force else ((2, 2), (4, 1))
         worst = 0.0
         for n_mv, n_dot in cases:
-            M, y0 = kp.chain_operator(1, K, s, seed=8100 + K + 10 * n_mv + n_dot, device=DEV)
+            M, y0 = kp.chain_operator(B, K, s, seed=8100 + K + 10 * n_mv + n_dot, device=DEV)
             kw = dict(n_mv=n_mv, n_dot=n_dot, trips=PROBE_TRIPS)
-            got = kp.null_chain_cuda(M, y0, scope=scope, **kw)
+            got = kp.null_chain_cuda(M, y0, scope=scope, **kw, **force)
             torch.cuda.synchronize()
-            worst = max(worst, check_knots(f"{name} K={K} ({n_mv}, {n_dot})", got,
-                                           kp.null_chain_plain(M, y0, **kw), PROBE_TOL))
+            worst = max(worst, check_knots(f"{name} B={B} K={K} {force} ({n_mv}, {n_dot})",
+                                           got, kp.null_chain_plain(M, y0, **kw), PROBE_TOL))
         MAX_ERR[name] = max(MAX_ERR[name], worst)
-        print(f"  {name} at IIWA K={K}, (n_mv, n_dot) in {list(cases)}: max|d| {worst:.2e}")
+        print(f"  {name} at IIWA B={B} K={K} {force or ''}, (n_mv, n_dot) in "
+              f"{list(cases)}: max|d| {worst:.2e}")
     for B in (1, 132):
         M, y0 = kp.fma_operator(B, 50, seed=8200 + B, device=DEV)
         got = kp.fma_chain_cuda(M, y0, depth=2, trips=PROBE_TRIPS)
@@ -3570,6 +3580,10 @@ def phase_measurement_path():
     for key in ("dispatch", ("null", "block"), ("real", "block"), ("null", "grid"),
                 ("real", "grid"), "A", "D"):
         print(f"  {json.dumps(out[key])}")
+    for scope in ("block", "grid"):
+        out[("summary", scope)] = probe_iter_floor.summary(out[("null", scope)],
+                                                           out[("real", scope)])
+        print(f"  {json.dumps(out[('summary', scope)])}")
     out["launches"] = probe_counts()
     print(f"  launches on the measurement path: {out['launches']}")
     for name, count in out["launches"].items():
@@ -3641,13 +3655,18 @@ def phase_probe_times(card: str, meas: dict):
         + f"  [{card}]")
     for scope in ("block", "grid"):
         n, r = meas[("null", scope)], meas[("real", scope)]
-        print(f"  iteration floor, {scope} scope (K={n['K']}): c0 {n['c0_ns_per_trip']:.0f}"
-              f" ns, c_mv {n['c_mv_ns']:.0f} ns, c_dot {n['c_dot_ns']:.0f} ns; predicted "
-              f"poly-1 iteration {n['predicted_poly1_iter_ns']:.0f} ns, measured "
+        where = f"C = {n['C']}" if scope == "block" else f"per = {n['per']}"
+        print(f"  iteration floor, {scope} scope (K={n['K']}, {where}, halo {n['halo']} "
+              f"knots, {n['meetings_a_trip_2_2']} meetings and "
+              f"{n['syncthreads_a_trip_2_2']} __syncthreads a trip at (2, 2)): c0 "
+              f"{n['c0_ns_per_trip']:.0f} ns, c_mv {n['c_mv_ns']:.0f} ns, c_dot "
+              f"{n['c_dot_ns']:.0f} ns; predicted poly-1 iteration "
+              f"{n['predicted_poly1_iter_ns']:.0f} ns, measured "
               f"{r['poly1_per_iter_ns']:.0f} ns through time_solve ({r['backend']}, "
               f"K={r['K']}; poly 2 {r['poly2_per_iter_ns']:.0f} ns), the kernel alone "
               f"{r['poly1_kernel_per_iter_ns']:.0f} ns (poly 2 "
-              f"{r['poly2_kernel_per_iter_ns']:.0f} ns)  [{card}]")
+              f"{r['poly2_kernel_per_iter_ns']:.0f} ns); kernel / predicted "
+              f"{meas[('summary', scope)]['kernel_over_predicted']:.3f}  [{card}]")
     a, dd = meas["A"], meas["D"]
     print(f"  probe A, kernel B at B={a['batch']}: fixed {a['fixed_ms']:.4f} ms, "
           f"{1e3 * a['per_iter_ms_batch']:.2f} us an iteration, full default "

@@ -68,18 +68,36 @@
 // takes tiles j, j + per, ...), meets its problem's CTAs, and runs the same
 // PCG on what they wrote: rows 7 and 8/10's bits.
 //
-// Recovery (row 13) is knot-parallel: a block reads lambda_{k+1} of the
-// knot past its range directly (no shifted copy), through condense.cuh's
-// recover_dz on its window, the last-row rule included.
+// Recovery (row 13) takes a warp a knot, kRecoverKnots knots a CTA (B
+// ceil(K / 4) CTAs: 256 at K = 1024, B = 1, on 132 SMs), the design of row
+// 6's epilogue (thomas_batch.cu): the warp copies the knot's window into
+// its slice of shared memory with cp.async, all at once, then runs
+// condense.cuh's warp_recover_dz (the fmaf order of the block-level loops
+// it replaced, so the same bits).  lambda_{k+1} is read directly (no
+// shifted copy); the last knot has no A^T term and no dz_u.  Bytes in
+// flight: an IIWA window is 588 floats (2.35 KB; a warp's slice 624
+// floats, 2,496 B, so a CTA 9,984 B); at 3.35 TB/s and ~1 us of latency an
+// SM needs ~25 KB in flight, ~10 knots.  Shared memory allows 22 CTAs an
+// SM (232,448 B over 9,984 + 1,024 reserved), the warp limit 16 (64 warps
+// of 4), the registers 65,536 / (128 x regs): 16 CTAs at <= 32 a thread.
+// The IIWA kernel is held to 32 (__launch_bounds__(128, 16); ptxas: no
+// spill), so 16 CTAs, 64 knots, ~150 KB are in flight on an SM where the
+// batch is wide (at 56 registers, 9 CTAs: K = 8192, B = 16 took 0.117 ms
+// against 0.110 on an H100, tools/direct_stamps.py's row13 group); the
+// padded widths, whose unrolled loops hold more, take 8 CTAs (<= 64
+// registers).  At K = 1024, B = 1 the 256 CTAs give each SM ~8 knots, ~19
+// KB, in one wave.
 //
 // What bounds them on an H100.  Rows 8/10 stream S and Pinv (2 * 3 K s^2
 // floats) per iteration at ~0.5 flop a byte where they do not sit in
 // shared memory (B = 16: every iteration reads them from device memory);
 // at B = 1 the operators sit on chip and the iteration is the latency of
-// its two grid barriers (~1.5 us each, row 16's probe) and two reductions.
+// its two meetings (a grid barrier and its sum, ~2.1 us each on row 16's
+// probe) and two reductions.
 // Condensation is ~25 s^3 flops a knot, each Gauss-Jordan a chain of 2 s
 // CTA barriers; a tile's time is that chain's latency, and the tiles of
-// a batch run in waves.  Recovery is a pass over Qinv, Rinv, A and B.
+// a batch run in waves.  Recovery is a pass over Qinv, Rinv, A and B:
+// bytes where the batch fills the card, one round trip to memory at B = 1.
 //
 // Shapes are runtime values: s, c <= 32 (the wrapper checks); IIWA's
 // (14, 7) is compiled in as well.
@@ -97,8 +115,8 @@ namespace cg = cooperative_groups;
 namespace gato {
 
 constexpr int kLongkThreads = kGridThreads;
-// Knots of one recovery block.
-constexpr int kRecoverKnots = 32;
+// Knots of one recovery CTA, a warp each.
+constexpr int kRecoverKnots = 4;
 
 // What a PCG CTA holds in shared memory (kernels/longk.py's pcg_flags).
 enum PcgFlags { kVecInSmem = 1, kSResident = 2, kPResident = 4 };
@@ -133,6 +151,82 @@ inline __host__ __device__ PcgPlan pcg_plan(int K, int s, int per, int flags, in
     off += 2 * round4(ring * kf);
   P.total = off;
   return P;
+}
+
+// ---- Row 13's plan (kernels/longk.py mirrors it) ----
+
+// The recovery's width: 14 compiles IIWA's in; 16 and 32 bound any s up
+// to them.
+inline __host__ __device__ int recover_width(int s) {
+  return s == 14 ? 14 : (s <= 16 ? 16 : 32);
+}
+
+// A recovery warp's slice of shared memory, in floats (offsets rounded to
+// 4, so that 16-byte copies land aligned): Qinv_k (s rows of ldq), A_k
+// (s x s), B_k (s x c), Rinv_k (c rows of ldr), q_k, lambda_k,
+// lambda_{k+1} and the right side rx (s each), r_k and ru (c each).  ldq
+// is 14 at IIWA's width (lane a reading row a at stride 14 meets no bank
+// conflict among 14 lanes) and kN + 1 past it (odd, as row 6's ring,
+// thomas_batch.cu's rev_ld); ldr is c made odd.  A and B keep their
+// stored layout: a lane reads a column, consecutive lanes consecutive
+// words.
+struct RecoverLayout {
+  int ldq, ldr, qi, at, bt, ri, qv, x0, xp, rx, rv, ru, total;
+};
+inline __host__ __device__ RecoverLayout recover_layout(int s, int c) {
+  RecoverLayout L;
+  const int w = recover_width(s);
+  L.ldq = w == 14 ? 14 : w + 1;
+  L.ldr = c | 1;
+  const int v = (int)round4(s), u = (int)round4(c);
+  L.qi = 0;
+  L.at = L.qi + (int)round4((long long)s * L.ldq);
+  L.bt = L.at + (int)round4((long long)s * s);
+  L.ri = L.bt + (int)round4((long long)s * c);
+  L.qv = L.ri + (int)round4((long long)c * L.ldr);
+  L.x0 = L.qv + v;
+  L.xp = L.x0 + v;
+  L.rx = L.xp + v;
+  L.rv = L.rx + v;
+  L.ru = L.rv + u;
+  L.total = L.ru + u;
+  return L;
+}
+
+// Dynamic shared memory of a recovery CTA (kRecoverKnots warps), in bytes.
+inline long long recover_smem_bytes(int s, int c) {
+  return 4LL * kRecoverKnots * recover_layout(s, c).total;
+}
+
+// What row 13 reads and writes: Qinv (B, K, s, s), Rinv (B, K-1, c, c), A,
+// Bm, q, r, lambda; dz_x (B, K, s) and dz_u (B, K-1, c); `tiles` CTAs a
+// problem.
+struct RecoverArrays {
+  const float* Qinv;
+  const float* Rinv;
+  const float* A;
+  const float* Bm;
+  const float* q;
+  const float* r;
+  const float* lam;
+  float* dzx;
+  float* dzu;
+  int K, s, c, tiles;
+};
+
+// rows x cols floats of a row-major global block into the warp's shared
+// rows of stride ld with cp.async: warp_async_copy's copies where ld ==
+// cols, else 4 bytes a copy.  The caller commits and waits.
+__device__ __forceinline__ void warp_copy_rows(float* dst, int ld, const float* src,
+                                               int rows, int cols) {
+  if (ld == cols) {
+    warp_async_copy(dst, src, rows * cols);
+    return;
+  }
+  for (int e = threadIdx.x & 31; e < rows * cols; e += 32) {
+    const int row = e / cols;
+    __pipeline_memcpy_async(dst + row * ld + (e - row * cols), src + e, 4);
+  }
 }
 
 // Row 7: one CTA a (problem, tile).
@@ -277,133 +371,6 @@ __device__ __forceinline__ void pull(const PcgCta& x, int kind, float* v) {
       v[x.nk * s + e - s] = __ldcg(x.xr + kind * 2 * s + e - s);
     }
   }
-}
-
-// Sum of a problem's per partials, to every thread: lane j of warp 0 adds
-// partials j, j + 32, ... in order (loads issued four at a time), then a
-// shuffle tree; every CTA of the problem computes the same bits (the order
-// of grid_common.cuh's sum_partials).
-__device__ __forceinline__ float sum_parts(const float* part, int per, float* red) {
-  if (threadIdx.x < 32) {
-    float v = 0.f;
-    int j = threadIdx.x;
-    for (; j + 96 < per; j += 128) {
-      const float a0 = __ldcg(part + j), a1 = __ldcg(part + j + 32);
-      const float a2 = __ldcg(part + j + 64), a3 = __ldcg(part + j + 96);
-      v += a0;
-      v += a1;
-      v += a2;
-      v += a3;
-    }
-    for (; j < per; j += 32) v += __ldcg(part + j);
-    v = warp_sum(v);
-    if (threadIdx.x == 0) red[32] = v;
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
-}
-
-constexpr int kBarrierOnly = -1;
-
-// Where a CTA meets the other CTAs of its problem.  kFlags: `slots` holds
-// two 8-byte {partial, tag} words a CTA of the launch and two {sum, tag}
-// words a problem (at its first CTA's index, past the CTAs' words), by the
-// parity of `seq`, the meeting's number (from 1; the words zeroed before
-// the launch); else `parts` two floats a CTA (nu's and eta's partials) for
-// a grid barrier.
-struct PcgMeet {
-  int part, per, base;
-  unsigned seq;
-  unsigned long long* slots;
-  float* parts;
-};
-
-__device__ __forceinline__ unsigned long long load_word(const unsigned long long* w) {
-  return *reinterpret_cast<const volatile unsigned long long*>(w);
-}
-
-// The float of the 8-byte word at w once its tag is `seq`, x its first
-// read.  A poll that spins ~2^24 times (seconds) traps, so a fault cannot
-// hang the card.
-__device__ __forceinline__ float wait_word(const unsigned long long* w, unsigned seq,
-                                           unsigned long long x) {
-  for (unsigned spins = 0; (unsigned)(x >> 32) != seq; x = load_word(w))
-    if (++spins == (1u << 24)) __trap();
-  return __uint_as_float((unsigned)x);
-}
-
-__device__ __forceinline__ void post_word(unsigned long long* w, float v, unsigned seq) {
-  *reinterpret_cast<volatile unsigned long long*>(w) =
-      ((unsigned long long)seq << 32) | __float_as_uint(v);
-}
-
-// A barrier over the CTAs of this CTA's problem that returns the sum, in CTA
-// order, of their thread 0's `v`, to every thread (kind: which partial, 0
-// nu or 1 eta, for the grid barrier's slots; kBarrierOnly for a barrier
-// whose sum is not used, which with a grid barrier touches no slot: a slot
-// written while a slower CTA still reads it would race).  kFlags: thread 0
-// fences this CTA's earlier stores (the published rows) and posts {v, seq}
-// in one 8-byte store; the problem's first CTA gathers the words (lane j of
-// warp 0 adds words j, j + 32, ... in order, then a shuffle tree), fences,
-// and posts {sum, seq} in the problem's word, which the other CTAs' thread
-// 0 polls; every polling thread fences after its waits: two trips through L2 after the last CTA's store, and the polls
-// of all but one CTA on one word.  Else a grid barrier
-// (cg::grid_group::sync) and sum_parts.  Both add in the same order, so
-// they give the same bits.
-template <bool kFlags>
-__device__ __forceinline__ float meet(cg::grid_group& grid, PcgMeet& m, float v, int kind,
-                                      float* red) {
-  if (!kFlags) {
-    if (kind == kBarrierOnly) {
-      grid.sync();
-      return 0.f;
-    }
-    float* slot = m.parts + kind * gridDim.x + m.base;
-    if (threadIdx.x == 0) slot[m.part] = v;
-    grid.sync();
-    return sum_parts(slot, m.per, red);
-  }
-  ++m.seq;
-  unsigned long long* words = m.slots + (m.seq & 1) * gridDim.x + m.base;
-  unsigned long long* sum_word = m.slots + (2 + (m.seq & 1)) * gridDim.x + m.base;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    post_word(words + m.part, v, m.seq);
-  }
-  if (m.part == 0) {
-    if (threadIdx.x < 32) {
-      // Four words in flight a lane, added in order j, j + 32, ...
-      float acc = 0.f;
-      for (int j = threadIdx.x; j < m.per; j += 128) {
-        unsigned long long x[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (j + 32 * u < m.per) x[u] = load_word(words + j + 32 * u);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (j + 32 * u < m.per) acc += wait_word(words + j + 32 * u, m.seq, x[u]);
-      }
-      // Each lane that saw a word orders its CTA's later reads (the
-      // neighbours' published rows) after it, whatever cache they go by.
-      __threadfence();
-      acc = warp_sum(acc);
-      if (threadIdx.x == 0) {
-        __threadfence();
-        post_word(sum_word, acc, m.seq);
-        red[32] = acc;
-      }
-    }
-  } else if (threadIdx.x == 0) {
-    red[32] = wait_word(sum_word, m.seq, load_word(sum_word));
-    __threadfence();
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
 }
 
 // y = M r on own rows: P r, then y += P (r - S y) for poly_degree - 1
@@ -583,14 +550,7 @@ __device__ __forceinline__ void pcg_longk_rows(cg::grid_group& grid, const PcgAr
 
 // This CTA's meeting place: its problem's slots of the launch.
 __device__ __forceinline__ PcgMeet pcg_meet(const PcgArrays& a, const Round& rd) {
-  PcgMeet m;
-  m.part = blockIdx.x % rd.per;
-  m.per = rd.per;
-  m.base = blockIdx.x - m.part;
-  m.seq = 0;
-  m.slots = reinterpret_cast<unsigned long long*>(a.parts);
-  m.parts = a.parts;
-  return m;
+  return round_meet(a.parts, rd);
 }
 
 // Rows 8 and 10: PCG on condensed operators, one cooperative launch a
@@ -630,39 +590,43 @@ fused_longk_kernel(KktArrays in, OpArrays ops, PcgArrays a, Round rd, PcgPlan pl
   pcg_longk_rows<kS, kFlags>(grid, a, rd, pl, m, frozen, smem, red);
 }
 
-// Row 13: dz_x, dz_u of kRecoverKnots knots a block, from Qinv (B, K, s, s),
-// Rinv (B, K-1, c, c), A, B, q, r and lambda; recover_dz on the window of
-// the block's knots and the next one (whose lambda the last knot's A^T and
-// B^T terms read), into shared memory, then the block's own rows out.
-__global__ void __launch_bounds__(kLongkThreads)
-recover_longk_kernel(const float* Qinv, const float* Rinv, const float* A,
-                     const float* Bm, const float* q, const float* r,
-                     const float* lam, float* dzx, float* dzu, int K, int s,
-                     int c, int ntiles) {
-  extern __shared__ float smem[];
-  const size_t ss = (size_t)s * s, sc = (size_t)s * c, cc2 = (size_t)c * c;
-  const size_t b = blockIdx.x / ntiles;
-  const int k0 = (blockIdx.x % ntiles) * kRecoverKnots;
-  const int k1 = k0 + kRecoverKnots < K ? k0 + kRecoverKnots : K;
-  const int nw = (k1 < K ? k1 + 1 : K) - k0;
-  const int nr = (k1 < K ? k1 : K - 1) - k0;
-  float* rx = smem;                              // (nw, s)
-  float* dx = rx + (kRecoverKnots + 1) * s;      // (nw, s)
-  float* ru = dx + (kRecoverKnots + 1) * s;      // (nw-1, c)
-  float* du = ru + kRecoverKnots * c;            // (nw-1, c)
-  const size_t kq = b * K + k0, ki = b * (K - 1) + k0;
-  recover_dz(Qinv + kq * ss, Rinv + ki * cc2, A + ki * ss, Bm + ki * sc,
-             q + kq * s, r + ki * c, lam + kq * s, rx, ru, dx, du, nw, s, c);
-  __syncthreads();
-  for (int e = threadIdx.x; e < (k1 - k0) * s; e += blockDim.x)
-    dzx[kq * s + e] = dx[e];
-  for (int e = threadIdx.x; e < nr * c; e += blockDim.x)
-    dzu[ki * c + e] = du[e];
-}
-
-inline long long recover_smem_bytes(int s, int c) {
-  return (2LL * (kRecoverKnots + 1) * s + 2LL * kRecoverKnots * c) *
-         (long long)sizeof(float);
+// Row 13, a warp a knot: knot k of problem b (tile t = k / kRecoverKnots,
+// CTA b tiles + t) copies its window into the warp's slice of shared memory
+// with cp.async, every copy issued before the first product and one commit
+// group: Qinv_k (rows at the padded stride), q_k and lambda_k, and for
+// k < K-1 A_k, B_k, Rinv_k, r_k and lambda_{k+1}.  Then condense.cuh's
+// warp_recover_dz: lane a on row a of dz_x, lanes a < c on dz_u, the last
+// knot without the A^T term and without dz_u.  The warps of a CTA share
+// nothing (no __syncthreads), so a warp past K leaves at once.
+template <int kN>
+__global__ void __launch_bounds__(32 * kRecoverKnots, kN == 14 ? 16 : 8)
+recover_longk_kernel(RecoverArrays a) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int K = a.K, n = kN == 14 ? 14 : a.s, c = a.c;
+  const size_t b = blockIdx.x / a.tiles;
+  const int k = (int)(blockIdx.x % a.tiles) * kRecoverKnots + warp;
+  if (k >= K) return;
+  const RecoverLayout L = recover_layout(n, c);
+  float* w = reinterpret_cast<float*>(smem4) + (size_t)warp * L.total;
+  const size_t kn = b * K + k, ku = b * (K - 1) + k;
+  const bool right = k + 1 < K;
+  warp_copy_rows(w + L.qi, L.ldq, a.Qinv + kn * n * n, n, n);
+  warp_async_copy(w + L.qv, a.q + kn * n, n);
+  warp_async_copy(w + L.x0, a.lam + kn * n, n);
+  if (right) {
+    warp_async_copy(w + L.at, a.A + ku * n * n, n * n);
+    warp_async_copy(w + L.bt, a.Bm + ku * n * c, n * c);
+    warp_copy_rows(w + L.ri, L.ldr, a.Rinv + ku * c * c, c, c);
+    warp_async_copy(w + L.rv, a.r + ku * c, c);
+    warp_async_copy(w + L.xp, a.lam + (kn + 1) * n, n);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  warp_recover_dz<kN>(w + L.qi, L.ldq, w + L.ri, L.ldr, w + L.at, w + L.bt, w + L.qv,
+                      w + L.x0, w + L.xp, w + L.rv, w + L.rx, w + L.ru, n, c, right,
+                      a.dzx + kn * n, a.dzu + ku * c);
 }
 
 }  // namespace gato
@@ -797,16 +761,33 @@ int gato_longk_fused(const float* Q, const float* R, const float* A,
   return (int)cudaGetLastError();
 }
 
-// Launches row 13 on `stream`: dz_x (B, K, s) and dz_u (B, K-1, c).
+// Dynamic shared memory of a recovery CTA (kernels/longk.py mirrors it).
+long long gato_longk_recover_smem_bytes(int s, int c) { return gato::recover_smem_bytes(s, c); }
+
+// Launches row 13 on `stream`: dz_x (B, K, s) and dz_u (B, K-1, c), B
+// ceil(K / kRecoverKnots) CTAs of kRecoverKnots warps.  Returns the CUDA
+// error code (0 on success); nothing is synchronised.
 int gato_longk_recover(const float* Qinv, const float* Rinv, const float* A,
                        const float* Bm, const float* q, const float* r,
                        const float* lam, float* dzx, float* dzu, int B, int K,
                        int s, int c, void* stream) {
-  const int ntiles = (K + gato::kRecoverKnots - 1) / gato::kRecoverKnots;
-  gato::recover_longk_kernel<<<(unsigned)B * ntiles, gato::kLongkThreads,
-                               (size_t)gato::recover_smem_bytes(s, c),
-                               (cudaStream_t)stream>>>(
-      Qinv, Rinv, A, Bm, q, r, lam, dzx, dzu, K, s, c, ntiles);
+  const int tiles = (K + gato::kRecoverKnots - 1) / gato::kRecoverKnots;
+  const int w = gato::recover_width(s);
+  const void* kernel = w == 14   ? (const void*)gato::recover_longk_kernel<14>
+                       : w == 16 ? (const void*)gato::recover_longk_kernel<16>
+                                 : (const void*)gato::recover_longk_kernel<32>;
+  const size_t smem = (size_t)gato::recover_smem_bytes(s, c);
+  cudaError_t err = gato::opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gato::RecoverArrays a{Qinv, Rinv, A, Bm, q, r, lam, dzx, dzu, K, s, c, tiles};
+  const dim3 grid((unsigned)((long long)B * tiles)), block(32 * gato::kRecoverKnots);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (w == 14)
+    gato::recover_longk_kernel<14><<<grid, block, smem, st>>>(a);
+  else if (w == 16)
+    gato::recover_longk_kernel<16><<<grid, block, smem, st>>>(a);
+  else
+    gato::recover_longk_kernel<32><<<grid, block, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

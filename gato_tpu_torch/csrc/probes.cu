@@ -22,29 +22,64 @@
 // pallas_call at :105): the dependent op chain of one PCG iteration without
 // the algorithm.  One trip, on y (K, s) of each problem:
 //   n_mv times   y <- 0.25 (0.01 M) y + 0.5 y, M (K, 3, s, s) the port's
-//                block-tridiagonal operator (btd_row: zeros past either
-//                end, where the TPU kernel rolled its lanes cyclically);
+//                block-tridiagonal operator (zeros past either end, where
+//                the TPU kernel rolled its lanes cyclically);
 //   n_dot times  sc = sum y^2 (a whole-vector reduction, its scalar
 //                broadcast), y <- y + a (0.125 y), a = 1 / (1 + sc) (0 if
 //                sc = 0): the nu -> alpha -> axpy chain;
-//   three freeze selects on live = (y[0] > -1e30), as the loop's masked
-//                freeze (the TPU kernel tested its first row's lane sum;
-//                both are true for every finite y).
+//   three freeze selects on live = (y[0] > -1e30), y[0] the problem's first
+//                row (the TPU kernel tested its first row's lane sum; both
+//                are true for every finite y).
 // n_mv, n_dot and the trip count are runtime arguments, so nvcc cannot fold
-// the loop; the scaled operator 0.01 M is written once, by the thread that
-// reads it, as the TPU kernel scaled its tiles once.  Two scopes:
-//   block scope: one CTA a problem, y double-buffered in shared memory, the
-//     reductions through pcg_common.cuh's block_sum: the barriers of kernels
-//     A and B (a __syncthreads after each matvec, dot update and freeze);
-//   grid scope: one cooperative grid, y double-buffered in global memory,
-//     each reduction a CTA partial, a grid barrier and the sum of the
-//     partials, a grid barrier after each matvec, dot update and freeze.
-//     The grid's size (the occupancy query, at most 2 CTAs an SM), the
-//     split of a problem's knots over `per` CTAs and the sum of the
-//     partials are grid_common.cuh's: the schedule rows 8/10 ran before
-//     their two-meeting design (longk.cu), a grid barrier after every
-//     phase, which this scope measures.
-// What bounds it: the chain of barriers, not bytes or operations (a trip at
+// the loop.  The probe gives the least time an iteration of the kernel it
+// bounds can take, so it runs that kernel's schedule and nothing more:
+//   cluster scope (kernel B's, cluster_body.cuh): one problem on a cluster
+//     of C CTAs (kernels/probes.py: fused_solve.cluster_size's C for the
+//     same B and K, 16 at IIWA K = 50, B = 1), CTA r owning kernel B's knots
+//     [r K / C, (r + 1) K / C), their 0.01 M scaled once into its shared
+//     memory, y in shared memory; halo rows pushed into the neighbours'
+//     shared memory before the barrier that follows (never pulled); each
+//     reduction one cluster_sum (a shuffle tree, the warps in order, the C
+//     slots in rank order: every CTA the same bits);
+//   grid scope (rows 8/10's, longk.cu): one cooperative launch a round of
+//     longk.pcg_rounds's plan for the same B and K (per CTAs a problem,
+//     ceil(K / per) knots each, 128 CTAs at IIWA K = 1024, B = 1; 0.01 M in
+//     shared memory where the plan holds S there, else read from M and
+//     scaled as it is used), boundary rows published to global memory and
+//     pulled after the meeting, each reduction a CTA partial (the warps in
+//     order, one __syncthreads) and grid_common.cuh's meet (a grid barrier
+//     for a round of one problem, flagged partials for several).
+// Both scopes share the trip.  A CTA holds a halo of H knots each side
+// (kernels/probes.py's plans: n_mv or the fewest own knots of a CTA, the
+// smaller) and meets only where the chain's dependences require it:
+//   - matvecs run in groups of H: the group's first reads the halo rows
+//     the neighbours sent, the group's j-th computes the own knots and
+//     H - 1 - j more each side (the owner's fmaf, so the owner's bits), a
+//     __syncthreads between matvecs of a group, and the group's last sends
+//     its first and last H knots to the neighbours; one meeting (a barrier,
+//     no sum) between groups;
+//   - each dot step is one meeting with a sum; a thread's partial of the
+//     first is taken in the trip's last matvec, of each later one in the
+//     loop that applies the previous step's axpy to its own rows, and the
+//     halo rows take the same axpy in each CTA (so no barrier orders them);
+//   - the freeze needs y[0], on the problem's first CTA: that CTA sends its
+//     first row, as the trip's last matvec wrote it, before the next
+//     meeting (at the cluster scope lane q of its warp 0 to rank q; at the
+//     grid scope one store, loaded with the halo rows), and every CTA
+//     applies the dot steps' axpys to its copy;
+//   - the last axpy and the freeze are left pending on y: the next trip's
+//     first matvec applies them to each operand it reads.
+// So a trip meets ceil(n_mv / H) - 1 + n_dot times (n_dot >= 1; one more
+// where n_dot = 0 and n_mv >= 1) and takes n_mv - ceil(n_mv / H)
+// __syncthreads: at (n_mv, n_dot) = (2, 2) and H = 2 two meetings (cluster
+// barriers, or grid meetings) and one __syncthreads, as few meetings as
+// kernel B's and rows 8/10's iterations take.  A one-knot halo (forced)
+// takes three meetings and no __syncthreads; on an H100 it ran slower at
+// both scopes (a meeting costs more than a __syncthreads and a knot more of
+// work each side).  The schedules they replace met 2 n_mv + 2 n_dot + 1
+// times a trip (block scope: __syncthreads on one CTA, the operator in
+// global memory; grid scope: a grid barrier after every phase).
+// What bounds it: the chain of meetings, not bytes or operations (a trip at
 // IIWA K = 50 is ~0.13 MFLOP, 2 ns at 67 TFLOP/s).
 //
 // Row 17, fma_chain (replaces tools/probe_throughput.py's probe D kernel,
@@ -60,6 +95,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_body.cuh"
 #include "grid_common.cuh"
 #include "pcg_common.cuh"
 
@@ -93,123 +129,450 @@ null_copy_kernel(const float* __restrict__ q, float* __restrict__ out,
   if (i < (n & 3)) out[4 * n4 + i] = __fmul_rn(__ldg(q + 4 * n4 + i), kCopyFactor);
 }
 
-// What the chain kernels read and write.  M (B, K, 3, s, s), y0 and out
-// (B, K s); Mc the scaled operator (as M); buf (B, 2, K s) the grid scope's
-// vectors; parts one float a CTA (grid scope).
-struct ChainArgs {
-  const float* M;
-  const float* y0;
-  float* Mc;
-  float* out;
-  float* buf;
-  float* parts;
-  int K, s, n_mv, n_dot, trips;
-};
-
-// Mc = 0.01 M on rows [i0, i1) of one problem, strided by (tid, nt): the
-// three (s,)-rows of knot k, row a that btd_row reads for element (k, a).
-__device__ inline void scale_rows(const float* M, float* Mc, int s, int i0,
-                                  int i1) {
-  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    const int k = i / s, a = i - (i / s) * s;
-    for (int slot = 0; slot < 3; ++slot) {
-      const size_t row = (((size_t)k * 3 + slot) * s + a) * s;
-      for (int b = 0; b < s; ++b) Mc[row + b] = M[row + b] * 0.01f;
-    }
-  }
-}
-
 __device__ __forceinline__ float freeze(float v, bool live) {
   v = live ? v : v * 0.5f;
   v = live ? v : v + 1.f;
   return live ? v : v * 0.25f;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-null_chain_block_kernel(ChainArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float red[33];
-  const int K = a.K, s = a.s, n = K * s, tid = threadIdx.x, nt = blockDim.x;
-  const size_t b = blockIdx.x;
-  const float* M = a.M + b * n * 3 * s;
-  float* Mc = a.Mc + b * n * 3 * s;
-  scale_rows(M, Mc, s, 0, n);
-  float* y = smem;
-  float* z = smem + n;
-  for (int i = tid; i < n; i += nt) y[i] = a.y0[b * n + i];
-  __syncthreads();
-  for (int t = 0; t < a.trips; ++t) {
-    for (int m = 0; m < a.n_mv; ++m) {
-      for (int i = tid; i < n; i += nt)
-        z[i] = fmaf(0.25f, btd_row(Mc, y, K, s, i / s, i % s), 0.5f * y[i]);
-      __syncthreads();
-      float* w = y;
-      y = z;
-      z = w;
-    }
-    for (int d = 0; d < a.n_dot; ++d) {
-      float part = 0.f;
-      for (int i = tid; i < n; i += nt) part = fmaf(y[i], y[i], part);
-      const float sc = block_sum(part, red);
-      const float g = sc != 0.f ? 1.f / (1.f + sc) : 0.f;
-      for (int i = tid; i < n; i += nt) y[i] = fmaf(g, y[i] * 0.125f, y[i]);
-      __syncthreads();
-    }
-    const bool live = y[0] > -1e30f;
-    for (int i = tid; i < n; i += nt) z[i] = freeze(y[i], live);
-    __syncthreads();
-    float* w = y;
-    y = z;
-    z = w;
-  }
-  for (int i = tid; i < n; i += nt) a.out[b * n + i] = y[i];
+// ---- Row 16's plan (kernels/probes.py chooses C, the rounds and H, and
+// mirrors the layout and the threads) ----
+
+// Threads of a cluster-scope CTA, at most: cluster_body.cuh's bound, so
+// that its unrolled dot products keep their loads in registers (168 a
+// thread, as kernel B).
+constexpr int kChainMaxThreads = cl::kMaxThreads;
+
+inline __host__ __device__ long long chain_round4(long long f) { return (f + 3) & ~3LL; }
+
+// A chain CTA's dynamic shared memory, in floats, for `kn` own knots (the
+// most a CTA of the launch owns) and a halo of H knots each side: at the
+// cluster scope cluster_sum's fixed area first; two slots of the
+// problem's first row (by trip parity); the halo rows received, by
+// parity, [2][left H knots | right H knots] of s; the windows Y and Z of
+// kn + 2 H knots (own knot kl at kl + H); and, where resident, 0.01 M of
+// the knots [-(H - 1), kn + H - 1).
+struct ChainPlan {
+  int y00, inbox, Y, Z, ops, total;
+};
+inline __host__ __device__ ChainPlan chain_plan(int kn, int s, int H, int cluster,
+                                                int resident) {
+  ChainPlan P;
+  long long off = cluster ? cl::kFixedFloats : 0;
+  P.y00 = (int)off;
+  off += 4;
+  P.inbox = (int)off;
+  off += chain_round4(4LL * H * s);
+  const long long win = chain_round4((long long)(kn + 2 * H) * s);
+  P.Y = (int)off;
+  off += win;
+  P.Z = (int)off;
+  off += win;
+  P.ops = (int)off;
+  if (resident) off += chain_round4((long long)(kn + 2 * (H - 1)) * 3 * s * s);
+  P.total = (int)off;
+  return P;
 }
 
-__global__ void __launch_bounds__(kGridThreads)
-null_chain_grid_kernel(ChainArgs a, int per) {
-  __shared__ float red[33];
-  cg::grid_group grid = cg::this_grid();
-  const int K = a.K, s = a.s, n = K * s, tid = threadIdx.x, nt = blockDim.x;
-  const size_t b = blockIdx.x / per;
-  const int part = blockIdx.x % per;
-  const OwnRows own = own_rows(K, s, per, part);
-  const int i0 = own.i0, i1 = own.i1;
-  const float* M = a.M + b * n * 3 * s;
-  float* Mc = a.Mc + b * n * 3 * s;
-  float* parts = a.parts + b * per;
-  scale_rows(M, Mc, s, i0, i1);
-  float* y = a.buf + b * 2 * n;
-  float* z = y + n;
-  for (int i = i0 + tid; i < i1; i += nt) y[i] = a.y0[b * n + i];
-  grid.sync();
+// Threads of a cluster-scope CTA: one a row of its widest matvec (its own
+// knots and H - 1 more each side), whole warps, from 64 to
+// kChainMaxThreads.
+inline __host__ __device__ int chain_threads(int kn, int s, int H) {
+  const int t = ((kn + 2 * (H - 1)) * s + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > kChainMaxThreads ? kChainMaxThreads : t);
+}
+
+// What the chain kernels read and write: M (B, K, 3, s, s), y0 and out
+// (B, K s); at the grid scope xch four H s floats a CTA of the launch (its
+// first and last H knots' rows by parity), y00 two floats a problem, parts
+// the meetings' words (grid_common.cuh).
+struct ChainArgs {
+  const float* M;
+  const float* y0;
+  float* out;
+  float* xch;
+  float* y00;
+  float* parts;
+  int K, s, n_mv, n_dot, trips, H;
+};
+
+// One CTA's view of its problem.
+struct ChainCta {
+  int K, s, k0, kn, H;
+  float* Y;          // y's window: own knot kl at (kl + H) s
+  float* Z;          // the next matvec's window
+  float* inbox;      // halo rows received: [parity][side][H s]; side 0 knots
+                     // k0 - H .., side 1 knots k0 + kn ..
+  const float* ops;  // 0.01 M, knot kl at (kl + H - 1) 3 s^2, or null
+  const float* Mg;   // the problem's M in global memory
+};
+
+// The steps a trip leaves pending on y: the last dot step's axpy (has_g)
+// and the freeze (live false).  The next trip's first matvec applies them
+// to each operand it reads, as kernel B's CTAs form their halo rows.
+struct Pend {
+  float g;
+  bool has_g, live;
+};
+__device__ __forceinline__ bool idle(const Pend& p) { return !p.has_g && p.live; }
+__device__ __forceinline__ float pend(float v, const Pend& p) {
+  if (p.has_g) v = fmaf(p.g, v * 0.125f, v);
+  return p.live ? v : freeze(v, false);
+}
+// How a matvec applies them: kMode 0 none, 1 the axpy alone (live), 2 all.
+__device__ __forceinline__ int pend_mode(const Pend& p) {
+  return idle(p) ? 0 : (p.has_g && p.live ? 1 : 2);
+}
+template <int kMode>
+__device__ __forceinline__ float pendm(float v, const Pend& p) {
+  if (kMode == 0) return v;
+  if (kMode == 1) return fmaf(p.g, v * 0.125f, v);
+  return pend(v, p);
+}
+
+// Knot kl's rows of the matvec's input: the halo rows received for a
+// group's first matvec, else the window.
+template <int kS>
+__device__ __forceinline__ const float* knot_x(const ChainCta& x, int kl, bool first,
+                                               int par) {
+  const int s = kS > 0 ? kS : x.s;
+  if (first && kl < 0) return x.inbox + 2 * par * x.H * s + (kl + x.H) * s;
+  if (first && kl >= x.kn) return x.inbox + (2 * par + 1) * x.H * s + (kl - x.kn) * s;
+  return x.Y + (kl + x.H) * s;
+}
+
+// Sum of m[b] x[b] in order, m scaled by 0.01 where it is M itself (kRes
+// false: the same bits as the scaled copy) and x through the pending steps
+// (kMode).
+template <int kS, int kMode, bool kRes>
+__device__ __forceinline__ float chain_dot(const float* m, const float* xv, int s_rt,
+                                           const Pend& p) {
+  float acc = 0.f;
+  if (kS == 14) {
+    // IIWA's rows and operands start on 8-byte boundaries: two floats a load.
+#pragma unroll
+    for (int b = 0; b < 14; b += 2) {
+      const float2 mm = *reinterpret_cast<const float2*>(m + b);
+      const float2 xx = *reinterpret_cast<const float2*>(xv + b);
+      acc = fmaf(kRes ? mm.x : mm.x * 0.01f, pendm<kMode>(xx.x, p), acc);
+      acc = fmaf(kRes ? mm.y : mm.y * 0.01f, pendm<kMode>(xx.y, p), acc);
+    }
+  } else if (kS > 0) {
+#pragma unroll
+    for (int b = 0; b < kS; ++b)
+      acc = fmaf(kRes ? m[b] : m[b] * 0.01f, pendm<kMode>(xv[b], p), acc);
+  } else {
+    for (int b = 0; b < s_rt; ++b)
+      acc = fmaf(kRes ? m[b] : m[b] * 0.01f, pendm<kMode>(xv[b], p), acc);
+  }
+  return acc;
+}
+
+// Row a of knot kl of 0.25 (0.01 M) y + 0.5 y: L y_{k-1} and U y_{k+1}
+// only where they exist, (left + right) + mid.
+template <int kS, int kMode, bool kRes>
+__device__ __forceinline__ float chain_row(const ChainCta& x, int kl, int a, bool first,
+                                           int par, const Pend& p) {
+  const int s = kS > 0 ? kS : x.s, ss = s * s, k = x.k0 + kl;
+  const float* row = kRes ? x.ops + (long long)(kl + x.H - 1) * 3 * ss + a * s
+                          : x.Mg + (long long)k * 3 * ss + a * s;
+  const float* xk = knot_x<kS>(x, kl, first, par);
+  float left = 0.f, right = 0.f;
+  if (k > 0) left = chain_dot<kS, kMode, kRes>(row, knot_x<kS>(x, kl - 1, first, par), s, p);
+  const float mid = chain_dot<kS, kMode, kRes>(row + ss, xk, s, p);
+  if (k < x.K - 1)
+    right = chain_dot<kS, kMode, kRes>(row + 2 * ss, knot_x<kS>(x, kl + 1, first, par), s, p);
+  const float y = pendm<kMode>(xk[a], p);
+  return fmaf(0.25f, (left + right) + mid, 0.5f * y);
+}
+
+// One matvec into Z over the own knots and `ext` more each side (within
+// [0, K)), a thread a row; each row of a group's last matvec (ext 0, rows
+// in own order) goes to send(kl, a, v).
+template <int kS, int kMode, bool kRes, class Send>
+__device__ __forceinline__ void chain_mv(const ChainCta& x, int ext, bool first, int par,
+                                         const Pend& p, Send& send) {
+  const int s = kS > 0 ? kS : x.s;
+  const int lo = -(ext < x.k0 ? ext : x.k0);
+  const int hi = x.kn + ext < x.K - x.k0 ? x.kn + ext : x.K - x.k0;
+  const int rows = (hi - lo) * s;
+  for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+    const int kl = lo + t / s, a = t - (t / s) * s;
+    const float v = chain_row<kS, kMode, kRes>(x, kl, a, first, par, p);
+    x.Z[(kl + x.H) * s + a] = v;
+    if (ext == 0) send(kl, a, v);
+  }
+}
+
+// The trips on this CTA's knots (the note at the top), then its rows of
+// out.  `y00` comes in as y0's first row.  Comm: the scope's halo and
+// first-row delivery and its meetings.
+template <int kS, bool kRes, class Comm>
+__device__ __forceinline__ void chain_trips(ChainCta& x, const ChainArgs& a, Comm& cm,
+                                            float y00, float* out) {
+  const int s = kS > 0 ? kS : x.s, H = x.H, hs = H * s, n = x.kn * s;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  Pend p{0.f, false, true};
+  int par = 0;
   for (int t = 0; t < a.trips; ++t) {
+    // The first dot step's partial, taken in the trip's last matvec (the
+    // thread's own rows in order, as a dot step's loop takes them).
+    float part0 = 0.f;
     for (int m = 0; m < a.n_mv; ++m) {
-      for (int i = i0 + tid; i < i1; i += nt)
-        z[i] = fmaf(0.25f, btd_row(Mc, y, K, s, i / s, i % s), 0.5f * y[i]);
-      grid.sync();
-      float* w = y;
-      y = z;
-      z = w;
+      const int j = m % H, size = H < a.n_mv - (m - j) ? H : a.n_mv - (m - j);
+      const bool first = j == 0, last = j == size - 1;
+      const bool tail = m == a.n_mv - 1;
+      auto send = [&](int kl, int r, float v) {
+        cm.send_row(x, par ^ 1, kl, r, v);
+        if (tail) part0 = fmaf(v, v, part0);
+      };
+      const int ext = size - 1 - j;
+      const int mode = m == 0 ? pend_mode(p) : 0;
+      if (mode == 0)
+        chain_mv<kS, 0, kRes>(x, ext, first, par, p, send);
+      else if (mode == 1)
+        chain_mv<kS, 1, kRes>(x, ext, first, par, p, send);
+      else
+        chain_mv<kS, 2, kRes>(x, ext, first, par, p, send);
+      p = Pend{0.f, false, true};
+      float* w = x.Y;
+      x.Y = x.Z;
+      x.Z = w;
+      if (!last) {
+        __syncthreads();
+      } else if (m < a.n_mv - 1) {
+        cm.barrier();
+        par ^= 1;
+        cm.receive(x, par, t & 1);
+      }
+    }
+    // y[0] as the trip's last matvec wrote it (thread 0's row 0, read back
+    // by its warp) to every CTA of the problem.
+    if (a.n_mv > 0 && x.k0 == 0 && tid < 32) {
+      __syncwarp();
+      cm.send_y00(x.Y[hs], t & 1);
+    }
+    // Whether the last matvec's rows were sent and not yet received.
+    bool sent = a.n_mv > 0;
+    if (sent && a.n_dot == 0) {
+      cm.barrier();
+      par ^= 1;
+      y00 = cm.receive(x, par, t & 1);
+      sent = false;
     }
     for (int d = 0; d < a.n_dot; ++d) {
-      float acc = 0.f;
-      for (int i = i0 + tid; i < i1; i += nt) acc = fmaf(y[i], y[i], acc);
-      const float v = block_sum(acc, red);
-      if (tid == 0) parts[part] = v;
-      grid.sync();
-      const float sc = sum_partials(parts, per, red);
+      const bool apply = !idle(p);
+      float part = 0.f;
+      if (d == 0 && a.n_mv > 0) {
+        part = part0;
+      } else {
+        for (int i = tid; i < n; i += nt) {
+          float v = x.Y[hs + i];
+          if (apply) {
+            v = pend(v, p);
+            x.Y[hs + i] = v;
+          }
+          part = fmaf(v, v, part);
+        }
+      }
+      if (apply && a.n_mv > 0)
+        for (int e = tid; e < 2 * hs; e += nt)
+          x.inbox[2 * par * hs + e] = pend(x.inbox[2 * par * hs + e], p);
+      const float sc = cm.reduce(part);
+      if (sent) {
+        par ^= 1;
+        y00 = cm.receive(x, par, t & 1);
+        sent = false;
+      }
       const float g = sc != 0.f ? 1.f / (1.f + sc) : 0.f;
-      for (int i = i0 + tid; i < i1; i += nt) y[i] = fmaf(g, y[i] * 0.125f, y[i]);
-      grid.sync();
+      y00 = fmaf(g, y00 * 0.125f, y00);
+      p = Pend{g, true, true};
     }
-    const bool live = __ldcg(y) > -1e30f;
-    for (int i = i0 + tid; i < i1; i += nt) z[i] = freeze(y[i], live);
-    grid.sync();
-    float* w = y;
-    y = z;
-    z = w;
+    const bool live = y00 > -1e30f;
+    y00 = freeze(y00, live);
+    p.live = live;
+    if (a.n_mv == 0 && !idle(p)) {
+      // No matvec takes the pending steps: apply them to the own rows.
+      for (int i = tid; i < n; i += nt) x.Y[hs + i] = pend(x.Y[hs + i], p);
+      p = Pend{0.f, false, true};
+    }
   }
-  for (int i = i0 + tid; i < i1; i += nt) a.out[b * n + i] = y[i];
+  for (int i = tid; i < n; i += nt) out[(long long)x.k0 * s + i] = pend(x.Y[hs + i], p);
+}
+
+// The operator window (scaled once, where resident), the own rows of y
+// and the first halo rows from y0.
+template <int kS, bool kRes>
+__device__ __forceinline__ void chain_setup(ChainCta& x, const float* y0p, float* ops) {
+  const int s = kS > 0 ? kS : x.s, H = x.H, hs = H * s, kf = 3 * s * s;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (kRes) {
+    const long long base = (long long)(x.k0 - H + 1) * kf;
+    const int total = (x.kn + 2 * (H - 1)) * kf;
+    for (int i = tid; i < total; i += nt) {
+      const long long g = base + i;
+      if (g >= 0 && g < (long long)x.K * kf) ops[i] = x.Mg[g] * 0.01f;
+    }
+  }
+  for (int i = tid; i < x.kn * s; i += nt) x.Y[hs + i] = y0p[(long long)x.k0 * s + i];
+  for (int e = tid; e < 2 * hs; e += nt) {
+    const int side = e / hs, i = e - side * hs;
+    const int k = (side == 0 ? x.k0 - H : x.k0 + x.kn) + i / s;
+    if (k >= 0 && k < x.K) x.inbox[e] = y0p[(long long)k * s + i % s];
+  }
+}
+
+// Cluster scope: halos and the first row pushed into the peers' shared
+// memory; a barrier is a cluster barrier, a reduction cluster_sum.
+struct ClusterComm {
+  cl::Ctx c;
+  float* y00s;
+  __device__ void send_row(const ChainCta& x, int np, int kl, int r, float v) {
+    const int hs = x.H * x.s;
+    if (kl < x.H && c.rank > 0)
+      cl::peer(c, x.inbox, c.rank - 1)[(2 * np + 1) * hs + kl * x.s + r] = v;
+    if (kl >= x.kn - x.H && c.rank < c.C - 1)
+      cl::peer(c, x.inbox, c.rank + 1)[2 * np * hs + (kl - x.kn + x.H) * x.s + r] = v;
+  }
+  // Lane q of warp 0 sends to rank q.
+  __device__ void send_y00(float v, int tp) {
+    if (c.tid < c.C) cl::peer(c, y00s, c.tid)[tp] = v;
+  }
+  __device__ void barrier() { cl::csync(c); }
+  __device__ float reduce(float part) { return cl::cluster_sum(c, part); }
+  // The halo rows were pushed before the barrier; returns y[0].
+  __device__ float receive(ChainCta&, int, int tp) { return y00s[tp]; }
+};
+
+// Row 16 at cluster scope: cluster b / C of C CTAs is problem b, CTA rank r
+// owns kernel B's knots of rank r.
+template <int kS>
+__global__ void __launch_bounds__(kChainMaxThreads, 1) null_chain_cluster_kernel(ChainArgs a,
+                                                                                 int C) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int K = a.K, s = kS > 0 ? kS : a.s;
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const size_t b = blockIdx.x / C;
+  const ChainPlan P = chain_plan(cl::cluster_knots(K, C), s, a.H, 1, 1);
+  ChainCta x;
+  x.K = K;
+  x.s = s;
+  x.k0 = cl::knot_begin(K, C, rank);
+  x.kn = cl::knot_begin(K, C, rank + 1) - x.k0;
+  x.H = a.H;
+  x.Y = smem + P.Y;
+  x.Z = smem + P.Z;
+  x.inbox = smem + P.inbox;
+  x.ops = smem + P.ops;
+  x.Mg = a.M + b * K * 3 * s * s;
+  ClusterComm cm;
+  cm.c.C = C;
+  cm.c.rank = rank;
+  cm.c.tid = threadIdx.x;
+  cm.c.nt = blockDim.x;
+  cm.c.fixed = smem;
+  cm.c.par = 0;
+  cm.y00s = smem + P.y00;
+  const float* y0p = a.y0 + b * K * s;
+  chain_setup<kS, true>(x, y0p, smem + P.ops);
+  cl::csync(cm.c);
+  chain_trips<kS, true>(x, a, cm, y0p[0], a.out + b * K * s);
+  cl::csync(cm.c);
+}
+
+// Grid scope: rows published to global memory and pulled after the
+// meeting; a barrier is meet's, a reduction a block sum and meet's sum.
+template <bool kFlags>
+struct GridComm {
+  cg::grid_group grid;
+  PcgMeet m;
+  float* red;
+  float* xme;        // this CTA's published rows [parity][first H knots | last H knots]
+  const float* xl;   // the left neighbour's, the right one's
+  const float* xr;
+  float* y00g;       // the problem's two first-row slots
+  bool hasL, hasR;
+  int kind;
+  __device__ void send_row(const ChainCta& x, int np, int kl, int r, float v) {
+    const int hs = x.H * x.s;
+    if (kl < x.H && hasL) xme[2 * np * hs + kl * x.s + r] = v;
+    if (kl >= x.kn - x.H && hasR) xme[(2 * np + 1) * hs + (kl - x.kn + x.H) * x.s + r] = v;
+  }
+  __device__ void send_y00(float v, int tp) {
+    if (threadIdx.x == 0) y00g[tp] = v;
+  }
+  __device__ void barrier() { meet<kFlags>(grid, m, 0.f, kBarrierOnly, red); }
+  // The CTA's partial (a shuffle tree a warp, then thread 0 adds the warps
+  // in order, as cluster_sum does), then meet's sum over the problem's CTAs.
+  __device__ float reduce(float part) {
+    part = warp_sum(part);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = part;
+    __syncthreads();
+    float v = 0.f;
+    if (threadIdx.x == 0) {
+      v = red[0];
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v += red[w];
+    }
+    const float sum = meet<kFlags>(grid, m, v, kind, red);
+    kind ^= 1;
+    return sum;
+  }
+  // Pulls the neighbours' rows into the halo rows of parity `par` and
+  // returns y[0] (its load issued with theirs, one trip through L2).
+  __device__ float receive(ChainCta& x, int par, int tp) {
+    const int hs = x.H * x.s;
+    const float y00 = __ldcg(y00g + tp);
+    for (int e = threadIdx.x; e < 2 * hs; e += blockDim.x) {
+      if (e < hs) {
+        if (hasL) x.inbox[2 * par * hs + e] = __ldcg(xl + (2 * par + 1) * hs + e);
+      } else if (hasR) {
+        x.inbox[2 * par * hs + e] = __ldcg(xr + 2 * par * hs + e - hs);
+      }
+    }
+    __syncthreads();
+    return y00;
+  }
+};
+
+// Row 16 at grid scope: one round of longk.pcg_rounds's plan, per CTAs a
+// problem, CTA `part` owning the knots [part nk, (part + 1) nk).
+template <int kS, bool kRes, bool kFlags>
+__global__ void __launch_bounds__(kGridThreads, 2) null_chain_grid_kernel(ChainArgs a,
+                                                                          Round rd) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[33];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int K = a.K, s = kS > 0 ? kS : a.s, hs = a.H * s;
+  const size_t b = rd.first + blockIdx.x / rd.per;
+  const int nk = (K + rd.per - 1) / rd.per;
+  const ChainPlan P = chain_plan(nk, s, a.H, 0, kRes);
+  ChainCta x;
+  x.K = K;
+  x.s = s;
+  x.k0 = (int)(blockIdx.x % rd.per) * nk < K ? (int)(blockIdx.x % rd.per) * nk : K;
+  x.kn = (x.k0 + nk < K ? x.k0 + nk : K) - x.k0;
+  x.H = a.H;
+  x.Y = smem + P.Y;
+  x.Z = smem + P.Z;
+  x.inbox = smem + P.inbox;
+  x.ops = kRes ? smem + P.ops : nullptr;
+  x.Mg = a.M + b * K * 3 * s * s;
+  const bool hasL = x.k0 > 0, hasR = x.k0 + x.kn < K;
+  GridComm<kFlags> cm{cg::this_grid(),
+                      round_meet(a.parts, rd),
+                      red,
+                      a.xch + (size_t)blockIdx.x * 4 * hs,
+                      a.xch + (size_t)(blockIdx.x - (hasL ? 1 : 0)) * 4 * hs,
+                      a.xch + (size_t)(blockIdx.x + (hasR ? 1 : 0)) * 4 * hs,
+                      a.y00 + 2 * b,
+                      hasL,
+                      hasR,
+                      0};
+  const float* y0p = a.y0 + b * K * s;
+  chain_setup<kS, kRes>(x, y0p, smem + P.ops);
+  __syncthreads();
+  chain_trips<kS, kRes>(x, a, cm, y0p[0], a.out + b * K * s);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -266,46 +629,70 @@ int gato_null_copy(const float* q, float* out, int B, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Resident CTAs of the grid-scope chain kernel on the current device
-// (grid_common.cuh's occupancy query); 0 if none fits, a
-// negative CUDA error code if a query fails.
-int gato_null_chain_grid_ctas(void) {
-  return gato::coresident_ctas((const void*)gato::null_chain_grid_kernel, 0);
+// Row 16's layout and threads (kernels/probes.py mirrors them).
+long long gato_null_chain_smem_bytes(int kn, int s, int H, int cluster, int resident) {
+  return gato::chain_plan(kn, s, H, cluster, resident).total * 4LL;
 }
+int gato_null_chain_threads(int kn, int s, int H) { return gato::chain_threads(kn, s, H); }
 
-// CTAs a problem of n = K s floats gets at grid scope: grid_common.cuh's
-// next_round split of the resident grid (grid_max) over B problems in one
-// round.
-int gato_null_chain_grid_per(int B, int n, int grid_max) {
-  return gato::next_round(0, B, n, grid_max, 0).per;
-}
-
-// Launches row 16 on `stream` for B problems: scope 0 block (one CTA a
-// problem, 2 K s floats of dynamic shared memory), 1 grid (one cooperative
-// launch of B * per CTAs, B <= grid_max; buf B * 2 K s floats, parts
-// B * per).  Mc (as M) is scratch.  Returns the CUDA error code.
-int gato_null_chain(const float* M, const float* y0, float* Mc, float* out,
-                    float* buf, float* parts, int B, int K, int s, int n_mv,
-                    int n_dot, int trips, int scope, int grid_max,
-                    void* stream) {
-  gato::ChainArgs a{M, y0, Mc, out, buf, parts, K, s, n_mv, n_dot, trips};
-  if (scope == 0) {
-    const size_t smem = 2 * (size_t)K * s * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        gato::null_chain_block_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gato::null_chain_block_kernel<<<B, gato::threads_for(K * s), smem,
-                                    (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (B < 1 || B > grid_max) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int per = gato::next_round(0, B, (long long)K * s, grid_max, 0).per;
-  void* args[] = {&a, &per};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)gato::null_chain_grid_kernel, dim3(B * per),
-      dim3(gato::kGridThreads), args, 0, (cudaStream_t)stream);
+// Launches row 16 at cluster scope on `stream`: B clusters of C CTAs of
+// `threads` threads (kernels/probes.py's plan: C, H, threads), halo depth
+// H.  Returns the CUDA error code (0 on success); nothing is synchronised.
+int gato_null_chain_cluster(const float* M, const float* y0, float* out, int B, int K,
+                            int s, int n_mv, int n_dot, int trips, int C, int H,
+                            int threads, void* stream) {
+  gato::ChainArgs a{M, y0, out, nullptr, nullptr, nullptr, K, s, n_mv, n_dot, trips, H};
+  const size_t smem =
+      (size_t)gato::chain_plan(gato::cl::cluster_knots(K, C), s, H, 1, 1).total * 4;
+  const auto kernel =
+      s == 14 ? gato::null_chain_cluster_kernel<14> : gato::null_chain_cluster_kernel<0>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = gato::cl::launch_config_sized(kernel, B, C, threads, smem,
+                                                  (cudaStream_t)stream, &cfg, &attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, a, C);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Launches row 16 at grid scope on `stream` for one round of
+// longk.pcg_rounds's plan: problems first .. first + nprob - 1, `per` CTAs
+// each, 0.01 M in shared memory iff `resident`, meeting by flagged
+// partials (flag_meet 1) or grid barriers (0, only for nprob 1); halo
+// depth H.  xch holds nprob per 4 H s floats, y00 two floats a problem of
+// the call, parts 8 nprob per (zeroed here for flag_meet).  Returns the
+// CUDA error code (0 on success).
+int gato_null_chain_grid(const float* M, const float* y0, float* out, float* xch,
+                         float* y00, float* parts, int first, int nprob, int per,
+                         int resident, int flag_meet, int K, int s, int n_mv, int n_dot,
+                         int trips, int H, void* stream) {
+  if (!flag_meet && nprob != 1) return (int)cudaErrorInvalidValue;
+  const int nk = (K + per - 1) / per;
+  const size_t smem = (size_t)gato::chain_plan(nk, s, H, 0, resident).total * 4;
+  const bool w = s == 14;
+  const void* kernel =
+      resident ? (flag_meet ? (w ? (const void*)gato::null_chain_grid_kernel<14, true, true>
+                                 : (const void*)gato::null_chain_grid_kernel<0, true, true>)
+                            : (w ? (const void*)gato::null_chain_grid_kernel<14, true, false>
+                                 : (const void*)gato::null_chain_grid_kernel<0, true, false>))
+               : (flag_meet ? (w ? (const void*)gato::null_chain_grid_kernel<14, false, true>
+                                 : (const void*)gato::null_chain_grid_kernel<0, false, true>)
+                            : (w ? (const void*)gato::null_chain_grid_kernel<14, false, false>
+                                 : (const void*)gato::null_chain_grid_kernel<0, false, false>));
+  cudaError_t err = gato::opt_in_smem(kernel, smem);
+  if (err == cudaSuccess && flag_meet)
+    err = cudaMemsetAsync(parts, 0, (size_t)nprob * per * 8 * sizeof(float),
+                          (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  gato::ChainArgs a{M, y0, out, xch, y00, parts, K, s, n_mv, n_dot, trips, H};
+  gato::Round rd{first, nprob, per, 0};
+  void* args[] = {&a, &rd};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nprob * per), dim3(gato::kGridThreads),
+                                    args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error behind
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -559,7 +559,7 @@ __global__ void __launch_bounds__(32 * kMaxWalks) thomas_rev_walk_kernel(RevArra
 //   dz_x_j = Qinv_j ((q_j - x_j) - A_j^T x_{j+1})
 //   dz_u_j = Rinv_j (r_j - B_j^T x_{j+1})              (j < K-1)
 //   res_j  = ((gamma_j - theta_j x_j) - phi_{j+1}^T x_{j+1}) - phi_j x_{j-1}
-// (condense.cuh's recover_dz and thomas_rev_plain's residual; an absent
+// (condense.cuh's warp_recover_dz and thomas_rev_plain's residual; an absent
 // term is 0).  ||res_j||^2 and ||gamma_j||^2 are warp sums; thread 0 sums
 // its CTA's knots in order into part[b][t], and the CTA that finishes a
 // problem's last tile (an integer ticket) sums its tiles in a fixed order
@@ -606,42 +606,21 @@ __global__ void __launch_bounds__(32 * kEpiKnots) thomas_rev_epilogue_kernel(Rev
       const float* x0 = w + L.x0;
       const float* xm = w + L.xm;
       const float* xp = w + L.xp;
-      float tx = 0.f, px = 0.f, u = 0.f, at = 0.f;
+      float tx = 0.f, px = 0.f, u = 0.f;
 #pragma unroll
       for (int e = 0; e < kN; ++e) {
         if (e < n) {
           tx = fmaf(w[L.th + lane * n + e], x0[e], tx);
           if (left) px = fmaf(w[L.p0 + lane * n + e], xm[e], px);
-          if (right) {
-            u = fmaf(w[L.p1 + e * n + lane], xp[e], u);
-            at = fmaf(w[L.at + e * n + lane], xp[e], at);
-          }
+          if (right) u = fmaf(w[L.p1 + e * n + lane], xp[e], u);
         }
       }
       gv = w[L.g + lane];
       res = ((gv - tx) - u) - px;
-      w[L.rx + lane] = (w[L.qv + lane] - x0[lane]) - at;
     }
-    if (right && lane < c) {
-      float bt = 0.f;
-#pragma unroll
-      for (int e = 0; e < kN; ++e)
-        if (e < n) bt = fmaf(w[L.bt + e * c + lane], w[L.xp + e], bt);
-      w[L.ru + lane] = w[L.rv + lane] - bt;
-    }
-    __syncwarp();
-    if (lane < n) {
-      float acc = 0.f;
-#pragma unroll
-      for (int e = 0; e < kN; ++e)
-        if (e < n) acc = fmaf(w[L.qi + lane * n + e], w[L.rx + e], acc);
-      a.dzx[kn * n + lane] = acc;
-    }
-    if (right && lane < c) {
-      float acc = 0.f;
-      for (int e = 0; e < c; ++e) acc = fmaf(w[L.ri + lane * c + e], w[L.ru + e], acc);
-      a.dzu[ku * c + lane] = acc;
-    }
+    warp_recover_dz<kN>(w + L.qi, n, w + L.ri, c, w + L.at, w + L.bt, w + L.qv,
+                        w + L.x0, w + L.xp, w + L.rv, w + L.rx, w + L.ru, n, c, right,
+                        a.dzx + kn * n, a.dzu + ku * c);
     rsq = warp_sum(res * res);
     gsq = warp_sum(gv * gv);
   }

@@ -86,6 +86,7 @@ _SIGNATURES = {
     "gato_longk_pcg": (_I, [_P] * 12 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
     "gato_longk_fused": (_I, [_P] * 21 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P]),
     "gato_longk_recover": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "gato_longk_recover_smem_bytes": (_LL, [_I, _I]),
     "gato_longk_cr_grid": (_I, [_I]),
     "gato_longk_cr_stamps": (_I, [_P]),
     "gato_peel_stamps": (_I, [_P]),
@@ -98,9 +99,10 @@ _SIGNATURES = {
     "gato_longk_unpeel": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gato_halo_matvec": (_I, [_P] * 5 + [_I, _I, _P]),
     "gato_null_copy": (_I, [_P, _P, _I, _I, _P]),
-    "gato_null_chain_grid_ctas": (_I, []),
-    "gato_null_chain_grid_per": (_I, [_I, _I, _I]),
-    "gato_null_chain": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+    "gato_null_chain_smem_bytes": (_LL, [_I] * 5),
+    "gato_null_chain_threads": (_I, [_I] * 3),
+    "gato_null_chain_cluster": (_I, [_P] * 3 + [_I] * 9 + [_P]),
+    "gato_null_chain_grid": (_I, [_P] * 6 + [_I] * 11 + [_P]),
     "gato_fma_chain": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -402,6 +402,75 @@ def pcg_rounds(B: int, K: int, s: int, n_sms: int, limit: int,
     return tuple(rounds)
 
 
+# Row 13's plan (mirrors of longk.cu's; the card test compares
+# recover_smem_bytes with gato_longk_recover_smem_bytes): a warp a knot,
+# RECOVER_KNOTS knots a CTA, each warp's window copied into its own slice
+# of shared memory before the first product.
+RECOVER_KNOTS = 4
+
+
+def recover_width(s: int) -> int:
+    """The recovery kernel's width: 14 compiled in, else 16 or 32."""
+    return 14 if s == 14 else (16 if s <= 16 else 32)
+
+
+class RecoverLayout(NamedTuple):
+    """A recovery warp's slice of shared memory, in floats: Qinv_k (s rows
+    of ``ldq``), A_k, B_k, Rinv_k (c rows of ``ldr``), q_k, lambda_k,
+    lambda_{k+1}, rx, r_k and ru, each offset a multiple of 4."""
+
+    ldq: int
+    ldr: int
+    qi: int
+    at: int
+    bt: int
+    ri: int
+    qv: int
+    x0: int
+    xp: int
+    rx: int
+    rv: int
+    ru: int
+    total: int
+
+
+def recover_layout(s: int, cdim: int) -> RecoverLayout:
+    """Qinv's row stride is 14 at IIWA's width and recover_width(s) + 1
+    past it, Rinv's c made odd: lane a reading row a meets no bank
+    conflict."""
+    w = recover_width(s)
+    ldq = 14 if w == 14 else w + 1
+    ldr = cdim | 1
+    v, u = _round4(s), _round4(cdim)
+    qi = 0
+    at = qi + _round4(s * ldq)
+    bt = at + _round4(s * s)
+    ri = bt + _round4(s * cdim)
+    qv = ri + _round4(cdim * ldr)
+    x0, xp, rx = qv + v, qv + 2 * v, qv + 3 * v
+    rv = qv + 4 * v
+    ru = rv + u
+    return RecoverLayout(ldq, ldr, qi, at, bt, ri, qv, x0, xp, rx, rv, ru, ru + u)
+
+
+def recover_smem_bytes(s: int, cdim: int) -> int:
+    """Dynamic shared memory of a recovery CTA."""
+    return 4 * RECOVER_KNOTS * recover_layout(s, cdim).total
+
+
+def recover_grid(B: int, K: int) -> int:
+    """CTAs of a recovery launch: B ceil(K / RECOVER_KNOTS); knot k of
+    problem b is warp k % RECOVER_KNOTS of CTA b ceil(K / 4) + k // 4."""
+    return B * -(-K // RECOVER_KNOTS)
+
+
+def recover_window(K: int, k: int) -> tuple:
+    """The blocks knot k's warp copies: the last knot only its own Qinv, q
+    and lambda."""
+    own = ("Qinv", "q", "lam")
+    return own + ("A", "B", "Rinv", "r", "lam_next") if k < K - 1 else own
+
+
 # Row 11's plan (mirrors of longk_direct.cu's; the card tests compare
 # them with the library's gato_longk_cr_* functions): the rows k = 0 mod
 # ht of a problem go to one CTA's shared memory (the tail), the levels

@@ -10,9 +10,14 @@ beside its plain PyTorch version (the CUDA source and its note:
   a thread, through the short call path of ``_build`` that row 15 takes;
 * row 16, :func:`null_chain_cuda` (``tools/probe_iter_floor.py``'s null
   kernel): trips of n_mv block-tridiagonal matvec contractions, n_dot
-  reduce -> broadcast -> axpy steps and three freeze selects, at block
-  scope (one CTA a problem, as kernels A and B) or grid scope (one
-  cooperative grid, a grid barrier after every phase);
+  reduce -> broadcast -> axpy steps and three freeze selects, on the
+  schedule of the kernel each scope bounds: 'block' on kernel B's cluster
+  (:func:`chain_cluster_plan`: C CTAs a problem, halo rows pushed into the
+  neighbours' shared memory, a cluster_sum a reduction) and 'grid' on
+  rows 8/10's cooperative rounds (:func:`chain_grid_rounds`: per CTAs a
+  problem, boundary rows published and pulled, grid_common.cuh's
+  meetings), meeting only where the chain's dependences require it
+  (:func:`trip_meetings`);
 * row 17, :func:`fma_chain_cuda` (``tools/probe_throughput.py``'s probe D
   kernel): trips x depth dependent block-diagonal matvecs, one thread an
   output row, s dependent FMAs each, at IIWA's s = 14 only.
@@ -22,21 +27,21 @@ for the checks and the floors: each knot's own step is a scaled orthogonal
 block, so every knot's y keeps its size over any number of trips (the TPU
 probes' M of all ones contracts y to exactly 0 within a few hundred trips).
 
-The ``*_cuda`` wrappers take CUDA tensors to their kernel and raise where
-it cannot take them; CPU tensors go to the plain versions.  The
-``*_LAUNCHES`` counters count kernel launches.
+The ``*_cuda`` wrappers take CUDA tensors to their kernel through
+``_build.checked`` / ``_build.launch`` and raise where it cannot take
+them; CPU tensors go to the plain versions.  The ``*_LAUNCHES`` counters
+count kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import _build
-from .fused_solve import check_tensors
+from . import _build, longk
+from . import fused_solve as kb
 
 SOURCE = "gato_tpu_torch/csrc/probes.cu"
 COPY_NAME = "null_copy_cuda"
@@ -153,10 +158,6 @@ def _counts(name: str, **counts) -> None:
             raise ValueError(f"{name}: {key} must be an int >= 0, got {value!r}")
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def null_copy_cuda(q: torch.Tensor) -> torch.Tensor:
     """out = q * 1.0000001 on q (B, K, s): one float4 a thread.  The call
     takes row 15's short path (``_build.checked`` / ``_build.launch``), so
@@ -179,24 +180,152 @@ def null_copy_cuda(q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@functools.cache
-def grid_ctas(device_index: int) -> int:
-    """Resident CTAs of the grid-scope chain kernel on a device (the caller
-    has made it current); raises where none fits."""
-    lib = _build.library()
-    grid = lib.gato_null_chain_grid_ctas()
-    if grid < 1:
-        why = (f"CUDA error {-grid} ({lib.gato_error_string(-grid).decode()})"
-               if grid < 0 else "0 resident blocks")
-        raise RuntimeError(f"{CHAIN_GRID_NAME}: the cooperative grid does not fit "
-                           f"the device: {why}")
-    return grid
+# Row 16's plans (csrc/probes.cu holds the layout and the threads; the card
+# test compares chain_smem_bytes and chain_threads with the library's).
+
+# cluster_body.cuh's bound on a cluster CTA's threads.
+CHAIN_MAX_THREADS = 384
+# cluster_body.cuh's fixed area of cluster_sum, in floats.
+_CLUSTER_FIXED_FLOATS = 96
+
+
+def _round4(floats: int) -> int:
+    return (floats + 3) // 4 * 4
+
+
+def chain_smem_bytes(kn: int, s: int, H: int, cluster: bool, resident: bool) -> int:
+    """A chain CTA's dynamic shared memory for ``kn`` own knots (the most a
+    CTA of the launch owns) and a halo of H knots each side: cluster_sum's
+    area (cluster scope), two first-row slots, the halo rows by parity
+    (4 H s), the windows y and z ((kn + 2 H) s each) and, where resident,
+    0.01 M of kn + 2 (H - 1) knots."""
+    floats = (_CLUSTER_FIXED_FLOATS if cluster else 0) + 4 + _round4(4 * H * s)
+    floats += 2 * _round4((kn + 2 * H) * s)
+    if resident:
+        floats += _round4((kn + 2 * (H - 1)) * 3 * s * s)
+    return 4 * floats
+
+
+def chain_threads(kn: int, s: int, H: int) -> int:
+    """Threads of a cluster-scope CTA: a row of its widest matvec (own
+    knots and H - 1 more each side), whole warps, 64 to
+    CHAIN_MAX_THREADS."""
+    return min(max(-(-(kn + 2 * (H - 1)) * s // 32) * 32, 64), CHAIN_MAX_THREADS)
+
+
+def chain_cdim(s: int) -> int:
+    """The control size the cluster rule is asked with for state size s:
+    half of it, as at IIWA (14, 7) and the pendulum (2, 1)."""
+    return max(s // 2, 1)
+
+
+def trip_meetings(n_mv: int, n_dot: int, H: int) -> int:
+    """Meetings (cluster barriers, or grid meetings) a trip takes at halo
+    depth H: one between matvec groups of H, one a dot step, and one
+    after the matvecs where no dot step follows."""
+    groups = -(-n_mv // H)
+    if n_dot == 0:
+        return groups
+    return max(groups - 1, 0) + n_dot
+
+
+def cta_barriers(n_mv: int, H: int) -> int:
+    """__syncthreads a trip takes between the matvecs of one group (none at
+    H = 1)."""
+    return n_mv - -(-n_mv // H)
+
+
+class ChainClusterPlan(NamedTuple):
+    """Row 16 at cluster scope: C CTAs a problem (kernel B's knots of each
+    rank), halo depth H, threads and dynamic shared bytes of a CTA."""
+
+    C: int
+    H: int
+    threads: int
+    smem: int
+
+
+def chain_cluster_plan(B: int, K: int, s: int, n_mv: int, n_sms: int, optin: int,
+                       cluster=None, halo=None) -> ChainClusterPlan:
+    """Kernel B's cluster for B problems of K knots (fused_solve.
+    cluster_size with the opt-in ``optin`` bytes, or ``cluster`` forced:
+    one of CLUSTER_SIZES, at most K) and a halo of min(n_mv, K // C) knots
+    (at least 1) unless ``halo`` forces one; raises ValueError where the
+    plan does not fit."""
+    if cluster is None:
+        C = kb.cluster_size(B, K, s, chain_cdim(s), n_sms, optin)
+    elif cluster in kb.CLUSTER_SIZES and cluster <= K:
+        C = cluster
+    else:
+        raise ValueError(f"{CHAIN_BLOCK_NAME}: cluster={cluster!r} must be one of "
+                         f"{kb.CLUSTER_SIZES} and at most K = {K}")
+    H = max(min(n_mv, K // C), 1) if halo is None else halo
+    if not isinstance(H, int) or not 1 <= H <= K // C:
+        raise ValueError(f"{CHAIN_BLOCK_NAME}: halo={H!r} must be an int from 1 to "
+                         f"the fewest own knots of a CTA, {K // C}")
+    kn = -(-K // C)
+    smem = chain_smem_bytes(kn, s, H, True, True)
+    limit = optin - _build.RESERVED_SHARED_BYTES
+    if smem > limit:
+        raise ValueError(f"{CHAIN_BLOCK_NAME}: {kn} knots a CTA at C = {C} need {smem} B "
+                         f"of shared memory, above the device's {limit} B")
+    return ChainClusterPlan(C, H, chain_threads(kn, s, H), smem)
+
+
+class ChainRound(NamedTuple):
+    """One cooperative launch of row 16 at grid scope: a round of
+    longk.pcg_rounds's plan (problems first .. first + nprob - 1, per CTAs
+    each, meeting by ``meet``), 0.01 M in shared memory iff ``resident``,
+    halo depth H, dynamic shared bytes of a CTA."""
+
+    first: int
+    nprob: int
+    per: int
+    resident: bool
+    meet: str
+    H: int
+    smem: int
+
+
+def chain_grid_rounds(B: int, K: int, s: int, n_mv: int, n_sms: int, limit: int,
+                      halo=None) -> tuple:
+    """Rows 8/10's rounds for B problems of K knots (``limit``: the shared
+    bytes a block may use), each with the operator resident where the
+    round holds S in shared memory and the chain's layout fits there, and
+    a halo of min(n_mv, ceil(K / per)) knots (at least 1) unless ``halo``
+    forces one; raises ValueError where a round's layout does not fit.
+
+    Why that halo (at both scopes): the matvecs of a group then meet no
+    other CTA, so a trip meets only at its dot steps, as the kernels'
+    iterations do; a one-knot halo meets after every matvec but the last
+    and, on an H100 (tools/probe_iter_floor.py --halo 1, PERF.md §6), ran
+    each (2, 2) trip 0.6-1.6 us slower."""
+    rounds = []
+    for rd in longk.pcg_rounds(B, K, s, n_sms, limit):
+        nk = -(-K // rd.per)
+        H = max(min(n_mv, nk), 1) if halo is None else halo
+        if not isinstance(H, int) or not 1 <= H <= nk:
+            raise ValueError(f"{CHAIN_GRID_NAME}: halo={H!r} must be an int from 1 to a "
+                             f"CTA's {nk} knots")
+        lim = longk._share_limit(limit, -(-rd.nprob * rd.per // n_sms))
+        resident = (bool(rd.flags & longk.S_RESIDENT)
+                    and chain_smem_bytes(nk, s, H, False, True) <= lim)
+        smem = chain_smem_bytes(nk, s, H, False, resident)
+        if smem > lim:
+            raise ValueError(f"{CHAIN_GRID_NAME}: {nk} knots a CTA need {smem} B of "
+                             f"shared memory, above the {lim} B a CTA may plan with")
+        rounds.append(ChainRound(rd.first, rd.nprob, rd.per, resident, rd.meet, H, smem))
+    return tuple(rounds)
 
 
 def null_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, n_mv: int, n_dot: int,
-                    trips: int, scope: str = "block") -> torch.Tensor:
-    """Row 16 on M (B, K, 3, s, s) and y0 (B, K, s) at ``scope`` 'block' or
-    'grid'; returns y after ``trips`` trips."""
+                    trips: int, scope: str = "block", cluster=None,
+                    _halo=None) -> torch.Tensor:
+    """Row 16 on M (B, K, 3, s, s) and y0 (B, K, s) at ``scope`` 'block'
+    (kernel B's cluster of C CTAs a problem; ``cluster`` forces C) or
+    'grid' (rows 8/10's cooperative rounds, a launch a round); returns y
+    after ``trips`` trips.  ``_halo`` forces the halo depth (the sweeps of
+    chip_smoke.py and tools/probe_iter_floor.py)."""
     if scope not in SCOPES:
         raise ValueError(f"unknown scope {scope!r}; valid: {SCOPES}")
     name = CHAIN_BLOCK_NAME if scope == "block" else CHAIN_GRID_NAME
@@ -207,42 +336,36 @@ def null_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, n_mv: int, n_dot: int,
     if y0.ndim != 3:
         raise ValueError(f"{name}: y0 must be (B, K, s), got {tuple(y0.shape)}")
     Bn, K, s = y0.shape
-    check_tensors(name, {"M": (Bn, K, 3, s, s), "y0": (Bn, K, s)},
-                  {"M": M, "y0": y0}, y0.device)
+    dev = y0.device
+    M = _build.checked(name, "M", M, (Bn, K, 3, s, s), dev)
+    y0 = _build.checked(name, "y0", y0, (Bn, K, s), dev)
     if s > _build.MAX_BLOCK:
         raise ValueError(f"{name}: state size {s} > {_build.MAX_BLOCK}")
-    M, y0 = M.contiguous(), y0.contiguous()
-    dev = y0.device
     out = torch.empty_like(y0)
     if Bn == 0 or K == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        Mc = torch.empty_like(M)
-        if scope == "block":
-            smem = 2 * K * s * 4
-            limit = _build.max_shared_bytes(dev) - _build.RESERVED_SHARED_BYTES
-            if smem > limit:
-                raise ValueError(f"{name}: y of {K * s} floats needs {smem} B of "
-                                 f"shared memory, above the device's {limit} B")
-            buf = parts = out
-            grid_max = 0
-        else:
-            grid_max = grid_ctas(torch.cuda.current_device())
-            if Bn > grid_max:
-                raise ValueError(f"{name}: {Bn} problems need a CTA each, above the "
-                                 f"{grid_max} the cooperative grid holds")
-            per = lib.gato_null_chain_grid_per(Bn, K * s, grid_max)
-            buf = torch.empty(Bn, 2, K * s, dtype=torch.float32, device=dev)
-            parts = torch.empty(Bn * per, dtype=torch.float32, device=dev)
-        code = lib.gato_null_chain(*map(_build.ptr, (M, y0, Mc, out, buf, parts)),
-                                   Bn, K, s, n_mv, n_dot, trips,
-                                   SCOPES.index(scope), grid_max, _stream(dev))
-    _build.check_launch(code, name)
+    n_sms, optin = kb.device_limits(dev.index)
     global CHAIN_BLOCK_LAUNCHES, CHAIN_GRID_LAUNCHES
     if scope == "block":
+        plan = chain_cluster_plan(Bn, K, s, n_mv, n_sms, optin, cluster, _halo)
+        _build.launch(f"{name} ({Bn} clusters of {plan.C})", "gato_null_chain_cluster", dev,
+                      M.data_ptr(), y0.data_ptr(), out.data_ptr(), Bn, K, s, n_mv, n_dot,
+                      trips, plan.C, plan.H, plan.threads)
         CHAIN_BLOCK_LAUNCHES += 1
-    else:
+        return out
+    rounds = chain_grid_rounds(Bn, K, s, n_mv, n_sms, optin - _build.RESERVED_SHARED_BYTES,
+                               _halo)
+    ctas = max(rd.nprob * rd.per for rd in rounds)
+    xch = torch.empty(ctas * 4 * max(rd.H for rd in rounds) * s, dtype=torch.float32,
+                      device=dev)
+    y00 = torch.empty(2 * Bn, dtype=torch.float32, device=dev)
+    parts = torch.empty(8 * ctas, dtype=torch.float32, device=dev)
+    for rd in rounds:
+        _build.launch(f"{name} (cooperative, {rd.nprob} x {rd.per} CTAs)",
+                      "gato_null_chain_grid", dev, M.data_ptr(), y0.data_ptr(),
+                      out.data_ptr(), xch.data_ptr(), y00.data_ptr(), parts.data_ptr(),
+                      rd.first, rd.nprob, rd.per, int(rd.resident), int(rd.meet == "flags"),
+                      K, s, n_mv, n_dot, trips, rd.H)
         CHAIN_GRID_LAUNCHES += 1
     return out
 
@@ -260,20 +383,17 @@ def fma_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, depth: int,
     if y0.device.type == "cpu":
         return fma_chain_plain(M, y0, depth=depth, trips=trips)
     _check_device(FMA_NAME, y0)
-    check_tensors(FMA_NAME, {"M": (Bn, K, s, s), "y0": (Bn, K, s)},
-                  {"M": M, "y0": y0}, y0.device)
+    dev = y0.device
+    M = _build.checked(FMA_NAME, "M", M, (Bn, K, s, s), dev)
+    y0 = _build.checked(FMA_NAME, "y0", y0, (Bn, K, s), dev)
     if K * s > 1024:
         raise ValueError(f"{FMA_NAME}: one thread an output row takes K s <= 1024, "
                          f"got {K * s}")
-    M, y0 = M.contiguous(), y0.contiguous()
     out = torch.empty_like(y0)
     if Bn == 0 or K == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(y0.device):
-        code = lib.gato_fma_chain(*map(_build.ptr, (M, y0, out)), Bn, K, depth, trips,
-                                  _stream(y0.device))
-    _build.check_launch(code, FMA_NAME)
+    _build.launch(FMA_NAME, "gato_fma_chain", dev, M.data_ptr(), y0.data_ptr(),
+                  out.data_ptr(), Bn, K, depth, trips)
     global FMA_LAUNCHES
     FMA_LAUNCHES += 1
     return out

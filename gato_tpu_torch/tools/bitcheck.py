@@ -13,8 +13,8 @@ B = 1 and 256 streams, and the long-K kernels at IIWA widths: row 7
 K = 8192; rows 8/10 (pcg_longk_cuda) on the plain condensation's operators
 at K = 1024, B = 1, 3 (one frozen) and 16, K = 2048, B = 4 at poly degree
 2, and K = 8192, B = 1; row 9 (fused_longk_cuda) at K = 1024, B = 1 and
-16.  Rows 8/10 run at the CTAs a problem that the one-round design of
-grid_common.cuh's next_round gave (parent_ctas), forced through the
+16.  Rows 8/10 run at the CTAs a problem that the one-round split of the
+older design gave (parent_ctas), forced through the
 wrapper's private ``_rounds=`` plan where the checkout has one: at that
 split the two-barrier kernel keeps the older kernel's sums.  It saves every output
 (a sha256 digest for those of over a million elements) with ptxas's
@@ -63,9 +63,10 @@ DIGEST_NUMEL = 1 << 20
 
 
 def parent_ctas(B: int, K: int, s: int, n_sms: int) -> int:
-    """CTAs a problem of the first round under grid_common.cuh's
-    next_round, with two resident CTAs an SM: the long-K PCG kernel's split
-    before the two-barrier design."""
+    """CTAs a problem of the first round under the one-round split (as many
+    problems as the grid holds, CTAs shared out, no more than a problem's
+    rows / 256), with two resident CTAs an SM: the long-K PCG kernel's
+    split before the two-barrier design."""
     grid = 2 * n_sms
     nprob = min(B, grid)
     return max(min(grid // nprob, -(-K * s // 256)), 1)
@@ -147,7 +148,8 @@ def dump_exact(dev, outputs: dict) -> None:
     5 (thomas_fwd_cuda) and row 6 (thomas_rev_cuda, on the plain forward's
     stacks) at B = 16 and 256, rows 11, 12 and the unpeel (cr_longk_cuda,
     peel_longk_cuda, unpeel_longk_cuda) and row 13 (recover_longk_cuda) on
-    the plain condensation at K = 1024, B = 1 and 15."""
+    the plain condensation at K = 1024, B = 1 and 15, and row 13 on seeded
+    random inputs at K = 1033, B = 3 for s = 2, 16 and 30."""
     import torch
 
     import gato_tpu_torch as gt
@@ -199,6 +201,14 @@ def dump_exact(dev, outputs: dict) -> None:
         keep(f"row13 K=1024 B={n}", ("dz_x", "dz_u"),
              kl.recover_longk_cuda(ops.Qinv, ops.Rinv, blocks.A, blocks.B, blocks.q,
                                    blocks.r, ops.gamma))
+    # Row 13 past IIWA's width (its kernels for 16 and 32) and at the
+    # pendulum's, on seeded random inputs.
+    gen = torch.Generator().manual_seed(913)
+    for s, c in ((2, 1), (16, 8), (30, 10)):
+        shapes = ((3, 1033, s, s), (3, 1032, c, c), (3, 1032, s, s), (3, 1032, s, c),
+                  (3, 1033, s), (3, 1032, c), (3, 1033, s))
+        args = [torch.randn(*sh, generator=gen).to(dev) for sh in shapes]
+        keep(f"row13 K=1033 B=3 s={s}", ("dz_x", "dz_u"), kl.recover_longk_cuda(*args))
 
 
 def dump_longk(dev, outputs: dict) -> None:

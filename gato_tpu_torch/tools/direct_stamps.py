@@ -1,5 +1,5 @@
-"""Kernel A and rows 4, 5, 6, 11 and 12 by stage, and their times, for the
-gato_tpu_torch of any checkout, on one CUDA card.
+"""Kernel A and rows 4, 5, 6, 11 and 12 by stage, their times and row 13's,
+for the gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
         [--two-meetings] [--only GROUP,...]
@@ -23,7 +23,9 @@ limit:
   50, B = 1, 16 and 256, and K = 1024, B = 16.  Row 12 (``peel_longk_cuda``)
   and the unpeel (``unpeel_longk_cuda``, on the peel's level and row 11's
   solution of the reduced system) on row 11's inputs, with both exact
-  routes ('xl', 'hybrid': ``solve_direct_longk_batched``) there.
+  routes ('xl', 'hybrid': ``solve_direct_longk_batched``) there.  Row 13
+  (``recover_longk_cuda``) on row 7's condensation of IIWA problems at K =
+  1024 and 8192, B = 1 and 16, lambda = gamma.
 * ``stamps`` (a checkout whose library exports ``gato_thomas_stamps``):
   in a child process, the kernels built again with ``-DGATO_STAGE_STAMPS``
   (a separate library; the shipped build is untouched), which read
@@ -50,7 +52,8 @@ limit:
 every grid level of row 11 takes two meetings, a warp a row, where the
 shipped build takes one meeting at a level of few rows.  ``--only`` keeps
 some of the groups rowA, row4, row5 (with the pair and kernel B's
-condensation), row6, row11 and row12.
+condensation), row6, row11, row12 and row13 (times only: no stamps child
+runs for it alone).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ CR_SHAPES = ((1024, 1), (1024, 15), (8192, 1), (8192, 15))
 PCG_SHAPES = ((50, 1), (50, 256), (688, 1))
 ROW4_SHAPES = ((50, 1), (50, 15), (50, 256), (740, 1))
 ROW6_SHAPES = ((50, 1), (50, 16), (50, 256), (1024, 16))
+ROW13_SHAPES = ((1024, 1), (8192, 1), (1024, 16), (8192, 16))
 RHO = 1e-3
 
 
@@ -119,14 +123,16 @@ def device_ms(fn, calls: int = 20) -> float:
     return median_ms(graph.replay, 11) / calls
 
 
-GROUPS = ("rowA", "row4", "row5", "row6", "row11", "row12")
+GROUPS = ("rowA", "row4", "row5", "row6", "row11", "row12", "row13")
+# The groups with stamps (the stamped build's child).
+STAMPED = GROUPS[:-1]
 
 
 def inputs(gt, dev, only=GROUPS):
     """{("thomas", B): blocks}, {("cr", K, B): (S, gamma)}, {("crkkt", K,
     B): blocks}, {("kkt", K, B): blocks}, {("pcg", K, B): condensed system}
-    and {("rev", K, B): (row 5's stacks, blocks)} at IIWA widths, for the
-    groups in ``only``."""
+    , {("rev", K, B): (row 5's stacks, blocks)} and {("recover", K, B): row
+    13's arguments} at IIWA widths, for the groups in ``only``."""
     from gato_tpu_torch import testing as tt
     from gato_tpu_torch.kernels import longk as kl
     from gato_tpu_torch.kernels import thomas_batch as kt
@@ -143,6 +149,11 @@ def inputs(gt, dev, only=GROUPS):
         b = (out[("thomas", n)] if K == 50 else gt.blocks_to_torch(
             tt.random_batch(gt.ProblemSpec(14, 7, K), n, seed0=300 + K), dev))
         out[("rev", K, n)] = (kt.thomas_fwd_cuda(*b, rho=RHO), b)
+    for K, n in ROW13_SHAPES if "row13" in only else ():
+        b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, K), n,
+                                               seed0=400 + K), dev)
+        ops = kl.condense_longk_cuda(*b, rho=RHO)
+        out[("recover", K, n)] = (ops.Qinv, ops.Rinv, b.A, b.B, b.q, b.r, ops.gamma)
     for K, n in sorted(set(PCG_SHAPES if "rowA" in only else ())
                        | set(ROW4_SHAPES if "row4" in only else ())):
         b = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, K), n,
@@ -205,7 +216,7 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
     data = inputs(gt, dev, only)
     out = {"what": "times", "root": root, "defines": list(defines), "card": card(),
            "rowA": {}, "row4": {}, "row5": {}, "pair": {}, "row6": {}, "row11": {},
-           "row12": {}, "unpeel": {}, "routes": {}}
+           "row12": {}, "unpeel": {}, "routes": {}, "row13": {}}
     for K, n in PCG_SHAPES if "rowA" in only else ():
         fn = pcg_call(ka, data[("pcg", K, n)])
         out["rowA"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
@@ -226,6 +237,11 @@ def measure(root: str, runs: int, defines: tuple = (), only=GROUPS) -> dict:
     for K, n in ROW6_SHAPES if "row6" in only else ():
         fn = rev_call(kt, *data[("rev", K, n)])
         out["row6"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs), "device_ms": device_ms(fn)}
+    for K, n in ROW13_SHAPES if "row13" in only else ():
+        args = data[("recover", K, n)]
+        fn = lambda: kl.recover_longk_cuda(*args)  # noqa: E731
+        out["row13"][f"K={K} B={n}"] = {"ms": median_ms(fn, runs),
+                                        "device_ms": device_ms(fn)}
     for K, n in CR_SHAPES if "row12" in only else ():
         S, g = data[("cr", K, n)]
         b = data[("crkkt", K, n)]
@@ -410,7 +426,7 @@ def main() -> None:
     print(json.dumps(measure(args.root, args.runs, defines, only)), flush=True)
     from gato_tpu_torch.kernels import _build
 
-    if hasattr(_build.library(), "gato_thomas_stamps"):
+    if set(only) & set(STAMPED) and hasattr(_build.library(), "gato_thomas_stamps"):
         child = subprocess.run([sys.executable, __file__, "--root", args.root,
                                 "--runs", str(args.runs), "--stamps-child",
                                 "--only", args.only,

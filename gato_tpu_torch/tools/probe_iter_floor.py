@@ -1,7 +1,7 @@
 """The iteration floor of the PCG loops, on one CUDA card.
 
     python3 -m gato_tpu_torch.tools.probe_iter_floor [--scope block|grid|both]
-        [--R TRIPS] [--T CHAIN]
+        [--R TRIPS] [--T CHAIN] [--halo H] [--problems B] [--null-only]
 
 The counterpart of ``tools/probe_iter_floor.py``.  Two measurements at each
 of two scopes:
@@ -29,20 +29,33 @@ of two scopes:
         launch alone (CUDA events): kernel B, or rows 8/10 on operators
         condensed once, the device's own cost of an iteration.
 
-The TPU has one core; this card has a grid, so the chain runs at two
-scopes:
+The TPU has one core; this card has a grid, and the chain runs on the
+schedule of the kernel each scope bounds, meeting only where the chain's
+dependences require it (csrc/probes.cu's note):
 
-  block  one CTA a problem, y in shared memory, the barriers of kernels A
-         and B; real: kernel B (``'fused'``) at IIWA (14, 7, 50), B = 1.
-  grid   one cooperative grid, y in global memory, a grid barrier after
-         every phase (the long-K PCG's older schedule; rows 8/10 now meet
-         twice an iteration and form their halo knots locally, so their
-         iteration can fall below this chain's prediction); real: the
+  block  kernel B's cluster: C CTAs a problem (fused_solve.cluster_size,
+         16 at IIWA K = 50, B = 1), each with its knots' 0.01 M and y in
+         shared memory, halo rows pushed into the neighbours' shared
+         memory, a cluster_sum a reduction; a one-knot halo, so a cluster
+         barrier between matvecs (three a trip at (2, 2)); real: kernel B
+         (``'fused'``) at IIWA (14, 7, 50), B = 1.
+  grid   rows 8/10's cooperative rounds (longk.pcg_rounds: 128 CTAs at
+         K = 1024, B = 1, 0.01 M in shared memory), boundary rows
+         published and pulled after grid_common.cuh's meetings, a halo of
+         min(n_mv, a CTA's knots) knots, so the matvecs of a trip meet no
+         other CTA (two meetings a trip at (2, 2)); real: the
          ``'pcg_kernel'`` route at IIWA K = 1024, B = 1 (rows 7, 8/10, 13).
 
+``--halo`` forces the halo depth at both scopes (the plan's otherwise);
+``--problems`` runs the null sweep on B problems in one launch (at the
+grid scope a round of several problems meets on flagged partials, where
+one problem meets on grid barriers); ``--null-only`` skips the real
+iteration and the summary.
 The summary sets the measured poly-1 iteration beside the chain's
 prediction at the real body's op counts, c0 + 2 c_mv + 2 c_dot (the CUDA
-loops are not unrolled, so a trip is an iteration).  Prints one JSON line
+loops are not unrolled, so a trip is an iteration), with the scope's C or
+per, its halo and its meetings a trip; ``kernel_over_predicted`` >= 1 says
+the probe is a floor of the kernel's own iteration.  Prints one JSON line
 per probe.  Needs a CUDA card.
 """
 
@@ -58,7 +71,7 @@ import torch
 
 from gato_tpu_torch import testing, timing
 from gato_tpu_torch.formats import blocks_to_torch
-from gato_tpu_torch.kernels import fused_solve, longk, probes
+from gato_tpu_torch.kernels import _build, fused_solve, longk, probes
 from gato_tpu_torch.problem import ProblemSpec, SolverOptions
 from gato_tpu_torch.tools.probe_dispatch import cuda_device
 
@@ -83,10 +96,10 @@ def launch_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def chain_inputs(K: int, device):
-    """One IIWA problem of K knots for the floor: M (1, K, 3, 14, 14) and
-    y0 (1, K, 14) from probes.chain_operator."""
-    return probes.chain_operator(1, K, testing.IIWA.state_size, seed=16, device=device)
+def chain_inputs(K: int, device, B: int = 1):
+    """B IIWA problems of K knots for the floor: M (B, K, 3, 14, 14) and
+    y0 (B, K, 14) from probes.chain_operator."""
+    return probes.chain_operator(B, K, testing.IIWA.state_size, seed=16, device=device)
 
 
 def check_live(what: str, y: torch.Tensor) -> None:
@@ -99,12 +112,12 @@ def check_live(what: str, y: torch.Tensor) -> None:
 
 
 def null_trip_ns(n_mv: int, n_dot: int, *, scope: str, R: int, reps: int,
-                 M, y0, log=None) -> float:
+                 M, y0, halo=None, log=None) -> float:
     """ns a trip of row 16: one launch of 2R trips against one of R."""
     ts = {}
     for RR in (R, 2 * R):
         run = functools.partial(probes.null_chain_cuda, M, y0, n_mv=n_mv, n_dot=n_dot,
-                                trips=RR, scope=scope)
+                                trips=RR, scope=scope, _halo=halo)
         ts[RR] = launch_ms(run, reps)
         check_live(f"null {scope} (n_mv={n_mv}, n_dot={n_dot}) R={RR}", run())
         if log:
@@ -122,16 +135,36 @@ def fit_trip(rows: dict) -> tuple:
     return float(c0), float(c_mv), float(c_dot)
 
 
+def schedule(scope: str, K: int, device, halo=None, B: int = 1) -> dict:
+    """The chain's schedule at ``scope`` for B IIWA problems of K knots at
+    (n_mv, n_dot) = (2, 2): C or per (the first round's), the halo,
+    meetings and __syncthreads a trip."""
+    n_sms, optin = fused_solve.device_limits(device.index)
+    if scope == "block":
+        plan = probes.chain_cluster_plan(B, K, 14, 2, n_sms, optin, halo=halo)
+        out = {"C": plan.C, "halo": plan.H}
+    else:
+        rd = probes.chain_grid_rounds(B, K, 14, 2, n_sms, optin - _build.RESERVED_SHARED_BYTES,
+                                      halo=halo)[0]
+        out = {"per": rd.per, "halo": rd.H, "resident": rd.resident, "meet": rd.meet}
+    out["meetings_a_trip_2_2"] = probes.trip_meetings(2, 2, out["halo"])
+    out["syncthreads_a_trip_2_2"] = probes.cta_barriers(2, out["halo"])
+    return out
+
+
 def probe_null(scope: str = "block", *, R: int = 20_000, reps: int = 7,
-               device="cuda", log=None) -> dict:
-    """Sweep (n_mv, n_dot) at ``scope``; fit the trip's cost."""
+               device="cuda", halo=None, problems: int = 1, log=None) -> dict:
+    """Sweep (n_mv, n_dot) at ``scope`` on ``problems`` problems in one
+    launch; fit the trip's cost."""
     dev = cuda_device(device)
-    M, y0 = chain_inputs(SHAPES[scope], dev)
-    rows = {key: null_trip_ns(*key, scope=scope, R=R, reps=reps, M=M, y0=y0, log=log)
+    M, y0 = chain_inputs(SHAPES[scope], dev, problems)
+    rows = {key: null_trip_ns(*key, scope=scope, R=R, reps=reps, M=M, y0=y0, halo=halo,
+                              log=log)
             for key in GRID}
     c0, c_mv, c_dot = fit_trip(rows)
     return {
-        "probe": "null_chain", "scope": scope, "K": SHAPES[scope], "R": R,
+        "probe": "null_chain", "scope": scope, "K": SHAPES[scope], "B": problems, "R": R,
+        **schedule(scope, SHAPES[scope], dev, halo, problems),
         "rows_ns": {f"mv{m}_dot{d}": rows[(m, d)] for (m, d) in GRID},
         "c0_ns_per_trip": c0, "c_mv_ns": c_mv, "c_dot_ns": c_dot,
         # the real poly-1 body: 2 matvecs + 2 dots (+ bookkeeping, in c0);
@@ -184,14 +217,20 @@ def probe_real(scope: str = "block", *, T: int = 64, reps: int = 7,
 
 
 def summary(null: dict, real: dict) -> dict:
+    keys = ("C", "per", "halo", "meetings_a_trip_2_2", "syncthreads_a_trip_2_2")
     return {
         "probe": "summary", "scope": null["scope"],
+        **{k: null[k] for k in keys if k in null},
+        "c0_ns_per_trip": null["c0_ns_per_trip"], "c_mv_ns": null["c_mv_ns"],
+        "c_dot_ns": null["c_dot_ns"],
         "predicted_poly1_iter_ns": null["predicted_poly1_iter_ns"],
         "measured_poly1_iter_ns": real["poly1_per_iter_ns"],
         "measured_over_predicted": (real["poly1_per_iter_ns"]
                                     / null["predicted_poly1_iter_ns"]),
         "poly2_over_poly1_measured": real["poly2_over_poly1"],
         "kernel_poly1_iter_ns": real["poly1_kernel_per_iter_ns"],
+        "kernel_over_predicted": (real["poly1_kernel_per_iter_ns"]
+                                  / null["predicted_poly1_iter_ns"]),
     }
 
 
@@ -200,14 +239,21 @@ def main(argv=None) -> None:
     ap.add_argument("--scope", choices=("block", "grid", "both"), default="both")
     ap.add_argument("--R", type=int, default=20_000)
     ap.add_argument("--T", type=int, default=64)
+    ap.add_argument("--halo", type=int, default=None)
+    ap.add_argument("--problems", type=int, default=1,
+                    help="problems of the null sweep (the grid scope meets on "
+                         "flagged partials from 2)")
+    ap.add_argument("--null-only", action="store_true")
     args = ap.parse_args(argv)
 
     def log(m):
         print(m, file=sys.stderr, flush=True)
 
     for scope in probes.SCOPES if args.scope == "both" else (args.scope,):
-        null = probe_null(scope, R=args.R, log=log)
+        null = probe_null(scope, R=args.R, halo=args.halo, problems=args.problems, log=log)
         print(json.dumps(null), flush=True)
+        if args.null_only:
+            continue
         real = probe_real(scope, T=args.T, log=log)
         print(json.dumps(real), flush=True)
         print(json.dumps(summary(null, real)), flush=True)

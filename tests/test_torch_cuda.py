@@ -911,6 +911,39 @@ def test_shared_memory_mirrors_match_the_library(dev):
                     lib.gato_longk_pcg_smem_bytes(K, s, per, flags, ring)
             assert kl.pcg_plan(K, s, per, 0, 0).vec_floats == lib.gato_longk_pcg_vec_floats(
                 K, s, per)
+        assert kl.recover_smem_bytes(s, c) == lib.gato_longk_recover_smem_bytes(s, c)
+
+
+def _noncontiguous(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a view that is not contiguous (every other element of
+    a doubled last axis)."""
+    wide = torch.empty(*t.shape[:-1], 2 * t.shape[-1], dtype=t.dtype, device=t.device)
+    wide[..., ::2] = t
+    return wide[..., ::2]
+
+
+@pytest.mark.parametrize("s,c", [(14, 7), (16, 8), (30, 10)])
+@pytest.mark.parametrize("B", [0, 1, 3, 16])
+@pytest.mark.parametrize("K", [2, 33, 1024, 8192])
+def test_recover_longk_matches_plain(dev, K, B, s, c):
+    """Row 13 (a warp a knot) against its plain version at IIWA's width
+    (compiled in), a padded width of 16 and one of 32, on random inputs,
+    Qinv, A and lambda handed over as non-contiguous views; one launch a
+    call (none for B = 0)."""
+    gen = torch.Generator().manual_seed(K + B + s)
+    f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    Qinv, Rinv, A, Bm = f(B, K, s, s), f(B, K - 1, c, c), f(B, K - 1, s, s), f(B, K - 1, s, c)
+    q, r, lam = f(B, K, s), f(B, K - 1, c), f(B, K, s)
+    before = kl.RECOVER_LAUNCHES
+    dx, du = kl.recover_longk_cuda(_noncontiguous(Qinv), Rinv, _noncontiguous(A), Bm, q,
+                                   r, _noncontiguous(lam))
+    torch.cuda.synchronize()
+    assert kl.RECOVER_LAUNCHES == before + (B > 0)
+    assert dx.shape == (B, K, s) and du.shape == (B, K - 1, c)
+    if B > 0:
+        rx, ru = kl.recover_longk_plain(Qinv, Rinv, A, Bm, q, r, lam)
+        _close(dx, rx)
+        _close(du, ru)
 
 
 # The long-K exact tier (rows 11 and 12, the unpeel kernel; rows 7 and 13).
@@ -1471,6 +1504,38 @@ def test_null_chain_matches_plain(dev, scope, n_mv, n_dot, B, K):
     _knots_close(got, ref, 1e-4)
 
 
+@pytest.mark.parametrize("n_mv,n_dot", [(2, 2), (4, 2), (0, 2), (3, 0)])
+@pytest.mark.parametrize("scope,kw", [("block", dict(cluster=1)), ("block", dict(cluster=2)),
+                                      ("block", dict(cluster=16)),
+                                      ("block", dict(cluster=16, _halo=1)),
+                                      ("grid", dict(_halo=1)), ("grid", dict(_halo=4))])
+def test_null_chain_schedules_match_plain(dev, scope, kw, n_mv, n_dot):
+    """Row 16 at the cluster sizes kernel B takes (1, 2 and 16) and at
+    halo depths the plans do not pick (one knot at both scopes, four at the
+    grid scope), IIWA K = 50, B = 1, 100 trips, against its plain version
+    within 1e-4 of each knot's scale."""
+    M, y0 = probes.chain_operator(1, 50, 14, seed=50 + n_mv + 10 * n_dot, device=dev)
+    got = probes.null_chain_cuda(M, y0, n_mv=n_mv, n_dot=n_dot, trips=100, scope=scope,
+                                 **kw)
+    torch.cuda.synchronize()
+    ref = probes.null_chain_plain(M, y0, n_mv=n_mv, n_dot=n_dot, trips=100)
+    _knots_close(got, ref, 1e-4)
+
+
+def test_null_chain_layout_mirrors_the_library(dev):
+    """kernels/probes.py's chain_smem_bytes and chain_threads against
+    csrc/probes.cu's."""
+    from gato_tpu_torch.kernels import _build
+    lib = _build.library()
+    for kn, s, H in ((1, 14, 1), (4, 14, 1), (4, 14, 3), (64, 14, 1), (8, 14, 2),
+                     (5, 2, 4), (3, 20, 2), (50, 14, 1)):
+        assert probes.chain_threads(kn, s, H) == lib.gato_null_chain_threads(kn, s, H)
+        for cluster in (0, 1):
+            for resident in (0, 1):
+                assert probes.chain_smem_bytes(kn, s, H, bool(cluster), bool(resident)) == \
+                    lib.gato_null_chain_smem_bytes(kn, s, H, cluster, resident)
+
+
 @pytest.mark.parametrize("K,B", [(50, 1), (50, 132), (5, 3), (73, 2)])
 def test_fma_chain_matches_plain(dev, K, B):
     """Row 17 against its plain version over 100 trips of depth 2, knot by
@@ -1495,10 +1560,13 @@ def test_probes_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="1024"):
         probes.fma_chain_cuda(torch.zeros(1, 80, 14, 14, device=dev),
                               torch.zeros(1, 80, 14, device=dev), depth=1, trips=1)
-    grid = probes.grid_ctas(torch.cuda.current_device())
-    with pytest.raises(ValueError, match="cooperative grid"):
-        probes.null_chain_cuda(*probes.chain_operator(grid + 1, 2, 2, seed=2, device=dev),
-                               n_mv=1, n_dot=1, trips=1, scope="grid")
+    with pytest.raises(ValueError, match="cluster"):
+        probes.null_chain_cuda(M, y0, n_mv=1, n_dot=1, trips=1, cluster=3)
+    with pytest.raises(ValueError, match="halo"):
+        probes.null_chain_cuda(M, y0, n_mv=1, n_dot=1, trips=1, scope="grid", _halo=9)
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.null_chain_cuda(*probes.chain_operator(1, 400, 14, seed=2, device=dev),
+                               n_mv=1, n_dot=1, trips=1, cluster=1)
 
 
 def test_trace_records_the_cuda_kernels(dev, tmp_path):
