@@ -138,7 +138,8 @@ Phases, each of which raises on failure (exit code not 0):
    and 2 forced) and on rows 8/10's rounds (one problem on grid barriers,
    three on flagged partials), K = 50 over the five (n_mv, n_dot) of the
    fit, K = 37 and K = 1024, 100 trips; row 17
-   (fma_chain) at K = 50, s = 14, B = 1 and 132, 100 trips of depth 2;
+   (fma_chain) at K = 50, s = 14, B = 1 and 132, and K = 4, B = 1 (its
+   two layouts), 100 trips of depth 2;
    rows 16 and 17 on probes.chain_operator / fma_operator (each knot's own
    step a scaled orthogonal block), checked within every (problem, knot);
 4g. the measurement path: timing.time_solve at IIWA B = 1 for 'fused',
@@ -154,7 +155,9 @@ Phases, each of which raises on failure (exit code not 0):
 5g. the probes' times beside their bounds and plain versions (row 18 beside
    q * 1.0000001), the dispatch floor, the iteration floor's fit against
    the measured iteration at both scopes, probe A's split at B = 256,
-   probe D's rate and the split of one IIWA linsys_solve.
+   probe D's rate (K = 50 and 4, with row 17's SASS counts and the stamped
+   child's split of one launch; row 17's bound also over one SM's share of
+   the rate) and the split of one IIWA linsys_solve.
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -217,6 +220,7 @@ T_STEPS = 16        # farm steps
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
 # float32 outside the tensor cores, and device memory.
 F32_FLOPS = 67e12
+SMS = 132           # the SMs that rate is summed over (an H100 SXM's)
 HBM_BYTES = 3.35e12
 
 MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
@@ -3357,15 +3361,17 @@ def phase_probe_parity():
         MAX_ERR[name] = max(MAX_ERR[name], worst)
         print(f"  {name} at IIWA B={B} K={K} {force or ''}, (n_mv, n_dot) in "
               f"{list(cases)}: max|d| {worst:.2e}")
-    for B in (1, 132):
-        M, y0 = kp.fma_operator(B, 50, seed=8200 + B, device=DEV)
+    # Row 17 at IIWA K = 50 (two lanes a knot) and at K = 4 (kernel B's
+    # knots a CTA at C = 16: 16 lanes a knot).
+    for K, B in ((50, 1), (50, 132), (4, 1)):
+        M, y0 = kp.fma_operator(B, K, seed=8200 + B + K, device=DEV)
         got = kp.fma_chain_cuda(M, y0, depth=2, trips=PROBE_TRIPS)
         torch.cuda.synchronize()
-        err = check_knots(f"{kp.FMA_NAME} B={B}", got,
+        err = check_knots(f"{kp.FMA_NAME} K={K} B={B}", got,
                           kp.fma_chain_plain(M, y0, depth=2, trips=PROBE_TRIPS), PROBE_TOL)
         MAX_ERR[kp.FMA_NAME] = max(MAX_ERR[kp.FMA_NAME], err)
-        print(f"  {kp.FMA_NAME} at IIWA K=50, s=14, B={B}, depth 2: max|d| {err:.2e} "
-              f"(scale {float(got.abs().max()):.2e})")
+        print(f"  {kp.FMA_NAME} at K={K}, s=14, B={B}, depth 2 ({kp.fma_plan(B, K).lanes} "
+              f"lanes a knot): max|d| {err:.2e} (scale {float(got.abs().max()):.2e})")
 
 
 # A torch.profiler session on the card has, rarely, recorded no CUDA
@@ -3640,11 +3646,18 @@ def phase_probe_times(card: str, meas: dict):
                           warmup=1)
     b_ms, b_by = bound(nbytes(M, y0, y0), fma_flops(50, s, **kw))
     times[kp.FMA_NAME] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                              bound_by=b_by, K=50, depth=2, trips=PROBE_TRIPS)
+                              bound_by=b_by, K=50, depth=2, trips=PROBE_TRIPS,
+                              lanes=kp.fma_plan(1, 50).lanes)
     for name, r in times.items():
         print(f"  {name}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
               f"{r['library_ms']}, bound {r['bound_ms']:.7f} ms ({r['bound_by']}; "
               f"{100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time)  [{card}]")
+    # Row 17 runs one CTA: its operations over one SM's share of the rate.
+    r = times[kp.FMA_NAME]
+    sm_ms = fma_flops(50, s, **kw) / (F32_FLOPS / SMS) * 1e3
+    print(f"  {kp.FMA_NAME} (K=50, B=1, {r['lanes']} lanes a knot): one SM's share of the "
+          f"float32 rate bounds its one CTA at {sm_ms:.6f} ms ({100 * sm_ms / r['ms']:.2f} % "
+          f"of the kernel's time, events with the call's host work)  [{card}]")
     d = meas["dispatch"]
     print(f"  dispatch floor at IIWA B=1: row 18 device {d['kernel_device_us']:.2f} us, "
           f"per call {d['kernel_per_call_us']:.2f} us, chained {d['kernel_chain_us']:.2f} "
@@ -3671,10 +3684,15 @@ def phase_probe_times(card: str, meas: dict):
     print(f"  probe A, kernel B at B={a['batch']}: fixed {a['fixed_ms']:.4f} ms, "
           f"{1e3 * a['per_iter_ms_batch']:.2f} us an iteration, full default "
           f"{a['full_default_ms']:.4f} ms ({a['full_us_per_solve']:.3f} us a solve)  [{card}]")
-    print(f"  probe D, row 17: {dd['ns_per_matvec']:.1f} ns a matvec, "
+    print(f"  probe D, row 17 at K={dd['K']}: {dd['ns_per_matvec']:.1f} ns a matvec, "
           f"{dd['ns_per_col_fma']:.2f} ns a column FMA, {dd['gflops_one_cta']:.1f} GFLOP/s "
           f"one CTA, {dd['gflops_132_ctas']:.0f} GFLOP/s 132 CTAs "
-          f"({100 * dd['share_of_f32_peak_132_ctas']:.2f} % of 67 TFLOP/s)  [{card}]")
+          f"({100 * dd['share_of_f32_peak_132_ctas']:.2f} % of 67 TFLOP/s); at K=4 "
+          f"{dd['K4']['ns_per_matvec']:.1f} ns a matvec; SASS {dd['sass']}  [{card}]")
+    for key, st in STAMPS.result()["row17"].items():
+        print(f"  row 17's stamps at {key}, 100 trips of depth 2 (us): load {st['load']:.3f}, "
+              f"first matvec {st['first']:.3f}, {st['steady_ns_per_matvec']:.1f} ns a matvec "
+              f"after it, store {st['store']:.3f}, total {st['total']:.3f}  [{card}]")
     print("  one IIWA linsys_solve from its trace (us): " + ", ".join(
         f"{k[:-3]} {v:.1f}" for k, v in meas["split"].items()) + f"  [{card}]")
     print("  its steps on host clocks without the profiler (us, median of 7): " + ", ".join(

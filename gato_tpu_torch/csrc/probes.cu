@@ -83,14 +83,34 @@
 // IIWA K = 50 is ~0.13 MFLOP, 2 ns at 67 TFLOP/s).
 //
 // Row 17, fma_chain (replaces tools/probe_throughput.py's probe D kernel,
-// pallas_call at :222): trips x depth dependent matvecs on y (K, s) of each
-// problem at kernel B's layout, s = 14 (IIWA's state size, the TPU probe's
-// fixed width), one CTA a problem, y double-buffered in shared memory, one
-// thread an output row (k, a) holding its row of 0.01 M (K, s, s) in
-// registers: acc = sum_b (0.01 M)[k, a, b] y[k, b] (s dependent FMAs),
-// y <- 0.25 acc + 0.5 y, a __syncthreads between matvecs.
-// The block-diagonal matvec is the TPU kernel's (s column-FMAs on a tile of
-// knots in lanes).  Bound: the dependent FMA latency of one thread.
+// pallas_call at :222): trips x depth dependent block-diagonal matvecs
+// y <- 0.25 (0.01 M) y + 0.5 y on y (K, s) of each problem, s = 14 (IIWA's
+// state size, the TPU probe's fixed width), one CTA a problem.  Every output
+// row (k, a) keeps the one order acc = m[a][0] y[0], acc = fmaf(m[a][c],
+// y[c], acc) for c = 1..13, y[a] <- fmaf(0.25, acc, 0.5 y[a]), m = M * 0.01
+// rounded once, so every layout computes the same bits.  Each knot's rows
+// sit in one warp, so nothing waits on another warp; the knot's y lives in
+// registers at each of its lanes; the layout (fma_lanes, mirrored by
+// kernels/probes.py::fma_plan) is the faster of two at K knots on an H100
+// (tools/fma_bench.cu, PERF.md §6):
+//   up to kFmaWarpKnots = 40 knots, 16 lanes a knot (lanes 14, 15 idle), a
+//     row of 0.01 M in each lane's registers, the exchange through the
+//     knot's 64-byte slot in shared memory (double-buffered: the lane's row
+//     stored, a __syncwarp, four 16-byte loads): at one warp a scheduler
+//     (K <= 8) a matvec is its latency, 15 dependent FMAs and the exchange,
+//     and each further warp a scheduler adds its ~25 instructions;
+//   past that, two lanes a knot, seven rows each (98 values of 0.01 M in
+//     registers, seven independent chains a lane), 14 shuffles from the
+//     pair's two lanes a matvec, no shared memory and no barrier: up to 64
+//     knots one warp a scheduler, whose issue (112 FP32 instructions and
+//     the shuffles a matvec) bounds it.
+// tools/fma_bench.cu times both beside the one-thread-a-row schedule they
+// replace (y read from shared memory a row at a time, a __syncthreads a
+// matvec) and other layouts.  With GATO_STAGE_STAMPS defined
+// (tools/direct_stamps.py's row17 group builds that way), block 0 stamps
+// %globaltimer at its start, after the loads of 0.01 M and y, after the
+// first matvec, after the last and at its end, each after a
+// __syncthreads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +125,7 @@ namespace gato {
 
 constexpr int kCopyThreads = 256;
 constexpr float kCopyFactor = 1.0000001f;
-// Row 17's width: its row of 0.01 M lives in registers.
+// Row 17's width: its rows of 0.01 M live in registers.
 constexpr int kFmaWidth = 14;
 
 // n floats; vec: q and out both 16-byte aligned.
@@ -575,39 +595,117 @@ __global__ void __launch_bounds__(kGridThreads, 2) null_chain_grid_kernel(ChainA
   chain_trips<kS, kRes>(x, a, cm, y0p[0], a.out + b * K * s);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-fma_chain_kernel(const float* __restrict__ M, const float* __restrict__ y0,
-                 float* __restrict__ out, int K, int depth, int trips) {
-  constexpr int S = kFmaWidth;
-  extern __shared__ float smem[];
-  const int n = K * S, i = threadIdx.x;
-  const bool own = i < n;
-  const int k = own ? i / S : 0, a = own ? i % S : 0;
-  const size_t b = blockIdx.x;
-  float m[S];
-#pragma unroll
-  for (int c = 0; c < S; ++c)
-    m[c] = own ? M[((b * K + k) * S + a) * S + c] * 0.01f : 0.f;
-  float* y = smem;
-  float* z = smem + n;
-  if (own) y[i] = y0[b * n + i];
+// ---- Row 17's plan (kernels/probes.py::fma_plan mirrors it) ----
+
+// Floats of a knot's slot of y in shared memory (14 and two of padding).
+constexpr int kFmaSlot = 16;
+// The most knots the 16-lane layout takes (640 threads), and the most the
+// two-lane one takes (256 threads: the 98 values of 0.01 M and the chains
+// need ~146 registers a thread).
+constexpr int kFmaWarpKnots = 40;
+constexpr int kFmaMaxKnots = 128;
+
+inline __host__ __device__ int fma_lanes(int K) { return K <= kFmaWarpKnots ? 16 : 2; }
+inline __host__ __device__ int fma_threads(int K) { return (fma_lanes(K) * K + 31) / 32 * 32; }
+inline __host__ __device__ int fma_smem_bytes(int K) {
+  return fma_lanes(K) == 16 ? 2 * K * kFmaSlot * 4 : 0;
+}
+
+constexpr int kFmaStamps = 5;
+#ifdef GATO_STAGE_STAMPS
+static __device__ unsigned long long fma_stamps[kFmaStamps];
+static __device__ int fma_stamp_count;
+__global__ void fma_stamp_reset() { fma_stamp_count = 0; }
+__device__ __forceinline__ void fma_stamp() {
   __syncthreads();
-  for (int t = 0; t < trips; ++t) {
-    for (int d = 0; d < depth; ++d) {
-      if (own) {
-        const float* yk = y + k * S;
-        float acc = m[0] * yk[0];
-#pragma unroll
-        for (int c = 1; c < S; ++c) acc = fmaf(m[c], yk[c], acc);
-        z[i] = fmaf(0.25f, acc, 0.5f * y[i]);
-      }
-      __syncthreads();
-      float* w = y;
-      y = z;
-      z = w;
-    }
+  if (blockIdx.x == 0 && threadIdx.x == 0 && fma_stamp_count < kFmaStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    fma_stamps[fma_stamp_count++] = t;
   }
-  if (own) out[b * n + i] = y[i];
+}
+#else
+__device__ __forceinline__ void fma_stamp() {}
+#endif
+
+// L lanes a knot, lane q of knot k owning rows q R .. q R + R - 1 (R = 1 at
+// L = 16, 7 at L = 2; rows past 13 idle).  Lanes past the last knot take
+// its inputs and write nothing, so that every lane of a warp runs each
+// __syncwarp and shuffle.
+template <int L>
+__global__ void __launch_bounds__(L == 16 ? 16 * kFmaWarpKnots : 2 * kFmaMaxKnots, 1)
+    fma_chain_kernel(const float* __restrict__ M, const float* __restrict__ y0,
+                     float* __restrict__ out, int K, int depth, int trips) {
+  constexpr int S = kFmaWidth, R = L == 16 ? 1 : S / 2;
+  extern __shared__ float4 slots4[];  // L = 16: [2][K][kFmaSlot]
+  fma_stamp();
+  const int q = threadIdx.x % L, k = threadIdx.x / L;
+  const int kk = k < K ? k : K - 1;
+  const bool own = k < K && q * R < S;
+  const int base = (threadIdx.x & 31) - q;
+  const size_t b = blockIdx.x;
+  const float* Mk = M + (b * K + kk) * S * S;
+  const float* yk = y0 + (b * K + kk) * S;
+  float m[R][S], y[kFmaSlot], yo[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = q * R + r;
+#pragma unroll
+    for (int c = 0; c < S; ++c) m[r][c] = row < S ? Mk[row * S + c] * 0.01f : 0.f;
+    yo[r] = row < S ? yk[row] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < kFmaSlot; ++c) y[c] = c < S ? yk[c] : 0.f;
+  float* slots = reinterpret_cast<float*>(slots4);
+  // One matvec on the lane's rows, then the knot's new y into every lane.
+  auto matvec = [&](int par) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = m[r][0] * y[0];
+#pragma unroll
+    for (int c = 1; c < S; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(m[r][c], y[c], acc[r]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) yo[r] = fmaf(0.25f, acc[r], 0.5f * yo[r]);
+    if (L == 16) {
+      float* slot = slots + (par * K + kk) * kFmaSlot;
+      if (own) slot[q] = yo[0];
+      __syncwarp();
+#pragma unroll
+      for (int v = 0; v < kFmaSlot / 4; ++v) {
+        const float4 t = reinterpret_cast<const float4*>(slot)[v];
+        y[4 * v] = t.x;
+        y[4 * v + 1] = t.y;
+        y[4 * v + 2] = t.z;
+        y[4 * v + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int src = 0; src < L; ++src)
+#pragma unroll
+        for (int r = 0; r < R; ++r) y[src * R + r] = __shfl_sync(0xffffffffu, yo[r], base + src);
+    }
+  };
+  fma_stamp();
+  // trips x depth matvecs; the first alone (for the stamps), then in pairs
+  // so that the slots' parity is fixed in the code.
+  const long long n = (long long)trips * depth;
+  if (n > 0) matvec(1);
+  fma_stamp();
+  long long i = 1;
+  for (; i + 1 < n; i += 2) {
+    matvec(0);
+    matvec(1);
+  }
+  if (i < n) matvec(0);
+  fma_stamp();
+  if (k < K) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (q * R + r < S) out[(b * K + k) * S + q * R + r] = yo[r];
+  }
+  fma_stamp();
 }
 
 }  // namespace gato
@@ -696,19 +794,43 @@ int gato_null_chain_grid(const float* M, const float* y0, float* out, float* xch
   return (int)cudaGetLastError();
 }
 
-// Launches row 17 on `stream`: B problems of K knots of width 14
-// (K * 14 <= 1024), depth x trips matvecs.  Returns the CUDA error code.
+// Row 17's plan (kernels/probes.py mirrors it): lanes a knot, threads and
+// dynamic shared bytes of a CTA at K knots.
+int gato_fma_chain_lanes(int K) { return gato::fma_lanes(K); }
+int gato_fma_chain_threads(int K) { return gato::fma_threads(K); }
+long long gato_fma_chain_smem_bytes(int K) { return gato::fma_smem_bytes(K); }
+
+// Launches row 17 on `stream`: B problems of K knots of width 14 (1 <= K <=
+// 128), one CTA each, depth x trips matvecs.  Returns the CUDA error code.
 int gato_fma_chain(const float* M, const float* y0, float* out, int B, int K,
                    int depth, int trips, void* stream) {
-  const size_t smem = 2 * (size_t)K * gato::kFmaWidth * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gato::fma_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gato::fma_chain_kernel<<<B, gato::threads_for(K * gato::kFmaWidth), smem,
-                           (cudaStream_t)stream>>>(M, y0, out, K, depth,
-                                                   trips);
+  if (K < 1 || K > gato::kFmaMaxKnots) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#ifdef GATO_STAGE_STAMPS
+  gato::fma_stamp_reset<<<1, 1, 0, st>>>();
+#endif
+  const int threads = gato::fma_threads(K);
+  if (gato::fma_lanes(K) == 16)
+    gato::fma_chain_kernel<16><<<B, threads, gato::fma_smem_bytes(K), st>>>(M, y0, out, K,
+                                                                            depth, trips);
+  else
+    gato::fma_chain_kernel<2><<<B, threads, 0, st>>>(M, y0, out, K, depth, trips);
   return (int)cudaGetLastError();
+}
+
+// The stamps of row 17's last launch (block 0; %globaltimer, ns) into
+// out[0..5); returns their count, 0 in a build without GATO_STAGE_STAMPS.
+int gato_fma_stamps(unsigned long long* out) {
+#ifdef GATO_STAGE_STAMPS
+  int n = 0;
+  if (cudaMemcpyFromSymbol(&n, gato::fma_stamp_count, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, gato::fma_stamps, sizeof(gato::fma_stamps)) != cudaSuccess)
+    return 0;
+  return n;
+#else
+  (void)out;
+  return 0;
+#endif
 }
 
 }  // extern "C"

@@ -104,6 +104,10 @@ _SIGNATURES = {
     "gato_null_chain_cluster": (_I, [_P] * 3 + [_I] * 9 + [_P]),
     "gato_null_chain_grid": (_I, [_P] * 6 + [_I] * 11 + [_P]),
     "gato_fma_chain": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+    "gato_fma_chain_lanes": (_I, [_I]),
+    "gato_fma_chain_threads": (_I, [_I]),
+    "gato_fma_chain_smem_bytes": (_LL, [_I]),
+    "gato_fma_stamps": (_I, [_P]),
     "gato_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -19,8 +19,11 @@ beside its plain PyTorch version (the CUDA source and its note:
   meetings), meeting only where the chain's dependences require it
   (:func:`trip_meetings`);
 * row 17, :func:`fma_chain_cuda` (``tools/probe_throughput.py``'s probe D
-  kernel): trips x depth dependent block-diagonal matvecs, one thread an
-  output row, s dependent FMAs each, at IIWA's s = 14 only.
+  kernel): trips x depth dependent block-diagonal matvecs, s dependent
+  FMAs an output row, at IIWA's s = 14 only, one CTA a problem, each
+  knot's y in registers at each of its lanes (:func:`fma_plan`: 16 lanes
+  a knot and an exchange through shared memory up to FMA_WARP_KNOTS
+  knots, else two lanes a knot, seven rows each, and shuffles).
 
 :func:`chain_operator` and :func:`fma_operator` make the chains' inputs
 for the checks and the floors: each knot's own step is a scaled orthogonal
@@ -52,7 +55,7 @@ COPY_REPLACES = "bench.py:899"
 CHAIN_REPLACES = "tools/probe_iter_floor.py:105"
 FMA_REPLACES = "tools/probe_throughput.py:222"
 SCOPES = ("block", "grid")
-# Row 17's one width, IIWA's state size (its row of 0.01 M lives in
+# Row 17's one width, IIWA's state size (its rows of 0.01 M live in
 # registers, so the kernel is compiled for it).
 FMA_WIDTH = 14
 COPY_FACTOR = 1.0000001
@@ -370,10 +373,49 @@ def null_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, n_mv: int, n_dot: int,
     return out
 
 
+# Row 17's plan (csrc/probes.cu holds it too; the card test compares
+# fma_plan with the library's gato_fma_chain_lanes, _threads, _smem_bytes).
+
+# Floats of a knot's slot of y in shared memory (the 16-lane layout).
+FMA_SLOT = 16
+# The most knots the 16-lane layout takes (on an H100 it leads the two-lane
+# one up to 40 knots and trails it from 50: tools/fma_bench.cu), and the
+# most the two-lane one takes (256 threads of ~146 registers).
+FMA_WARP_KNOTS = 40
+FMA_MAX_KNOTS = 128
+
+
+class FmaPlan(NamedTuple):
+    """Row 17's launch for B problems of K knots: ``ctas`` (one a problem)
+    of ``threads`` threads, ``lanes`` a knot, ``rows`` rows of 0.01 M a
+    lane, ``smem`` dynamic shared bytes a CTA."""
+
+    ctas: int
+    lanes: int
+    rows: int
+    threads: int
+    smem: int
+
+
+def fma_plan(B: int, K: int) -> FmaPlan:
+    """Up to FMA_WARP_KNOTS knots 16 lanes a knot (a row a lane, lanes 14
+    and 15 idle, the exchange through the knot's slot in shared memory),
+    else two lanes a knot (seven rows a lane, the exchange by shuffles, no
+    shared memory); raises ValueError past FMA_MAX_KNOTS knots."""
+    if not 1 <= K <= FMA_MAX_KNOTS:
+        raise ValueError(f"{FMA_NAME}: K = {K} knots; the kernel takes 1 <= K <= "
+                         f"{FMA_MAX_KNOTS} (two lanes a knot, one CTA of at most "
+                         f"{2 * FMA_MAX_KNOTS} threads a problem)")
+    lanes = 16 if K <= FMA_WARP_KNOTS else 2
+    rows = 1 if lanes == 16 else FMA_WIDTH // 2
+    smem = 2 * K * FMA_SLOT * 4 if lanes == 16 else 0
+    return FmaPlan(B, lanes, rows, -(-lanes * K // 32) * 32, smem)
+
+
 def fma_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, depth: int,
                    trips: int) -> torch.Tensor:
-    """Row 17 on M (B, K, 14, 14) and y0 (B, K, 14); returns y after
-    ``trips * depth`` matvecs."""
+    """Row 17 on M (B, K, 14, 14) and y0 (B, K, 14), 1 <= K <=
+    FMA_MAX_KNOTS on the card; returns y after ``trips * depth`` matvecs."""
     _counts(FMA_NAME, depth=depth, trips=trips)
     if y0.ndim != 3:
         raise ValueError(f"{FMA_NAME}: y0 must be (B, K, s), got {tuple(y0.shape)}")
@@ -386,9 +428,8 @@ def fma_chain_cuda(M: torch.Tensor, y0: torch.Tensor, *, depth: int,
     dev = y0.device
     M = _build.checked(FMA_NAME, "M", M, (Bn, K, s, s), dev)
     y0 = _build.checked(FMA_NAME, "y0", y0, (Bn, K, s), dev)
-    if K * s > 1024:
-        raise ValueError(f"{FMA_NAME}: one thread an output row takes K s <= 1024, "
-                         f"got {K * s}")
+    if K:
+        fma_plan(Bn, K)
     out = torch.empty_like(y0)
     if Bn == 0 or K == 0:
         return out

@@ -21,7 +21,9 @@ split the two-barrier kernel keeps the older kernel's sums.  It saves every outp
 register and spill report of the build.  ``dump`` also runs the exact
 kernels that share a source or a header with rows 5 and 11 (function
 ``dump_exact``): kernel A, row 4, row 5, row 6 on the plain forward's
-stacks, row 11, rows 12 and the unpeel, and row 13.  ``compare`` prints,
+stacks, row 11, rows 12 and the unpeel, and row 13; and row 17, the
+FMA-chain probe (``dump_probes``), whose layouts keep one fmaf order a
+row, so a change of its schedule must keep its bits.  ``compare`` prints,
 group by group, which outputs are bit-identical, and both builds' ptxas
 reports; it exits 1 unless every output of the two dumps is, but for the
 groups named in its third argument (kernels whose arithmetic a change
@@ -133,6 +135,7 @@ def dump(root: str, out: str) -> None:
             max_iters=100))
     dump_longk(dev, outputs)
     dump_exact(dev, outputs)
+    dump_probes(dev, outputs)
     torch.cuda.synchronize()
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line or "Compiling entry" in line]
@@ -209,6 +212,19 @@ def dump_exact(dev, outputs: dict) -> None:
                   (3, 1033, s), (3, 1032, c), (3, 1033, s))
         args = [torch.randn(*sh, generator=gen).to(dev) for sh in shapes]
         keep(f"row13 K=1033 B=3 s={s}", ("dz_x", "dz_u"), kl.recover_longk_cuda(*args))
+
+
+def dump_probes(dev, outputs: dict) -> None:
+    """Row 17's outputs (group "row17"): fma_chain_cuda on probes.
+    fma_operator's inputs at K = 5, 50 and 73 (both of its layouts), B = 1
+    and 132, 100 trips of depth 2."""
+    from gato_tpu_torch.kernels import probes as kp
+
+    for K in (5, 50, 73):
+        for n in (1, 132):
+            M, y0 = kp.fma_operator(n, K, seed=1700 + K + n, device=dev)
+            outputs[f"row17 K={K} B={n} y"] = _kept(kp.fma_chain_cuda(M, y0, depth=2,
+                                                                      trips=100))
 
 
 def dump_longk(dev, outputs: dict) -> None:

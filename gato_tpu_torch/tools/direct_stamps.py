@@ -1,5 +1,5 @@
-"""Kernel A and rows 4, 5, 6, 11 and 12 by stage, their times and row 13's,
-for the gato_tpu_torch of any checkout, on one CUDA card.
+"""Kernel A and rows 4, 5, 6, 11, 12 and 17 by stage, their times and row
+13's, for the gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/direct_stamps.py [--root ROOT] [--runs N]
         [--two-meetings] [--only GROUP,...]
@@ -46,14 +46,17 @@ limit:
   ``gap`` to the epilogue and the ``epilogue`` (0 where the recovery and
   residual run inside the walk).  Row 12 (``gato_peel_stamps``): the peel's
   ``first`` and ``second`` launches (each from its first CTA's start to its
-  last one's end), the ``gap`` between them, and the ``unpeel``.
+  last one's end), the ``gap`` between them, and the ``unpeel``.  Row 17
+  (``gato_fma_stamps``; group ``row17``, stamps only) at K = 50 and 4, B =
+  1, 100 trips of depth 2: the ``load`` of 0.01 M and y, the ``first``
+  matvec, the 199 others (``steady_ns_per_matvec``), the ``store``.
 
 ``--two-meetings`` builds with ``-DGATO_CR_TWO_MEETINGS`` (both lines):
 every grid level of row 11 takes two meetings, a warp a row, where the
 shipped build takes one meeting at a level of few rows.  ``--only`` keeps
 some of the groups rowA, row4, row5 (with the pair and kernel B's
-condensation), row6, row11, row12 and row13 (times only: no stamps child
-runs for it alone).
+condensation), row6, row11, row12, row13 (times only: no stamps child
+runs for it alone) and row17 (stamps only).
 """
 
 from __future__ import annotations
@@ -123,9 +126,12 @@ def device_ms(fn, calls: int = 20) -> float:
     return median_ms(graph.replay, 11) / calls
 
 
-GROUPS = ("rowA", "row4", "row5", "row6", "row11", "row12", "row13")
+GROUPS = ("rowA", "row4", "row5", "row6", "row11", "row12", "row13", "row17")
 # The groups with stamps (the stamped build's child).
-STAMPED = GROUPS[:-1]
+STAMPED = ("rowA", "row4", "row5", "row6", "row11", "row12", "row17")
+# Row 17's stamped launches: K = 50 (probe D's) and 4 (kernel B's knots a
+# CTA at C = 16), B = 1, 100 trips of depth 2.
+ROW17_KNOTS = (50, 4)
 
 
 def inputs(gt, dev, only=GROUPS):
@@ -336,7 +342,7 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
 
     line = {"what": "stamps", "root": root, "defines": list(defines), "card": card(),
             "rowA": {}, "row4": {}, "row5": {}, "cluster": {}, "row6": {}, "row11": {},
-            "row12": {}}
+            "row12": {}, "row17": {}}
     if hasattr(_build.library(), "gato_pcg_stamps"):
         readA = _build.function("gato_pcg_stamps")
         for K, n in PCG_SHAPES if "rowA" in only else ():
@@ -402,6 +408,16 @@ def stamps(root: str, runs: int, wait: bool = False, defines: tuple = (),
                 "gap": float(np.median(st[:, 2] - st[:, 1])),
                 "second": float(np.median(st[:, 3] - st[:, 2])),
                 "unpeel": float(np.median(st[:, 5] - st[:, 4]))}
+    if "row17" in only and hasattr(lib, "gato_fma_stamps"):
+        from gato_tpu_torch.kernels import probes as kp
+        read17 = _build.function("gato_fma_stamps")
+        for K in ROW17_KNOTS:
+            M, y0 = kp.fma_operator(1, K, seed=8700, device=dev)
+            d = runs_of(lambda: kp.fma_chain_cuda(M, y0, depth=2, trips=100), read17)
+            line["row17"][f"K={K} B=1"] = {
+                "load": float(d[0]), "first": float(d[1]),
+                "steady_ns_per_matvec": float(1e3 * d[2] / 199), "store": float(d[3]),
+                "total": float(d.sum())}
     return line
 
 

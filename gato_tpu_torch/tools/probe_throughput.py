@@ -10,13 +10,15 @@ The counterpart of ``tools/probe_throughput.py``'s probes A and D:
      problem runs exactly max_iters) through ``timing.time_solve``:
      max_iters 0, 8 and 16, and the default exit (exit_tol 1e-8, 200).
   D. the serial column-FMA rate, row 17 (``kernels/probes.py``'s
-     ``fma_chain_cuda``): trips x depth dependent block-diagonal matvecs at
-     kernel B's layout (one CTA a problem, one thread an output row, s
-     dependent FMAs a matvec, a __syncthreads between matvecs), at IIWA
-     K = 50, s = 14.  Launches of R and 2R trips at depth 2 and 6 give ns a
-     matvec (the trip's own cost cancels), ns a column FMA, and the
-     GFLOP/s of one CTA and of 132 CTAs (one a streaming multiprocessor),
-     beside the card's 67 TFLOP/s of float32.  The data: probes.
+     ``fma_chain_cuda``): trips x depth dependent block-diagonal matvecs on
+     one CTA a problem, each knot's y in registers at each of its lanes
+     (``probes.fma_plan``), at IIWA K = 50, s = 14, and at K = 4 (kernel
+     B's knots a CTA at C = 16).  Launches of R and 2R trips at depth 2 and
+     6 give ns a matvec (the trip's own cost cancels), ns a column FMA,
+     and the GFLOP/s of one CTA and, at K = 50, of 132 CTAs (one a
+     streaming multiprocessor), beside the card's 67 TFLOP/s of float32,
+     with the kernel's SASS instruction counts (FFMA, FMUL, shared loads by
+     width, shared stores, barriers, shuffles).  The data: probes.
      fma_operator, each knot's step orthogonal, so y keeps its size over
      every trip (checked finite and nonzero after each launch; the TPU
      probe's M and y0 of all ones contract y to 0 at the port's step).
@@ -100,14 +102,20 @@ def fma_rates(times: dict, R: int, K: int, s: int) -> dict:
     }
 
 
-def sass_counts(opcode: str, symbol: str) -> dict:
-    """{mangled function name: count of ``opcode`` instructions} for every
-    function of the built kernel library whose name holds ``symbol``, from
-    ``cuobjdump -sass``: shows that nvcc kept the chain's FMAs (a folded
-    loop would show fewer)."""
+# The SASS instruction families probe D reports for row 17: its FMAs and
+# multiplies, shared loads and stores (by width), barriers and shuffles.
+SASS_FAMILIES = ("FFMA", "FMUL", "LDS", "STS", "BAR", "SHFL")
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_ops(symbol: str, path=None, families=SASS_FAMILIES) -> dict:
+    """{mangled function name: {mnemonic with its modifiers: count}} for
+    every function whose name holds ``symbol`` in ``cuobjdump -sass`` of
+    ``path`` (default: the built kernel library), counting the mnemonics
+    of ``families`` (LDS, LDS.64 and LDS.128 apart)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.build()["path"])],
+    sass = subprocess.run([tool, "-sass", str(path or _build.build()["path"])],
                           capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
@@ -115,18 +123,25 @@ def sass_counts(opcode: str, symbol: str) -> dict:
         if m:
             name = m.group(1) if symbol in m.group(1) else None
             if name:
-                counts[name] = 0
-        elif name and re.search(rf"\b{opcode}\b", line):
-            counts[name] += 1
+                counts[name] = {}
+            continue
+        m = _SASS_LINE.search(line) if name else None
+        if m and m.group(1).split(".")[0] in families:
+            counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
     return counts
 
 
+# Probe D's horizons: IIWA's, then kernel B's knots a CTA at C = 16.
+D_KNOTS = (SPEC.knot_points, 4)
+
+
 def probe_D(*, R: int = 50_000, reps: int = 7, device="cuda", log=None) -> dict:
-    """Row 17's serial FMA rate at one CTA and at 132, at IIWA K = 50."""
+    """Row 17's serial FMA rate at one CTA (K = 50 and 4) and at 132 CTAs
+    (K = 50), with its SASS counts."""
     dev = cuda_device(device)
-    K, s = SPEC.knot_points, SPEC.state_size
-    out = {"probe": "D", "K": K, "s": s, "R": R}
-    for ctas in (1, SMS):
+    s = SPEC.state_size
+    out = {"probe": "D", "K": D_KNOTS[0], "s": s, "R": R}
+    for K, ctas in ((D_KNOTS[0], 1), (D_KNOTS[0], SMS), (D_KNOTS[1], 1)):
         M, y0 = probes.fma_operator(ctas, K, seed=17, device=dev)
         times = {}
         for depth in (2, 6):
@@ -134,19 +149,27 @@ def probe_D(*, R: int = 50_000, reps: int = 7, device="cuda", log=None) -> dict:
                 run = functools.partial(probes.fma_chain_cuda, M, y0, depth=depth,
                                         trips=trips)
                 times[(depth, trips)] = launch_ms(run, reps)
-                check_live(f"D ctas={ctas} depth={depth} R={trips}", run())
-                out[f"t_ctas{ctas}_d{depth}_R{trips}_ms"] = times[(depth, trips)]
+                check_live(f"D K={K} ctas={ctas} depth={depth} R={trips}", run())
+                tag = f"K{K}_" if K != D_KNOTS[0] else ""
+                out[f"t_{tag}ctas{ctas}_d{depth}_R{trips}_ms"] = times[(depth, trips)]
                 if log:
-                    log(f"  D ctas={ctas} depth={depth} R={trips}: "
+                    log(f"  D K={K} ctas={ctas} depth={depth} R={trips}: "
                         f"{times[(depth, trips)]:.4f} ms")
         rates = fma_rates(times, R, K, s)
-        if ctas == 1:
+        if K != D_KNOTS[0]:
+            out[f"K{K}"] = rates
+        elif ctas == 1:
             out.update(rates)
         else:
             out["ns_per_matvec_132"] = rates["ns_per_matvec"]
             out["gflops_132_ctas"] = rates["gflops_one_cta"] * ctas
     out["share_of_f32_peak_132_ctas"] = out["gflops_132_ctas"] * 1e9 / F32_FLOPS
-    out["sass_ffma"] = sass_counts("FFMA", "fma_chain_kernel")
+    out["plan"] = {f"K={K}": probes.fma_plan(1, K)._asdict() for K in D_KNOTS}
+    out["sass"] = sass_ops("fma_chain_kernel")
+    # FFMA alone: shows that nvcc kept the chain's FMAs (a folded loop
+    # would show fewer).
+    out["sass_ffma"] = {fn: sum(n for op, n in ops.items() if op.split(".")[0] == "FFMA")
+                        for fn, ops in out["sass"].items()}
     return out
 
 

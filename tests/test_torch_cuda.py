@@ -1536,16 +1536,34 @@ def test_null_chain_layout_mirrors_the_library(dev):
                     lib.gato_null_chain_smem_bytes(kn, s, H, cluster, resident)
 
 
-@pytest.mark.parametrize("K,B", [(50, 1), (50, 132), (5, 3), (73, 2)])
-def test_fma_chain_matches_plain(dev, K, B):
-    """Row 17 against its plain version over 100 trips of depth 2, knot by
-    knot, within 1e-4 of each knot's scale, as row 16."""
+@pytest.mark.parametrize("K,B,depth,trips", [
+    (50, 1, 2, 100), (50, 132, 2, 100), (5, 3, 2, 100), (73, 2, 2, 100),
+    # each layout's edges (one knot and 40 for 16 lanes a knot; 41 and 128
+    # for two), a last warp holding one knot in each (17, 49), and odd
+    # counts of matvecs
+    (1, 1, 2, 100), (40, 2, 2, 100), (41, 3, 2, 100), (128, 2, 2, 100),
+    (17, 1, 2, 100), (49, 1, 2, 100), (4, 1, 3, 33), (50, 3, 1, 7)])
+def test_fma_chain_matches_plain(dev, K, B, depth, trips):
+    """Row 17 against its plain version over trips of depth matvecs (200
+    for most), knot by knot, within 1e-4 of each knot's scale, as row 16."""
     M, y0 = probes.fma_operator(B, K, seed=K + B, device=dev)
     before = probes.FMA_LAUNCHES
-    got = probes.fma_chain_cuda(M, y0, depth=2, trips=100)
+    got = probes.fma_chain_cuda(M, y0, depth=depth, trips=trips)
     torch.cuda.synchronize()
     assert probes.FMA_LAUNCHES == before + 1
-    _knots_close(got, probes.fma_chain_plain(M, y0, depth=2, trips=100), 1e-4)
+    _knots_close(got, probes.fma_chain_plain(M, y0, depth=depth, trips=trips), 1e-4)
+
+
+def test_fma_chain_plan_mirrors_the_library(dev):
+    """kernels/probes.py's fma_plan against csrc/probes.cu's fma_lanes,
+    fma_threads and fma_smem_bytes at every K the kernel takes."""
+    from gato_tpu_torch.kernels import _build
+    lib = _build.library()
+    for K in range(1, probes.FMA_MAX_KNOTS + 1):
+        p = probes.fma_plan(1, K)
+        assert (p.lanes, p.threads, p.smem) == (lib.gato_fma_chain_lanes(K),
+                                                lib.gato_fma_chain_threads(K),
+                                                lib.gato_fma_chain_smem_bytes(K)), K
 
 
 def test_probes_refuse_what_they_do_not_take(dev):
@@ -1557,9 +1575,9 @@ def test_probes_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="width"):
         probes.fma_chain_cuda(torch.zeros(1, 8, 5, 5, device=dev),
                               torch.zeros(1, 8, 5, device=dev), depth=1, trips=1)
-    with pytest.raises(ValueError, match="1024"):
-        probes.fma_chain_cuda(torch.zeros(1, 80, 14, 14, device=dev),
-                              torch.zeros(1, 80, 14, device=dev), depth=1, trips=1)
+    with pytest.raises(ValueError, match="128"):
+        probes.fma_chain_cuda(torch.zeros(1, 129, 14, 14, device=dev),
+                              torch.zeros(1, 129, 14, device=dev), depth=1, trips=1)
     with pytest.raises(ValueError, match="cluster"):
         probes.null_chain_cuda(M, y0, n_mv=1, n_dot=1, trips=1, cluster=3)
     with pytest.raises(ValueError, match="halo"):
