@@ -158,6 +158,20 @@ Phases, each of which raises on failure (exit code not 0):
    probe D's rate (K = 50 and 4, with row 17's SASS counts and the stamped
    child's split of one launch; row 17's bound also over one SM's share of
    the rate) and the split of one IIWA linsys_solve.
+4h. the gradient path: kkt_solve and kkt_solve_batched (gradients by the
+   implicit function theorem, diff.py) at IIWA widths, forward and adjoint
+   solve through the exact dispatch's kernels, each route's launch counts
+   from 0: kkt_solve at B = 1 (row 4 twice), kkt_solve_batched at B = 16
+   and 256 (the Thomas pair twice), kkt_solve at K = 1024 (the long-K exact
+   tier 'xl': rows 7, 11, 13 twice) and kkt_solve_batched at K = 1024, B =
+   12 ('hybrid': row 12's peels too); the primal and all eight gradients
+   within 2e-3 of scale of the same call in float64 on the card (the
+   'torch' route);
+5h. forward plus backward with CUDA events at B = 1, 16 and 256 and K =
+   1024, beside the forward alone and the 'torch' route in float32; host
+   packing (the native C++ packer against NumPy, K = 50 and 1024, median
+   of 21 runs on host clocks) and linsys_solve's steps with each packer.
+   Phase 4g fails unless the native packer served its linsys_solve calls.
 
 The line before the last is the card's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -186,6 +200,9 @@ if not torch.cuda.is_available():
 import gato_tpu_torch as gt  # noqa: E402
 from gato_tpu_torch import assemble, blocktri, testing  # noqa: E402
 from gato_tpu_torch import debug as gdebug  # noqa: E402
+from gato_tpu_torch import diff as gdiff  # noqa: E402
+from gato_tpu_torch import formats as gformats  # noqa: E402
+from gato_tpu_torch import native as gnative  # noqa: E402
 from gato_tpu_torch import timing as gtiming  # noqa: E402
 from gato_tpu_torch.kernels import _build  # noqa: E402
 from gato_tpu_torch.kernels import direct_fused as kd  # noqa: E402
@@ -3563,7 +3580,13 @@ def phase_measurement_path():
             csr.c, [0.0] * IIWA.nl, 1, EXIT_TOL, MAX_ITERS, False, RHO)
     Path("build").mkdir(exist_ok=True)
     tdir = tempfile.mkdtemp(prefix="trace_", dir="build")
+    gnative.CALLS = 0
     gt.linsys_solve(*args, verbose=False)
+    if gnative.CALLS != 2:
+        raise AssertionError(f"linsys_solve made {gnative.CALLS} native packer calls, "
+                             "not 2 (G and C): the native packer did not serve it")
+    print(f"  linsys_solve packed through the native packer ({gnative.library_path().name}"
+          f"): {gnative.CALLS} native calls")
 
     def session():
         with gdebug.trace(tdir, with_stack=True) as prof:
@@ -3576,6 +3599,12 @@ def phase_measurement_path():
           f"symbol; written to {tdir}")
     out["split"] = linsys_split(lambda: gt.linsys_solve(*args, verbose=False))
     out["untraced"] = untraced_split(csr)
+    gformats.USE_NATIVE = False
+    try:
+        out["untraced_numpy"] = untraced_split(csr)
+    finally:
+        gformats.USE_NATIVE = True
+    out["packing"] = packing_times()
 
     out["dispatch"] = probe_dispatch.probe_dispatch(calls=200, T=64, reps=3)
     for scope, R in (("block", 2000), ("grid", 500)):
@@ -3697,11 +3726,178 @@ def phase_probe_times(card: str, meas: dict):
         f"{k[:-3]} {v:.1f}" for k, v in meas["split"].items()) + f"  [{card}]")
     print("  its steps on host clocks without the profiler (us, median of 7): " + ", ".join(
         f"{k[:-3]} {v:.1f}" for k, v in meas["untraced"].items()) + f"  [{card}]")
+    print("  the same with the NumPy packer (us, median of 7): " + ", ".join(
+        f"{k[:-3]} {v:.1f}" for k, v in meas["untraced_numpy"].items()) + f"  [{card}]")
+    for (K, form), r in meas["packing"].items():
+        print(f"  host packing IIWA K={K} from {form} (pack_kkt, median of {PACK_RUNS} runs on "
+              f"host clocks): native {r['native']:.1f} us, NumPy {r['numpy']:.1f} us "
+              f"({r['numpy'] / r['native']:.2f}x); blocks bit-equal  [{card}]")
     for label in ("fused", "pcg_kernel", "direct"):
         ms, _, reads, syncs = meas[("time_solve", label)]
         print(f"  time_solve B=1 {label}: {ms:.4f} ms; {reads} host reads, {syncs} "
               f"synchronisations a solve  [{card}]")
     return times
+
+
+# --------------------------------------------------------------------------
+# Host packing (formats.py through native.py) and the gradient path (diff.py)
+
+PACK_RUNS = 21
+GRAD_TOL = 2e-3
+
+
+def packing_times() -> dict:
+    """pack_kkt at IIWA K = 50 and 1024 through the native packer and the
+    NumPy path, from Python lists (as linsys_solve receives them) and from
+    NumPy arrays: median us of PACK_RUNS calls on host clocks, after one
+    call each whose blocks must agree bit for bit."""
+    out = {}
+    for K in (50, 1024):
+        spec = gt.ProblemSpec(IIWA.state_size, IIWA.control_size, K)
+        csr = testing.blocks_to_csr(spec, testing.random_blocks(spec, seed=8800 + K))
+        lists = (csr.G_row, csr.G_col, csr.G_val, csr.C_row, csr.C_col, csr.C_val,
+                 csr.g, csr.c)
+        arrays = tuple(np.asarray(a, dtype=np.int64 if i in (0, 1, 3, 4) else np.float64)
+                       for i, a in enumerate(lists))
+        for form, data in (("lists", lists), ("arrays", arrays)):
+            r, blocks = {}, {}
+            for label, use in (("native", True), ("numpy", False)):
+                gformats.USE_NATIVE = use
+                try:
+                    blocks[label] = gt.pack_kkt(spec, *data)
+                    times = []
+                    for _ in range(PACK_RUNS):
+                        t0 = time.perf_counter()
+                        gt.pack_kkt(spec, *data)
+                        times.append((time.perf_counter() - t0) * 1e6)
+                finally:
+                    gformats.USE_NATIVE = True
+                r[label] = float(np.median(times))
+            for name, a, b in zip(gt.KKTBlocks._fields, blocks["native"], blocks["numpy"]):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"packing K={K} {form}: native {name} differs "
+                                         "from the NumPy path")
+            out[(K, form)] = r
+    return out
+
+
+def grad_counts() -> dict:
+    return {kd.NAME: kd.LAUNCHES, kt.FWD_NAME: kt.FWD_LAUNCHES,
+            kt.REV_NAME: kt.REV_LAUNCHES, kt.EPILOGUE_NAME: kt.EPILOGUE_LAUNCHES,
+            kl.CONDENSE_NAME: kl.CONDENSE_LAUNCHES, kl.CR_NAME: kl.CR_LAUNCHES,
+            kl.PEEL_NAME: kl.PEEL_LAUNCHES, kl.UNPEEL_NAME: kl.UNPEEL_LAUNCHES,
+            kl.RECOVER_NAME: kl.RECOVER_LAUNCHES}
+
+
+def zero_grad_counts() -> None:
+    zero_direct_counts()
+    zero_direct_longk_counts()
+
+
+def grad_loss(lam, dz_x, dz_u):
+    """tests/test_diff.py's loss."""
+    return ((lam * torch.cos(lam)).sum() + (dz_x ** 2).sum()
+            + torch.sin(dz_u).sum())
+
+
+def grad_args(blocks, dtype) -> list:
+    """The seven blocks and a 0-d rho on the card, leaves requiring grad."""
+    args = [torch.tensor(np.asarray(a), dtype=dtype, device=DEV, requires_grad=True)
+            for a in blocks]
+    return args + [torch.tensor(RHO, dtype=dtype, device=DEV, requires_grad=True)]
+
+
+def grad_step(args, single: bool):
+    """Forward and backward: the outputs and the eight gradients."""
+    out = (gdiff.kkt_solve if single else gdiff.kkt_solve_batched)(*args)
+    return out, torch.autograd.grad(grad_loss(*out), args)
+
+
+@contextlib.contextmanager
+def torch_route():
+    """diff's routing helper held at the 'torch' backend: the plain route."""
+    saved = gdiff._backend
+    gdiff._backend = lambda Q, R: "torch"
+    try:
+        yield
+    finally:
+        gdiff._backend = saved
+
+
+def phase_gradients(card: str):
+    print("== phase 4h: the gradient path: kkt_solve / kkt_solve_batched, forward and "
+          "adjoint solves through the exact kernels, against float64 on the card")
+    routes = []
+    for what, K, n in (("kkt_solve B=1", 50, 0), ("kkt_solve_batched B=16", 50, 16),
+                       (f"kkt_solve_batched B={BATCH}", 50, BATCH),
+                       ("kkt_solve K=1024 B=1", 1024, 0),
+                       ("kkt_solve_batched K=1024 B=12", 1024, 12)):
+        spec = gt.ProblemSpec(IIWA.state_size, IIWA.control_size, K)
+        blocks = (testing.random_blocks(spec, seed=9000 + K) if n == 0
+                  else testing.random_batch(spec, n, seed0=9000 + K))
+        width = max(n, 1)
+        if K == 50:
+            expect = ({kd.NAME: 2} if width < kt.MIN_BATCH else
+                      {kt.FWD_NAME: 2, kt.REV_NAME: 2, kt.EPILOGUE_NAME: 2})
+        else:
+            expect = {kl.CONDENSE_NAME: 2, kl.CR_NAME: 2, kl.RECOVER_NAME: 2}
+            if kl.direct_tier(width, K) == "hybrid":
+                expect[kl.PEEL_NAME] = expect[kl.UNPEEL_NAME] = 2 * kl.hybrid_peels(K)
+        routes.append((what, spec, blocks, n, expect))
+    total = dict.fromkeys(grad_counts(), 0)
+    results = {}
+    for what, spec, blocks, n, expect in routes:
+        args = grad_args(blocks, torch.float32)
+        zero_grad_counts()
+        out, grads = grad_step(args, n == 0)
+        torch.cuda.synchronize()
+        got = grad_counts()
+        want = {key: expect.get(key, 0) for key in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for key, value in got.items():
+            total[key] += value
+        ref_out, ref_grads = grad_step(grad_args(blocks, torch.float64), n == 0)
+        worst = 0.0
+        for name, x, y in zip(("lam", "dz_x", "dz_u", "Q_bar", "R_bar", "A_bar", "B_bar",
+                               "q_bar", "r_bar", "c_bar", "rho_bar"),
+                              (*out, *grads), (*ref_out, *ref_grads)):
+            x, y = x.detach(), y.detach()
+            if x.dtype != torch.float32 or x.device != DEV or x.shape != y.shape:
+                raise AssertionError(f"{what} {name}: {x.dtype} {x.device} "
+                                     f"{tuple(x.shape)}, expected float32 on {DEV} "
+                                     f"{tuple(y.shape)}")
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{what} {name}: not finite")
+            scale = max(1.0, float(y.abs().max()))
+            diff = (x.double() - y).abs()
+            worst = max(worst, float(diff.max()) / scale)
+            if bool((diff > GRAD_TOL * (y.abs() + scale)).any()):
+                raise AssertionError(f"{what} {name}: float32 and float64 differ by "
+                                     f"{float(diff.max()) / scale:.3e} of scale, past "
+                                     f"rtol = atol = {GRAD_TOL}")
+        results[what] = (args, n == 0)
+        print(f"  {what}: launches {dict((k, v) for k, v in got.items() if v)}; primal and "
+              f"all eight gradients within rtol = atol = {GRAD_TOL} of scale of float64 "
+              f"on the card (largest difference {worst:.2e} of scale)")
+    print(f"  launches on the gradient path: {total}")
+    for name in (kd.NAME, kt.FWD_NAME, kt.REV_NAME, kt.EPILOGUE_NAME, kl.CONDENSE_NAME,
+                 kl.CR_NAME, kl.PEEL_NAME, kl.UNPEEL_NAME, kl.RECOVER_NAME):
+        if total[name] < 1:
+            raise AssertionError(f"{name} was not launched on the gradient path")
+
+    print(f"== phase 5h: the gradient path's times (CUDA events, median of {TIMING_RUNS} "
+          f"runs; 'torch' route {SLOW_RUNS}), on {card}")
+    for what, (args, single) in results.items():
+        both = cuda_median_ms(lambda: grad_step(args, single))
+        fwd = cuda_median_ms(lambda: (gdiff.kkt_solve if single
+                                      else gdiff.kkt_solve_batched)(*args))
+        with torch_route():
+            plain = cuda_median_ms(lambda: grad_step(args, single), runs=SLOW_RUNS,
+                                   warmup=1)
+        print(f"  {what}: forward + backward {both:.4f} ms (forward alone {fwd:.4f} ms); "
+              f"the 'torch' route in float32 {plain:.4f} ms ({plain / both:.1f}x)  [{card}]")
+    return total
 
 
 def main():
@@ -3742,6 +3938,7 @@ def main():
     exact_launches = phase_direct_longk_path()
     sharded_launches = phase_sharded_path()
     meas = phase_measurement_path()
+    grad_launches = phase_gradients(card)
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
@@ -3795,6 +3992,8 @@ def main():
                     if key3[0] == tag:
                         row.update({f"{key}_rule_k{key3[1]}_b{key3[2]}": value
                                     for key, value in value3.items()})
+        if name in grad_launches:
+            row["launches_grad"] = grad_launches[name]
         kernels.append(row)
     # The long-K kernels: K=1024 at B=16 (and _b1), with K=8192 beside.
     for name, replaces in ((kl.CONDENSE_NAME, kl.CONDENSE_REPLACES),
@@ -3805,6 +4004,8 @@ def main():
                "replaces": replaces, "launches": longk_launches[name],
                "max_abs_err": MAX_ERR[name], **longk_times[(name, 1024, 16)],
                "batch": 16, "K": 1024}
+        if name in grad_launches:
+            row["launches_grad"] = grad_launches[name]
         for K, n in ((1024, 1), (8192, 1), (8192, 16)):
             row.update({f"{key}_k{K}_b{n}": value for key, value in
                         longk_times[(name, K, n)].items() if key != "bound_by"})
@@ -3821,7 +4022,7 @@ def main():
         row = {"name": name, "route": "cuda", "source": kl.DIRECT_SOURCE,
                "replaces": replaces, "launches": exact_launches[name],
                "max_abs_err": MAX_ERR[name], **exact_times[(name, 1024, 15)],
-               "batch": 15, "K": 1024}
+               "batch": 15, "K": 1024, "launches_grad": grad_launches[name]}
         for K, n in ((1024, 1), (8192, 1), (8192, 15)):
             row.update({f"{key}_k{K}_b{n}": value for key, value in
                         exact_times[(name, K, n)].items() if key != "bound_by"})

@@ -9,6 +9,9 @@ Public surface:
     ``method='pcg'`` or the exact ``method='direct'``
   * :func:`btd_solve`: the exact block-tridiagonal solve
     (:mod:`gato_tpu_torch.direct`)
+  * :func:`kkt_solve`, :func:`kkt_solve_batched`: differentiable exact
+    solves, gradients by the implicit function theorem through the exact
+    dispatch's kernels (:mod:`gato_tpu_torch.diff`)
   * :func:`solve_sequence`, :func:`solve_sequence_batched`: warm-started
     MPC sequences and farms (:mod:`gato_tpu_torch.mpc`)
   * :func:`pack`, :func:`solve_packed`, :func:`pack_sequence`,
@@ -23,7 +26,10 @@ Public surface:
     ``measure_rtt_ms``) and :mod:`gato_tpu_torch.debug` (``solve_debug``,
     ``residual_history``, ``trace``): the measurement and debug surface
   * :class:`ProblemSpec`, :class:`SolverOptions`, :class:`Preconditioner`
-  * :mod:`gato_tpu_torch.formats`: CSR ingestion and block packing (NumPy)
+  * :func:`pack_kkt`, :func:`pack_kkt_sparse` and the rest of
+    :mod:`gato_tpu_torch.formats`: CSR (or scipy.sparse) ingestion and block
+    packing on the host, through the native C++ packer
+    (:mod:`gato_tpu_torch.native`) where a compiler is found, else NumPy
   * :mod:`gato_tpu_torch.kernels`: the hand-written CUDA kernels (the PCG
     loop, the fused whole solve, the warm-started farm, the cyclic-reduction
     exact solve, the block-Thomas pair, the long-horizon PCG and exact
@@ -32,8 +38,9 @@ Public surface:
 """
 
 from .api import infer_spec, linsys_solve
+from .diff import kkt_solve, kkt_solve_batched
 from .direct import btd_solve
-from .formats import KKTBlocks, blocks_to_torch, pack_kkt
+from .formats import KKTBlocks, blocks_to_torch, pack_kkt, pack_kkt_sparse
 from .mpc import solve_sequence, solve_sequence_batched
 from .packed import (PackedKKT, PackedKKTSequence, PackedSequenceResult,
                      PackedSolveResult, pack, pack_sequence, solve_packed,
@@ -51,6 +58,8 @@ __all__ = [
     "solve",
     "solve_batched",
     "btd_solve",
+    "kkt_solve",
+    "kkt_solve_batched",
     "solve_sequence",
     "solve_sequence_batched",
     "pack",
@@ -73,6 +82,7 @@ __all__ = [
     "KKTBlocks",
     "blocks_to_torch",
     "pack_kkt",
+    "pack_kkt_sparse",
     "ProblemSpec",
     "SolverOptions",
     "Preconditioner",

@@ -37,6 +37,17 @@ def btd_matvec(S: torch.Tensor, x: torch.Tensor,
     return torch.einsum("...kjab,...kjb->...ka", S, halo_stack(x, left, right))
 
 
+def btd_transpose(S: torch.Tensor) -> torch.Tensor:
+    """Transpose of a (..., K, 3, s, s) block-tridiagonal operator: row k's
+    left block is (U_{k-1})^T, its diagonal D_k^T, its right block
+    (L_{k+1})^T, with the edge slots zero."""
+    L, D, U = (S[..., j, :, :].transpose(-1, -2) for j in range(3))
+    zero = torch.zeros_like(L[..., :1, :, :])
+    left = torch.cat([zero, U[..., :-1, :, :]], dim=-3)
+    right = torch.cat([L[..., 1:, :, :], zero], dim=-3)
+    return torch.stack([left, D, right], dim=-3)
+
+
 def btd_to_dense(S) -> np.ndarray:
     """(..., K, 3, s, s) -> dense (..., K*s, K*s) NumPy array.  Test oracle."""
     S = S.detach().cpu().numpy() if torch.is_tensor(S) else np.asarray(S)

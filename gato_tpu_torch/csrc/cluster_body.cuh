@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "gauss_jordan.cuh"
+#include "smem_limit.cuh"
 
 namespace gato {
 namespace cl {
@@ -161,27 +162,8 @@ cudaError_t launch_config_sized(Kernel kernel, int clusters, int C, int threads,
                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   // The attributes are set once a kernel and device (and again for a
   // larger size): a launch of a shape seen before pays no attribute call.
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = raise_smem_limit((const void*)kernel, smem, true);
   if (err != cudaSuccess) return err;
-  static thread_local const void* seen_kernel[8] = {};
-  static thread_local int seen_device[8] = {};
-  static thread_local size_t seen_smem[8] = {};
-  int slot = 0;
-  while (slot < 7 && seen_kernel[slot] != nullptr &&
-         (seen_kernel[slot] != (const void*)kernel || seen_device[slot] != device))
-    ++slot;
-  if (seen_kernel[slot] != (const void*)kernel || seen_device[slot] != device ||
-      seen_smem[slot] < smem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    seen_kernel[slot] = (const void*)kernel;
-    seen_device[slot] = device;
-    seen_smem[slot] = smem;
-  }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)clusters * (unsigned)C);
   cfg->blockDim = dim3((unsigned)threads);

@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 
 #include "pcg_common.cuh"
+#include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -18,30 +19,12 @@ namespace gato {
 // Threads of a cooperative CTA.
 constexpr int kGridThreads = 256;
 
-// Sets `kernel`'s dynamic shared-memory limit to at least `bytes`: once a
-// kernel and device (and again for a larger size), not on every launch.
+// Sets `kernel`'s dynamic shared-memory limit to at least `bytes` where
+// that passes the default 48 KB (smem_limit.cuh: once a kernel and device,
+// and again for a larger size, never lowered by another thread).
 inline cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  static thread_local const void* seen_kernel[16] = {};
-  static thread_local int seen_device[16] = {};
-  static thread_local size_t seen_bytes[16] = {};
-  int slot = 0;
-  while (slot < 15 && seen_kernel[slot] != nullptr &&
-         (seen_kernel[slot] != kernel || seen_device[slot] != device))
-    ++slot;
-  if (seen_kernel[slot] == kernel && seen_device[slot] == device &&
-      seen_bytes[slot] >= bytes)
-    return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
-  seen_kernel[slot] = kernel;
-  seen_device[slot] = device;
-  seen_bytes[slot] = bytes;
-  return cudaSuccess;
+  return raise_smem_limit(kernel, bytes, false);
 }
 
 // One cooperative launch: problems first .. first + nprob - 1, per CTAs

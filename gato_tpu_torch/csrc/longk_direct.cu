@@ -766,9 +766,7 @@ inline int cr_resident_ctas(const void* kernel, int s) {
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (err == cudaSuccess) err = opt_in_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCrThreads, smem);
   if (err != cudaSuccess) return -(int)err;

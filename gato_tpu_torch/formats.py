@@ -1,8 +1,10 @@
-"""CSR ingestion: sparse KKT inputs -> per-knot block arrays (NumPy).
+"""CSR ingestion: sparse KKT inputs -> per-knot block arrays on the host.
 
-The same packing, with the same hard errors, as ``gato_tpu.formats``'s NumPy
-path, which is the semantics oracle there; the blocks come out bit-equal.
-The layout:
+The same packing, with the same hard errors, as ``gato_tpu.formats``; the
+blocks come out bit-equal.  float32 packs go through the native C++ packer
+(:mod:`gato_tpu_torch.native`, built with g++ on first use) while
+``USE_NATIVE`` is True; the NumPy path below is the semantics oracle and
+serves other dtypes, and float32 where no compiler is found.  The layout:
 
   * ``Q``: (K, s, s)    per-knot state cost Hessians
   * ``R``: (K-1, c, c)  per-interval control cost Hessians
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import native
 from .problem import ProblemSpec
 
 
@@ -70,8 +73,17 @@ def _csr_to_coo(indptr, indices, data):
     return rows, np.asarray(indices, dtype=np.int64), np.asarray(data)
 
 
+# Pack float32 through the native C++ packer (native.py); the NumPy bodies
+# below are the always-available path and the semantics oracle.
+USE_NATIVE = True
+
+
 def pack_G(spec: ProblemSpec, G_indptr, G_indices, G_data, dtype=np.float32):
     """Pack the CSR cost Hessian G into (Q, R) block arrays."""
+    if USE_NATIVE and dtype == np.float32:
+        out = native.pack_G_native(spec, G_indptr, G_indices, G_data)
+        if out is not None:
+            return out
     s, c, K = spec.state_size, spec.control_size, spec.knot_points
     sc = s + c
     rows, cols, vals = _csr_to_coo(G_indptr, G_indices, G_data)
@@ -108,6 +120,10 @@ def pack_C(spec: ProblemSpec, C_indptr, C_indices, C_data, dtype=np.float32):
     """Pack the CSR constraint Jacobian C into (A, B) block arrays: skip the
     first ``s`` rows (initial-condition identity) and the implicit +I on
     x_{k+1}; anything else off the block-bidiagonal pattern raises."""
+    if USE_NATIVE and dtype == np.float32:
+        out = native.pack_C_native(spec, C_indptr, C_indices, C_data)
+        if out is not None:
+            return out
     s, c, K = spec.state_size, spec.control_size, spec.knot_points
     sc = s + c
     rows, cols, vals = _csr_to_coo(C_indptr, C_indices, C_data)
@@ -167,6 +183,22 @@ def pack_kkt(
     A, B = pack_C(spec, C_indptr, C_indices, C_data, dtype)
     q, r, cc = pack_vectors(spec, g, c_vec, dtype)
     return KKTBlocks(Q=Q, R=R, A=A, B=B, q=q, r=r, c=cc)
+
+
+def pack_kkt_sparse(spec: ProblemSpec, G, C, g, c_vec, dtype=np.float32) -> KKTBlocks:
+    """:func:`pack_kkt` from scipy.sparse matrices (converted with
+    ``tocsr``) or any objects with CSR ``indptr`` / ``indices`` / ``data``;
+    raises TypeError for anything else."""
+    if hasattr(G, "tocsr"):
+        G = G.tocsr()
+    if hasattr(C, "tocsr"):
+        C = C.tocsr()
+    for name, M in (("G", G), ("C", C)):
+        if not all(hasattr(M, a) for a in ("indptr", "indices", "data")):
+            raise TypeError(f"{name} must be a scipy.sparse matrix or expose CSR "
+                            "indptr/indices/data attributes")
+    return pack_kkt(spec, G.indptr, G.indices, G.data,
+                    C.indptr, C.indices, C.data, g, c_vec, dtype)
 
 
 def interleave_dz(spec: ProblemSpec, dz_x: np.ndarray, dz_u: np.ndarray) -> np.ndarray:

@@ -28,7 +28,7 @@ SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
            "thomas_batch.cu", "longk.cu", "longk_direct.cu", "halo_matvec.cu",
            "probes.cu")
 HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh",
-           "gauss_jordan.cuh", "condense_tile.cuh", "warp_gj.cuh")
+           "gauss_jordan.cuh", "condense_tile.cuh", "warp_gj.cuh", "smem_limit.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
 # Largest state or control size the kernels take (gato_tpu's unrolled
 # Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.

@@ -1671,3 +1671,130 @@ def test_solve_debug_on_the_card_matches_solve(dev):
     assert int(dbg.result.iters) == int(ref.iters)
     _close(dbg.result.lam, ref.lam)
     assert timing.measure_rtt_ms(3) > 0
+
+
+# ---- The gradient layer (diff.py) and the native packer on the card ----
+
+def _diff_counts() -> tuple:
+    return (kd.LAUNCHES, kt.FWD_LAUNCHES, kt.REV_LAUNCHES, kt.EPILOGUE_LAUNCHES,
+            kl.CONDENSE_LAUNCHES, kl.CR_LAUNCHES, kl.PEEL_LAUNCHES,
+            kl.UNPEEL_LAUNCHES, kl.RECOVER_LAUNCHES)
+
+
+def _diff_loss(lam, dz_x, dz_u):
+    return ((lam * torch.cos(lam)).sum() + (dz_x ** 2).sum()
+            + torch.sin(dz_u).sum())
+
+
+def _diff_grads(dev, spec, B, dtype):
+    """The loss's gradients through kkt_solve (B = 0: one problem) or
+    kkt_solve_batched, with every input and rho requiring grad."""
+    blocks = tt.random_blocks(spec, seed=21) if B == 0 else tt.random_batch(
+        spec, B, seed0=21)
+    args = [torch.tensor(np.asarray(a), dtype=dtype, device=dev, requires_grad=True)
+            for a in blocks]
+    args.append(torch.tensor(1e-3, dtype=dtype, device=dev, requires_grad=True))
+    solve = gt.kkt_solve if B == 0 else gt.kkt_solve_batched
+    out = solve(*args)
+    return out, torch.autograd.grad(_diff_loss(*out), args)
+
+
+# (spec, B (0: kkt_solve), launches of forward + adjoint in _diff_counts' order)
+DIFF_ROUTES = {
+    "row4": (tt.IIWA, 0, (2, 0, 0, 0, 0, 0, 0, 0, 0)),
+    "row4_b8": (tt.IIWA, 8, (2, 0, 0, 0, 0, 0, 0, 0, 0)),
+    "pair_b16": (tt.IIWA, 16, (0, 2, 2, 2, 0, 0, 0, 0, 0)),
+    "pair_b256": (tt.IIWA, 256, (0, 2, 2, 2, 0, 0, 0, 0, 0)),
+    "longk_k1024": (gt.ProblemSpec(14, 7, 1024), 0, (0, 0, 0, 0, 2, 2, 0, 0, 2)),
+}
+
+
+@pytest.mark.parametrize("route", DIFF_ROUTES)
+def test_kkt_solve_gradients_on_the_kernels(dev, route):
+    """Forward and adjoint solves through the exact dispatch's kernels, by
+    their launch counts; the primal and every gradient within 2e-3 of scale
+    of the same call in float64 on the card (the 'torch' route)."""
+    spec, B, want = DIFF_ROUTES[route]
+    before = _diff_counts()
+    out, grads = _diff_grads(dev, spec, B, torch.float32)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(_diff_counts(), before))
+    assert got == want, (route, got)
+    ref_out, ref_grads = _diff_grads(dev, spec, B, torch.float64)
+    assert _diff_counts() == tuple(a + b for a, b in zip(before, want))
+    for x, y in zip((*out, *grads), (*ref_out, *ref_grads)):
+        assert x.dtype == torch.float32 and x.device == dev
+        x, y = x.detach().double().cpu().numpy(), y.detach().cpu().numpy()
+        assert np.isfinite(x).all()
+        scale = max(1.0, float(np.abs(y).max()))
+        np.testing.assert_allclose(x, y, rtol=2e-3, atol=2e-3 * scale)
+
+
+def test_native_packer_serves_linsys_solve_on_the_card(dev):
+    from gato_tpu_torch import formats, native
+
+    assert native.available()
+    spec = tt.IIWA
+    p = tt.blocks_to_csr(spec, tt.random_blocks(spec, seed=4))
+    before = native.CALLS
+    lam, dz = gt.linsys_solve(p.G_row, p.G_col, p.G_val, p.C_row, p.C_col, p.C_val,
+                              p.g, p.c, [0.0] * spec.nl, 1, 1e-6, 100, False, 1e-3,
+                              verbose=False)
+    assert native.CALLS == before + 2 and len(lam) == spec.nl
+    got = formats.pack_kkt(spec, p.G_row, p.G_col, p.G_val, p.C_row, p.C_col,
+                           p.C_val, p.g, p.c)
+    formats.USE_NATIVE = False
+    try:
+        ref = formats.pack_kkt(spec, p.G_row, p.G_col, p.G_val, p.C_row, p.C_col,
+                               p.C_val, p.g, p.c)
+    finally:
+        formats.USE_NATIVE = True
+    for x, y in zip(got, ref):
+        assert np.array_equal(x, y)
+
+
+def test_shared_memory_limit_holds_across_host_threads(dev):
+    """A kernel's dynamic shared-memory limit belongs to the function, not
+    to a host thread: a launch from a fresh thread (as the autograd engine
+    makes a backward's) at a smaller size must not lower the limit that
+    this thread's larger launches of the same kernel need.  Row 4 at B =
+    256 and B = 1 (cluster_body.cuh's launch configuration), the Thomas pair
+    at B = 256 and 16 and row 11's tail at K = 71 and 30 (grid_common.cuh's
+    opt_in_smem; both past 48 KB)."""
+    import threading
+
+    spec = tt.IIWA
+    wide = gt.blocks_to_torch(tt.random_batch(spec, 256, seed0=40), dev)
+
+    def narrow(n):
+        return gt.KKTBlocks(*(a[:n] for a in wide))
+
+    long_spec = gt.ProblemSpec(14, 7, 71)
+    long_b = gt.blocks_to_torch(tt.random_batch(long_spec, 2, seed0=41), dev)
+    short = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(14, 7, 30), 2, seed0=42), dev)
+    cases = [
+        (lambda: kd.direct_fused_cuda(*wide, rho=1e-3)[0].lam,
+         lambda: kd.direct_fused_cuda(*narrow(1), rho=1e-3)),
+        (lambda: kt.solve_direct_thomas_cuda(*wide, rho=1e-3)[0].lam,
+         lambda: kt.solve_direct_thomas_cuda(*narrow(16), rho=1e-3)),
+        (lambda: kl.solve_direct_longk_batched(*long_b, rho=1e-3, force_tier="xl")[0].lam,
+         lambda: kl.solve_direct_longk_batched(*short, rho=1e-3, force_tier="xl")),
+    ]
+    for big, small in cases:
+        first = big()
+        errors = []
+
+        def other():
+            try:
+                small()
+                torch.cuda.synchronize()
+            except Exception as err:  # reported below, in this thread
+                errors.append(err)
+
+        thread = threading.Thread(target=other)
+        thread.start()
+        thread.join()
+        assert not errors, errors
+        again = big()
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
