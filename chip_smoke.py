@@ -119,7 +119,15 @@ Phases, each of which raises on failure (exit code not 0):
    and the refusals; row 15's launches against the count the iterations
    imply; solve_batched_dp (B = 256, both methods) and
    solve_sequence_batched_dp (B = 256 x T = 16) on four groups against the
-   single-device surfaces;
+   single-device surfaces; then solve_packed_dp on Mesh(["cuda:0"] * n,
+   "dp"), n = 1, 2, 4: IIWA K = 50, B = 256 with 'pcg' (kernel B at
+   g = 256 / n) and 'direct' (the Thomas pair at g = 64-256), B = 8
+   'direct' (row 4 at g = 2-8), and a 'longk' pack at K = 1024, B = 4 for
+   both methods; each group a view of the pack, bit for bit against
+   solve_packed on each group alone, against the whole-batch solve_packed
+   (TOL and the tie rule), the warm carry (the same data in at most one
+   iteration, then update_vectors), each route's launches from 0 against
+   the groups' alone, and two refusals;
 5f. one row-15 call without halos is one node, the kernel, in a CUDA
    graph captured around it, and allocates y alone; in a child process
    (chip_smoke.py --profiled, run after phase 2, before this process
@@ -128,7 +136,8 @@ Phases, each of which raises on failure (exit code not 0):
    n = 1, 2, 4, beside the single-device solve, with the device's busy
    share of one kernel-tier call; one sharded PCG
    iteration's cost on four shards; the dp entry points beside their
-   single-device surfaces.
+   single-device surfaces; solve_packed_dp per call at n = 1, 2, 4 beside
+   solve_packed on the same pack, for each pack of 4f.
 
 3g. rows 16, 17 and 18 (the probes, kernels/probes.py) against their plain
    versions: row 18 (null_copy) bit for bit at IIWA K = 50, B = 1 and 256,
@@ -167,6 +176,9 @@ Phases, each of which raises on failure (exit code not 0):
    12 ('hybrid': row 12's peels too); the primal and all eight gradients
    within 2e-3 of scale of the same call in float64 on the card (the
    'torch' route);
+4i. each examples/torch/*.py with --device cuda in a child process, on
+   the library phase 2 built (the library is not built again); its last
+   lines printed, a non-zero exit fails the run;
 5h. forward plus backward with CUDA events at B = 1, 16 and 256 and K =
    1024, beside the forward alone and the 'torch' route in float32; host
    packing (the native C++ packer against NumPy, K = 50 and 1024, median
@@ -183,6 +195,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -213,6 +226,7 @@ from gato_tpu_torch.kernels import longk as kl  # noqa: E402
 from gato_tpu_torch.kernels import pcg_kernel as ka  # noqa: E402
 from gato_tpu_torch.kernels import probes as kp  # noqa: E402
 from gato_tpu_torch.kernels import thomas_batch as kt  # noqa: E402
+from gato_tpu_torch.parallel import sharded as gsharded  # noqa: E402
 from gato_tpu_torch.tools import probe_dispatch, probe_iter_floor  # noqa: E402
 from gato_tpu_torch.tools import probe_throughput  # noqa: E402
 
@@ -3151,6 +3165,192 @@ def dp_compare(what: str, got: gt.SolveResult, ref: gt.SolveResult) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+# --------------------------------------------------------------------------
+# One pack served over a mesh (solve_packed_dp), the groups on the one card.
+
+PACKED_DP_N = (1, 2, 4)
+PACKED_FIELDS = ("lam_p", "dzx_p", "dzu_p", "iters", "converged", "eta")
+
+
+def packed_counts() -> dict:
+    """The launch count of every kernel solve_packed can take."""
+    return {kb.NAME: kb.LAUNCHES, **direct_counts(), **direct_longk_counts()}
+
+
+def zero_packed_counts() -> None:
+    kb.LAUNCHES = 0
+    zero_direct_counts()
+    zero_direct_longk_counts()
+
+
+def packed_dp_cases():
+    """(label, spec, blocks on the card, method, the tier the pack records,
+    the kernels each group's solve launches once, and one it launches at
+    least once: rows 8/10 run in rounds, row 11 in up to three launches)."""
+    iiwa = gt.blocks_to_torch(testing.random_batch(IIWA, BATCH, seed0=7500), DEV)
+    long4 = longk_batch(1024, 4, seed0=7600)
+    pair = (kt.FWD_NAME, kt.REV_NAME, kt.EPILOGUE_NAME)
+    rows_7_13 = (kl.CONDENSE_NAME, kl.RECOVER_NAME)
+    return (("pcg B=256", IIWA, iiwa, "pcg", None, (kb.NAME,), kb.NAME),
+            ("direct B=256", IIWA, iiwa, "direct", "thomas", pair, kt.FWD_NAME),
+            ("direct B=8", IIWA, gt.KKTBlocks(*(a[:8] for a in iiwa)), "direct", "cr",
+             (kd.NAME,), kd.NAME),
+            ("long-K pcg K=1024 B=4", longk_spec(1024), long4, "pcg", "longk",
+             rows_7_13, kl.PCG_NAME),
+            ("long-K direct K=1024 B=4", longk_spec(1024), long4, "direct", "longk",
+             rows_7_13, kl.CR_NAME))
+
+
+def phase_packed_dp_path():
+    print("== phase 4f, continued: solve_packed_dp on Mesh(['cuda:0'] * n, 'dp'), n = "
+          "1, 2, 4: "
+          "one pack's groups of g = B / n problems, each group's solve_packed on a "
+          "view of the pack; against each group alone (bit for bit), the whole "
+          "batch (TOL and the tie rule), the warm carry, and the launches")
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    total = dict.fromkeys(packed_counts(), 0)
+    for label, spec, blocks, method, tier, route, core in packed_dp_cases():
+        opts = gt.SolverOptions(method=method, **kw)
+        packed = gt.pack(spec, blocks, method=method)
+        if packed.plan.tier != tier:
+            raise AssertionError(f"pack {label}: tier {packed.plan.tier}, expected {tier}")
+        whole = gt.solve_packed(packed, opts)
+        for n in PACKED_DP_N:
+            what = f"solve_packed_dp {label} n={n}"
+            mesh = gt.Mesh([DEV] * n, "dp")
+            g = packed.plan.batch // n
+            for i, local in enumerate(gsharded._local_packs(mesh, packed, g)):
+                if any(getattr(local, f).data_ptr() != getattr(packed, f)[i * g].data_ptr()
+                       for f in ("Qb", "Rb", "Ab", "Bb", "qb", "rb", "cb")):
+                    raise AssertionError(f"{what}: group {i} is not a view of the pack")
+            # Each group alone: a pack of its problems with the same tier.
+            zero_packed_counts()
+            alone = []
+            for i in range(n):
+                part = gt.KKTBlocks(*(a[i * g:(i + 1) * g] for a in blocks))
+                gp = gt.pack(spec, part, method=method,
+                             tier=tier if tier in ("cr", "thomas") else None)
+                if gp.plan.tier != tier:
+                    raise AssertionError(f"{what}: group {i} packs as {gp.plan.tier}")
+                alone.append(gt.solve_packed(gp, opts))
+            torch.cuda.synchronize()
+            want = packed_counts()
+            zero_packed_counts()
+            dp = gt.solve_packed_dp(mesh, packed, opts)
+            torch.cuda.synchronize()
+            got = packed_counts()
+            if got != want or any(got[name] != n for name in route) or got[core] < n:
+                raise AssertionError(f"{what}: launches {got}; the groups alone {want}, "
+                                     f"{route} {n} times each, {core} at least {n}")
+            for key, value in got.items():
+                total[key] += value
+            for f in PACKED_FIELDS:
+                if not torch.equal(getattr(dp, f), torch.cat([getattr(r, f) for r in alone])):
+                    raise AssertionError(f"{what}: {f} differs from the groups alone")
+            ties = check_iters(f"{what} against the whole batch", dp, whole, EXIT_TOL)
+            same = dp.iters == whole.iters
+            err = max(check_close(f"{what} {f} against the whole batch",
+                                  getattr(dp, f)[same], getattr(whole, f)[same])
+                      for f in ("lam_p", "dzx_p", "dzu_p"))
+            bitwise = all(torch.equal(getattr(dp, f), getattr(whole, f))
+                          for f in PACKED_FIELDS)
+            text = (f"launches {({k: v for k, v in got.items() if v})}; bit for bit "
+                    f"with each group alone; against the whole batch "
+                    f"{'bit for bit' if bitwise else f'max|d| {err:.2e}'}, {ties} ties")
+            if method == "pcg":
+                again = gt.solve_packed_dp(mesh, packed, opts, lam0=dp.lam_packed)
+                if int(again.iters.max()) > 1:
+                    raise AssertionError(f"{what}: the carry on the same data took "
+                                         f"{int(again.iters.max())} iterations")
+                refreshed = gt.update_vectors(packed, blocks.q * 1.01, blocks.r, blocks.c)
+                warm = gt.solve_packed_dp(mesh, refreshed, opts, lam0=dp.lam_packed)
+                ref = gt.solve_packed(refreshed, opts, lam0=whole.lam_packed)
+                check_iters(f"{what} warm after update_vectors", warm, ref, EXIT_TOL)
+                if not bool(warm.converged.all()) or \
+                        int(warm.iters.sum()) >= int(dp.iters.sum()):
+                    raise AssertionError(f"{what}: the warm start after update_vectors "
+                                         "did not converge in fewer iterations")
+                text += (f"; the carry on the same data {int(again.iters.max())} "
+                         f"iterations at most, after update_vectors mean "
+                         f"{float(warm.iters.double().mean()):.2f} (cold "
+                         f"{float(dp.iters.double().mean()):.2f})")
+            print(f"  {what} (g={g}, tier {tier}): {text}")
+        del whole, packed
+        torch.cuda.empty_cache()
+    refusals = 0
+    packed = gt.pack(IIWA, gt.blocks_to_torch(testing.random_batch(IIWA, 6, seed0=7700),
+                                               DEV))
+    for fn in (lambda: gt.solve_packed_dp(gt.Mesh([DEV] * 4, "dp"), packed),
+               lambda: gt.solve_packed_dp(gt.Mesh([DEV] * 2, "dp"), packed,
+                                          gt.SolverOptions(method="direct"))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"  refused: {e}")
+            refusals += 1
+    if refusals != 2:
+        raise AssertionError("solve_packed_dp served a batch of 6 on 4 groups or "
+                             "relabelled a PCG pack")
+    print(f"  launches on the solve_packed_dp path: "
+          f"{({k: v for k, v in total.items() if v})}")
+    return total
+
+
+def phase_packed_dp_times(card: str) -> dict:
+    print(f"== phase 5f, continued: solve_packed_dp per call beside solve_packed on the "
+          f"same pack "
+          f"(CUDA events, median of {TIMING_RUNS} runs after warm-up) on {card}")
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    times = {}
+    for label, spec, blocks, method, *_ in packed_dp_cases():
+        opts = gt.SolverOptions(method=method, **kw)
+        packed = gt.pack(spec, blocks, method=method)
+        meshes = {n: gt.Mesh([DEV] * n, "dp") for n in PACKED_DP_N}
+        row = {"solve_packed": [cuda_median_ms(lambda: gt.solve_packed(packed, opts))]}
+        for n in PACKED_DP_N:
+            row[n] = cuda_median_ms(lambda: gt.solve_packed_dp(meshes[n], packed, opts))
+        row["solve_packed"].append(cuda_median_ms(lambda: gt.solve_packed(packed, opts)))
+        times[label] = row
+        print(f"  {label}: solve_packed {row['solve_packed'][0]:.4f} / "
+              f"{row['solve_packed'][1]:.4f} ms; solve_packed_dp " + ", ".join(
+                  f"n={n} {row[n]:.4f}" for n in PACKED_DP_N) + f" ms  [{card}]")
+    return times
+
+
+def phase_examples():
+    print("== phase 4i: examples/torch/*.py on the card (--device cuda), each in a "
+          "child process on the library phase 2 built")
+    root = Path(__file__).resolve().parent
+    lib = _build.library_path()
+
+    def built():
+        return lib.stat().st_mtime_ns, sorted(p.name for p in
+                                              _build.BUILD_DIR.glob("libgato_kernels_*"))
+
+    before = built()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    scripts = sorted((root / "examples" / "torch").glob("*.py"))
+    if [p.stem for p in scripts] != ["advanced", "iiwa_batch", "pendulum", "serving"]:
+        raise AssertionError(f"examples/torch holds {[p.name for p in scripts]}")
+    for path in scripts:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(path), "--device", "cuda"], cwd=root,
+                             env=env, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"examples/torch/{path.name} exited {out.returncode}:\n"
+                                 f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        lines = out.stdout.strip().splitlines()
+        print(f"  examples/torch/{path.name}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s; its last lines:")
+        for line in lines[-5:]:
+            print(f"    {line}")
+    if built() != before:
+        raise AssertionError("an example built the kernel library again")
+    print(f"  the library {lib.name} was not built again")
+
+
 def graph_ms_per_call(fn, calls: int = 50) -> float:
     """Device time of one fn() without the host's launch cost: ``calls``
     calls captured in a CUDA graph, the replay timed, over calls."""
@@ -3937,14 +4137,17 @@ def main():
     longk_launches = phase_longk_path()
     exact_launches = phase_direct_longk_path()
     sharded_launches = phase_sharded_path()
+    packed_dp_launches = phase_packed_dp_path()
     meas = phase_measurement_path()
     grad_launches = phase_gradients(card)
+    phase_examples()
     times = phase_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
     exact_times, exact_routes = phase_direct_longk_times(card)
     sharded_times = phase_sharded_times(card, prof)
+    packed_dp_times = phase_packed_dp_times(card)
     probe_times = phase_probe_times(card, meas)
     print(f"  linsys_solve IIWA avg time (printed, testiters=10): fused "
           f"{avg['fused']:.4f} ms, pcg_kernel {avg['pcg_kernel']:.4f} ms  [{card}]")
@@ -4050,6 +4253,12 @@ def main():
             f"{sharded_times[('sharded', K, n)]['torch']:.4f} ms" for n in SHARD_N)
             + f"; single-device solve {sharded_times[('single', K)]:.4f} ms; "
             f"{1e3 * sharded_times[('iteration', K)]:.1f} us a sharded iteration at n=4")
+    for label, row in packed_dp_times.items():
+        print(f"  solve_packed_dp {label}: " + ", ".join(
+            f"n={n} {row[n]:.4f}" for n in PACKED_DP_N)
+            + f" ms; solve_packed {min(row['solve_packed']):.4f} ms")
+    print(f"  launches on the solve_packed_dp path: "
+          f"{({k: v for k, v in packed_dp_launches.items() if v})}")
     for (K, n), (f_ms, x_ms) in longk_routes.items():
         print(f"  long-K route K={K} B={n}: fused_xl {f_ms:.4f} ms, xl {x_ms:.4f} ms")
     for key, r in exact_routes.items():

@@ -20,7 +20,8 @@ Public surface:
   * :class:`Mesh`, :func:`solve_sharded`, :func:`pcg_sharded`,
     :func:`btd_solve_sharded`: one long trajectory with its knots sharded
     over a mesh of devices; :func:`solve_batched_dp`,
-    :func:`solve_sequence_batched_dp`: batches and farms split over it
+    :func:`solve_sequence_batched_dp`: batches and farms split over it;
+    :func:`solve_packed_dp`: one pack served over it
     (:mod:`gato_tpu_torch.parallel`)
   * :mod:`gato_tpu_torch.timing` (``time_solve``, ``chain_time``,
     ``measure_rtt_ms``) and :mod:`gato_tpu_torch.debug` (``solve_debug``,
@@ -46,7 +47,7 @@ from .packed import (PackedKKT, PackedKKTSequence, PackedSequenceResult,
                      PackedSolveResult, pack, pack_sequence, solve_packed,
                      solve_packed_sequence, update_vectors)
 from .parallel import (Mesh, btd_solve_sharded, pcg_sharded, solve_batched_dp,
-                       solve_sequence_batched_dp, solve_sharded)
+                       solve_packed_dp, solve_sequence_batched_dp, solve_sharded)
 from .problem import DEFAULT_OPTIONS, Preconditioner, ProblemSpec, SolverOptions
 from .solver import SolveResult, default_pcg_backend, solve, solve_batched
 
@@ -77,6 +78,7 @@ __all__ = [
     "btd_solve_sharded",
     "solve_batched_dp",
     "solve_sequence_batched_dp",
+    "solve_packed_dp",
     "default_pcg_backend",
     "SolveResult",
     "KKTBlocks",

@@ -51,10 +51,15 @@ own single-device surface on each group (``solver.solve_batched``,
 ``mpc.solve_sequence_batched``) with its routing unchanged.  There is no
 communication until the results are gathered.
 
+:func:`solve_packed_dp` serves one ``packed.PackedKKT`` the same way: the
+pack's problems split into n contiguous groups, group i solved by
+``packed.solve_packed`` on device i on the group's slices of the staged
+tensors, the pack's tier kept.  ``gato_tpu`` shards its packing's lane
+groups; the port's pack has no lanes (packed.py), so its group is a block
+of problems, as in :func:`solve_batched_dp`.
+
 Every entry point returns its results on the mesh's first device, in the
-original order.  Not ported: ``gato_tpu``'s ``solve_packed_dp``, which
-shards a TPU packing's lane groups; the port's ``PackedKKT`` is one value
-on one device.
+original order.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ from ..blocktri import btd_matvec
 from ..formats import KKTBlocks
 from ..kernels import halo_matvec, longk
 from ..mpc import solve_sequence_batched
+from ..packed import (PackedKKT, PackedSolveResult, _check_options, _warm_start,
+                      solve_packed)
 from ..pcg import PCGResult
 from ..problem import Preconditioner, ProblemSpec, SolverOptions
 from ..solver import solve_batched
@@ -552,3 +559,79 @@ def solve_sequence_batched_dp(
             spec, KKTBlocks(*(x[:, part] for x in blocks)), opts,
             lam0=None if lam0 is None else lam0[part], rhos=rhos, device=dev))
     return tuple(gather(list(f), mesh.devices[0], dim=1) for f in zip(*outs))
+
+
+def _local_packs(mesh: Mesh, packed: PackedKKT, g: int) -> list:
+    """Group i of the pack (problems i g .. (i+1) g - 1) on device i, with
+    the pack's plan at batch width g.  Where device i is the pack's own, the
+    group's tensors are views of the pack's (``.to`` returns them as they
+    are); elsewhere they are copies."""
+    local = packed.plan._replace(batch=g)
+    tensors = (packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
+               packed.cb)
+    return [PackedKKT(*(t[i * g:(i + 1) * g].to(dev) for t in tensors), plan=local)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def solve_packed_dp(mesh: Mesh, packed: PackedKKT, options=None, lam0=None,
+                    *, axis_name: str = "dp") -> PackedSolveResult:
+    """Serve one :class:`PackedKKT` over the mesh: ``gato_tpu``'s
+    ``solve_packed_dp`` with the port's groups.
+
+    The pack's B problems split into n contiguous groups of g = B / n
+    (``axis_name``'s size n must divide B), and device i runs
+    ``packed.solve_packed`` on problems i g .. (i+1) g - 1 with the pack's
+    plan at batch width g: the tier the pack recorded ('thomas' stays the
+    Thomas pair at any g, 'longk' the long-K tier), each kernel at the
+    group's own launch plan (kernel B's and row 4's cluster size is chosen
+    from g), so a problem's bits are those of ``solve_packed`` on its group
+    alone, and agree with the whole-batch solve within float32 round-off.
+
+    Placement: where the mesh repeats the pack's device (``Mesh(["cuda:0"]
+    * n)``) a group's tensors are views of the pack and nothing is copied
+    in; on a mesh of other devices each call copies every group to its
+    device, as ``gato_tpu``'s ``shard_map`` places a pack that is not
+    already on the mesh.  The loop over devices reads nothing back to the
+    host, so groups on distinct cards run at once.  The results are gathered
+    on the mesh's first device in the original order, the one new
+    allocation on a repeated device.
+
+    ``lam0``: None (cold start), the packed carry (B, K, s) (a previous
+    result's ``lam_packed``) or the public shape, split by rows the same
+    way; a supplied ``lam0`` is used whatever ``options.warm_start`` says,
+    and an exact solve reads none.
+
+    Returns a ``PackedSolveResult`` with the pack's (global) plan,
+    so ``unpack()`` and ``lam_packed`` work as on ``solve_packed``'s.
+
+    Raises ValueError, as ``gato_tpu``'s does, for ``options.method`` other
+    than the pack's (this function does not relabel; ``solve_packed``
+    serves either method from one pack), a dtype other than float32, a
+    batch not divisible by the mesh axis (so an unbatched pack needs a mesh
+    of one device), or an ``axis_name`` the mesh does not have; and
+    RuntimeError for a CUDA pack or mesh where CUDA is absent."""
+    options = SolverOptions() if options is None else options
+    plan = packed.plan
+    n = mesh.size(axis_name)
+    if options.method != plan.method:
+        raise ValueError(
+            f"this PackedKKT was packed for method={plan.method!r}; "
+            f"solve_packed_dp does not relabel: repack with "
+            f"pack(..., method={options.method!r}) or call solve_packed")
+    _check_options(options, "solve_packed_dp")
+    if plan.batch % n:
+        raise ValueError(f"packed batch={plan.batch} not divisible by mesh axis "
+                         f"{axis_name}={n}")
+    g = plan.batch // n
+    if lam0 is not None:
+        carry = (plan.batch, plan.K, plan.s)
+        public = carry if plan.batched else (plan.K, plan.s)
+        lam0 = _warm_start(lam0, carry, public, packed.qb.device)
+    outs = [solve_packed(local, options,
+                         lam0=None if lam0 is None else lam0[i * g:(i + 1) * g].to(dev))
+            for i, (local, dev) in enumerate(zip(_local_packs(mesh, packed, g),
+                                                 mesh.devices))]
+    fields = ("lam_p", "dzx_p", "dzu_p", "iters", "converged", "eta")
+    return PackedSolveResult(
+        *(gather([getattr(o, f) for o in outs], mesh.devices[0]) for f in fields),
+        plan=plan)
