@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from ..spans import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
@@ -239,16 +241,18 @@ def launch(what: str, name: str, device: torch.device, *args) -> None:
     """Call launcher ``name`` with ``args`` and the current stream of
     ``device`` as its last argument, on ``device``; raise RuntimeError if it
     returns a CUDA error code.  Pointers in ``args`` are ``data_ptr()``
-    ints, or None for a null pointer."""
-    fn = function(name)
-    index = device.index
-    if index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream(index).cuda_stream)
-    else:
-        with torch.cuda.device(index):
+    ints, or None for a null pointer.  Inside a ``torch.profiler`` session
+    the call is the span ``gato.launch``."""
+    with span("gato.launch"):
+        fn = function(name)
+        index = device.index
+        if index == torch.cuda.current_device():
             code = fn(*args, torch.cuda.current_stream(index).cuda_stream)
-    if code:
-        check_launch(code, what)
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        if code:
+            check_launch(code, what)
 
 
 def max_shared_bytes(device) -> int:

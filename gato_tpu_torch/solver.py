@@ -46,6 +46,7 @@ from .kernels import _build, direct_fused, longk, thomas_batch
 from .kernels import fused_solve as fused_kernel
 from .kernels import pcg_kernel
 from .problem import ProblemSpec, SolverOptions
+from .spans import span
 
 VALID_PCG_BACKENDS = ("torch", "pcg_kernel", "fused")
 KERNEL_BACKENDS = ("pcg_kernel", "fused")
@@ -248,11 +249,15 @@ def solve(
       pcg_backend: 'torch' | 'pcg_kernel' | 'fused' | None (auto).
       device: where to solve; default "cuda".
     """
-    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
-    dev, b, lam0 = _stage(spec, blocks, options, lam0, device, ())
-    res = _solve_core(KKTBlocks(*(a.unsqueeze(0) for a in b)),
-                      lam0.unsqueeze(0), options, backend)
-    return SolveResult(*(t[0] for t in res))
+    with span("gato.solve"):
+        with span("gato.route"):
+            backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec))
+        with span("gato.stage"):
+            dev, b, lam0 = _stage(spec, blocks, options, lam0, device, ())
+        with span("gato.solve_core"):
+            res = _solve_core(KKTBlocks(*(a.unsqueeze(0) for a in b)),
+                              lam0.unsqueeze(0), options, backend)
+        return SolveResult(*(t[0] for t in res))
 
 
 def solve_batched(
@@ -267,12 +272,16 @@ def solve_batched(
     """Solve a batch of independent KKT systems (a leading batch axis on
     every array of ``blocks``).  A problem that converges early stops
     updating while the rest of the batch iterates."""
-    Q = blocks.Q
-    backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
-                               batch=Q.shape[0])
-    if Q.ndim != 4:
-        raise ValueError(
-            f"solve_batched expects a leading batch axis on every array "
-            f"(Q (B, K, s, s)); got Q shape {tuple(Q.shape)}")
-    dev, b, lam0 = _stage(spec, blocks, options, lam0, device, (Q.shape[0],))
-    return _solve_core(b, lam0, options, backend)
+    with span("gato.solve_batched"):
+        Q = blocks.Q
+        with span("gato.route"):
+            backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
+                                       batch=Q.shape[0])
+        if Q.ndim != 4:
+            raise ValueError(
+                f"solve_batched expects a leading batch axis on every array "
+                f"(Q (B, K, s, s)); got Q shape {tuple(Q.shape)}")
+        with span("gato.stage"):
+            dev, b, lam0 = _stage(spec, blocks, options, lam0, device, (Q.shape[0],))
+        with span("gato.solve_core"):
+            return _solve_core(b, lam0, options, backend)

@@ -1798,3 +1798,61 @@ def test_shared_memory_limit_holds_across_host_threads(dev):
         again = big()
         torch.cuda.synchronize()
         assert torch.equal(first, again)
+
+
+
+_SPAN_SESSION = """
+import json, os, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+import gato_tpu_torch as gt
+from gato_tpu_torch import testing as tt
+dev = torch.device("cuda", 0)
+b = gt.blocks_to_torch(tt.random_batch(tt.IIWA, 1, seed0=11), dev)
+opts = gt.SolverOptions(method=sys.argv[1])
+gt.solve_batched(tt.IIWA, b, opts, pcg_backend="fused", device=dev)
+torch.cuda.synchronize()
+for _ in range(3):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gt.solve_batched(tt.IIWA, b, opts, pcg_backend="fused", device=dev)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    if any(e.get("cat") == "kernel" for e in events):
+        break
+print(json.dumps([[e["name"], e.get("cat"), float(e["ts"]), float(e.get("dur", 0))]
+                  for e in events
+                  if e.get("cat") == "kernel" or e["name"].startswith("gato.")]))
+"""
+
+
+@pytest.mark.parametrize("method, kernel", [("pcg", "fused_solve_kernel"),
+                                            ("direct", "direct_cluster_kernel")])
+def test_launch_span_precedes_its_kernel(dev, method, kernel):
+    """A 'fused' solve of each method under torch.profiler records one
+    gato.launch inside gato.solve_core inside gato.solve_batched, and the
+    kernel starts on the device after that span starts, on the trace's
+    one clock.  The session runs in a fresh process, taken again (three in
+    all) where it recorded no kernel: in a process that had profiled and
+    launched from other threads before, sessions recorded none."""
+    out = subprocess.run([sys.executable, "-c", _SPAN_SESSION, method],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    events = json.loads(out.stdout.strip().splitlines()[-1])
+    kernels = [a for name, cat, a, _ in events if cat == "kernel" and kernel in name]
+    assert len(kernels) == 1, f"{len(kernels)} {kernel} events in the last of 3 sessions"
+    spans = {}
+    for name, _, a, dur in events:
+        if name.startswith("gato."):
+            spans.setdefault(name, []).append((a, a + dur))
+    assert sorted(spans) == ["gato.launch", "gato.route", "gato.solve_batched",
+                             "gato.solve_core", "gato.stage"]
+    assert all(len(v) == 1 for v in spans.values()), spans
+    (ea, eb), = spans["gato.solve_batched"]
+    (ca, cb), = spans["gato.solve_core"]
+    (la, lb), = spans["gato.launch"]
+    assert ea <= ca <= la <= lb <= cb <= eb
+    assert kernels[0] >= la

@@ -21,8 +21,8 @@ import gato_tpu
 from gato_tpu import debug as jd
 
 import gato_tpu_torch as gt
-from gato_tpu_torch import assemble, debug, pcg
-from gato_tpu_torch.testing import dense_oracle, random_blocks
+from gato_tpu_torch import assemble, debug, pcg, spans
+from gato_tpu_torch.testing import dense_oracle, random_batch, random_blocks
 
 torch.set_num_threads(1)
 
@@ -159,3 +159,134 @@ def test_trace_on_the_cpu_writes_a_trace(tmp_path):
     assert any(n.endswith(": pack_kkt") for n in names)
     assert any(n.endswith(": solve") for n in names)
     assert any("einsum" in e.key for e in prof.key_averages())
+
+
+# ---- the spans of the solve path (gato_tpu_torch.spans) ----
+
+SPAN_SPEC = gt.ProblemSpec(3, 2, 6)
+INNER = ("gato.route", "gato.stage", "gato.solve_core")
+
+
+def _gato_spans(path):
+    """(name, start_us, end_us, cat) of each ``gato.`` span of a Chrome
+    trace, in order of start, an outer span before the spans it holds."""
+    events = json.loads(path.read_text())["traceEvents"]
+    found = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+              e.get("cat")) for e in events
+             if e.get("ph") == "X" and e["name"].startswith("gato.")]
+    return sorted(found, key=lambda sp: (sp[1], -sp[2]))
+
+
+def _profiled_spans(tmp_path, fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return _gato_spans(path)
+
+
+def _assert_nested_in_order(found, outer):
+    names = [n for n, *_ in found]
+    assert names == [outer, *INNER], names
+    _, a, b, _ = found[0]
+    ends = a
+    for name, x, y, _ in found[1:]:
+        assert a <= x <= y <= b, (name, x, y, a, b)
+        assert x >= ends, f"{name} starts before the span ahead of it ends"
+        ends = y
+
+
+@pytest.mark.parametrize("method", ["pcg", "direct"])
+@pytest.mark.parametrize("backend", ["torch", "fused"])
+def test_solve_batched_records_its_spans_nested(tmp_path, method, backend):
+    """Under torch.profiler, solve_batched records gato.solve_batched
+    holding gato.route, gato.stage and gato.solve_core in that order; CPU
+    tensors launch nothing, so no gato.launch (the 'fused' wrappers run
+    their plain versions here)."""
+    blocks = random_batch(SPAN_SPEC, 2, seed0=5)
+    opts = gt.SolverOptions(method=method)
+    found = _profiled_spans(tmp_path, lambda: gt.solve_batched(
+        SPAN_SPEC, blocks, opts, pcg_backend=backend, device="cpu"))
+    _assert_nested_in_order(found, "gato.solve_batched")
+
+
+def test_solve_records_gato_solve(tmp_path):
+    blocks = random_blocks(SPAN_SPEC, seed=6)
+    found = _profiled_spans(tmp_path, lambda: gt.solve(
+        SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu"))
+    _assert_nested_in_order(found, "gato.solve")
+
+
+class _Entered(Exception):
+    pass
+
+
+def _raise(*args, **kwargs):
+    raise _Entered
+
+
+def test_spans_enter_no_record_function_without_a_profiler(monkeypatch):
+    """With no profiler session, no span site enters a RecordFunction: with
+    both RecordFunction classes made to raise, a solve runs; inside a
+    session the same solve reaches them."""
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _raise)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    blocks = random_batch(SPAN_SPEC, 2, seed0=7)
+    for method in ("pcg", "direct"):
+        res = gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(method=method),
+                               device="cpu")
+        assert bool(res.converged.all())
+    assert spans.span("gato.route") is spans.span("gato.stage")
+    from torch.profiler import ProfilerActivity, profile
+    with pytest.raises(_Entered):
+        with profile(activities=[ProfilerActivity.CPU]):
+            gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
+
+
+def test_spans_fall_back_to_record_function(tmp_path, monkeypatch):
+    """Where torch has no fast RecordFunction, the spans are
+    record_function's, exported as user annotations."""
+    monkeypatch.delattr(torch._C._profiler, "_RecordFunctionFast")
+    blocks = random_batch(SPAN_SPEC, 2, seed0=8)
+    found = _profiled_spans(tmp_path, lambda: gt.solve_batched(
+        SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu"))
+    _assert_nested_in_order(found, "gato.solve_batched")
+    assert {cat for *_, cat in found} == {"user_annotation"}
+
+
+def test_debug_trace_writes_the_spans(tmp_path):
+    blocks = random_batch(SPAN_SPEC, 2, seed0=9)
+    with debug.trace(str(tmp_path), device="cpu"):
+        gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
+    (path,) = tmp_path.iterdir()
+    _assert_nested_in_order(_gato_spans(path), "gato.solve_batched")
+
+
+def test_launch_is_one_span_around_the_launcher(tmp_path, monkeypatch):
+    """_build.launch on the CPU with a stand-in launcher: the call, stream
+    and all, is one gato.launch span inside a profiler session, none
+    outside it, and a CUDA error code still raises."""
+    from gato_tpu_torch.kernels import _build
+
+    calls = []
+
+    def launcher(*args):
+        calls.append(args)
+        return args[0]
+
+    class Stream:
+        cuda_stream = 7
+
+    monkeypatch.setattr(_build, "function", lambda name: launcher)
+    monkeypatch.setattr(_build, "check_launch", lambda code, what: _raise())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda index: Stream())
+    dev = torch.device("cuda", 0)
+    _build.launch("test", "gato_null_copy", dev, 0, 5)
+    found = _profiled_spans(tmp_path, lambda: _build.launch("test", "gato_null_copy",
+                                                            dev, 0, 6))
+    assert [n for n, *_ in found] == ["gato.launch"]
+    assert calls == [(0, 5, 7), (0, 6, 7)]
+    with pytest.raises(_Entered):
+        _build.launch("test", "gato_null_copy", dev, 3)

@@ -266,6 +266,7 @@ def test_import_pulls_in_no_jax():
         "gato_tpu_torch.tools.probe_throughput", "gato_tpu_torch.tools.stage_split",
         "gato_tpu_torch.tools.direct_stamps", "gato_tpu_torch.diff",
         "gato_tpu_torch.native", "gato_tpu_torch.tools.grad_split",
+        "gato_tpu_torch.spans",
     ]
     files = {".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
              for p in (REPO / "gato_tpu_torch").rglob("*.py")}
