@@ -25,8 +25,9 @@ B's rule (``fused_solve.rule``) on row 4's plan.  :func:`smem_bytes` and
 :func:`fits` keep the horizons row 4 serves (the routing reads them).
 
 :func:`direct_fused_cuda` takes tensors on a CUDA device to the kernel and
-raises if the kernel cannot take them (``cluster=`` forces C); tensors on
-the CPU go to the plain version, :func:`direct_fused_plain`:
+raises if the kernel cannot take them (``cluster=`` forces C), in kernel
+B's two steps (:func:`plan`, :func:`run`); tensors on the CPU go to the
+plain version, :func:`direct_fused_plain`:
 ``condense(flag=True)`` -> ``direct.btd_solve_cr(flag=True)`` ->
 ``recover_dz``, with the residual and the 1e30 poison.  ``LAUNCHES`` counts
 the kernel's launches, ``LAST_CLUSTER`` holds the C of the last.
@@ -174,6 +175,49 @@ def launch_plan(B: int, K: int, s: int, cdim: int, index: int, cluster=None) -> 
     return C, in_smem
 
 
+def plan(Bn: int, K: int, s: int, cdim: int, device: torch.device, *,
+         rho: float, cluster=None) -> kb.Launch:
+    """The launch of B problems at (K, s, c) on CUDA ``device``
+    (:func:`launch_plan`); raises where the kernel cannot take it, or where
+    the records' global slice would not fit the device's memory."""
+    C, in_smem = launch_plan(Bn, K, s, cdim, device.index, cluster)
+    if not in_smem:
+        floats = Bn * K * kb.record_floats(s, cdim)
+        total = torch.cuda.get_device_properties(device).total_memory
+        if floats * 4 > total:
+            raise ValueError(f"{NAME}: {Bn} problems need {floats * 4} B of scratch, "
+                             f"above the device's {total} B; split the batch")
+    return kb.Launch(device, (Bn, K, s, cdim), C, in_smem,
+                     (Bn, K, s, cdim, float(rho), C, int(in_smem)))
+
+
+def run(launch: kb.Launch, Q, R, A, B, q, r, c):
+    """Launch a :func:`plan` on tensors that have its shapes and are float32,
+    contiguous and on its device.  Returns (PCGResult, dz_x, dz_u), each a
+    fresh tensor."""
+    global LAUNCHES, LAST_CLUSTER
+    dev = launch.device
+    Bn, K, s, cdim = launch.shape
+    scratch = None if launch.in_smem else torch.empty(
+        Bn * K * kb.record_floats(s, cdim), dtype=torch.float32, device=dev)
+    lam = torch.empty_like(q)
+    dz_x = torch.empty_like(q)
+    dz_u = torch.empty_like(r)
+    conv = torch.empty(Bn, dtype=torch.int32, device=dev)
+    eta = torch.empty(Bn, dtype=torch.float32, device=dev)
+    if Bn > 0:
+        _build.launch(NAME, "gato_direct_fused", dev,
+                      *(t.data_ptr() for t in (Q, R, A, B, q, r, c)),
+                      None if scratch is None else scratch.data_ptr(),
+                      *(t.data_ptr() for t in (lam, dz_x, dz_u, conv, eta)),
+                      *launch.args)
+        LAUNCHES += 1
+        LAST_CLUSTER = launch.cluster
+    res = PCGResult(lam=lam, iters=torch.zeros(Bn, dtype=torch.int32, device=dev),
+                    converged=conv != 0, eta=eta)
+    return res, dz_x, dz_u
+
+
 def direct_fused_cuda(Q, R, A, B, q, r, c, *, rho: float = 0.0, cluster=None):
     """Whole batched exact solve (condense + cyclic reduction + recover).
 
@@ -193,31 +237,6 @@ def direct_fused_cuda(Q, R, A, B, q, r, c, *, rho: float = 0.0, cluster=None):
     Bn, K, s, _ = Q.shape
     cdim = R.shape[-1]
     expect = kb.block_shapes((Bn,), K, s, cdim)
-    Q, R, A, B, q, r, c = (_build.checked(NAME, key, t, torch.Size(expect[key]), dev)
-                           for key, t in zip(expect, (Q, R, A, B, q, r, c)))
-    C, in_smem = launch_plan(Bn, K, s, cdim, dev.index, cluster)
-    scratch = None
-    if not in_smem:
-        floats = Bn * K * kb.record_floats(s, cdim)
-        total = torch.cuda.get_device_properties(dev).total_memory
-        if floats * 4 > total:
-            raise ValueError(f"{NAME}: {Bn} problems need {floats * 4} B of scratch, "
-                             f"above the device's {total} B; split the batch")
-        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
-    lam = torch.empty_like(q)
-    dz_x = torch.empty_like(q)
-    dz_u = torch.empty_like(r)
-    conv = torch.empty(Bn, dtype=torch.int32, device=dev)
-    eta = torch.empty(Bn, dtype=torch.float32, device=dev)
-    if Bn > 0:
-        _build.launch(NAME, "gato_direct_fused", dev,
-                      *(t.data_ptr() for t in (Q, R, A, B, q, r, c)),
-                      None if scratch is None else scratch.data_ptr(),
-                      *(t.data_ptr() for t in (lam, dz_x, dz_u, conv, eta)),
-                      Bn, K, s, cdim, float(rho), C, int(in_smem))
-        global LAUNCHES, LAST_CLUSTER
-        LAUNCHES += 1
-        LAST_CLUSTER = C
-    res = PCGResult(lam=lam, iters=torch.zeros(Bn, dtype=torch.int32, device=dev),
-                    converged=conv != 0, eta=eta)
-    return res, dz_x, dz_u
+    tensors = [_build.checked(NAME, key, t, torch.Size(expect[key]), dev)
+               for key, t in zip(expect, (Q, R, A, B, q, r, c))]
+    return run(plan(Bn, K, s, cdim, dev, rho=rho, cluster=cluster), *tensors)

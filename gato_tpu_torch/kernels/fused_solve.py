@@ -16,7 +16,9 @@ The plan of a launch is pure Python here, mirrored by the library's
 :func:`cta_smem_bytes`, :func:`ops_in_smem`, :func:`cluster_fits` and the
 rule :func:`cluster_size`.  :func:`fused_solve_cuda` takes tensors on a
 CUDA device to the kernel and raises if the kernel cannot take them
-(``cluster=`` forces C, for tests and measurements); tensors on the CPU go
+(``cluster=`` forces C, for tests and measurements), in two steps that
+``solver.solve_batched``'s kept plans share: :func:`plan`, the launch of a
+shape, and :func:`run`, its outputs and the launch.  Tensors on the CPU go
 to the plain version, :func:`fused_solve_plain`: ``condense(flag=True)``
 -> ``pcg`` with flagged problems frozen -> ``recover_dz``.  ``LAUNCHES``
 counts the kernel's launches, ``LAST_CLUSTER`` holds the C of the last.
@@ -25,6 +27,7 @@ counts the kernel's launches, ``LAST_CLUSTER`` holds the C of the last.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -274,6 +277,50 @@ def outputs(lead: tuple, K: int, s: int, cdim: int, device) -> tuple:
             empty(*lead), empty(*lead, dtype=torch.int32), empty(*lead, dtype=torch.bool))
 
 
+class Launch(NamedTuple):
+    """A planned launch of kernel B or row 4 (kernels/direct_fused.py): the
+    device, the shape (B, K, s, c), the plan (C, ops_in_smem) and the
+    launcher's arguments after its pointers."""
+    device: torch.device
+    shape: tuple
+    cluster: int
+    in_smem: bool
+    args: tuple
+
+
+def plan(Bn: int, K: int, s: int, cdim: int, device: torch.device, *,
+         rho: float, exit_tol: float, max_iters: int, poly_degree: int,
+         preconditioner: str, cluster=None) -> Launch:
+    """The launch of B problems at (K, s, c) on CUDA ``device``
+    (:func:`launch_plan`, which raises where the kernel cannot take it)."""
+    C, in_smem = launch_plan(NAME, Bn, K, s, cdim, poly_degree, device, cluster)
+    return Launch(device, (Bn, K, s, cdim), C, in_smem,
+                  (Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
+                   poly_degree, PRECOND_CODES[preconditioner], C, int(in_smem)))
+
+
+def run(launch: Launch, Q, R, A, B, q, r, c, lam0):
+    """Launch a :func:`plan` on tensors that have its shapes and are float32,
+    contiguous and on its device.  The kernel only reads ``lam0``.  Returns
+    (PCGResult, dz_x, dz_u), each a fresh tensor."""
+    global LAUNCHES, LAST_CLUSTER
+    dev = launch.device
+    Bn, K, s, cdim = launch.shape
+    scratch = None if launch.in_smem else torch.empty(
+        Bn * K * record_floats(s, cdim), dtype=torch.float32, device=dev)
+    lam, dz_x, dz_u, eta, iters, conv = outputs((Bn,), K, s, cdim, dev)
+    if Bn > 0:
+        _build.launch(NAME, "gato_fused_solve", dev,
+                      *(t.data_ptr() for t in (Q, R, A, B, q, r, c, lam0)),
+                      None if scratch is None else scratch.data_ptr(),
+                      lam.data_ptr(), dz_x.data_ptr(), dz_u.data_ptr(),
+                      iters.data_ptr(), conv.data_ptr(), eta.data_ptr(), *launch.args)
+        LAUNCHES += 1
+        LAST_CLUSTER = launch.cluster
+    res = PCGResult(lam=lam, iters=iters, converged=conv, eta=eta)
+    return res, dz_x, dz_u
+
+
 def fused_solve_cuda(
     Q, R, A, B, q, r, c, lam0=None, *,
     rho: float = 0.0, exit_tol: float = 1e-6, max_iters: int = 100,
@@ -307,23 +354,9 @@ def fused_solve_cuda(
     Bn, K, s, _ = Q.shape
     cdim = R.shape[-1]
     expect = dict(block_shapes((Bn,), K, s, cdim), lam0=(Bn, K, s))
-    Q, R, A, B, q, r, c, lam0 = (
-        _build.checked(NAME, key, t, torch.Size(expect[key]), dev)
-        for key, t in zip(expect, (Q, R, A, B, q, r, c, lam0)))
-    C, in_smem = launch_plan(NAME, Bn, K, s, cdim, poly_degree, dev, cluster)
-    scratch = None if in_smem else torch.empty(
-        Bn * K * record_floats(s, cdim), dtype=torch.float32, device=dev)
-    lam, dz_x, dz_u, eta, iters, conv = outputs((Bn,), K, s, cdim, dev)
-    if Bn > 0:
-        _build.launch(NAME, "gato_fused_solve", dev,
-                      *(t.data_ptr() for t in (Q, R, A, B, q, r, c, lam0)),
-                      None if scratch is None else scratch.data_ptr(),
-                      lam.data_ptr(), dz_x.data_ptr(), dz_u.data_ptr(),
-                      iters.data_ptr(), conv.data_ptr(), eta.data_ptr(),
-                      Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
-                      poly_degree, PRECOND_CODES[preconditioner], C, int(in_smem))
-        global LAUNCHES, LAST_CLUSTER
-        LAUNCHES += 1
-        LAST_CLUSTER = C
-    res = PCGResult(lam=lam, iters=iters, converged=conv, eta=eta)
-    return res, dz_x, dz_u
+    tensors = [_build.checked(NAME, key, t, torch.Size(expect[key]), dev)
+               for key, t in zip(expect, (Q, R, A, B, q, r, c, lam0))]
+    launch = plan(Bn, K, s, cdim, dev, rho=rho, exit_tol=exit_tol, max_iters=max_iters,
+                  poly_degree=poly_degree, preconditioner=preconditioner,
+                  cluster=cluster)
+    return run(launch, *tensors)

@@ -31,6 +31,10 @@ An explicit kernel backend with float64, an unknown backend and an
 explicit ``'fused'`` past those limits raise.  Every entry point takes
 ``device=`` (default ``"cuda"``) and raises if that device is CUDA and no
 CUDA device is available: nothing falls back to the CPU silently.
+
+``solve_batched`` keeps a launch plan per call signature (:func:`launch_plan`):
+a repeat call whose tensors are already staged routes, stages and plans
+nothing, and on kernel B or row 4 allocates its outputs and launches.
 """
 
 from __future__ import annotations
@@ -260,6 +264,109 @@ def solve(
         return SolveResult(*(t[0] for t in res))
 
 
+# ---- The launch plans of solve_batched ----
+#
+# What solve_batched decides from its call signature alone (spec, options,
+# pcg_backend, device, B), built on a signature's first call and kept for
+# later ones: at most PLAN_CACHE_SIZE plans, the oldest evicted.  A
+# signature whose route or plan raises is never kept.  PLAN_BUILDS and
+# PLAN_HITS count the builds and the lookups that found a plan.
+
+PLAN_CACHE_SIZE = 64
+PLAN_BUILDS = 0
+PLAN_HITS = 0
+_PLANS: dict = {}
+
+
+class LaunchPlan(NamedTuple):
+    """A signature's route, and what a call's tensors must be to skip
+    staging: ``dtype``, contiguous, on ``device``, of ``shapes`` (Q, R, A,
+    B, q, r, c, then lam0's)."""
+    backend: str
+    device: torch.device
+    dtype: torch.dtype
+    shapes: tuple
+    lam0: Optional[torch.Tensor]  # kernel B's zero lam0: the kernel only reads it
+    launch: Optional[tuple]       # (kernel module, its Launch): kernel B or row 4
+
+
+def _plan_device(device) -> torch.device:
+    """``device`` as a torch.device, a CUDA device without an index at the
+    current one's (where CUDA is present)."""
+    dev = device if isinstance(device, torch.device) else torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _build_plan(spec, options, pcg_backend, device, dev, batch) -> LaunchPlan:
+    with span("gato.plan"):
+        K, s, c = shape = spec_shape(spec)
+        backend = _resolve_backend(pcg_backend, options, device, shape, batch=batch)
+        expect = fused_kernel.block_shapes((batch,), K, s, c)
+        shapes = tuple(map(torch.Size, expect.values())) + (torch.Size((batch, K, s)),)
+        lam0 = launch = None
+        if backend == "fused" and dev.type == "cuda":
+            if options.method == "pcg":
+                launch = fused_kernel, fused_kernel.plan(
+                    batch, K, s, c, dev, rho=options.rho, exit_tol=options.exit_tol,
+                    max_iters=options.max_iters, poly_degree=options.precond_poly_degree,
+                    preconditioner=options.preconditioner.value)
+                lam0 = torch.zeros(shapes[-1], dtype=torch.float32, device=dev)
+            elif not thomas_batch.should_dispatch(batch, K, s, c):
+                launch = direct_fused, direct_fused.plan(batch, K, s, c, dev,
+                                                         rho=options.rho)
+        return LaunchPlan(backend, dev, _torch_dtype(options.dtype), shapes, lam0, launch)
+
+
+def launch_plan(spec: ProblemSpec, options: SolverOptions, pcg_backend, device,
+                batch: int) -> LaunchPlan:
+    """The plan of ``solve_batched``'s call signature: the kept one, or one
+    built now (raising what the route or the kernel's plan raises)."""
+    global PLAN_BUILDS, PLAN_HITS
+    dev = _plan_device(device)
+    key = (spec, options, pcg_backend, dev, batch)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        PLAN_HITS += 1
+        return plan
+    plan = _build_plan(spec, options, pcg_backend, device, dev, batch)
+    if len(_PLANS) >= PLAN_CACHE_SIZE:
+        del _PLANS[next(iter(_PLANS))]
+    _PLANS[key] = plan
+    PLAN_BUILDS += 1
+    return plan
+
+
+def _staged(plan: LaunchPlan, fields: tuple) -> bool:
+    """True iff every field is a tensor as the plan expects it: its dtype,
+    contiguous, on its device, of its shape."""
+    dtype, dev = plan.dtype, plan.device
+    for t, shape in zip(fields, plan.shapes):
+        if not (isinstance(t, torch.Tensor) and t.dtype is dtype and t.device == dev
+                and t.shape == shape and t.is_contiguous()):
+            return False
+    return True
+
+
+def _run_plan(plan: LaunchPlan, b: KKTBlocks, lam0, options: SolverOptions) -> SolveResult:
+    """The batched solve of staged tensors under ``plan``: its kernel's
+    launch, or :func:`_solve_core` on its backend.  From lam = 0, only
+    kernel B takes the plan's lam0; other paths take a fresh one, as
+    staging makes it, since the plain PCG returns lam0 itself as lam where
+    no iteration runs."""
+    is_pcg = options.method == "pcg"
+    if is_pcg and lam0 is None:
+        lam0 = plan.lam0 if plan.lam0 is not None else torch.zeros(
+            plan.shapes[-1], dtype=plan.dtype, device=plan.device)
+    if plan.launch is None:
+        return _solve_core(KKTBlocks(*b), lam0, options, plan.backend)
+    kernel, launch = plan.launch
+    args = (*b, lam0) if is_pcg else b
+    res, dz_x, dz_u = kernel.run(launch, *args)
+    return SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
+
+
 def solve_batched(
     spec: ProblemSpec,
     blocks: KKTBlocks,
@@ -271,17 +378,26 @@ def solve_batched(
 ) -> SolveResult:
     """Solve a batch of independent KKT systems (a leading batch axis on
     every array of ``blocks``).  A problem that converges early stops
-    updating while the rest of the batch iterates."""
+    updating while the rest of the batch iterates.
+
+    The route and the kernel's plan come from :func:`launch_plan`, kept per
+    call signature.  Tensors already of the options' dtype, contiguous, on
+    ``device`` and of the spec's shapes are used as they are; any other
+    input is staged (copied, cast, made contiguous and checked) first."""
     with span("gato.solve_batched"):
         Q = blocks.Q
         with span("gato.route"):
-            backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
-                                       batch=Q.shape[0])
+            plan = launch_plan(spec, options, pcg_backend, device, Q.shape[0])
         if Q.ndim != 4:
             raise ValueError(
                 f"solve_batched expects a leading batch axis on every array "
                 f"(Q (B, K, s, s)); got Q shape {tuple(Q.shape)}")
         with span("gato.stage"):
-            dev, b, lam0 = _stage(spec, blocks, options, lam0, device, (Q.shape[0],))
+            warm = options.warm_start and lam0 is not None
+            staged = _staged(plan, (*blocks, lam0) if warm else blocks)
+            if not staged:
+                _, b, lam0 = _stage(spec, blocks, options, lam0, device, (Q.shape[0],))
         with span("gato.solve_core"):
-            return _solve_core(b, lam0, options, backend)
+            if staged:
+                return _run_plan(plan, blocks, lam0 if warm else None, options)
+            return _solve_core(b, lam0, options, plan.backend)

@@ -1856,3 +1856,75 @@ def test_launch_span_precedes_its_kernel(dev, method, kernel):
     (la, lb), = spans["gato.launch"]
     assert ea <= ca <= la <= lb <= cb <= eb
     assert kernels[0] >= la
+
+
+# ---- solve_batched's kept launch plans (solver.launch_plan) ----
+
+PLAN_CASES = [(50, 1), (512, 1), (50, 16), (50, 256)]
+PLAN_OPTS = dict(rho=1e-3, exit_tol=1e-6, max_iters=100)
+
+
+def _plan_inputs(dev, K, B):
+    spec = gt.ProblemSpec(14, 7, K)
+    return spec, gt.blocks_to_torch(tt.random_batch(spec, B, seed0=K + B), dev)
+
+
+def _wrapper(b, opts):
+    """The route's wrapper called directly, as _solve_core calls it."""
+    if opts.method == "pcg":
+        res, dz_x, dz_u = kb.fused_solve_cuda(
+            *b, torch.zeros_like(b.q), rho=opts.rho, exit_tol=opts.exit_tol,
+            max_iters=opts.max_iters, poly_degree=opts.precond_poly_degree,
+            preconditioner=opts.preconditioner.value)
+    elif kt.should_dispatch(*b.Q.shape[:3], b.R.shape[-1]):
+        res, dz_x, dz_u = kt.solve_direct_thomas_cuda(*b, rho=opts.rho)
+    else:
+        res, dz_x, dz_u = kd.direct_fused_cuda(*b, rho=opts.rho)
+    return gt.SolveResult(res.lam, dz_x, dz_u, res.iters, res.converged, res.eta)
+
+
+@pytest.mark.parametrize("K, B", PLAN_CASES)
+@pytest.mark.parametrize("method", ["pcg", "direct"])
+def test_a_plan_hit_equals_the_wrapper(dev, K, B, method):
+    """A repeat call (a kept plan, its tensors staged already) gives the
+    bits of the route's wrapper called directly; an index-less "cuda"
+    finds the plan of the current device."""
+    from gato_tpu_torch import solver
+
+    spec, b = _plan_inputs(dev, K, B)
+    opts = gt.SolverOptions(method=method, **PLAN_OPTS)
+    gt.solve_batched(spec, b, opts, device=dev)
+    builds, hits = solver.PLAN_BUILDS, solver.PLAN_HITS
+    with torch.cuda.device(dev):
+        got = gt.solve_batched(spec, b, opts, device="cuda")
+    assert (solver.PLAN_BUILDS, solver.PLAN_HITS) == (builds, hits + 1)
+    ref = _wrapper(b, opts)
+    torch.cuda.synchronize()
+    for name in gt.SolveResult._fields:
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("method, kernel", [("pcg", kb), ("direct", kd)])
+def test_plan_hits_launch_once_into_fresh_outputs(dev, method, kernel):
+    """Kernel B's and row 4's hits: one launch a call, outputs that share no
+    storage with another call's, and kernel B's zero lam0 still zero after
+    100 calls."""
+    from gato_tpu_torch import solver
+
+    spec, b = _plan_inputs(dev, 50, 1)
+    opts = gt.SolverOptions(method=method, **PLAN_OPTS)
+    first = gt.solve_batched(spec, b, opts, device=dev)
+    plan = solver.launch_plan(spec, opts, None, dev, 1)
+    assert plan.launch is not None and plan.launch[0] is kernel
+    assert (plan.lam0 is not None) == (method == "pcg")
+    before = kernel.LAUNCHES
+    for i in range(100):
+        res = gt.solve_batched(spec, b, opts, device=dev)
+        assert kernel.LAUNCHES == before + i + 1
+    torch.cuda.synchronize()
+    ptrs = {t.untyped_storage().data_ptr() for t in first}
+    assert not ptrs & {t.untyped_storage().data_ptr() for t in res}
+    for name in gt.SolveResult._fields:
+        assert torch.equal(getattr(res, name), getattr(first, name)), name
+    if plan.lam0 is not None:
+        assert int(torch.count_nonzero(plan.lam0)) == 0

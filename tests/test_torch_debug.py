@@ -200,15 +200,41 @@ def _assert_nested_in_order(found, outer):
 @pytest.mark.parametrize("method", ["pcg", "direct"])
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_solve_batched_records_its_spans_nested(tmp_path, method, backend):
-    """Under torch.profiler, solve_batched records gato.solve_batched
-    holding gato.route, gato.stage and gato.solve_core in that order; CPU
-    tensors launch nothing, so no gato.launch (the 'fused' wrappers run
-    their plain versions here)."""
+    """Under torch.profiler, a repeat solve_batched (its launch plan kept)
+    records gato.solve_batched holding gato.route, gato.stage and
+    gato.solve_core in that order; CPU tensors launch nothing, so no
+    gato.launch (the 'fused' wrappers run their plain versions here)."""
     blocks = random_batch(SPAN_SPEC, 2, seed0=5)
     opts = gt.SolverOptions(method=method)
-    found = _profiled_spans(tmp_path, lambda: gt.solve_batched(
-        SPAN_SPEC, blocks, opts, pcg_backend=backend, device="cpu"))
+
+    def call():
+        gt.solve_batched(SPAN_SPEC, blocks, opts, pcg_backend=backend, device="cpu")
+
+    call()
+    found = _profiled_spans(tmp_path, call)
     _assert_nested_in_order(found, "gato.solve_batched")
+
+
+def test_gato_plan_is_recorded_inside_the_route_on_a_miss_only(tmp_path, monkeypatch):
+    """A signature's first solve_batched builds its launch plan in a
+    gato.plan span inside gato.route; the next call finds the plan and
+    records the spans without it."""
+    from gato_tpu_torch import solver
+
+    monkeypatch.setattr(solver, "_PLANS", {})
+    blocks = random_batch(SPAN_SPEC, 2, seed0=10)
+
+    def call():
+        gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
+
+    miss = _profiled_spans(tmp_path, call)
+    assert [n for n, *_ in miss] == ["gato.solve_batched", "gato.route", "gato.plan",
+                                     *INNER[1:]]
+    (_, a, b, _), (_, x, y, _) = miss[1], miss[2]
+    assert a <= x <= y <= b
+    _assert_nested_in_order([sp for sp in miss if sp[0] != "gato.plan"],
+                            "gato.solve_batched")
+    _assert_nested_in_order(_profiled_spans(tmp_path, call), "gato.solve_batched")
 
 
 def test_solve_records_gato_solve(tmp_path):
@@ -249,6 +275,7 @@ def test_spans_fall_back_to_record_function(tmp_path, monkeypatch):
     record_function's, exported as user annotations."""
     monkeypatch.delattr(torch._C._profiler, "_RecordFunctionFast")
     blocks = random_batch(SPAN_SPEC, 2, seed0=8)
+    gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
     found = _profiled_spans(tmp_path, lambda: gt.solve_batched(
         SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu"))
     _assert_nested_in_order(found, "gato.solve_batched")
@@ -257,6 +284,7 @@ def test_spans_fall_back_to_record_function(tmp_path, monkeypatch):
 
 def test_debug_trace_writes_the_spans(tmp_path):
     blocks = random_batch(SPAN_SPEC, 2, seed0=9)
+    gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
     with debug.trace(str(tmp_path), device="cpu"):
         gt.solve_batched(SPAN_SPEC, blocks, gt.SolverOptions(), device="cpu")
     (path,) = tmp_path.iterdir()
