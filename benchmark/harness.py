@@ -8,13 +8,18 @@ checkout):
 * ``configs/<config>.json``: the widths, the horizon, the solver options
   and the name of the plain reference (``reference/<name>.py``);
 * ``traffic/<traffic>.json``: the batch, the method, the megabytes of the
-  pool of inputs, and how many calls are compared and profiled;
+  pool of inputs, how many calls are compared and profiled, and optionally
+  the ``entry`` of the program that a call drives;
 * ``cells/<workload>.json``: the limits of the numbers compared;
-* ``metrics/<metric>.py``: a reader, ``read(run) -> float | None``.
+* ``metrics/<metric>.py``: a reader, ``read(run) -> float | None``;
+* ``entries/<entry>.py``: ``program(cell, device) -> (prepare, solve)`` as
+  :func:`program` has it, and optionally ``to_result(out) -> Result``,
+  which turns what ``solve`` returned into a :class:`Result`, untimed.
 
 The window is a closed loop with one client: a call takes the next batch of
-a pool resident on the device, calls the program's ``solve_batched``, and
-waits for its outputs (a device synchronise) before the next.
+a pool of inputs, calls the program (``solve_batched`` on a pool resident
+on the device, where the traffic names no entry), and waits for its
+outputs (a device synchronise) before the next.
 """
 
 from __future__ import annotations
@@ -95,6 +100,22 @@ def load_reader(metric: str, base: Path = BENCH):
 
 def load_reference(name: str, base: Path = BENCH):
     return _load_module(base / "reference" / f"{name}.py", f"benchmark_reference_{name}")
+
+
+class Entry(NamedTuple):
+    """The program under test as a cell drives it."""
+    program: Callable                     # (cell, device) -> (prepare, solve)
+    to_result: Optional[Callable] = None  # solve's output -> Result; None: it is one
+
+
+def entry_of(cell: Cell, base: Path = BENCH) -> Entry:
+    """The traffic's ``entry`` (``entries/<entry>.py``), or :func:`program`
+    where it names none."""
+    name = cell.traffic.get("entry")
+    if name is None:
+        return Entry(program)
+    module = _load_module(base / "entries" / f"{name}.py", f"benchmark_entry_{name}")
+    return Entry(module.program, getattr(module, "to_result", None))
 
 
 class Result(NamedTuple):
@@ -183,9 +204,11 @@ class Sampler:
                 self.kept[j] = item
 
 
-def _loop(pool, solve, sync, seconds: float, sampler: Sampler, iters=None):
+def _loop(pool, solve, sync, seconds: float, sampler: Sampler, iters=None,
+          to_result=None):
     """Calls until ``seconds`` have passed; returns (window seconds, call
-    seconds, host seconds of each solve call)."""
+    seconds, host seconds of each solve call).  ``iters`` collects each
+    call's ``iters``, of its output turned by ``to_result`` where given."""
     P = len(pool)
     call_s, host_s = [], []
     i = 0
@@ -202,7 +225,7 @@ def _loop(pool, solve, sync, seconds: float, sampler: Sampler, iters=None):
         host_s.append(t1 - t0)
         sampler.offer(i, (p, res))
         if iters is not None:
-            iters.append(res.iters)
+            iters.append((res if to_result is None else to_result(res)).iters)
         i += 1
         if t2 >= deadline:
             return t2 - start, call_s, host_s
@@ -281,13 +304,15 @@ def _breakdown(tl: trace.Timeline) -> dict:
     by_op = {}
     for name, a, b in tl.ops_in_window():
         by_op[name] = by_op.get(name, 0.0) + (b - a)
-    # Each idle gap is cut where a span starts or ends, and each piece
-    # named by the innermost span the host was in.
+    # Each idle gap is cut where a span, the benchmark's or the program's,
+    # starts or ends, and each piece named by the innermost span the host
+    # was in.
+    spans = tl.spans + tl.program_spans
     by_span = {}
     for a, b in stats.idle_gaps([(a, b) for _, a, b in tl.ops], tl.start, tl.end):
-        cuts = sorted({a, b} | {t for _, x, y in tl.spans for t in (x, y) if a < t < b})
+        cuts = sorted({a, b} | {t for _, x, y in spans for t in (x, y) if a < t < b})
         for lo, hi in zip(cuts, cuts[1:]):
-            span = trace.host_span_at(tl.spans, 0.5 * (lo + hi))
+            span = trace.host_span_at(spans, 0.5 * (lo + hi))
             by_span[span] = by_span.get(span, 0.0) + (hi - lo)
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
     return {"device_ops": top(by_op), "idle_gaps": top(by_span)}
@@ -309,11 +334,14 @@ def forbidden_modules() -> list:
 
 
 def measure(cell: Cell, seed: int, seconds: float, traced: bool, *,
-            solver: Callable = program, device="cuda",
-            t_start: Optional[float] = None) -> dict:
-    """One run of ``cell``: returns the result line's object.  ``t_start``
-    is the process's start on the host clock (``time.perf_counter``), from
-    which ``setup_s`` counts."""
+            solver: Optional[Callable] = None, to_result: Optional[Callable] = None,
+            device="cuda", t_start: Optional[float] = None) -> dict:
+    """One run of ``cell``: returns the result line's object.  ``solver``
+    and ``to_result`` stand in for the cell's :func:`entry_of` where
+    ``solver`` is given.  ``t_start`` is the process's start on the host
+    clock (``time.perf_counter``), from which ``setup_s`` counts."""
+    if solver is None:
+        solver, to_result = entry_of(cell)
     t_start = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -342,7 +370,7 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool, *,
     sampler = Sampler(int(tr["sample_calls"]), seed)
     iters = [] if traced else None
     t_window = time.perf_counter()
-    window_s, call_s, host_s = _loop(pool, solve, sync, seconds, sampler, iters)
+    window_s, call_s, host_s = _loop(pool, solve, sync, seconds, sampler, iters, to_result)
     run = Run(cell=cell, shape=(K, s, c), batch=B, method=method,
               setup_s=t_window - t_start, window_s=window_s, call_s=call_s,
               host_call_s=host_s, iters=iters)
@@ -367,6 +395,9 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool, *,
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
 
     reference = load_reference(cfg["reference"])
+    if to_result is not None:
+        sampler.kept[:] = [(p, Result(*(t.to(dev) for t in to_result(out))))
+                           for p, out in sampler.kept]
     numbers, failed = compare(cell, fields, sampler.kept, reference)
     sampler.kept.clear()
     if traced and method == "pcg":

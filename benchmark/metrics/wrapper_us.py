@@ -1,0 +1,10 @@
+"""Time in the program's ``gato.solve_core`` spans less their
+``gato.launch`` children (the kernel wrapper's own host work) over the
+profiled stretch's calls, in us (``span_times.split``)."""
+
+from benchmark.span_times import split
+
+
+def read(run):
+    tl = run.timeline
+    return None if tl is None else split(tl.program_spans, tl.calls)["wrapper_us"]

@@ -1,6 +1,7 @@
 """Cells, configurations, traffic mixes and metric readers are found by
 name, and new ones are picked up from new files alone."""
 
+import dataclasses
 import json
 import re
 import shutil
@@ -58,6 +59,36 @@ def copy_tree(tmp_path):
     return base, b
 
 
+# A new entry point as a later change would add it: the program's
+# single-problem ``solve``, its result given the batch axis back.
+TOY_ENTRY = """
+import torch
+
+from benchmark.harness import Result
+
+
+def program(cell, device):
+    import gato_tpu_torch as gt
+
+    cfg, sv = cell.config, cell.config["solver"]
+    spec = gt.ProblemSpec(cfg["state_size"], cfg["control_size"], cfg["knot_points"])
+    options = gt.SolverOptions(rho=sv["rho"], exit_tol=sv["exit_tol"],
+                               max_iters=sv["max_iters"], method=cell.traffic["method"])
+
+    def prepare(fields):
+        return gt.KKTBlocks(*(f[0] for f in fields))
+
+    def solve(blocks):
+        return gt.solve(spec, blocks, options, device=device)
+
+    return prepare, solve
+
+
+def to_result(out):
+    return Result(*(torch.as_tensor(t)[None] for t in out))
+"""
+
+
 def test_new_files_and_entries_add_a_cell_without_editing_a_file(tmp_path):
     base, b = copy_tree(tmp_path)
     before = {p: p.read_bytes() for p in base.rglob("*") if p.is_file()}
@@ -77,6 +108,17 @@ def test_new_files_and_entries_add_a_cell_without_editing_a_file(tmp_path):
     b["per_layer"].append({"name": "calls_seen", "unit": "calls", "better": "higher",
                            "source": "host_clock", "layer": "dispatch",
                            "moves": "solves_per_s", "workloads": ["toy_k20.b3.pcg"]})
+    # A cell on a new entry point: an entry file and a traffic file naming it.
+    (base / "entries" / "one_solve.py").write_text(TOY_ENTRY)
+    traffic.update(batch=1, entry="one_solve", pool_mb=0, warmup_s=0.05, sample_calls=2,
+                   profile_calls=2)
+    (base / "traffic" / "one.pcg.json").write_text(json.dumps(traffic))
+    (base / "cells" / "toy_k20.one.pcg.json").write_text(
+        (base / "cells" / "iiwa14_k50.b1.pcg.json").read_text())
+    b["workloads"].append({"name": "toy_k20.one.pcg", "config": "toy_k20",
+                           "traffic": "one.pcg", "chips": 1, "why": "test"})
+    iters = next(m for m in b["per_layer"] if m["name"] == "pcg_iters_mean")
+    iters["workloads"].append("toy_k20.one.pcg")
     bench_json = tmp_path / "BENCHMARK.json"
     bench_json.write_text(json.dumps(b))
 
@@ -88,8 +130,31 @@ def test_new_files_and_entries_add_a_cell_without_editing_a_file(tmp_path):
     # The metric lists only the new cell: the old cells do not report it.
     old = harness.load_cell("iiwa14_k50.b1.pcg", bench_json, base)
     assert "calls_seen" not in [m["name"] for m in old.per_layer]
+    # The new entry drives a whole run, correct against the reference.
+    cell = harness.load_cell("toy_k20.one.pcg", bench_json, base)
+    entry = harness.entry_of(cell, base)
+    assert entry.program is not harness.program and callable(entry.to_result)
+    result = harness.measure(cell, 2**31 + 77, 0.1, True, solver=entry.program,
+                             to_result=entry.to_result, device="cpu")
+    assert result["correct"] is True and result["attempted"] >= 1, result["checks"]
+    assert result["metrics"]["pcg_iters_mean"]["value"] > 0
     for path, data in before.items():
         assert path.read_bytes() == data, f"{path} was edited"
+
+
+@pytest.mark.parametrize("traffic", sorted(p.stem for p in (harness.BENCH / "traffic").glob("*.json")))
+def test_a_cell_drives_the_entry_its_traffic_names(traffic):
+    cell = harness.load_cell("iiwa14_k50.b1.pcg")
+    cell = dataclasses.replace(
+        cell, traffic=json.loads((harness.BENCH / "traffic" / f"{traffic}.json").read_text()))
+    entry = harness.entry_of(cell)
+    if "entry" not in cell.traffic:
+        # Without one: solve_batched through harness.program itself.
+        assert entry == harness.Entry(harness.program, None)
+    else:
+        path = harness.BENCH / "entries" / f"{cell.traffic['entry']}.py"
+        assert entry.program.__code__.co_filename == str(path)
+        assert callable(entry.to_result)
 
 
 def test_an_unknown_workload_is_refused():

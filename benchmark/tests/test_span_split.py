@@ -2,6 +2,8 @@
 spans read from a trace, the split of a call by them, and the breakdown's
 idle gaps cut at them."""
 
+import dataclasses
+
 import pytest
 
 from benchmark import harness, trace
@@ -74,18 +76,22 @@ def test_split_is_none_without_the_program_spans():
 
 
 def test_breakdown_without_program_spans_is_the_harness_breakdown():
+    # A trace without gato. spans reads as before: cut at the benchmark's
+    # spans alone (test_harness_stats.py pins its numbers).
     tl = trace.from_chrome(chrome())
-    assert split_tool.breakdown(tl, split_tool.program_spans(chrome())) == \
-        harness._breakdown(tl)
+    assert tl.program_spans == []
+    with_program = trace.from_chrome(chrome(PROGRAM))
+    assert harness._breakdown(tl) == harness._breakdown(with_program._replace(program_spans=[]))
 
 
 def test_breakdown_names_idle_pieces_by_the_innermost_span():
     events = chrome(PROGRAM)
     tl = trace.from_chrome(events)
-    # The benchmark's timeline is the parent's: no program span in it.
+    # The benchmark's spans stay as they were; the program's are kept apart,
+    # and the breakdown cuts at both.
     assert tl.spans == trace.from_chrome(chrome()).spans
-    assert harness._breakdown(tl) == harness._breakdown(trace.from_chrome(chrome()))
-    bd = split_tool.breakdown(tl, split_tool.program_spans(events))
+    assert tl.program_spans == split_tool.program_spans(events)
+    bd = harness._breakdown(tl)
     gaps = dict(bd["idle_gaps"])
     # The 34 us of idle time in bench.solve_batched, cut at the program's
     # spans: 0-1, 19-20, 130-131, 149-150 outside them; 1-2, 4-5, 131-132
@@ -100,7 +106,42 @@ def test_breakdown_names_idle_pieces_by_the_innermost_span():
     assert gaps["bench.sync"] == pytest.approx(20e-6)
     assert gaps[trace.LOOP] == pytest.approx(30e-6)
     assert bd["idle_gaps"][0][0] == "bench.loop"
-    assert bd["device_ops"] == harness._breakdown(tl)["device_ops"]
+    assert bd["device_ops"] == harness._breakdown(trace.from_chrome(chrome()))["device_ops"]
+
+
+def run_of(events):
+    tl = trace.from_chrome(events)
+    return harness.Run(None, (50, 14, 7), 1, "pcg", 1.0, 1.0, [1e-4] * 2, [2e-5] * 2,
+                       timeline=tl)
+
+
+DISPATCH = ("route_us", "stage_us", "wrapper_us", "launch_us", "launches_per_call")
+
+
+def test_the_dispatch_readers_read_the_split_of_the_timeline():
+    run = run_of(chrome(PROGRAM))
+    want = split_tool.split(split_tool.program_spans(chrome(PROGRAM)), 2)
+    for name in DISPATCH:
+        assert harness.load_reader(name).read(run) == pytest.approx(want[name]), name
+    assert harness.load_reader("route_us").read(run) == pytest.approx(2.5)
+    assert harness.load_reader("launches_per_call").read(run) == 1.0
+    # Nothing to read without the program's spans or without a trace.
+    for name in DISPATCH:
+        assert harness.load_reader(name).read(run_of(chrome())) is None, name
+        assert harness.load_reader(name).read(dataclasses.replace(run, timeline=None)) is None
+
+
+def test_ingest_is_the_host_outside_the_solve_and_the_device():
+    # linsys_solve's calls: gato.solve inside bench.solve_batched, packing
+    # before it and the lists after it, the fills standing for the copies.
+    solve = [[("gato.solve", 5, 14), ("gato.route", 5, 6)],
+             [("gato.solve", 135, 141), ("gato.stage", 136, 140)]]
+    run = run_of(chrome(solve))
+    # 0-5, 14-15, 18-20 and 130-135, 141-145, 148-150: 19 us over 2 calls.
+    assert harness.load_reader("ingest_us").read(run) == pytest.approx(9.5)
+    # The solve_batched cells have no gato.solve span: nothing to read.
+    assert harness.load_reader("ingest_us").read(run_of(chrome(PROGRAM))) is None
+    assert harness.load_reader("ingest_us").read(run_of(chrome())) is None
 
 
 def test_site_cost_is_dearer_inside_a_profiler_session():

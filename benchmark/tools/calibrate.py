@@ -1,8 +1,9 @@
 """Readings for the limits of ``correct``: the numbers compared, for the
-program on many seeds, and on a few for the control (the reference at TF32
-in the program's place) and, in PCG cells, for an early stop (the program
-with its exit tolerance loosened ``--early-stop`` times), each a short
-window at the cell's own load, all in one process.
+program (the cell's entry, ``harness.entry_of``) on many seeds, and on a
+few for the control (the reference at TF32 in the program's place) and, in
+PCG cells, for an early stop (the program with its exit tolerance loosened
+``--early-stop`` times), each a short window at the cell's own load, all in
+one process.
 
     python benchmark/tools/calibrate.py --workload <name> --seeds 1,2,... \\
         --control-seeds 7,8,9 [--fault-seeds 10,11,12] [--seconds 2] \\
@@ -45,21 +46,23 @@ def main(argv=None) -> int:
         key, value = item.split("=", 1)
         cell.traffic[key] = json.loads(value)
 
+    program, to_result = harness.entry_of(cell)
+
     def early_stop(cell, device):
         solver = dict(cell.config["solver"])
         solver["exit_tol"] *= args.early_stop
-        return harness.program(
+        return program(
             dataclasses.replace(cell, config=dict(cell.config, solver=solver)), device)
 
     faults = args.fault_seeds if cell.traffic["method"] == "pcg" else ""
     lines = []
-    for who, seeds, solver in (
-            ("program", args.seeds, harness.program),
-            ("control", args.control_seeds, harness.control),
-            ("early_stop", faults, early_stop)):
+    for who, seeds, solver, read in (
+            ("program", args.seeds, program, to_result),
+            ("control", args.control_seeds, harness.control, None),
+            ("early_stop", faults, early_stop, to_result)):
         for seed in (int(x) for x in seeds.split(",") if x):
             r = harness.measure(cell, seed, args.seconds, False, solver=solver,
-                                device="cuda:0")
+                                to_result=read, device="cuda:0")
             line = {"workload": args.workload, "who": who, "seed": seed,
                     "correct": r["correct"], "attempted": r["attempted"],
                     "numbers": {k: v["value"] for k, v in r["checks"].items()},

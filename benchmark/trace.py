@@ -3,7 +3,8 @@
 ``profile`` runs calls under ``torch.profiler`` (CPU and CUDA activities),
 each call inside the benchmark's own spans (``record_function``), exports
 the Chrome trace to a temporary file and reads from it the device's
-operations (kernels, copies and fills) and the spans, on one clock.
+operations (kernels, copies and fills), the benchmark's spans and the
+program's own (``gato.`` names), on one clock.
 """
 
 from __future__ import annotations
@@ -15,6 +16,10 @@ from typing import NamedTuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "bench."
+# The program's spans: exported as ``cpu_op`` by the fast RecordFunction,
+# as ``user_annotation`` by ``record_function``.
+PROGRAM_PREFIX = "gato."
+PROGRAM_CATS = ("user_annotation", "cpu_op")
 CALL_SPAN = "bench.call"
 # The host between the benchmark's spans: its loop's own bookkeeping.
 LOOP = "bench.loop"
@@ -27,6 +32,7 @@ class Timeline(NamedTuple):
     start: float   # the first call's start (s)
     end: float     # the last call's end (s)
     calls: int     # calls profiled
+    program_spans: list = []  # (name, start_s, end_s) of each program span
 
     @property
     def seconds(self) -> float:
@@ -53,7 +59,20 @@ def from_chrome(events: list) -> Timeline | None:
     if not calls or not ops:
         return None
     return Timeline(sorted(ops, key=lambda o: o[1]), sorted(spans, key=lambda sp: sp[1]),
-                    min(sp[1] for sp in calls), max(sp[2] for sp in calls), len(calls))
+                    min(sp[1] for sp in calls), max(sp[2] for sp in calls), len(calls),
+                    program_spans(events))
+
+
+def program_spans(events: list) -> list:
+    """(name, start_s, end_s) of each program span (``gato.`` name, a
+    ``user_annotation`` or ``cpu_op`` event) of a Chrome trace, by start."""
+    found = []
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") in PROGRAM_CATS
+                and e["name"].startswith(PROGRAM_PREFIX)):
+            a = float(e["ts"]) * 1e-6
+            found.append((e["name"], a, a + float(e.get("dur", 0.0)) * 1e-6))
+    return sorted(found, key=lambda sp: (sp[1], -sp[2]))
 
 
 def host_span_at(spans: list, t: float) -> str:
