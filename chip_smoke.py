@@ -16,7 +16,11 @@ Phases, each of which raises on failure (exit code not 0):
    condense -> pcg -> recover_dz for all three preconditioners and
    precond_poly_degree 1 and 2, at the cluster size its rule picks and at
    every one forced (C = 1, 2, 4, 8, 16), and one exactly singular input
-   at every C;
+   at every C; kernel B's compiled <36, 12> body at a quadruped's whole-body
+   widths ((s, c, K) = (36, 12, 57), benchmark/configs/anymal36_k57.json;
+   data from the benchmark's generator recipe), B=1 and B=4, at the rule's
+   cluster size and every one that fits, its launches counted from 0, and
+   solve_batched's auto route there, one launch of that body a call;
 3b. the sequence kernel (row 3) against its plain version at IIWA on a
    farm of B=1 and B=256 streams of T=16 steps (each stream's matrices
    fixed, q, r, c drifting by ~1 % a step, per-step rho), bit for bit
@@ -56,7 +60,9 @@ Phases, each of which raises on failure (exit code not 0):
    kernel B at B=1, 4, 16, 64, 256 at the rule's cluster size (with its
    device time from a CUDA graph) and at every C forced; kernel A the same
    at K=50, B=1 and 256 and K=688, B=1, and by stage (the stamps child
-   below); the farm kernel (5b) at every C, with the C each launch used;
+   below); kernel B's <36, 12> body at B=1 and 4 (device time from a CUDA
+   graph; its own row in the kernels table, ``"instance": "36x12"``); the
+   farm kernel (5b) at every C, with the C each launch used;
 5c. the same for the exact-solve kernels at B=1 and B=256, their device
    times (a CUDA graph), row 4 at every C at K=50, B=1, 15, 256 and K=740,
    B=1, and by stage, the
@@ -266,6 +272,13 @@ MAX_ERR = {ka.NAME: 0.0, kb.NAME: 0.0, ks.NAME: 0.0, kd.NAME: 0.0,
 # relative residual of 1e-5, float32 round-off for these systems.
 ETA_REL = 1e-10
 CROSSOVER_B = (1, 4, 16, 64, 256)
+# A quadruped's whole body (s, c, K) = (36, 12, 57), kernel B's compiled
+# <36, 12> body (benchmark/configs/anymal36_k57.json), at these batch widths.
+ANYMAL = (36, 12, 57)
+ANYMAL_B = (1, 4)
+ANYMAL_SEED = 2**31 + 24
+WIDE_ROW = f"{kb.NAME} 36x12"
+MAX_ERR[WIDE_ROW] = 0.0
 
 
 def card_line() -> str:
@@ -504,6 +517,70 @@ def phase_parity():
     print(f"  {kb.NAME} singular input at C = {kb.CLUSTER_SIZES}: converged {conv}, "
           f"iters {kres.iters.tolist()}, eta[1] = {float(kres.eta[1]):g}, lambda_0 "
           "kept (plain version agrees)")
+    return wide_parity()
+
+
+def anymal_batch(n: int):
+    """n problems at the quadruped's widths from the benchmark's generator
+    recipe (benchmark/generator.py), on the card, and a zero lam0."""
+    from benchmark import generator
+    s, c, K = ANYMAL
+    blocks = gt.KKTBlocks(*generator.make_problems(n, K, s, c, ANYMAL_SEED, DEV))
+    return blocks, torch.zeros_like(blocks.q)
+
+
+def wide_parity() -> int:
+    """Kernel B's <36, 12> body against its plain version at ANYMAL, B = 1
+    and 4: the rule's C and every C that fits, the launches counted from 0;
+    then solve_batched's auto route there.  Returns that route's launches
+    of kernel B a call."""
+    s, c, K = ANYMAL
+    _, limit = kb.device_limits(0)
+    sizes = [C for C in kb.CLUSTER_SIZES if kb.cluster_fits(K, s, c, C, limit)]
+    kw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    for n in ANYMAL_B:
+        blocks, lam0 = anymal_batch(n)
+        launch = kb.plan(n, K, s, c, DEV, poly_degree=1, preconditioner="symmetric_stair",
+                         **kw)
+        if launch.instance != "36x12":
+            raise AssertionError(f"{kb.NAME} {ANYMAL} B={n}: plan selects "
+                                 f"{launch.instance!r}, not '36x12'")
+        pres, pdx, pdu = kb.fused_solve_plain(*blocks, lam0, **kw)
+        kb.LAUNCHES = 0
+        for C in (None, *sizes):
+            kres, kdx, kdu = kb.fused_solve_cuda(*blocks, lam0, cluster=C, **kw)
+            torch.cuda.synchronize()
+            what = (f"{kb.NAME} <36, 12> {ANYMAL} B={n} C={kb.LAST_CLUSTER}"
+                    f"{' (rule)' if C is None else ''}")
+            ties = check_iters(what, kres, pres, EXIT_TOL)
+            err = max(check_close(what + " lam", kres.lam, pres.lam),
+                      check_close(what + " dz_x", kdx, pdx),
+                      check_close(what + " dz_u", kdu, pdu))
+            MAX_ERR[WIDE_ROW] = max(MAX_ERR[WIDE_ROW], err)
+            it = kres.iters.cpu().numpy()
+            print(f"  {what}: iters {it.min()}..{it.max()} equal ({ties} ties), "
+                  f"max|d| {err:.3e}")
+        if kb.LAUNCHES != 1 + len(sizes):
+            raise AssertionError(f"{kb.NAME} {ANYMAL} B={n}: {kb.LAUNCHES} launches "
+                                 f"for {1 + len(sizes)} calls")
+    # The main path: solve_batched's auto route launches the <36, 12> body.
+    spec = gt.ProblemSpec(*ANYMAL)
+    opts = gt.SolverOptions(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    kb.LAUNCHES = 0
+    res = gt.solve_batched(spec, blocks, opts)
+    torch.cuda.synchronize()
+    ref = gt.solve_batched(spec, blocks, opts, pcg_backend="torch")
+    check_iters(f"solve_batched {ANYMAL} fused vs torch", res, ref, EXIT_TOL)
+    for name in ("lam", "dz_x", "dz_u"):
+        check_close(f"solve_batched {ANYMAL} {name}", getattr(res, name),
+                    getattr(ref, name))
+    if kb.LAUNCHES != 1:
+        raise AssertionError(f"solve_batched {ANYMAL}: {kb.LAUNCHES} launches of "
+                             f"{kb.NAME}, not 1")
+    print(f"  {kb.NAME} <36, 12>: the rule's C and C = {sizes} agree with the plain "
+          f"version at B = {ANYMAL_B}; solve_batched's auto route: 1 launch, agrees "
+          "with the torch backend")
+    return kb.LAUNCHES
 
 
 def farm(n: int, T: int, seed0: int) -> gt.KKTBlocks:
@@ -1650,6 +1727,42 @@ def phase_times(card: str):
               f"{key}: " + ", ".join(f"{lab} {ph:.1f}" for lab, ph in
                                      zip(r["labels"], r["phases"]))
               for key, r in line["rowA"].items()) + f"  [{card}]")
+    return times
+
+
+def wide_times(card: str) -> dict:
+    """Kernel B's <36, 12> body at ANYMAL, B = 1 and 4, at the rule's C:
+    plain, kernel, kernel, plain (CUDA events), the device time of one
+    launch from 20 in a CUDA graph, and the bound of those inputs."""
+    s, c, K = ANYMAL
+    fkw = dict(rho=RHO, exit_tol=EXIT_TOL, max_iters=MAX_ITERS)
+    times = {}
+    for n in ANYMAL_B:
+        blocks, lam0 = anymal_batch(n)
+        res, dx, du = kb.fused_solve_cuda(*blocks, lam0, **fkw)
+        bound_ms, bound_by = bound(
+            nbytes(*blocks, lam0, res.lam, dx, du, res.iters, res.converged, res.eta),
+            pcg_flops(K, s, res.iters, res.converged, 1)
+            + n * condense_recover_flops(K, s, c, "symmetric_stair"))
+
+        def kern(blocks=blocks, lam0=lam0):
+            return kb.fused_solve_cuda(*blocks, lam0, **fkw)
+
+        def plain(blocks=blocks, lam0=lam0):
+            return kb.fused_solve_plain(*blocks, lam0, **fkw)
+        p1 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+        k1 = cuda_median_ms(kern)
+        k2 = cuda_median_ms(kern)
+        p2 = cuda_median_ms(plain, runs=SLOW_RUNS, warmup=1)
+        dev_ms = graph_ms_per_call(kern, calls=20)
+        times[n] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
+                        cluster=kb.LAST_CLUSTER,
+                        iters_mean=float(res.iters.double().mean()))
+        print(f"  {kb.NAME} <36, 12> {ANYMAL} B={n}: C={kb.LAST_CLUSTER} kernel {k1:.4f} / "
+              f"{k2:.4f} ms, device {dev_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}; {100 * bound_ms / dev_ms:.2f} % of the "
+              f"device time), iters {times[n]['iters_mean']:.2f}  [{card}]")
     return times
 
 
@@ -4124,7 +4237,7 @@ def main():
     # opens a session of its own; 5f prints them.
     prof = run_profiled_sharded()
 
-    phase_parity()
+    wide_launches = phase_parity()
     phase_sequence_parity()
     phase_direct_parity()
     phase_longk_parity()
@@ -4142,6 +4255,7 @@ def main():
     grad_launches = phase_gradients(card)
     phase_examples()
     times = phase_times(card)
+    anymal_times = wide_times(card)
     seq_times = phase_sequence_times(card)
     direct_times = phase_direct_times(card)
     longk_times, longk_routes = phase_longk_times(card)
@@ -4198,6 +4312,14 @@ def main():
         if name in grad_launches:
             row["launches_grad"] = grad_launches[name]
         kernels.append(row)
+    # Kernel B's <36, 12> body: B = 4 (and _b1) at a quadruped's widths;
+    # its launches a call of solve_batched's auto route there (phase 3).
+    row = {"name": kb.NAME, "instance": "36x12", "sizes": list(ANYMAL), "route": "cuda",
+           "source": kb.SOURCE, "replaces": kb.REPLACES, "launches": wide_launches,
+           "max_abs_err": MAX_ERR[WIDE_ROW], **anymal_times[4], "batch": 4}
+    row.update({f"{key}_b1": value for key, value in anymal_times[1].items()
+                if key != "bound_by"})
+    kernels.append(row)
     # The long-K kernels: K=1024 at B=16 (and _b1), with K=8192 beside.
     for name, replaces in ((kl.CONDENSE_NAME, kl.CONDENSE_REPLACES),
                            (kl.PCG_NAME, kl.PCG_REPLACES),

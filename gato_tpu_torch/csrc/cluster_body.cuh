@@ -46,8 +46,20 @@
 // Indexing: a thread takes a (knot, row) pair and loops over columns (the
 // Gauss-Jordan's pivot-row division a (matrix, column) pair).  s and c are
 // template parameters for IIWA (14, 7) and the pendulum (2, 1); <0, 0>
-// reads them at run time (s, c <= 32).  No 64-bit division anywhere, and
-// every product is an explicit fmaf in float32.
+// reads them at run time (s, c <= kMaxWidth = 32).  No 64-bit division
+// anywhere, and every product is an explicit fmaf in float32.
+//
+// Wide bodies (kS > kMaxWidth; kernel B's <36, 12>, a quadruped's
+// whole-body state and controls): a row of 36 no longer fits the registers
+// that __launch_bounds__(384, 1) leaves (168) four or five times over, as
+// the condensation's and the stair's rows do at 14.  So condense_rows_wide
+// and stair_rows_wide hold only the row that later sums read (phi_k's,
+// B Rinv's, theta_k^{-1}'s and one product row) and store theta_k's,
+// phi_{k+1}^T's and the stair's blocks kWideChunk columns at a time as they
+// are made, and the Gauss-Jordan updates a row of [M | I] in halves
+// (gauss_jordan.cuh).  Every entry is the same fmaf chain in the same
+// order as the narrow code's, so the sums, the exit and the determinism
+// are the same; only when each store happens differs.
 //
 // The farm: one cluster a stream walks t = 0..T-1, a cluster barrier
 // between steps; step t's lambda stays in the CTAs' shared memory (an area
@@ -75,10 +87,13 @@ enum Precond { kJacobi = 0, kBlockJacobi = 1, kStair = 2 };
 
 constexpr int kMaxCluster = 16;
 // Threads a CTA at most: __launch_bounds__(384, 1) leaves ptxas up to 168
-// registers a thread; the <14, 7> builds take all 168 (kernel B with no
-// spill, the farm kernel with 12 bytes).
+// registers a thread; the <14, 7> and <36, 12> builds take all 168 (spills
+// of 4 to 12 bytes, outside the loops; fused_solve.cu).
 constexpr int kMaxThreads = 384;
+// The widest s, c of the generic <0, 0> body (its row arrays' size).
 constexpr int kMaxWidth = 32;
+// Columns of a row stored at once by the wide bodies (a divisor of their s).
+constexpr int kWideChunk = 12;
 constexpr float kFrozenEta = 1e30f;
 // Fixed area at the start of the dynamic shared memory, in 4-byte words:
 // 32 warp partials, 2 x 16 reduction slots, 16 flag slots, the CTA's flag.
@@ -592,6 +607,143 @@ __device__ __forceinline__ void condense_rows(const Ctx& x, const Problem& pb,
   __syncthreads();
 }
 
+// 2, for kS > kMaxWidth (kernel B only: no kCopyW).  The same entries as
+// condense_rows; phi_k's and B Rinv's rows stay in registers for theta_k's
+// sums, and theta_k's and phi_{k+1}^T's rows are stored kWideChunk columns
+// at a time.  theta_k's diagonal entry is kept for scalar Jacobi.
+template <int kS, int kC>
+__device__ __forceinline__ void condense_rows_wide(const Ctx& x, const Problem& pb,
+                                                   int precond) {
+  static_assert(kS % kWideChunk == 0, "a wide body's s is a multiple of kWideChunk");
+  constexpr int s = kS, c = kC, ss = s * s, sc = s * c, cc2 = c * c;
+  constexpr int oP = 3 * ss, oQi = 6 * ss, oRi = 7 * ss, oBR = 7 * ss + cc2;
+  constexpr int kW = kWideChunk;
+  const int K = x.K, k0 = x.k0, rows = x.kn * s;
+  for (int t = x.tid; t < rows; t += x.nt) {
+    const int kl = t / s, a = t - kl * s, k = k0 + kl;
+    float* Rk = x.rec + (long long)kl * x.recsz;
+    const float* Qi = Rk + oQi;
+    float d = 0.f;
+    if (k > 0) {
+      const float* Ap = pb.A + (long long)(k - 1) * ss;
+      const float* Bp = pb.Bm + (long long)(k - 1) * sc;
+      const float* Qp = kl == 0 ? x.hb + 2 * ss : Rk - x.recsz + oQi;
+      float ph[kS], br[kC];
+      {
+        float ar[kS];
+#pragma unroll
+        for (int e = 0; e < s; ++e) ar[e] = Ap[a * s + e];
+#pragma unroll
+        for (int j = 0; j < s; ++j) ph[j] = dot_col<kS>(ar, Qp, j, s);
+      }
+      {
+        float brow[kC];
+#pragma unroll
+        for (int e = 0; e < c; ++e) brow[e] = Bp[a * c + e];
+#pragma unroll
+        for (int j = 0; j < c; ++j) br[j] = dot_col<kC>(brow, Rk + oRi, j, c);
+      }
+#pragma unroll 1
+      for (int j0 = 0; j0 < s; j0 += kW) {
+        float th[kW];
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) {
+          const int j = j0 + jj;
+          const float t1 = dot<kS>(ph, Ap + j * s, s);
+          const float t2 = dot<kC>(br, Bp + j * c, c);
+          th[jj] = (t1 + t2) + Qi[a * s + j];
+        }
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) {
+          Rk[ss + a * s + j0 + jj] = th[jj];
+          if (j0 + jj == a) d = th[jj];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < s; ++j) Rk[a * s + j] = ph[j];
+#pragma unroll
+      for (int j = 0; j < c; ++j) Rk[oBR + a * c + j] = br[j];
+    } else {
+      d = Qi[a * s + a];
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) {
+        Rk[a * s + j] = 0.f;
+        Rk[ss + a * s + j] = Qi[a * s + j];
+      }
+    }
+    if (k < K - 1) {
+      const float* Ak = pb.A + (long long)k * ss;
+      float qc[kS];
+#pragma unroll
+      for (int e = 0; e < s; ++e) qc[e] = Qi[e * s + a];
+#pragma unroll 1
+      for (int j0 = 0; j0 < s; j0 += kW) {
+        float ut[kW];
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) ut[jj] = dot<kS>(Ak + (j0 + jj) * s, qc, s);
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) Rk[2 * ss + a * s + j0 + jj] = ut[jj];
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) Rk[2 * ss + a * s + j] = 0.f;
+    }
+    if (precond != kStair) {
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) {
+        Rk[oP + a * s + j] = 0.f;
+        Rk[oP + 2 * ss + a * s + j] = 0.f;
+      }
+    }
+    if (precond == kJacobi) {
+      const float dinv = 1.f / (d != 0.f ? d : 1.f);
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) Rk[oP + ss + a * s + j] = j == a ? dinv : 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+// 3b, the stair's off-diagonal blocks for kS > kMaxWidth: the entries of
+// cluster_body's narrow loop, theta_k^{-1}'s row and one product row in
+// registers, each block stored kWideChunk columns at a time.
+template <int kS>
+__device__ __forceinline__ void stair_rows_wide(const Ctx& x) {
+  constexpr int s = kS, ss = s * s, oP = 3 * ss, kW = kWideChunk;
+  const int K = x.K, k0 = x.k0, kn = x.kn, rows = kn * s;
+  for (int t = x.tid; t < rows; t += x.nt) {
+    const int kl = t / s, a = t - kl * s, k = k0 + kl;
+    float* Rk = x.rec + (long long)kl * x.recsz;
+    float ti[kS], tr[kS];
+#pragma unroll
+    for (int e = 0; e < s; ++e) ti[e] = Rk[oP + ss + a * s + e];
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      // side 0: the L block, -(theta_k^{-1} phi_k) theta_{k-1}^{-1};
+      // side 1: the U block, -(theta_k^{-1} phi_{k+1}^T) theta_{k+1}^{-1}.
+      float* out = Rk + oP + 2 * side * ss + a * s;
+      if (side == 0 ? k == 0 : k == K - 1) {
+#pragma unroll 1
+        for (int j = 0; j < s; ++j) out[j] = 0.f;
+        continue;
+      }
+      const float* nb = side == 0 ? (kl == 0 ? x.hb : Rk - x.recsz + oP + ss)
+                                  : (kl == kn - 1 ? x.hb + ss : Rk + x.recsz + oP + ss);
+      const float* blk = Rk + 2 * side * ss;
+#pragma unroll
+      for (int j = 0; j < s; ++j) tr[j] = dot_col<kS>(ti, blk, j, s);
+#pragma unroll 1
+      for (int j0 = 0; j0 < s; j0 += kW) {
+        float pv[kW];
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) pv[jj] = -dot_col<kS>(tr, nb, j0 + jj, s);
+#pragma unroll
+        for (int jj = 0; jj < kW; ++jj) out[j0 + jj] = pv[jj];
+      }
+    }
+  }
+}
+
 // 4. gamma of own rows into g: Qinv_k q_k + phi_k q_{k-1} + B_{k-1}
 // Rinv_{k-1} r_{k-1} - c_k.  Does not end synchronised.
 template <int kS, int kC>
@@ -780,7 +932,10 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
   stamp(0);
 
   invert_qr<kS, kC, true>(x, pb, rho, bad);
-  condense_rows<kS, kC>(x, pb, precond);
+  if constexpr (kS > kMaxWidth)
+    condense_rows_wide<kS, kC>(x, pb, precond);
+  else
+    condense_rows<kS, kC>(x, pb, precond);
   stamp(3);
 
   // 3. theta_k^{-1} into Pinv[k][1]; the stair's off-diagonal blocks
@@ -799,36 +954,40 @@ __device__ void cluster_body(const Problem& pb, float* smem, float* scratch,
         peer(x, x.hb, x.rank + 1)[t] = x.rec[(long long)(kn - 1) * x.recsz + oP + ss + t];
     }
     csync(x);
-    for (int t = x.tid; t < rows; t += x.nt) {
-      const int kl = t / s, a = t - kl * s, k = k0 + kl;
-      float* Rk = x.rec + (long long)kl * x.recsz;
-      float ti[kCapS], tr[kCapS], pl[kCapS], pu[kCapS];
+    if constexpr (kS > kMaxWidth) {
+      stair_rows_wide<kS>(x);
+    } else {
+      for (int t = x.tid; t < rows; t += x.nt) {
+        const int kl = t / s, a = t - kl * s, k = k0 + kl;
+        float* Rk = x.rec + (long long)kl * x.recsz;
+        float ti[kCapS], tr[kCapS], pl[kCapS], pu[kCapS];
 #pragma unroll
-      for (int e = 0; e < s; ++e) ti[e] = Rk[oP + ss + a * s + e];
-      if (k > 0) {
-        const float* tp = kl == 0 ? x.hb : Rk - x.recsz + oP + ss;
+        for (int e = 0; e < s; ++e) ti[e] = Rk[oP + ss + a * s + e];
+        if (k > 0) {
+          const float* tp = kl == 0 ? x.hb : Rk - x.recsz + oP + ss;
 #pragma unroll
-        for (int j = 0; j < s; ++j) tr[j] = dot_col<kS>(ti, Rk, j, s);
+          for (int j = 0; j < s; ++j) tr[j] = dot_col<kS>(ti, Rk, j, s);
 #pragma unroll
-        for (int j = 0; j < s; ++j) pl[j] = -dot_col<kS>(tr, tp, j, s);
-      } else {
+          for (int j = 0; j < s; ++j) pl[j] = -dot_col<kS>(tr, tp, j, s);
+        } else {
 #pragma unroll
-        for (int j = 0; j < s; ++j) pl[j] = 0.f;
-      }
-      if (k < K - 1) {
-        const float* tn = kl == kn - 1 ? x.hb + ss : Rk + x.recsz + oP + ss;
+          for (int j = 0; j < s; ++j) pl[j] = 0.f;
+        }
+        if (k < K - 1) {
+          const float* tn = kl == kn - 1 ? x.hb + ss : Rk + x.recsz + oP + ss;
 #pragma unroll
-        for (int j = 0; j < s; ++j) tr[j] = dot_col<kS>(ti, Rk + 2 * ss, j, s);
+          for (int j = 0; j < s; ++j) tr[j] = dot_col<kS>(ti, Rk + 2 * ss, j, s);
 #pragma unroll
-        for (int j = 0; j < s; ++j) pu[j] = -dot_col<kS>(tr, tn, j, s);
-      } else {
+          for (int j = 0; j < s; ++j) pu[j] = -dot_col<kS>(tr, tn, j, s);
+        } else {
 #pragma unroll
-        for (int j = 0; j < s; ++j) pu[j] = 0.f;
-      }
+          for (int j = 0; j < s; ++j) pu[j] = 0.f;
+        }
 #pragma unroll
-      for (int j = 0; j < s; ++j) {
-        Rk[oP + a * s + j] = pl[j];
-        Rk[oP + 2 * ss + a * s + j] = pu[j];
+        for (int j = 0; j < s; ++j) {
+          Rk[oP + a * s + j] = pl[j];
+          Rk[oP + 2 * ss + a * s + j] = pu[j];
+        }
       }
     }
   }

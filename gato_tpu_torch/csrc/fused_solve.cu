@@ -20,12 +20,23 @@
 // Gauss-Jordan batches of s pivot steps, two CTA barriers a step; at
 // B = 256 the same chain on 512 CTAs of C = 2 in four waves.
 //
-// Registers: __launch_bounds__(384, 1).  ptxas gives the <14, 7> kernel 168
-// registers and no spill (the farm kernel's <14, 7> 168 and 12 bytes of
-// spill); the generic <0, 0> kernel keeps its per-row arrays of width
-// <= 32 in a 1,408-byte stack frame.  (The one-CTA kernel's __maxnreg__(40),
-// for two 704-thread CTAs an SM, went with it: here C = 1 is the rule's
-// choice only where the records fit shared memory, one CTA an SM.)
+// Widths: compiled-in bodies for IIWA (14, 7), the pendulum (2, 1) and a
+// quadruped's whole-body MPC (36, 12: ANYmal's 36-wide state tangent and 12
+// joint torques), the generic <0, 0> body for any other s, c <= 32.  No
+// other width launches (kernels/fused_solve.py's fits; gato_fused_compiled
+// lists the compiled pairs).  At (36, 12, K = 57) a knot's record is 38.6 KB,
+// and at C = 16 four of them sit in shared memory beside the plan.
+//
+// Registers: __launch_bounds__(384, 1).  ptxas (CUDA 12.8) gives the
+// <14, 7> kernel 168 registers and 4 bytes of spill (the farm kernel's
+// <14, 7> 168 and 12 bytes); the generic <0, 0> kernel keeps its per-row
+// arrays of width <= 32 in a 1,408-byte stack frame; the <36, 12> kernel
+// runs the wide bodies of cluster_body.cuh, whose rows fit the same 168
+// registers: 12 bytes of spill, a record pointer and two knot counts stored
+// at the entry and loaded once after the PCG loop (SASS line info).  (The
+// one-CTA kernel's __maxnreg__(40), for two 704-thread CTAs an SM, went
+// with it: here C = 1 is the rule's choice only where the records fit
+// shared memory, one CTA an SM.)
 #include <cuda_runtime.h>
 
 #include "cluster_body.cuh"
@@ -65,10 +76,12 @@ using FusedKernel = void (*)(const float*, const float*, const float*,
                              const float*, const float*, float*, float*,
                              float*, float*, int*, bool*, float*, int, int, int,
                              float, float, int, int, int, int);
-// The kernel for (s, c): compiled-in widths for IIWA and the pendulum.
+// The kernel for (s, c): compiled-in widths for IIWA, the pendulum and the
+// quadruped, else the generic body (s, c <= 32).
 inline FusedKernel fused_kernel_for(int s, int c) {
   if (s == 14 && c == 7) return fused_solve_kernel<14, 7>;
   if (s == 2 && c == 1) return fused_solve_kernel<2, 1>;
+  if (s == 36 && c == 12) return fused_solve_kernel<36, 12>;
   return fused_solve_kernel<0, 0>;
 }
 
@@ -85,6 +98,11 @@ int gato_cluster_threads(int K, int s, int c, int C) {
 }
 int gato_cluster_size(int B, int K, int s, int c, int n_sms, long long limit) {
   return gato::cl::cluster_size(B, K, s, c, n_sms, limit);
+}
+// 1 iff kernel B has a body compiled for (s, c), else 0 (the generic body).
+int gato_fused_compiled(int s, int c) {
+  const gato::FusedKernel generic = gato::fused_solve_kernel<0, 0>;
+  return gato::fused_kernel_for(s, c) != generic;
 }
 long long gato_fused_scratch_floats(int K, int s, int c) {
   return (long long)K * gato::cl::record_floats(s, c);

@@ -8,11 +8,17 @@
 // writes (so the loads overlap).  Two __syncthreads a pivot, the loads of a
 // phase issued ahead of its stores: the design that took kernel B's Q batch
 // from 40 us (rows in registers, one barrier a step) to 8 us on an H100.
+// A row of [M | I] wider than kGjRowRegs (n = 36: 72 columns) is updated
+// in its two halves, each loaded whole before it is written: the same
+// fmaf a column, in half the registers.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace gato {
+
+// Columns of [M | I] a thread's row update holds in registers at once.
+constexpr int kGjRowRegs = 64;
 
 // Shared floats of one Gauss-Jordan round of `chunk` n x n matrices: [M | I]
 // of each, its pivot row and its zero-pivot mark.
@@ -68,7 +74,23 @@ __device__ __forceinline__ void gj_invert_smem(float* W, int tid, int nt,
         const int m = t / n, rr = t - m * n;
         float* w = W + m * mat + rr * w2;
         const float* rb = rowb + m * w2;
-        if (kN > 0) {
+        if constexpr (2 * kN > kGjRowRegs) {
+          const float f = w[i];
+#pragma unroll
+          for (int h = 0; h < 2 * kN; h += kN) {
+            float wv[kN], rv[kN];
+#pragma unroll
+            for (int cc = 0; cc < kN; ++cc) {
+              wv[cc] = w[h + cc];
+              rv[cc] = rb[h + cc];
+            }
+#pragma unroll
+            for (int cc = 0; cc < kN; ++cc)
+              wv[cc] = rr == i ? rv[cc] : fmaf(-f, rv[cc], wv[cc]);
+#pragma unroll
+            for (int cc = 0; cc < kN; ++cc) w[h + cc] = wv[cc];
+          }
+        } else if (kN > 0) {
           float wv[2 * (kN > 0 ? kN : 1)], rv[2 * (kN > 0 ? kN : 1)];
 #pragma unroll
           for (int cc = 0; cc < 2 * kN; ++cc) {

@@ -32,8 +32,13 @@ SOURCES = ("pcg.cu", "fused_solve.cu", "fused_sequence.cu", "direct_fused.cu",
 HEADERS = ("pcg_common.cuh", "condense.cuh", "cluster_body.cuh", "grid_common.cuh",
            "gauss_jordan.cuh", "condense_tile.cuh", "warp_gj.cuh", "smem_limit.cuh")
 BUILD_DIR = _PKG.parent / "build" / "gato_tpu_torch"
-# Largest state or control size the kernels take (gato_tpu's unrolled
-# Gauss-Jordan limit, blocktri.block_inv); the wrappers refuse larger.
+# Largest state or control size the kernels' generic bodies take (gato_tpu's
+# unrolled Gauss-Jordan limit, blocktri.block_inv; fused_solve.takes_widths).
+# Above it kernel B runs only at the width pairs compiled into it
+# (fused_solve.COMPILED_WIDTHS), and kernel A, which sees no control size,
+# behind a PyTorch condensation; every other kernel's wrapper refuses, and
+# the routing (solver._resolve_backend, packed) sends such shapes to the
+# plain PyTorch path.
 MAX_BLOCK = 32
 # Shared memory a block leaves to the runtime: the routing's pure checks
 # subtract it from the opt-in limit, as the kernel wrappers do.
@@ -60,6 +65,7 @@ _SIGNATURES = {
     "gato_pcg_stamps": (_I, [_P]),
     "gato_fused_solve": (_I, [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P]),
     "gato_fused_scratch_floats": (_LL, [_I, _I, _I]),
+    "gato_fused_compiled": (_I, [_I, _I]),
     "gato_fused_max_clusters": (_I, [_I] * 5),
     "gato_fused_stage_stamps": (_I, [_P]),
     "gato_cluster_smem_bytes": (_LL, [_I] * 5),

@@ -17,7 +17,8 @@ chained kernel-B launches bit for bit.  One launch serves the whole farm.
 and raises if the kernel cannot take them; tensors on the CPU go to the
 plain version, :func:`fused_sequence_plain`: a loop over t of kernel B's
 plain version with the carry.  ``LAUNCHES`` counts the kernel's launches,
-``LAST_CLUSTER`` holds the C of the last.
+``LAST_CLUSTER`` holds the C of the last.  The kernel takes s, c <= 32
+(:func:`fits`): kernel B's wide pairs are not compiled into it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ..pcg import PCGResult
 from . import _build
+from . import fused_solve
 from .fused_solve import (PRECOND_CODES, block_shapes, fused_solve_plain,
                           launch_plan, outputs, record_floats)
 
@@ -35,6 +37,13 @@ REPLACES = "gato_tpu/kernels/fused_solve.py:732"
 
 LAUNCHES = 0
 LAST_CLUSTER = None
+
+
+def fits(K: int, s: int, cdim: int, smem_limit: int) -> bool:
+    """True iff the kernel serves (K, s, c) under ``smem_limit`` bytes of
+    shared memory a block: kernel B's horizons (``fused_solve.fits``) at
+    s, c <= MAX_BLOCK: none of kernel B's wide pairs."""
+    return fused_solve.fits(K, s, cdim, smem_limit, wide=())
 
 
 def fused_sequence_plain(Q, R, A, B, q, r, c, lam0, rhos, *, exit_tol=1e-6,
@@ -93,7 +102,8 @@ def fused_sequence_cuda(
         _build.checked(NAME, key, t, torch.Size(expect[key]), dev)
         for key, t in zip(expect, (Q, R, A, B, q, r, c, lam0, rhos)))
     C, in_smem = launch_plan(NAME, Bn, K, s, cdim, poly_degree, dev, cluster,
-                             occupancy="gato_sequence_max_clusters")
+                             occupancy="gato_sequence_max_clusters",
+                             wide=())
     # One record slice a stream, when the records do not fit shared memory:
     # its T steps run one after another.
     scratch = None if in_smem else torch.empty(

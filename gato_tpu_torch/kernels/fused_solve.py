@@ -21,13 +21,21 @@ CUDA device to the kernel and raises if the kernel cannot take them
 shape, and :func:`run`, its outputs and the launch.  Tensors on the CPU go
 to the plain version, :func:`fused_solve_plain`: ``condense(flag=True)``
 -> ``pcg`` with flagged problems frozen -> ``recover_dz``.  ``LAUNCHES``
-counts the kernel's launches, ``LAST_CLUSTER`` holds the C of the last.
+counts the kernel's launches, ``LAST_CLUSTER`` holds the C of the last,
+and ``SCRATCH_FLOATS`` sums the floats of the global record slices they
+allocated (0 for a launch whose records sit in shared memory).
+
+Widths: any s, c <= ``_build.MAX_BLOCK`` (32), the generic body or one
+compiled in, and above that only the pairs of :data:`COMPILED_WIDTHS`
+(36, 12: a quadruped's whole-body MPC); :func:`takes_widths`.  The farm
+kernel (fused_sequence.py), kernel A, row 4 and the long-K tiers take
+s, c <= 32 alone; the routing sends every other width to the plain path.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,8 +56,15 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _FIXED_FLOATS = 96
 _NUM_VEC = 8
 
+# The width pairs compiled into the kernel (csrc/fused_solve.cu's
+# fused_kernel_for; the library's gato_fused_compiled answers for it):
+# IIWA, the pendulum and a quadruped's whole body.  Any other s, c <=
+# _build.MAX_BLOCK runs the generic body; no other width runs.
+COMPILED_WIDTHS = ((14, 7), (2, 1), (36, 12))
+
 LAUNCHES = 0
 LAST_CLUSTER = None
+SCRATCH_FLOATS = 0
 
 
 def fused_solve_plain(Q, R, A, B, q, r, c, lam0, *, rho=0.0, exit_tol=1e-6,
@@ -99,12 +114,43 @@ def smem_bytes(K: int, s: int, cdim: int) -> int:
     return 4 * floats
 
 
-def fits(K: int, s: int, cdim: int, smem_limit: int) -> bool:
-    """True iff kernel B and the farm kernel serve (K, s, c) on a device
-    whose blocks may opt in to ``smem_limit`` bytes of shared memory.  Every
-    such shape has a cluster size whose plan fits (:func:`cluster_fits`)."""
-    return (K >= 2 and max(s, cdim) <= _build.MAX_BLOCK
+def instance(s: int, cdim: int) -> str:
+    """The body a launch of kernel B at (s, c) selects: ``'14x7'``,
+    ``'2x1'``, ``'36x12'``, or ``'generic'``."""
+    return f"{s}x{cdim}" if (s, cdim) in COMPILED_WIDTHS else "generic"
+
+
+def takes_widths(s: int, cdim: int, wide: tuple = COMPILED_WIDTHS) -> bool:
+    """True iff a kernel has a body for (s, c): s, c <= MAX_BLOCK, or one of
+    the ``wide`` pairs compiled into it.  Kernel B takes its
+    :data:`COMPILED_WIDTHS`; every other kernel passes ``()``."""
+    return max(s, cdim) <= _build.MAX_BLOCK or (s, cdim) in wide
+
+
+def fits(K: int, s: int, cdim: int, smem_limit: int,
+         wide: tuple = COMPILED_WIDTHS) -> bool:
+    """True iff kernel B (with ``wide=()``, the farm kernel:
+    ``fused_sequence.fits``) serves (K, s, c) on a device whose blocks may
+    opt in to ``smem_limit`` bytes of shared memory: widths it has a body
+    for (:func:`takes_widths`) at a horizon within :func:`smem_bytes`.
+    Every such shape has a cluster size whose plan fits
+    (:func:`cluster_fits`)."""
+    return (K >= 2 and takes_widths(s, cdim, wide)
             and smem_bytes(K, s, cdim) <= smem_limit - _build.RESERVED_SHARED_BYTES)
+
+
+def width_message(name: str, K: int, s: int, cdim: int, wide: tuple = ()) -> str:
+    """Why a kernel with the ``wide`` pairs does not take (K, s, c): (s, c)
+    is neither within MAX_BLOCK nor one of those pairs, or is one at a
+    horizon past its shared memory."""
+    wide = [p for p in wide if max(p) > _build.MAX_BLOCK]
+    if (s, cdim) in wide:
+        why = f"the kernel takes (s, c) = ({s}, {cdim}) only within its shared memory"
+    else:
+        why = f"the kernel takes s, c <= {_build.MAX_BLOCK}" + (
+            f", or (s, c) in {wide}" if wide else "")
+    return (f"{name}: (K, s, c) = ({K}, {s}, {cdim}): {why}; pass pcg_backend "
+            "None (auto) or 'torch', which solve any widths")
 
 
 def past_limit_message(name: str, K: int, s: int, cdim: int, smem: int,
@@ -233,23 +279,26 @@ def device_limits(index: int) -> tuple:
 
 def launch_plan(name: str, B: int, K: int, s: int, cdim: int, poly_degree,
                 device: torch.device, cluster=None, *,
-                occupancy: str = "gato_fused_max_clusters") -> tuple:
+                occupancy: str = "gato_fused_max_clusters",
+                wide: tuple = COMPILED_WIDTHS) -> tuple:
     """(C, ops_in_smem) of a launch of B problems (or streams) at (K, s, c)
     on ``device``; raises ValueError for a shape, poly degree or forced
     ``cluster`` the kernel does not take, and RuntimeError when the card
     cannot hold one such cluster (``occupancy`` names the library's
-    cudaOccupancyMaxActiveClusters query for the kernel)."""
+    cudaOccupancyMaxActiveClusters query for the kernel).  The kernel takes
+    s, c <= MAX_BLOCK and the ``wide`` pairs (the farm kernel: none)."""
     if not isinstance(poly_degree, int) or poly_degree < 1:
         raise ValueError(f"{name}: poly_degree must be an int >= 1")
-    return _plan(name, B, K, s, cdim, device.index, cluster, occupancy)
+    return _plan(name, B, K, s, cdim, device.index, cluster, occupancy, wide)
 
 
 @functools.cache
 def _plan(name: str, B: int, K: int, s: int, cdim: int, index: int, cluster,
-          occupancy: str) -> tuple:
-    if K < 2 or s > _build.MAX_BLOCK or cdim > _build.MAX_BLOCK:
-        raise ValueError(f"{name}: needs K >= 2 and s, c <= {_build.MAX_BLOCK}; got "
-                         f"K={K}, s={s}, c={cdim}")
+          occupancy: str, wide: tuple) -> tuple:
+    if K < 2:
+        raise ValueError(f"{name}: needs K >= 2; got K={K}")
+    if not takes_widths(s, cdim, wide):
+        raise ValueError(width_message(name, K, s, cdim, wide))
     n_sms, limit = device_limits(index)
     if not fits(K, s, cdim, limit):
         raise ValueError(past_limit_message(
@@ -279,13 +328,15 @@ def outputs(lead: tuple, K: int, s: int, cdim: int, device) -> tuple:
 
 class Launch(NamedTuple):
     """A planned launch of kernel B or row 4 (kernels/direct_fused.py): the
-    device, the shape (B, K, s, c), the plan (C, ops_in_smem) and the
-    launcher's arguments after its pointers."""
+    device, the shape (B, K, s, c), the plan (C, ops_in_smem), the
+    launcher's arguments after its pointers and, for kernel B, the body it
+    selects (:func:`instance`; None for row 4)."""
     device: torch.device
     shape: tuple
     cluster: int
     in_smem: bool
     args: tuple
+    instance: Optional[str] = None
 
 
 def plan(Bn: int, K: int, s: int, cdim: int, device: torch.device, *,
@@ -296,18 +347,20 @@ def plan(Bn: int, K: int, s: int, cdim: int, device: torch.device, *,
     C, in_smem = launch_plan(NAME, Bn, K, s, cdim, poly_degree, device, cluster)
     return Launch(device, (Bn, K, s, cdim), C, in_smem,
                   (Bn, K, s, cdim, float(rho), float(exit_tol), int(max_iters),
-                   poly_degree, PRECOND_CODES[preconditioner], C, int(in_smem)))
+                   poly_degree, PRECOND_CODES[preconditioner], C, int(in_smem)),
+                  instance(s, cdim))
 
 
 def run(launch: Launch, Q, R, A, B, q, r, c, lam0):
     """Launch a :func:`plan` on tensors that have its shapes and are float32,
     contiguous and on its device.  The kernel only reads ``lam0``.  Returns
     (PCGResult, dz_x, dz_u), each a fresh tensor."""
-    global LAUNCHES, LAST_CLUSTER
+    global LAUNCHES, LAST_CLUSTER, SCRATCH_FLOATS
     dev = launch.device
     Bn, K, s, cdim = launch.shape
+    floats = 0 if launch.in_smem else Bn * K * record_floats(s, cdim)
     scratch = None if launch.in_smem else torch.empty(
-        Bn * K * record_floats(s, cdim), dtype=torch.float32, device=dev)
+        floats, dtype=torch.float32, device=dev)
     lam, dz_x, dz_u, eta, iters, conv = outputs((Bn,), K, s, cdim, dev)
     if Bn > 0:
         _build.launch(NAME, "gato_fused_solve", dev,
@@ -317,6 +370,7 @@ def run(launch: Launch, Q, R, A, B, q, r, c, lam0):
                       iters.data_ptr(), conv.data_ptr(), eta.data_ptr(), *launch.args)
         LAUNCHES += 1
         LAST_CLUSTER = launch.cluster
+        SCRATCH_FLOATS += floats
     res = PCGResult(lam=lam, iters=iters, converged=conv, eta=eta)
     return res, dz_x, dz_u
 

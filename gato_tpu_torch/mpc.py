@@ -17,10 +17,11 @@ warm start (``result.lam[t, b]`` warm-starts step t+1 of stream b).
   (kernels/fused_sequence.py, row 3), ``gato_tpu``'s TPU default.
 
 Auto-selection picks ``'fused'`` for float32 on CUDA where the sequence
-kernel takes the horizon, ``'pcg_kernel'`` past its shared memory (so the
-long-K tier), and ``'torch'`` otherwise; an explicit ``'fused'`` past it
-raises.  ``lam0`` is used whatever ``options.warm_start`` says: chaining
-is the point of these entry points.
+kernel takes the shape (s, c <= 32), ``'pcg_kernel'`` past it where that
+backend has a kernel (so the long-K tier; kernel A at a control size above
+32), and ``'torch'`` otherwise (``solver._resolve_backend``); an explicit
+``'fused'`` past it raises.  ``lam0`` is used whatever
+``options.warm_start`` says: chaining is the point of these entry points.
 
 ``method='direct'`` is the exact farm (``gato_tpu.mpc``'s
 ``_solve_sequence_batched_direct_core``): an exact solve has no warm-start
@@ -159,7 +160,7 @@ def solve_sequence_batched(
 
     Returns a SolveResult with leading (T, B) axes."""
     backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
-                               batch=_solves(blocks))
+                               batch=_solves(blocks), farm=True)
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     2, "solve_sequence_batched")
     return _sequence_core(b, lam0, rhos, options, backend)
@@ -183,7 +184,7 @@ def solve_sequence(
     warm-starts solve t+1.  The B=1 case of :func:`solve_sequence_batched`.
     """
     backend = _resolve_backend(pcg_backend, options, device, spec_shape(spec),
-                               batch=_solves(blocks))
+                               batch=_solves(blocks), farm=True)
     b, lam0, rhos = _stage_sequence(spec, blocks, options, lam0, rhos, device,
                                     1, "solve_sequence")
     res = _sequence_core(b, lam0, rhos, options, backend)

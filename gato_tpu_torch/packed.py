@@ -34,6 +34,9 @@ which ``pack(method='direct')`` picks from B >= 16 as ``solve_batched``
 does (``tier=`` overrides), or past row 4's shared memory ``'longk'``, the
 long-K exact tier (kernels/longk.py; ``gato_tpu``'s ``tier='longk'`` too).
 A ``'longk'`` pack, for either method, is solved exactly on that tier.
+Where no kernel takes the widths (s or c above 32, but kernel B's compiled
+pairs for 'pcg'), ``pack`` records ``tier='torch'``: the plain PyTorch path
+on the pack's device, for either method, as ``solve`` auto-selects there.
 Every tier reads the same staged tensors, so a pack serves either method.
 ``solve_packed_sequence`` launches the sequence kernel
 (kernels/fused_sequence.py), or past its shared memory runs the window's
@@ -51,10 +54,10 @@ import numpy as np
 import torch
 
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes
-from .kernels import direct_fused, fused_sequence, fused_solve, longk, thomas_batch
+from .kernels import _build, direct_fused, fused_sequence, fused_solve, longk, thomas_batch
 from .mpc import _sequence_core
 from .problem import ProblemSpec, SolverOptions
-from .solver import SolveResult, _torch_dtype, resolve_device, shared_limit
+from .solver import SolveResult, _solve_core, _torch_dtype, resolve_device, shared_limit
 
 DIRECT_TIERS = ("cr", "thomas")
 
@@ -68,7 +71,8 @@ class PackPlan(NamedTuple):
     problems (streams for a sequence); ``tier`` is the direct route ('cr',
     'thomas', or 'longk' past row 4's shared memory) of a 'direct' pack,
     and for 'pcg' None (kernel B or the farm kernel) or 'longk' (past their
-    shared memory: the long-K tier)."""
+    shared memory: the long-K tier); 'torch' where no kernel takes the
+    widths (the plain PyTorch path)."""
 
     method: str
     batched: bool
@@ -154,10 +158,14 @@ def _warm_start(lam0, carry_shape, public_shape, device) -> torch.Tensor:
                      f"{carry_shape} nor the public {public_shape}")
 
 
-def _longk(K: int, s: int, c: int, device) -> bool:
-    """True iff method='pcg' on these widths is past kernel B's (and the farm
-    kernel's) shared memory on ``device``: the long-K tier's."""
-    return not fused_solve.fits(K, s, c, shared_limit(device))
+def _pcg_tier(K: int, s: int, c: int, device, farm: bool = False) -> Optional[str]:
+    """The method='pcg' route of these widths on ``device``: None where
+    kernel B (with ``farm``, the farm kernel) takes them, 'longk' past its
+    shared memory where the long-K tier takes the widths, else 'torch'."""
+    kernel = fused_sequence if farm else fused_solve
+    if kernel.fits(K, s, c, shared_limit(device)):
+        return None
+    return "longk" if fused_solve.takes_widths(s, c, ()) else "torch"
 
 
 def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int,
@@ -165,8 +173,16 @@ def _direct_tier(tier: Optional[str], Bn: int, K: int, s: int, c: int,
     """The direct route of a pack: 'thomas' from B >= 16 when its stacks
     fit (thomas_batch.should_dispatch), else 'cr', or 'longk' (the long-K
     exact tier) past row 4's shared memory on ``device``, where an explicit
-    'cr' goes too (gato_tpu.packed's rule); a forced 'thomas' that does not
-    fit raises."""
+    'cr' goes too (gato_tpu.packed's rule); 'torch' at widths above 32,
+    where no exact kernel runs.  A forced 'thomas' that does not fit, or a
+    forced 'cr' at such widths, raises."""
+    if not fused_solve.takes_widths(s, c, ()):
+        if tier is not None:
+            raise ValueError(
+                f"tier={tier!r}: (K, s, c) = ({K}, {s}, {c}): the exact kernels take "
+                f"s, c <= {_build.MAX_BLOCK}; pass tier=None, which packs these "
+                "widths for the plain PyTorch path")
+        return "torch"
     if tier == "thomas":
         if not thomas_batch.fits(Bn, K, s, c):
             raise ValueError(
@@ -220,11 +236,19 @@ def pack(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
     K, s, c = spec.knot_points, spec.state_size, spec.control_size
     if method == "direct":
         tier = _direct_tier(tier, Bn, K, s, c, dev)
-    elif _longk(K, s, c, dev):
-        tier = "longk"
+    else:
+        tier = _pcg_tier(K, s, c, dev)
     plan = PackPlan(method=method, batched=batched, batch=Bn, K=K, s=s, c=c,
                     tier=tier)
     return PackedKKT(*b, plan=plan)
+
+
+def _torch_result(b: KKTBlocks, lam0, options: SolverOptions,
+                  plan: PackPlan) -> PackedSolveResult:
+    """A 'torch' pack's solve: the plain PyTorch path (solver._solve_core)."""
+    out = _solve_core(b, lam0, options, "torch")
+    return PackedSolveResult(out.lam, out.dz_x, out.dz_u, out.iters,
+                             out.converged, out.eta, plan)
 
 
 def update_vectors(packed: PackedKKT, q, r, c) -> PackedKKT:
@@ -257,7 +281,8 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     the long-K tier: kernels/longk.py); for 'direct' the pack's tier
     (a 'longk' pack of either method the long-K exact tier; another pack
     made for 'pcg' takes solve_batched's batch-width pick), one launch of
-    row 4, one of each of rows 5 and 6, or the long-K exact tier.
+    row 4, one of each of rows 5 and 6, or the long-K exact tier.  Widths
+    that no kernel of the method takes run the plain PyTorch path.
 
     ``lam0``: None (cold start), the packed carry (B, K, s) (a previous
     ``PackedSolveResult.lam_packed``) or a public array ((K, s) for an
@@ -269,9 +294,11 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     blocks = (packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb, packed.rb,
               packed.cb)
     if options.method == "direct":
-        tier = (plan.tier if plan.method == "direct" or plan.tier == "longk" else
+        tier = (plan.tier if plan.method == "direct" or plan.tier is not None else
                 _direct_tier(None, plan.batch, plan.K, plan.s, plan.c,
                              packed.qb.device))
+        if tier == "torch":
+            return _torch_result(KKTBlocks(*blocks), None, options, plan)
         solve = {"thomas": thomas_batch.solve_direct_thomas_cuda,
                  "cr": direct_fused.direct_fused_cuda,
                  "longk": longk.solve_direct_longk_batched}[tier]
@@ -281,7 +308,10 @@ def solve_packed(packed: PackedKKT, options: SolverOptions = SolverOptions(),
     carry = (plan.batch, plan.K, plan.s)
     public = carry if plan.batched else (plan.K, plan.s)
     lb = _warm_start(lam0, carry, public, packed.qb.device)
-    if _longk(plan.K, plan.s, plan.c, packed.qb.device):
+    tier = _pcg_tier(plan.K, plan.s, plan.c, packed.qb.device)
+    if tier == "torch":
+        return _torch_result(KKTBlocks(*blocks), lb, options, plan)
+    if tier == "longk":
         res, dz_x, dz_u = longk.solve_longk_batched(
             *blocks, lb, rho=options.rho, **_kernel_kw(options))
     else:
@@ -363,7 +393,7 @@ def pack_sequence(spec: ProblemSpec, blocks: KKTBlocks, *, method: str = "pcg",
     check_block_shapes(spec, b, lead=(T, Bn))
     K, s, c = spec.knot_points, spec.state_size, spec.control_size
     plan = PackPlan(method="pcg", batched=True, batch=Bn, K=K, s=s, c=c,
-                    tier="longk" if _longk(K, s, c, dev) else None)
+                    tier=_pcg_tier(K, s, c, dev, farm=True))
     return PackedKKTSequence(*b, plan=plan)
 
 
@@ -373,7 +403,8 @@ def solve_packed_sequence(packed: PackedKKTSequence,
     """Run a whole warm-started farm window from staged inputs: one launch
     of the sequence kernel, every step at ``options.rho``; for a
     ``tier='longk'`` pack the long-K tier step after step, each
-    warm-started from the last.
+    warm-started from the last (a ``tier='torch'`` pack: the plain PyTorch
+    path so).
 
     ``lam0``: None (cold start) or a (B, K, s) array, for example the
     previous window's ``lam_tail_packed``; it is used whatever
@@ -389,9 +420,10 @@ def solve_packed_sequence(packed: PackedKKTSequence,
     lb = _warm_start(lam0, carry, carry, dev)
     blocks = KKTBlocks(packed.Qb, packed.Rb, packed.Ab, packed.Bb, packed.qb,
                        packed.rb, packed.cb)
-    if _longk(plan.K, plan.s, plan.c, dev):
-        out = _sequence_core(blocks, lb, np.full(packed.T, options.rho),
-                             options, "pcg_kernel")
+    tier = _pcg_tier(plan.K, plan.s, plan.c, dev, farm=True)
+    if tier is not None:
+        out = _sequence_core(blocks, lb, np.full(packed.T, options.rho), options,
+                             "pcg_kernel" if tier == "longk" else "torch")
         return PackedSequenceResult(out.lam, out.dz_x, out.dz_u, out.iters,
                                     out.converged, out.eta, plan)
     rhos = torch.full((packed.T,), options.rho, dtype=torch.float32,

@@ -27,8 +27,15 @@ the shape it picks ``'pcg_kernel'`` (``gato_tpu``'s ``'pallas'`` there):
 with ``method='pcg'`` past kernel B's shared memory (the long-K tier),
 with ``method='direct'`` past row 4's where the Thomas pair declines the
 batch width (IIWA K >= 741 at B < 16 on an H100: the long-K exact tier).
-An explicit kernel backend with float64, an unknown backend and an
-explicit ``'fused'`` past those limits raise.  Every entry point takes
+Widths above ``_build.MAX_BLOCK`` (32): kernel B takes the pairs compiled
+into it (``fused_solve.COMPILED_WIDTHS``: (36, 12)) within its shared
+memory; with ``method='pcg'``, ``'pcg_kernel'`` takes a control size above
+32 (its condensation is PyTorch's) where kernel A holds the horizon.  Every
+other such shape, and every one with ``method='direct'``, auto-selects
+``'torch'`` (``gato_tpu``'s ``'jax'``, which it takes for any width off
+the TPU).  An explicit kernel backend with float64, an unknown backend, an
+explicit ``'fused'`` past those limits and an explicit kernel backend at a
+shape it has no kernel for raise.  Every entry point takes
 ``device=`` (default ``"cuda"``) and raises if that device is CUDA and no
 CUDA device is available: nothing falls back to the CPU silently.
 
@@ -46,7 +53,7 @@ import torch
 
 from . import assemble, direct, pcg as pcg_mod, recover
 from .formats import KKTBlocks, blocks_to_torch, check_block_shapes, interleave_dz
-from .kernels import _build, direct_fused, longk, thomas_batch
+from .kernels import _build, direct_fused, fused_sequence, longk, thomas_batch
 from .kernels import fused_solve as fused_kernel
 from .kernels import pcg_kernel
 from .problem import ProblemSpec, SolverOptions
@@ -113,33 +120,56 @@ def shared_limit(device, smem_limit: Optional[int] = None) -> int:
     return longk.H100_SHARED_BYTES
 
 
-def _past_fused(options: SolverOptions, shape: tuple, limit: int,
-                batch: int) -> bool:
-    """True iff no kernel of the 'fused' backend takes the shape: for
-    ``method='pcg'`` kernel B's shared memory does not hold it; for
-    ``'direct'`` row 4's does not and the Thomas pair declines the batch
-    width."""
+def _pcg_kernel_takes(options: SolverOptions, shape: tuple, limit: int) -> bool:
+    """True iff the 'pcg_kernel' backend has a kernel for ``shape`` (K, s, c)
+    under ``limit`` bytes of shared memory a block: for ``method='pcg'``
+    kernel A (s <= MAX_BLOCK, any c) within its shared memory, past it the
+    long-K tier (s, c <= MAX_BLOCK); for ``'direct'`` the long-K exact tier
+    (s, c <= MAX_BLOCK)."""
+    K, s, c = shape
     if options.method == "pcg":
-        return not fused_kernel.fits(*shape, limit)
-    return (longk.should_dispatch_direct(*shape, limit)
-            and not thomas_batch.should_dispatch(batch, *shape))
+        return pcg_kernel.fits(K, s, limit) or longk.should_dispatch(K, s, c, limit)
+    return fused_kernel.takes_widths(s, c, ())
+
+
+def _past_fused(options: SolverOptions, shape: tuple, limit: int,
+                batch: int, farm: bool = False) -> bool:
+    """True iff no kernel of the 'fused' backend takes the shape: for
+    ``method='pcg'`` kernel B (with ``farm``, the farm kernel) does not
+    take its widths or its shared memory does not hold it; for ``'direct'``
+    the widths are above MAX_BLOCK, or row 4's shared memory does not hold
+    it and the Thomas pair declines the batch width."""
+    if options.method == "pcg":
+        return not (fused_sequence if farm else fused_kernel).fits(*shape, limit)
+    return not fused_kernel.takes_widths(*shape[1:], ()) or (
+        longk.should_dispatch_direct(*shape, limit)
+        and not thomas_batch.should_dispatch(batch, *shape))
 
 
 def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
                      device, shape: Optional[tuple] = None,
-                     smem_limit: Optional[int] = None, batch: int = 1) -> str:
+                     smem_limit: Optional[int] = None, batch: int = 1,
+                     farm: bool = False) -> str:
     """Validate an explicit backend choice, or auto-select.  Requests that
     cannot be honoured raise instead of degrading.  ``shape`` (K, s, c),
-    where given, with ``batch`` problems, routes past the 'fused' kernels
-    (``smem_limit``, default :func:`shared_limit`; :func:`_past_fused`):
-    auto takes ``'pcg_kernel'`` there, an explicit ``'fused'`` raises."""
+    where given, with ``batch`` problems (``farm``: of the farm entry,
+    whose 'fused' kernel is the farm kernel), routes past the 'fused'
+    kernels (``smem_limit``, default :func:`shared_limit`;
+    :func:`_past_fused`): auto takes ``'pcg_kernel'`` there where it has a
+    kernel for the shape (:func:`_pcg_kernel_takes`), else ``'torch'``;
+    an explicit ``'fused'`` raises there, and an explicit ``'pcg_kernel'``
+    where it has no kernel."""
+    def limit():
+        return shared_limit(device, smem_limit)
+
     def past_fused():
-        return shape is not None and _past_fused(
-            options, shape, shared_limit(device, smem_limit), batch)
+        return shape is not None and _past_fused(options, shape, limit(), batch, farm)
 
     if pcg_backend is None:
         backend = default_pcg_backend(device, options.dtype)
-        return "pcg_kernel" if backend == "fused" and past_fused() else backend
+        if backend == "fused" and past_fused():
+            return "pcg_kernel" if _pcg_kernel_takes(options, shape, limit()) else "torch"
+        return backend
     if pcg_backend not in VALID_PCG_BACKENDS:
         raise ValueError(
             f"unknown pcg_backend {pcg_backend!r}; valid choices are "
@@ -148,12 +178,28 @@ def _resolve_backend(pcg_backend: Optional[str], options: SolverOptions,
         raise ValueError(
             f"pcg_backend={pcg_backend!r} runs float32-only CUDA kernels; "
             f"dtype={options.dtype!r} needs pcg_backend None (auto) or 'torch'")
+    if pcg_backend == "pcg_kernel" and shape is not None \
+            and not _pcg_kernel_takes(options, shape, limit()):
+        raise ValueError(_pcg_kernel_message(options, shape))
     if pcg_backend == "fused" and past_fused():
+        if not fused_kernel.takes_widths(*shape[1:], ()):
+            # Past the kernel's widths, or a wide pair past its shared memory.
+            wide = fused_kernel.COMPILED_WIDTHS if options.method == "pcg" and not farm else ()
+            raise ValueError(fused_kernel.width_message("pcg_backend='fused'", *shape, wide))
         kernel = fused_kernel if options.method == "pcg" else direct_fused
-        limit = shared_limit(device, smem_limit) - _build.RESERVED_SHARED_BYTES
         raise ValueError(kernel.past_limit_message(
-            "pcg_backend='fused'", *shape, kernel.smem_bytes(*shape), limit))
+            "pcg_backend='fused'", *shape, kernel.smem_bytes(*shape),
+            limit() - _build.RESERVED_SHARED_BYTES))
     return pcg_backend
+
+
+def _pcg_kernel_message(options: SolverOptions, shape: tuple) -> str:
+    K, s, c = shape
+    what = (f"kernel A takes s <= {_build.MAX_BLOCK} within its shared memory, the "
+            f"long-K tier past it s, c <= {_build.MAX_BLOCK}" if options.method == "pcg"
+            else f"the long-K exact tier takes s, c <= {_build.MAX_BLOCK}")
+    return (f"pcg_backend='pcg_kernel': (K, s, c) = ({K}, {s}, {c}): {what}; pass "
+            "pcg_backend None (auto) or 'torch', which solve any widths")
 
 
 def spec_shape(spec: ProblemSpec) -> tuple:

@@ -17,7 +17,7 @@ from gato_tpu_torch.kernels import fused_solve as kb
 from gato_tpu_torch.kernels.longk import H100_SHARED_BYTES
 
 H100_SMS = 132
-WIDTHS = [(14, 7), (2, 1), (5, 3), (1, 32), (32, 32), (20, 9)]
+WIDTHS = [(14, 7), (2, 1), (5, 3), (1, 32), (32, 32), (20, 9), (36, 12)]
 BATCHES = (1, 2, 3, 4, 8, 16, 17, 33, 64, 65, 128, 132, 133, 256, 1000, 4096)
 
 

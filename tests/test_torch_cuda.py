@@ -1928,3 +1928,206 @@ def test_plan_hits_launch_once_into_fresh_outputs(dev, method, kernel):
         assert torch.equal(getattr(res, name), getattr(first, name)), name
     if plan.lam0 is not None:
         assert int(torch.count_nonzero(plan.lam0)) == 0
+
+
+# ---- Kernel B's compiled <36, 12>: a quadruped's whole body (ANYmal, 57
+# knots; benchmark/configs/anymal36_k57.json) ----
+
+ANYMAL = (36, 12, 57)
+
+
+def _anymal(dev, B, seed=2**31 + 11):
+    """B generator-recipe problems at (36, 12, 57), as the benchmark makes
+    them (benchmark/generator.py)."""
+    from benchmark import generator
+    return generator.make_problems(B, ANYMAL[2], ANYMAL[0], ANYMAL[1], seed, dev)
+
+
+def _rel_err(got, ref):
+    got, ref = got.double().flatten(1), ref.double().flatten(1)
+    return float(((got - ref).abs().amax(1) / ref.abs().amax(1)).max())
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_kernel_b_36x12_against_the_float64_reference(dev, B):
+    """The auto route of solve_batched at (36, 12, 57) launches kernel B's
+    <36, 12> body once, with the records in shared memory at C = 16; the
+    answer lies within 1.5e-3 of scale of the float64 exact solve (the exit
+    test |r . M r| < 1e-6 leaves ~6e-4, tests/test_torch_wide_blocks.py), and
+    its iterations are the plain path's, give or take one where eta meets
+    exit_tol within float32 round-off."""
+    from benchmark.reference import kkt
+    f = _anymal(dev, B)
+    spec = gt.ProblemSpec(*ANYMAL)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-6, max_iters=100)
+    launches, scratch = kb.LAUNCHES, kb.SCRATCH_FLOATS
+    got = gt.solve_batched(spec, gt.KKTBlocks(*f), opts)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == launches + 1 and kb.LAST_CLUSTER == 16
+    assert kb.SCRATCH_FLOATS == scratch
+    launch = kb.plan(B, 57, 36, 12, torch.device(dev), rho=1e-3, exit_tol=1e-6,
+                     max_iters=100, poly_degree=1, preconditioner="symmetric_stair")
+    assert launch.instance == "36x12" and launch.cluster == 16 and launch.in_smem
+    assert bool(got.converged.all())
+    ref = kkt.solve(f, 1e-3)
+    assert _rel_err(got.lam, ref.lam) <= 1.5e-3
+    assert _rel_err(torch.cat([got.dz_x.flatten(1), got.dz_u.flatten(1)], 1),
+                    torch.cat([ref.dz_x.flatten(1), ref.dz_u.flatten(1)], 1)) <= 1.5e-3
+    plain = gt.solve_batched(spec, gt.KKTBlocks(*f), opts, pcg_backend="torch")
+    _iters_agree(got, plain, 1e-6)
+
+
+@pytest.mark.parametrize("cluster", [16, 8, 4])
+@pytest.mark.parametrize("prec", ["symmetric_stair", "block_jacobi", "jacobi"])
+def test_kernel_b_36x12_at_cluster_sizes(dev, cluster, prec):
+    """Kernel B's <36, 12> at C = 16 (records in shared memory) and 8, 4
+    (records in the global scratch slice, counted in SCRATCH_FLOATS)
+    against its plain version, each preconditioner (scalar Jacobi over 10
+    iterations, as above); a second launch gives the same bits."""
+    f = _anymal(dev, 2, seed=71)
+    kw = dict(rho=1e-3, exit_tol=1e-8, max_iters=10 if prec == "jacobi" else 300,
+              preconditioner=prec)
+    launches, scratch = kb.LAUNCHES, kb.SCRATCH_FLOATS
+    got, gx, gu = kb.fused_solve_cuda(*f, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    in_smem = cluster == 16
+    assert kb.LAUNCHES == launches + 1 and kb.LAST_CLUSTER == cluster
+    assert kb.SCRATCH_FLOATS == scratch + (0 if in_smem else 2 * 57 * 9648)
+    ref, rx, ru = kb.fused_solve_plain(*f, torch.zeros_like(f[4]), **kw)
+    _iters_agree(got, ref, 1e-8)
+    for x, y in ((got.lam, ref.lam), (gx, rx), (gu, ru)):
+        _close(x, y)
+    again, ax, au = kb.fused_solve_cuda(*f, cluster=cluster, **kw)
+    for x, y in ((got.lam, again.lam), (gx, ax), (gu, au), (got.iters, again.iters),
+                 (got.eta, again.eta)):
+        assert torch.equal(x, y)
+
+
+def test_kernel_b_36x12_entry_points(dev):
+    """solve, the packed surface and the farm at (36, 12, 57): kernel B where
+    it takes them, the plain path for the farm (no farm kernel at these
+    widths) and for method='direct'; an explicit kernel backend that has no
+    kernel for the widths raises."""
+    f = [t.cpu().numpy() for t in _anymal(dev, 1, seed=5)]
+    spec = gt.ProblemSpec(*ANYMAL)
+    one = gt.KKTBlocks(*(a[0] for a in f))
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-8, max_iters=300)
+    launches = kb.LAUNCHES
+    res = gt.solve(spec, one, opts)
+    packed = gt.solve_packed(gt.pack(spec, gt.KKTBlocks(*f)), opts)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == launches + 2
+    assert torch.equal(packed.lam_p[0], res.lam)
+    ref = gt.solve(spec, one, opts, pcg_backend="torch")
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(res, name), getattr(ref, name))
+    farm = gt.KKTBlocks(*(np.stack([a, a]) for a in f))
+    seq_launches = ks.LAUNCHES
+    seq = gt.solve_sequence_batched(spec, farm, opts)
+    assert ks.LAUNCHES == seq_launches and bool(seq.converged.all())
+    direct = gt.SolverOptions(rho=1e-3, method="direct")
+    exact = gt.solve(spec, one, direct)
+    assert bool(exact.converged)
+    plain = gt.solve(spec, one, direct, pcg_backend="torch")
+    for name in gt.SolveResult._fields:
+        assert torch.equal(getattr(exact, name), getattr(plain, name)), name
+    for method in ("pcg", "direct"):
+        with pytest.raises(ValueError, match="<= 32"):
+            gt.solve(spec, one, gt.SolverOptions(method=method), pcg_backend="pcg_kernel")
+    with pytest.raises(ValueError, match="<= 32"):
+        gt.solve_sequence_batched(spec, farm, opts, pcg_backend="fused")
+
+
+def test_wide_widths_route_to_the_plain_path_on_the_card(dev):
+    """(50, 40, 20): no kernel takes the widths; the auto route solves on the
+    plain path for either method, and kernel B's wrapper refuses them."""
+    spec = gt.ProblemSpec(40, 20, 50)
+    batch = tt.random_batch(spec, 2, seed0=9)
+    for method in ("pcg", "direct"):
+        opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-6, method=method)
+        got = gt.solve_batched(spec, batch, opts)
+        assert bool(got.converged.all())
+        ref = gt.solve_batched(spec, batch, opts, pcg_backend="torch")
+        for name in gt.SolveResult._fields:
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    with pytest.raises(ValueError, match="<= 32"):
+        kb.fused_solve_cuda(*gt.blocks_to_torch(batch, dev))
+
+
+def test_kernel_a_takes_a_control_size_above_32_on_the_card(dev):
+    """(50, 14, 40): kernel B has no body for c = 40; the auto route
+    condenses in PyTorch ops and launches kernel A at s = 14, and solves
+    as the plain path does."""
+    spec = gt.ProblemSpec(14, 40, 50)
+    batch = tt.random_batch(spec, 2, seed0=9)
+    opts = gt.SolverOptions(rho=1e-3, exit_tol=1e-6)
+    launches = ka.LAUNCHES
+    got = gt.solve_batched(spec, batch, opts)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES == launches + 1 and bool(got.converged.all())
+    ref = gt.solve_batched(spec, batch, opts, pcg_backend="torch")
+    _iters_agree(got, ref, 1e-6)
+    for name in ("lam", "dz_x", "dz_u"):
+        _close(getattr(got, name), getattr(ref, name))
+
+
+def test_compiled_widths_mirror_the_library(dev):
+    from gato_tpu_torch.kernels import _build
+    lib = _build.library()
+    for s, c in ((14, 7), (2, 1), (36, 12), (12, 36), (36, 13), (7, 14), (3, 2)):
+        assert bool(lib.gato_fused_compiled(s, c)) == ((s, c) in kb.COMPILED_WIDTHS)
+    K, s, c = 57, 36, 12
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    for C in kb.CLUSTER_SIZES:
+        for ops in (0, 1):
+            assert kb.cta_smem_bytes(K, s, c, C, ops) == lib.gato_cluster_smem_bytes(
+                K, s, c, C, ops)
+        assert kb.cta_threads(K, s, c, C) == lib.gato_cluster_threads(K, s, c, C)
+    for B in (1, 4, 175):
+        assert kb.cluster_size(B, K, s, c, props.multi_processor_count, limit) == \
+            lib.gato_cluster_size(B, K, s, c, props.multi_processor_count, limit - 1024)
+    assert lib.gato_fused_scratch_floats(K, s, c) == K * 9648
+
+
+# sha256 of kernel B's outputs (lam, dz_x, dz_u, iters, converged, eta) on
+# seeded batches, as the build before the <36, 12> body gave them with
+# NARROW_TOOLCHAIN (nvcc's release line; the card): the narrow bodies keep
+# their bits.  Another nvcc or card may round otherwise, so there the test
+# skips; gato_tpu_torch/tools/bitcheck.py compares two builds on one
+# toolchain.
+NARROW_TOOLCHAIN = "Cuda compilation tools, release 12.9, V12.9.86; NVIDIA H100 80GB HBM3"
+NARROW_DIGESTS = {
+    ((14, 7, 50), None): "6ff0f016bb98c1aa8d750616021f0e2cfd33b316e5faf090ae362dc221648496",
+    ((14, 7, 50), 2): "8fbd9a181d6fa6287e71d5efc73451f74ac4e27bc0828edc25eca865a34cb3b1",
+    ((2, 1, 5), None): "e1a43ec7df1c8f22fc3f7c5b34114d26acce41af7e883d6916c8fd2029026f43",
+}
+
+
+def _toolchain(dev) -> str:
+    from gato_tpu_torch.kernels import _build
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    release = next(line for line in out.splitlines() if "release" in line)
+    return f"{release.strip()}; {torch.cuda.get_device_name(dev)}"
+
+
+def _kernel_b_digest(dev, sizes, cluster):
+    import hashlib
+    spec = gt.ProblemSpec(*sizes)
+    b = gt.blocks_to_torch(tt.random_batch(spec, 4, seed0=61), dev)
+    res, dx, du = kb.fused_solve_cuda(*b, rho=1e-3, exit_tol=1e-8, max_iters=200,
+                                      cluster=cluster)
+    h = hashlib.sha256()
+    for t in (res.lam, dx, du, res.iters, res.converged, res.eta):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("sizes, cluster", [((14, 7, 50), None), ((14, 7, 50), 2),
+                                            ((2, 1, 5), None)])
+def test_narrow_bodies_keep_their_bits(dev, sizes, cluster):
+    if _toolchain(dev) != NARROW_TOOLCHAIN:
+        pytest.skip(f"digests recorded with {NARROW_TOOLCHAIN!r}, this build uses "
+                    f"{_toolchain(dev)!r}")
+    assert _kernel_b_digest(dev, sizes, cluster) == NARROW_DIGESTS[(sizes, cluster)]
