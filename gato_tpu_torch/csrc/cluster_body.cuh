@@ -56,10 +56,10 @@
 // and stair_rows_wide hold only the row that later sums read (phi_k's,
 // B Rinv's, theta_k^{-1}'s and one product row) and store theta_k's,
 // phi_{k+1}^T's and the stair's blocks kWideChunk columns at a time as they
-// are made, and the Gauss-Jordan updates a row of [M | I] in halves
-// (gauss_jordan.cuh).  Every entry is the same fmaf chain in the same
-// order as the narrow code's, so the sums, the exit and the determinism
-// are the same; only when each store happens differs.
+// are made, and the Gauss-Jordan runs one warp a matrix with [M | I] in
+// registers (gauss_jordan.cuh's gj_invert_warp).  Every entry is the same
+// fmaf chain in the same order as the narrow code's, so the sums, the exit
+// and the determinism are the same; only when each store happens differs.
 //
 // The farm: one cluster a stream walks t = 0..T-1, a cluster barrier
 // between steps; step t's lambda stays in the CTAs' shared memory (an area
@@ -88,7 +88,7 @@ enum Precond { kJacobi = 0, kBlockJacobi = 1, kStair = 2 };
 constexpr int kMaxCluster = 16;
 // Threads a CTA at most: __launch_bounds__(384, 1) leaves ptxas up to 168
 // registers a thread; the <14, 7> and <36, 12> builds take all 168 (spills
-// of 4 to 12 bytes, outside the loops; fused_solve.cu).
+// of 4 to 12 bytes at <14, 7>, 120 at <36, 12>; fused_solve.cu).
 constexpr int kMaxThreads = 384;
 // The widest s, c of the generic <0, 0> body (its row arrays' size).
 constexpr int kMaxWidth = 32;

@@ -31,9 +31,10 @@
 // <14, 7> kernel 168 registers and 4 bytes of spill (the farm kernel's
 // <14, 7> 168 and 12 bytes); the generic <0, 0> kernel keeps its per-row
 // arrays of width <= 32 in a 1,408-byte stack frame; the <36, 12> kernel
-// runs the wide bodies of cluster_body.cuh, whose rows fit the same 168
-// registers: 12 bytes of spill, a record pointer and two knot counts stored
-// at the entry and loaded once after the PCG loop (SASS line info).  (The
+// runs the wide bodies of cluster_body.cuh in the same 168 registers, with
+// 120 bytes of spill stores and 156 of loads (nvcc 12.9) since its
+// Gauss-Jordan holds [M | I] in registers, 81 floats a lane
+// (gauss_jordan.cuh; 12 bytes with the shared-memory batch).  (The
 // one-CTA kernel's __maxnreg__(40), for two 704-thread CTAs an SM, went
 // with it: here C = 1 is the rule's choice only where the records fit
 // shared memory, one CTA an SM.)

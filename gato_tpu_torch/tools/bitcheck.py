@@ -7,7 +7,9 @@ two checkouts.
 ``dump`` imports gato_tpu_torch from the checkout at ROOT (building its
 kernels there), runs kernel B (fused_solve_cuda) at IIWA (14, 7, 50), B = 1
 and 256, for every preconditioner and poly degree 1 and 2, on one exactly
-singular mix, the farm kernel (fused_sequence_cuda) on T = 16 farms of
+singular mix, kernel B's <36, 12> body (group "B36", function ``dump_wide``)
+at (36, 12, 57), B = 1 and 4, every preconditioner, C = 16, 8 and 4, and on
+a singular mix at C = 16 and 4, the farm kernel (fused_sequence_cuda) on T = 16 farms of
 B = 1 and 256 streams, and the long-K kernels at IIWA widths: row 7
 (condense_longk_cuda) at K = 1024, B = 1 and 16, every preconditioner, and
 K = 8192; rows 8/10 (pcg_longk_cuda) on the plain condensation's operators
@@ -31,8 +33,10 @@ redesigned: they are printed all the same).  It needs one CUDA card; the
 inputs come from testing's seeded generators.
 
 A refactor of csrc/cluster_body.cuh (the body both kernels compile) must
-pass it against the parent's checkout for the groups "B" and "farm": it
-may move registers, not bits.  Row 7's tiles were rebuilt on kernel B's
+pass it against the parent's checkout for the groups "B", "B36" and
+"farm": it may move registers, not bits.  So must gauss_jordan.cuh's
+one-warp path for widths above 32, which replaced the two-phase batch in
+the <36, 12> body entry for entry.  Row 7's tiles were rebuilt on kernel B's
 Gauss-Jordan and products (longk.cu), which multiply in another order
 than condense.cuh's, so the groups "row7" and "row9" differ from a
 checkout with the older tiles by design, within the plain version's
@@ -126,6 +130,7 @@ def dump(root: str, out: str) -> None:
          tt.random_blocks(spec, seed=41)]), dev)
     keep("B singular", *kb.fused_solve_cuda(*mix, rho=0.0, exit_tol=1e-6,
                                              max_iters=100))
+    dump_wide(dev, outputs)
     farm = gt.blocks_to_torch(tt.random_farm(spec, 16, 256, seed0=500), dev)
     rhos = torch.tensor([1e-3 * (1 + t % 2) for t in range(16)], device=dev)
     for n in (1, 256):
@@ -141,6 +146,38 @@ def dump(root: str, out: str) -> None:
              if "registers" in line or "spill" in line or "Compiling entry" in line]
     torch.save({"outputs": outputs, "ptxas": ptxas}, out)
     print(f"dumped {len(outputs)} outputs of {gt.__file__} to {out}")
+
+
+def dump_wide(dev, outputs: dict) -> None:
+    """Kernel B's <36, 12> body (group "B36"): fused_solve_cuda at (36, 12,
+    57), B = 1 and 4, every preconditioner, at C = 16 (the records in shared
+    memory), 8 and 4 (in the global scratch slice); and a mix whose middle
+    problem has an exactly singular Q at knot 13 (a CTA's last knot and its
+    neighbour's halo at both sizes), rho = 0, at C = 16 and 4."""
+    import gato_tpu_torch as gt
+    from gato_tpu_torch import testing as tt
+    from gato_tpu_torch.kernels import fused_solve as kb
+
+    spec = gt.ProblemSpec(36, 12, 57)
+    res_fields = ("lam", "iters", "converged", "eta", "dz_x", "dz_u")
+    full = gt.blocks_to_torch(tt.random_batch(spec, 4, seed0=3600), dev)
+    for n in (1, 4):
+        blocks = gt.KKTBlocks(*(a[:n] for a in full))
+        for prec in ("symmetric_stair", "block_jacobi", "jacobi"):
+            for C in (16, 8, 4):
+                res, dx, du = kb.fused_solve_cuda(*blocks, rho=1e-3, exit_tol=1e-6,
+                                                  max_iters=100, preconditioner=prec,
+                                                  cluster=C)
+                for name, t in zip(res_fields, (*res, dx, du)):
+                    outputs[f"B36 B={n} {prec} C={C} {name}"] = _kept(t)
+    mix = gt.blocks_to_torch(tt.stack_blocks(
+        [tt.random_blocks(spec, seed=3610), tt.singular_blocks(spec, seed=3611, knot=13),
+         tt.random_blocks(spec, seed=3612)]), dev)
+    for C in (16, 4):
+        res, dx, du = kb.fused_solve_cuda(*mix, rho=0.0, exit_tol=1e-6, max_iters=100,
+                                          cluster=C)
+        for name, t in zip(res_fields, (*res, dx, du)):
+            outputs[f"B36 singular C={C} {name}"] = _kept(t)
 
 
 def dump_exact(dev, outputs: dict) -> None:

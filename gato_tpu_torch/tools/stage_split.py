@@ -2,16 +2,21 @@
 for the gato_tpu_torch of any checkout, on one CUDA card.
 
     python3 gato_tpu_torch/tools/stage_split.py [--root ROOT] [--runs N]
+                                                [--sizes S,C,K]
 
 Imports gato_tpu_torch from the checkout at ROOT (default: this one),
 building its kernels there, so that one call can set a parent's kernels
-beside this tree's.  Prints JSON lines, each with the card's name and power
-limit:
+beside this tree's.  ``--sizes`` gives the state size, control size and
+knots of every problem (default 14,7,50: IIWA; 36,12,57 is the quadruped's
+<36, 12> body).  Prints JSON lines, each with the card's name and power
+limit and the sizes:
 
-* ``times``: kernel B (``fused_solve_cuda``) at IIWA (14, 7, 50), B = 1, 4,
-  16, 64, 256, rho 1e-3, exit_tol 1e-6, the symmetric stair, and the farm
-  kernel (``fused_sequence_cuda``) on farms of B = 1 and 256 streams of T =
-  16 steps (testing.random_farm, per-step rho 1e-3 / 2e-3): CUDA events,
+* ``times``: kernel B (``fused_solve_cuda``) on testing.random_batch
+  problems, B = 1, 4, 16, 64, 256, rho 1e-3, exit_tol 1e-6, the symmetric
+  stair, and, where the farm kernel takes the sizes (``fused_sequence.
+  fits``; not above 32), the farm kernel (``fused_sequence_cuda``) on farms
+  of B = 1 and 256 streams of T = 16 steps (testing.random_farm, per-step
+  rho 1e-3 / 2e-3): CUDA events,
   the median of ``runs`` launches after three, with the cluster size each
   launch took where the checkout has one (``LAST_CLUSTER``); and
   ``call_us_b1``, the host time of one kernel-B call at B = 1 (lambda_0
@@ -100,7 +105,7 @@ def call_us(fn, calls: int = 200) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def measure(root: str, runs: int) -> list:
+def measure(root: str, runs: int, sizes: tuple) -> list:
     """The ``times`` and ``truncated`` lines of the checkout at ``root``."""
     gt = _import(root)
     import torch
@@ -110,10 +115,12 @@ def measure(root: str, runs: int) -> list:
     from gato_tpu_torch.kernels import fused_solve as kb
 
     dev = torch.device("cuda", 0)
-    full = gt.blocks_to_torch(tt.random_batch(tt.IIWA, max(BATCHES), seed0=0), dev)
+    spec = gt.ProblemSpec(*sizes)
+    full = gt.blocks_to_torch(tt.random_batch(spec, max(BATCHES), seed0=0), dev)
     name = card()
-    out = {"what": "times", "root": root, "card": name, "kernel_b": {}, "farm": {}}
-    trunc = {"what": "truncated", "root": root, "card": name}
+    out = {"what": "times", "root": root, "card": name, "sizes": list(sizes),
+           "kernel_b": {}, "farm": {}}
+    trunc = {"what": "truncated", "root": root, "card": name, "sizes": list(sizes)}
     one = gt.KKTBlocks(*(a[:1] for a in full))
     lam0 = torch.zeros_like(one.q)
     out["call_us_b1"] = call_us(lambda: kb.fused_solve_cuda(*one, lam0, **KW))
@@ -134,7 +141,10 @@ def measure(root: str, runs: int) -> list:
             row["stair_precond"] = row["no_loop"] - row["no_loop_jacobi"]
             row["condense_setup_recover"] = row["no_loop_jacobi"]
             trunc[n] = row
-    farm = gt.blocks_to_torch(tt.random_farm(tt.IIWA, T_STEPS, max(FARM_STREAMS),
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if not ks.fits(spec.knot_points, spec.state_size, spec.control_size, limit):
+        return [out, trunc]
+    farm = gt.blocks_to_torch(tt.random_farm(spec, T_STEPS, max(FARM_STREAMS),
                                              seed0=500), dev)
     rhos = torch.tensor([1e-3 * (1 + t % 2) for t in range(T_STEPS)],
                         dtype=torch.float32, device=dev)
@@ -148,7 +158,7 @@ def measure(root: str, runs: int) -> list:
     return [out, trunc]
 
 
-def stamps(root: str, runs: int) -> dict:
+def stamps(root: str, runs: int, sizes: tuple) -> dict:
     """The ``stamps`` line (run in a child process: the stamped build must
     be chosen before the first CUDA call)."""
     gt = _import(root)
@@ -162,11 +172,12 @@ def stamps(root: str, runs: int) -> dict:
     _build.DEFINES = ("-DGATO_STAGE_STAMPS",)
     dev = torch.device("cuda", 0)
     read = _build.function("gato_fused_stage_stamps")
-    full = gt.blocks_to_torch(tt.random_batch(tt.IIWA, 256, seed0=0), dev)
+    full = gt.blocks_to_torch(tt.random_batch(gt.ProblemSpec(*sizes), 256, seed0=0),
+                              dev)
     stages = ("gj_q", "gj_r", "products", "gj_theta", "stair", "pcg_setup",
               "pcg_loop", "recover")
     buf = (ctypes.c_ulonglong * (len(stages) + 1))()
-    line = {"what": "stamps", "root": root, "card": card()}
+    line = {"what": "stamps", "root": root, "card": card(), "sizes": list(sizes)}
     for n in (1, 256):
         blocks = gt.KKTBlocks(*(a[:n] for a in full))
         rows = []
@@ -191,18 +202,24 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=25)
+    ap.add_argument("--sizes", default="14,7,50",
+                    help="state size, control size, knots (default: IIWA's)")
     ap.add_argument("--stamps-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    sizes = tuple(int(v) for v in args.sizes.split(","))
+    if len(sizes) != 3:
+        ap.error("--sizes takes S,C,K")
     if args.stamps_child:
-        print(json.dumps(stamps(args.root, args.runs)))
+        print(json.dumps(stamps(args.root, args.runs, sizes)))
         return
-    for line in measure(args.root, args.runs):
+    for line in measure(args.root, args.runs, sizes):
         print(json.dumps(line), flush=True)
     from gato_tpu_torch.kernels import _build
 
     if hasattr(_build.library(), "gato_fused_stage_stamps"):
         child = subprocess.run([sys.executable, __file__, "--root", args.root,
-                                "--runs", str(args.runs), "--stamps-child"],
+                                "--runs", str(args.runs), "--sizes", args.sizes,
+                                "--stamps-child"],
                                capture_output=True, text=True, timeout=1200)
         if child.returncode != 0:
             raise RuntimeError(f"stamps child failed:\n{child.stderr}")

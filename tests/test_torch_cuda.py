@@ -2038,6 +2038,34 @@ def test_kernel_b_36x12_entry_points(dev):
         gt.solve_sequence_batched(spec, farm, opts, pcg_backend="fused")
 
 
+@pytest.mark.parametrize("cluster", [16, 4])
+def test_kernel_b_36x12_zero_pivot_freezes_its_problem_alone(dev, cluster):
+    """The <36, 12> body's Gauss-Jordan (one warp a matrix) keeps the
+    zero-pivot rule: Q_13 + rho with an exactly zero first pivot (knot 13:
+    a CTA's last knot and its neighbour's halo at C = 16 and at C = 4)
+    freezes its problem (max_iters, not converged, eta = 1e30, lambda_0
+    kept), and the other problem of the batch equals its solve alone, bit
+    for bit."""
+    rho = 1e-3
+    Q, *rest = _anymal(dev, 2, seed=73)
+    Q = Q.clone()
+    Q[0, 13, 0, 0] = -rho
+    f = (Q, *rest)
+    lam0 = torch.randn(f[4].shape, generator=torch.Generator().manual_seed(74)).to(dev)
+    kw = dict(rho=rho, exit_tol=1e-8, max_iters=60, cluster=cluster)
+    got, gx, gu = kb.fused_solve_cuda(*f, lam0, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAST_CLUSTER == cluster
+    assert int(got.iters[0]) == 60 and not bool(got.converged[0])
+    assert float(got.eta[0]) == float(np.float32(1e30))
+    assert torch.equal(got.lam[0], lam0[0])
+    alone, ax, au = kb.fused_solve_cuda(*(t[1:] for t in f), lam0[1:], **kw)
+    for x, y in ((got.lam[1:], alone.lam), (gx[1:], ax), (gu[1:], au),
+                 (got.iters[1:], alone.iters), (got.converged[1:], alone.converged),
+                 (got.eta[1:], alone.eta)):
+        assert torch.equal(x, y)
+
+
 def test_wide_widths_route_to_the_plain_path_on_the_card(dev):
     """(50, 40, 20): no kernel takes the widths; the auto route solves on the
     plain path for either method, and kernel B's wrapper refuses them."""
@@ -2091,16 +2119,19 @@ def test_compiled_widths_mirror_the_library(dev):
 
 
 # sha256 of kernel B's outputs (lam, dz_x, dz_u, iters, converged, eta) on
-# seeded batches, as the build before the <36, 12> body gave them with
-# NARROW_TOOLCHAIN (nvcc's release line; the card): the narrow bodies keep
-# their bits.  Another nvcc or card may round otherwise, so there the test
-# skips; gato_tpu_torch/tools/bitcheck.py compares two builds on one
-# toolchain.
-NARROW_TOOLCHAIN = "Cuda compilation tools, release 12.9, V12.9.86; NVIDIA H100 80GB HBM3"
-NARROW_DIGESTS = {
+# seeded batches with DIGEST_TOOLCHAIN (nvcc's release line; the card): the
+# narrow bodies' as the build before the <36, 12> body gave them, the
+# <36, 12> body's as the build before its one-warp Gauss-Jordan gave them.
+# Each body keeps its bits.  Another nvcc or card may round otherwise, so
+# there the test skips; gato_tpu_torch/tools/bitcheck.py compares two
+# builds on one toolchain.
+DIGEST_TOOLCHAIN = "Cuda compilation tools, release 12.9, V12.9.86; NVIDIA H100 80GB HBM3"
+BODY_DIGESTS = {
     ((14, 7, 50), None): "6ff0f016bb98c1aa8d750616021f0e2cfd33b316e5faf090ae362dc221648496",
     ((14, 7, 50), 2): "8fbd9a181d6fa6287e71d5efc73451f74ac4e27bc0828edc25eca865a34cb3b1",
     ((2, 1, 5), None): "e1a43ec7df1c8f22fc3f7c5b34114d26acce41af7e883d6916c8fd2029026f43",
+    ((36, 12, 57), 16): "39d54b390cfbfce69dc703dacb37871bc2004551cb7dfd6b8ebd7f04ee0d4bae",
+    ((36, 12, 57), 4): "5be59eb6264d3fee66e30b48ba21b8be9d8e093d0375dcbe3fa39a7aa5a0b93e",
 }
 
 
@@ -2125,9 +2156,10 @@ def _kernel_b_digest(dev, sizes, cluster):
 
 
 @pytest.mark.parametrize("sizes, cluster", [((14, 7, 50), None), ((14, 7, 50), 2),
-                                            ((2, 1, 5), None)])
-def test_narrow_bodies_keep_their_bits(dev, sizes, cluster):
-    if _toolchain(dev) != NARROW_TOOLCHAIN:
-        pytest.skip(f"digests recorded with {NARROW_TOOLCHAIN!r}, this build uses "
+                                            ((2, 1, 5), None), ((36, 12, 57), 16),
+                                            ((36, 12, 57), 4)])
+def test_kernel_b_bodies_keep_their_bits(dev, sizes, cluster):
+    if _toolchain(dev) != DIGEST_TOOLCHAIN:
+        pytest.skip(f"digests recorded with {DIGEST_TOOLCHAIN!r}, this build uses "
                     f"{_toolchain(dev)!r}")
-    assert _kernel_b_digest(dev, sizes, cluster) == NARROW_DIGESTS[(sizes, cluster)]
+    assert _kernel_b_digest(dev, sizes, cluster) == BODY_DIGESTS[(sizes, cluster)]
